@@ -147,6 +147,17 @@ def _register_aux_dataclasses():
 _register_aux_dataclasses()
 
 
+def dropout(x, rate: float, generator: torch.Generator):
+    """Inverted dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), the mask drawn from `generator` (on x's
+    device)."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
 # ---------------------------------------------------------------- LayerConf
 @dataclasses.dataclass(frozen=True)
 class LayerConf:
@@ -158,9 +169,11 @@ class LayerConf:
                                                   CPU tensors
       apply(params, state, x, *, train, mask)  -> (y, new_state) forward
 
-    The fields are the reference's, so configs serialize to the same JSON;
-    the ones that only training reads (dropout, l1/l2, updater, frozen,
-    weight noise, constraints) are carried for the training slice.
+    The fields are the reference's, so configs serialize to the same JSON.
+    Training reads `dropout` (a float probability; the reference's
+    dropout objects come with the regularization slice) and l1/l2; a
+    per-layer `updater`, `frozen`, `weight_noise` and `constraints` come
+    with later slices and raise when a fit would need them.
     """
     name: Optional[str] = None
     dropout: Any = 0.0
@@ -183,14 +196,41 @@ class LayerConf:
         """Forward. Returns (output, new_state)."""
         raise NotImplementedError
 
-    def check_inference_only(self, train: bool):
-        """Training (dropout, noise) comes with the training slice; a
-        forward with train=True and dropout on refuses rather than
-        silently running the inference path."""
-        if train and self.dropout:
+    def maybe_dropout_input(self, x, train: bool,
+                            generator: Optional[torch.Generator]):
+        """DL4J applies a layer's `dropout` to the layer *input* in
+        training (inverted dropout: kept values scaled by 1/keep), drawn
+        from `generator`, which lies on x's device."""
+        if not train or generator is None:
+            return x
+        if not isinstance(self.dropout, (int, float)):
             raise NotImplementedError(
-                f"{type(self).__name__}: training-mode dropout comes with "
-                "the training slice of the port")
+                f"{type(self).__name__}: dropout objects "
+                f"({type(self.dropout).__name__}) come with the "
+                "regularization slice of the port; use a float probability")
+        return dropout(x, self.dropout, generator)
+
+    def regularization_score(self, params) -> torch.Tensor:
+        """L1/L2 penalty (DL4J BaseLayer.calcRegularizationScore): l1 *
+        sum|w| + 0.5 * l2 * sum(w^2) over the layer's top-level params
+        whose names do not start with "b" (biases), accumulated in f32
+        (wider for wider params)."""
+        score = torch.zeros((), dtype=torch.float32)
+        if self.l1 == 0.0 and self.l2 == 0.0:
+            return score
+        for k, v in params.items():
+            if k.startswith("b"):
+                continue
+            if isinstance(v, dict):
+                raise NotImplementedError(
+                    f"{type(self).__name__}.{k}: l1/l2 on a nested "
+                    "parameter group is not defined in the reference")
+            score = score.to(torch.promote_types(score.dtype, v.dtype))
+            if self.l1:
+                score = score + self.l1 * v.abs().sum()
+            if self.l2:
+                score = score + 0.5 * self.l2 * (v * v).sum()
+        return score
 
 
 # ------------------------------------------------------------ preprocessors

@@ -8,9 +8,17 @@ DL4J semantics: (B, T) 0/1, masked steps neither attend nor are attended
 to, and their outputs are zeroed.
 
 `MultiHeadAttention` with ``attention_impl`` "flash" or "blockwise" and no
-dropout runs `ops.flash_attention`, which launches the Hopper kernel on a
-CUDA tensor and uses its plain version on a CPU tensor. The
-context-parallel (ring) branches come with the parallel slice.
+dropout runs `ops.flash_attention`, which launches the Hopper kernels on a
+CUDA tensor (the forward, and in the backward the dQ and dK/dV kernels)
+and uses their plain versions on a CPU tensor. The context-parallel (ring)
+branches come with the parallel slice.
+
+Training draws its dropout masks from an explicit `torch.Generator` on the
+activations' device (the reference splits a JAX key per layer; the two
+streams differ, so parity tests run dropout-free). Input dropout
+(`dropout`) applies where the reference applies it: `MultiHeadAttention`
+and the output head; `TransformerBlock` adds its residual dropout.
+Attention-probability dropout in training comes with a later slice.
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.base import (
-    InputType, Kind, LayerConf, register_layer,
+    InputType, Kind, LayerConf, dropout, register_layer,
 )
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
 
@@ -43,8 +51,8 @@ class LayerNormLayer(LayerConf):
         return {"gamma": torch.ones((f,), dtype=dtype),
                 "beta": torch.zeros((f,), dtype=dtype)}, {}
 
-    def apply(self, params, state, x, *, train=False, mask=None):
-        self.check_inference_only(train)
+    def apply(self, params, state, x, *, train=False, mask=None,
+              generator=None):
         mean = x.mean(dim=-1, keepdim=True)
         var = x.var(dim=-1, unbiased=False, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
@@ -157,11 +165,14 @@ class MultiHeadAttention(LayerConf):
         h = self.n_heads
         return _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
 
-    def apply(self, params, state, x, *, train=False, mask=None):
-        self.check_inference_only(train)
+    def apply(self, params, state, x, *, train=False, mask=None,
+              generator=None):
         if train and self.attention_dropout > 0:
             raise NotImplementedError(
-                "attention dropout comes with the training slice of the port")
+                "attention-probability dropout in training comes with a "
+                "later slice of the port (the reference trains it through "
+                "its blockwise path, not the flash kernels)")
+        x = self.maybe_dropout_input(x, train, generator)
         q, k, v = self._qkv(params, x)
         if self.use_rope:
             pos = torch.arange(x.shape[1], device=x.device)[None]
@@ -238,14 +249,14 @@ class TransformerBlock(LayerConf):
             "b2": torch.zeros((self.n_out,), dtype=dtype),
         }, {}
 
-    def apply(self, params, state, x, *, train=False, mask=None):
-        self.check_inference_only(train)
-        if train and self.residual_dropout > 0:
-            raise NotImplementedError(
-                "residual dropout comes with the training slice of the port")
+    def apply(self, params, state, x, *, train=False, mask=None,
+              generator=None):
         ln, attn = self._sub()
         h, _ = ln.apply(params["ln1"], {}, x)
-        a, _ = attn.apply(params["attn"], {}, h, train=train, mask=mask)
+        a, _ = attn.apply(params["attn"], {}, h, train=train, mask=mask,
+                          generator=generator)
+        if train and generator is not None:
+            a = dropout(a, self.residual_dropout, generator)
         x = x + a
         h, _ = ln.apply(params["ln2"], {}, x)
         h = get_activation(self.activation)(h @ params["W1"] + params["b1"])
@@ -293,8 +304,8 @@ class MoEFeedForward(LayerConf):
             "b2": torch.zeros((e, self.n_out), dtype=dtype),
         }, {}
 
-    def apply(self, params, state, x, *, train=False, mask=None):
-        self.check_inference_only(train)
+    def apply(self, params, state, x, *, train=False, mask=None,
+              generator=None):
         gates = torch.softmax(x @ params["Wg"], dim=-1)       # (B, T, E)
         if self.top_k < self.n_experts:
             thresh = torch.topk(gates, self.top_k, dim=-1).values[..., -1:]
@@ -324,8 +335,8 @@ class PositionalEmbeddingLayer(LayerConf):
         p = torch.randn((self.max_length, f), generator=generator) * 0.02
         return {"P": p.to(dtype)}, {}
 
-    def apply(self, params, state, x, *, train=False, mask=None):
-        self.check_inference_only(train)
+    def apply(self, params, state, x, *, train=False, mask=None,
+              generator=None):
         t = x.shape[1]
         if t > self.max_length:
             raise ValueError(f"sequence length {t} exceeds max_length "
@@ -353,8 +364,8 @@ class EmbeddingSequenceLayer(LayerConf):
         table = torch.randn((self.n_in, self.n_out), generator=generator) * 0.02
         return {"W": table.to(dtype)}, {}
 
-    def apply(self, params, state, x, *, train=False, mask=None):
-        self.check_inference_only(train)
+    def apply(self, params, state, x, *, train=False, mask=None,
+              generator=None):
         if x.dim() == 3:
             x = x[..., 0]
         idx = x.to(torch.int64)

@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's `nn/layers/recurrent.py`. This slice
 ports `RnnOutputLayer`, the head of `TransformerLM`: the same (F_in ->
-n_out) projection at every step, then the activation. The loss name is
-carried in the config for the training slice. LSTM, GRU and the other
-recurrent layers come with a later slice.
+n_out) projection at every step, then the activation, and its training
+score (the loss over unmasked steps). LSTM, GRU and the other recurrent
+layers come with a later slice.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from deeplearning4j_tpu_torch.nn.conf.base import (
     InputType, Kind, LayerConf, register_layer,
 )
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
+from deeplearning4j_tpu_torch.nn.losses import get_loss
 
 
 @register_layer
@@ -44,12 +45,21 @@ class RnnOutputLayer(LayerConf):
             params["b"] = torch.zeros((self.n_out,), dtype=dtype)
         return params, {}
 
-    def preout(self, params, x):
+    def preout(self, params, x, train=False, generator=None):
+        x = self.maybe_dropout_input(x, train, generator)
         y = x @ params["W"]
         if self.has_bias:
             y = y + params["b"]
         return y
 
-    def apply(self, params, state, x, *, train=False, mask=None):
-        self.check_inference_only(train)
-        return get_activation(self.activation)(self.preout(params, x)), state
+    def apply(self, params, state, x, *, train=False, mask=None,
+              generator=None):
+        return get_activation(self.activation)(
+            self.preout(params, x, train, generator)), state
+
+    def score(self, params, x, labels, *, train=False, generator=None,
+              mask=None):
+        """Mean loss of the pre-activations against `labels`, over the
+        unmasked steps."""
+        z = self.preout(params, x, train, generator)
+        return get_loss(self.loss)(labels, z, self.activation, mask=mask)

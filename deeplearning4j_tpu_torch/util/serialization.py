@@ -7,13 +7,14 @@ Counterpart of the JAX package's `util/serialization.py`. The zip holds:
                        ``1/ln1/gamma``, ``0/W``, ``5/b``)
 - state.npz          : layer state
 - metadata.json      : model type, iteration/epoch counters, version
-- updaterState.bin   : the reference's optax state (flax msgpack). This
-                       port neither reads nor writes it: the optimizer
-                       comes with the training slice.
+- updaterState.bin   : the optimizer state, in optax's state-dict layout,
+                       as flax's msgpack writes it (`to_bytes`): a map per
+                       dict level, arrays as ext type 1 holding msgpack
+                       ``(shape, dtype name, C-order bytes)``.
 
-All four files the port reads are plain JSON or npz, so a zip written by
-either package loads in the other. Weights keep their (in, out) layout:
-nothing is transposed.
+So a zip written by either package loads in the other, and training
+resumes there with its optimizer state. Weights keep their (in, out)
+layout: nothing is transposed.
 """
 from __future__ import annotations
 
@@ -26,9 +27,16 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.util import msgpack
 from deeplearning4j_tpu_torch.util.platform import DeviceLike
 
 _FORMAT_VERSION = 1
+
+# flax.serialization's ext type codes; flax splits leaves above 1 GiB
+# into chunks, which the port neither writes nor reads
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+_MAX_LEAF_BYTES = 2 ** 30
 
 
 def iter_leaves(tree, prefix: Tuple[str, ...] = ()) \
@@ -66,6 +74,76 @@ def _npz_bytes_to_tree(data: bytes) -> dict:
                 node = node.setdefault(p, {})
             node[parts[-1]] = np.array(loaded[key])
     return tree
+
+
+def _leaf_to_numpy(leaf) -> np.ndarray:
+    """A tensor or array -> a C-order numpy array; bfloat16 as its raw
+    16-bit words (numpy has no bfloat16)."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu().contiguous()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy()
+        return leaf.numpy()
+    return np.ascontiguousarray(leaf)
+
+
+def _dtype_name(leaf) -> str:
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        return "bfloat16"
+    return _leaf_to_numpy(leaf).dtype.name
+
+
+def _ext_pack(leaf):
+    arr = _leaf_to_numpy(leaf)
+    if arr.nbytes > _MAX_LEAF_BYTES:
+        raise ValueError(f"updaterState.bin: a {arr.nbytes}-byte leaf is "
+                         "above flax's 1 GiB chunking limit")
+    return msgpack.ExtType(_EXT_NDARRAY, msgpack.packb(
+        (tuple(arr.shape), _dtype_name(leaf), arr.tobytes("C"))))
+
+
+def _ext_unpack(code, data):
+    if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+        raise ValueError(f"updaterState.bin: unknown msgpack ext type {code}")
+    shape, name, buf = msgpack.unpackb(data)
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == "bfloat16":
+        arr = torch.frombuffer(bytearray(buf), dtype=torch.bfloat16) \
+            .reshape(shape)
+    else:
+        arr = np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+    return arr
+
+
+def updater_state_to_bytes(state) -> bytes:
+    """An optimizer state (nested dicts of tensors, optax's state-dict
+    layout) -> the bytes flax's `to_bytes` writes for the same state."""
+    return msgpack.packb(state, default=_ext_pack)
+
+
+def updater_state_from_bytes(data: bytes, template):
+    """Bytes written by `updater_state_to_bytes` or by flax's `to_bytes`
+    -> a state with `template`'s structure, dtypes and device. Keys and
+    shapes must match the template's (a freshly built state) exactly."""
+    loaded = msgpack.unpackb(data, ext_hook=_ext_unpack)
+
+    def walk(node, tmpl, path):
+        where = "/".join(path) or "<root>"
+        if isinstance(tmpl, dict):
+            if not isinstance(node, dict) or set(node) != set(tmpl):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"updaterState.bin {where}: keys {got} != "
+                                 f"expected {sorted(tmpl)}")
+            return {k: walk(node[k], v, path + (k,)) for k, v in tmpl.items()}
+        t = node if isinstance(node, torch.Tensor) \
+            else torch.from_numpy(np.array(node))
+        if tuple(t.shape) != tuple(tmpl.shape):
+            raise ValueError(f"updaterState.bin {where}: shape "
+                             f"{tuple(t.shape)} != expected "
+                             f"{tuple(tmpl.shape)}")
+        return t.to(device=tmpl.device, dtype=tmpl.dtype)
+
+    return walk(loaded, template, ())
 
 
 def params_from_numpy(tree, device: DeviceLike = None,
@@ -113,10 +191,11 @@ def params_from_numpy(tree, device: DeviceLike = None,
     return walk(tree, template, ())
 
 
-def save_model(model, path, atomic: bool = True):
-    """Write a model checkpoint zip (ModelSerializer.writeModel), without
-    updaterState.bin. `atomic`: written to a temp file and renamed, so a
-    kill mid-save never leaves a truncated zip at `path`."""
+def save_model(model, path, save_updater: bool = True, atomic: bool = True):
+    """Write a model checkpoint zip (ModelSerializer.writeModel), with
+    updaterState.bin when `save_updater` and the model has an optimizer
+    state. `atomic`: written to a temp file and renamed, so a kill
+    mid-save never leaves a truncated zip at `path`."""
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     if not isinstance(model, MultiLayerNetwork):
         raise ValueError(f"Cannot serialize {type(model)}")
@@ -132,6 +211,9 @@ def save_model(model, path, atomic: bool = True):
             zf.writestr("coefficients.npz", _tree_to_npz_bytes(model.params))
             zf.writestr("state.npz", _tree_to_npz_bytes(model.state))
             zf.writestr("metadata.json", json.dumps(meta))
+            if save_updater and model.opt_state is not None:
+                zf.writestr("updaterState.bin",
+                            updater_state_to_bytes(model.opt_state))
         if atomic:
             os.replace(target, path)
     except BaseException:
@@ -141,7 +223,8 @@ def save_model(model, path, atomic: bool = True):
     return path
 
 
-def _restore(path, expect_type: Optional[str], device: DeviceLike):
+def _restore(path, expect_type: Optional[str], device: DeviceLike,
+             load_updater: bool):
     from deeplearning4j_tpu_torch.nn.conf.network import (
         MultiLayerConfiguration,
     )
@@ -167,14 +250,19 @@ def _restore(path, expect_type: Optional[str], device: DeviceLike):
             template=model.state)
         model.iteration_count = meta.get("iteration_count", 0)
         model.epoch_count = meta.get("epoch_count", 0)
+        if load_updater and "updaterState.bin" in zf.namelist():
+            model.opt_state = updater_state_from_bytes(
+                zf.read("updaterState.bin"), model.optimizer_state_template())
     return model
 
 
-def restore_multilayer_network(path, device: DeviceLike = None):
-    return _restore(path, "MultiLayerNetwork", device)
+def restore_multilayer_network(path, device: DeviceLike = None,
+                               load_updater: bool = True):
+    return _restore(path, "MultiLayerNetwork", device, load_updater)
 
 
-def load_model(path, device: DeviceLike = None):
+def load_model(path, device: DeviceLike = None, load_updater: bool = True):
     """Load a checkpoint zip onto `device` (default CUDA; raises without
-    it). updaterState.bin, if present, is skipped."""
-    return _restore(path, None, device)
+    it), with its optimizer state from updaterState.bin when present and
+    `load_updater`."""
+    return _restore(path, None, device, load_updater)

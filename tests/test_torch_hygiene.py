@@ -1,9 +1,9 @@
 """Standing guards of the PyTorch/CUDA port.
 
 - No file of `deeplearning4j_tpu_torch/`, nor `chip_smoke.py` or
-  `tests/test_torch_cuda.py`, imports jax, jaxlib, flax, optax or the JAX
-  package (AST scan), and importing
-  the serving CLI leaves jax out of `sys.modules`.
+  `tests/test_torch_cuda.py`, imports jax, jaxlib, flax, optax, msgpack or
+  the JAX package (AST scan), and importing the serving and training
+  CLIs leaves them out of `sys.modules`.
 - The package calls no library attention or compiler in place of its own
   kernels: no `scaled_dot_product_attention`, no `torch.compile`.
 - Entry points default to CUDA and raise without it; they never fall
@@ -20,7 +20,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "deeplearning4j_tpu_torch"
-BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "deeplearning4j_tpu"}
+BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "msgpack",
+                "deeplearning4j_tpu"}
 BANNED_TEXT = ("scaled_dot_product_attention", "torch.compile")
 
 
@@ -72,6 +73,8 @@ def test_importing_the_port_pulls_in_no_jax():
             "import deeplearning4j_tpu_torch.util.serialization\n"
             "import deeplearning4j_tpu_torch.models.transformer\n"
             "import deeplearning4j_tpu_torch.ops.flash_attention\n"
+            "import deeplearning4j_tpu_torch.train.cli\n"
+            "import deeplearning4j_tpu_torch.nn.multilayer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED_ROOTS)!r})\n"
             "print(bad)\n"
@@ -104,3 +107,26 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert not is_hopper()
     assert MultiLayerNetwork(conf, device="cpu").device.type == "cpu"
+
+
+def test_train_cli_defaults_to_cuda_and_never_falls_back(monkeypatch,
+                                                         tmp_path):
+    """Without CUDA, the train CLI with no --device raises before it
+    trains anything or writes an output."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.train import cli
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    lm = model_by_name("TransformerLM", vocab_size=16, seq_length=8,
+                       n_layers=1, n_embd=16, n_heads=2).init(device="cpu")
+    src = save_model(lm, str(tmp_path / "lm.zip"))
+    data = str(tmp_path / "t.npz")
+    np.savez(data, features=np.zeros((4, 8, 1), "float32"),
+             labels=np.zeros((4, 8, 16), "float32"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--model", src, "--dataset", data, "--output",
+            str(tmp_path / "o.zip")]
+    assert cli.build_parser().parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(argv)
+    assert not (tmp_path / "o.zip").exists()
