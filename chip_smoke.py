@@ -21,9 +21,12 @@ result line:
    Then the same for the two backward kernels (dQ, dK/dV) against the
              plain backward, on the forward kernel's outputs and random
              cotangents (a g_lse != 0 case included): f32 atol 1e-4, bf16
-             atol/rtol 3e-2. Each backward kernel is timed alone, beside
-             the plain backward (all three gradients) and SDPA's backward
-             ((forward + backward) - forward).
+             atol/rtol 3e-2; and two backward calls on the same inputs
+             must give bitwise-equal gradients (both routes). Each
+             backward kernel is timed alone, beside the plain backward
+             (all three gradients) and SDPA's backward ((forward +
+             backward) - forward). Every timing row carries its roofline
+             share and achieved TFLOP/s.
 4. serve   — the port's predict path, through the entry points a user
              calls: serving.cli.build() stands up the HTTP server over a
              full-width TransformerLM (random weights from its seed) with
@@ -147,10 +150,7 @@ def attention_bound_ms(q, k, causal):
     memory rate and its flops (4*D per (query, key) pair that causality
     keeps: Q.K and P.V) over the peak for the input type."""
     b, tq, h, d = q.shape
-    tk = k.shape[1]
-    pairs_per_head = sum(min(i + 1, tk) for i in range(tq)) if causal \
-        else tq * tk
-    flops = 4.0 * d * pairs_per_head * b * h
+    flops = attention_flops(4, q, k, causal)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
         + b * h * tq * 4
     t_ops = flops / PEAK_FLOPS[q.dtype]
@@ -316,6 +316,39 @@ def check_bwd_cases(fa):
     return errs
 
 
+def check_bwd_determinism(fa):
+    """Phase 3c': two backward calls on the same inputs give bitwise-equal
+    dQ, dK and dV (no atomics, a fixed summation order), in both routes at
+    the main-path (f32) and bench (bf16) shapes and on a ragged, masked
+    case with an LSE cotangent."""
+    mask = torch.ones(2, 1000, device="cuda")
+    mask[0, 700:] = 0.0
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("main_path_f32_causal", make_qkv(4, SEQ, SEQ, HEADS, HEAD_DIM,
+                                               f32, 2), None, True, False),
+             ("bench_bf16_causal", make_qkv(4, 2048, 2048, 8, 64, bf16, 1),
+              None, True, False)]
+    for dt, tag in ((f32, "f32"), (bf16, "bf16")):
+        cases.append((f"{tag}_ragged_masked_g_lse",
+                      make_qkv(2, 1000, 1000, 4, 64, dt, 15), mask, True,
+                      True))
+    for name, (q, k, v), m, causal, with_g_lse in cases:
+        out, lse, g_out, g_lse = bwd_inputs(fa, q, k, v, m, causal, 16,
+                                            with_g_lse)
+        first = fa.flash_attention_bwd_cuda(q, k, v, m, out, lse, g_out,
+                                            g_lse, causal)
+        again = fa.flash_attention_bwd_cuda(q, k, v, m, out, lse, g_out,
+                                            g_lse, causal)
+        torch.cuda.synchronize()
+        same = {n: bool(torch.equal(a, b))
+                for n, a, b in zip(("dq", "dk", "dv"), first, again)}
+        emit({"phase": "bwd_determinism", "case": name,
+              "dtype": str(q.dtype).replace("torch.", ""),
+              "bitwise_equal": same, "ok": all(same.values())})
+        if not all(same.values()):
+            raise AssertionError(f"two backward calls differ: {name} {same}")
+
+
 def time_attention(fa, b, t, h, d, dtype, gpu):
     """Phase 3b: kernel, plain and library times at one causal shape."""
     import torch.nn.functional as F
@@ -332,7 +365,7 @@ def time_attention(fa, b, t, h, d, dtype, gpu):
            "causal": True, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "roofline_share": bound_ms / kernel_ms,
-           "gpu": gpu}
+           "tflops": tflops(4, q, k, True, kernel_ms), "gpu": gpu}
     emit(row)
     return row
 
@@ -342,6 +375,20 @@ def live_pairs(tq, tk, causal):
     return sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
 
 
+def attention_flops(flops_per_pair_per_d, q, k, causal):
+    """The function's flops on these (unmasked) inputs: flops_per_pair_per_d
+    * D per live (query, key) pair of every (batch, head)."""
+    b, tq, h, d = q.shape
+    return flops_per_pair_per_d * d * live_pairs(tq, k.shape[1], causal) \
+        * b * h
+
+
+def tflops(flops_per_pair_per_d, q, k, causal, ms):
+    """Achieved TFLOP/s: the flops the bounds count, over `ms`."""
+    return attention_flops(flops_per_pair_per_d, q, k, causal) \
+        / (ms * 1e-3) / 1e12
+
+
 def bwd_bound_ms(q, k, flops_per_pair_per_d, n_outputs_q, n_outputs_k,
                  causal):
     """Least time for one backward kernel's work on these (unmasked)
@@ -349,8 +396,7 @@ def bwd_bound_ms(q, k, flops_per_pair_per_d, n_outputs_q, n_outputs_k,
     outputs written once; flops per live pair over the peak for the
     type."""
     b, tq, h, d = q.shape
-    tk = k.shape[1]
-    flops = flops_per_pair_per_d * d * live_pairs(tq, tk, causal) * b * h
+    flops = attention_flops(flops_per_pair_per_d, q, k, causal)
     es = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * es + 2 * b * h * tq * 4 \
         + (n_outputs_q * q.numel() + n_outputs_k * k.numel()) * es
@@ -400,6 +446,7 @@ def time_backward(fa, b, t, h, d, dtype, gpu):
                       "plain_ms": plain_ms, "library_ms": library_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "roofline_share": bound_ms / ms,
+                      "tflops": tflops(fpp, q, k, True, ms),
                       "backward_total_ms": whole_ms, "gpu": gpu}
         emit(rows[name])
     return rows
@@ -742,6 +789,7 @@ def main(argv=None) -> int:
 
     errs = check_kernel_cases(fa)
     bwd_errs = check_bwd_cases(fa)
+    check_bwd_determinism(fa)
     if args.quick:
         return 0
     bench = time_attention(fa, 4, 2048, 8, 64, torch.bfloat16, gpu)

@@ -19,27 +19,31 @@
 //
 // Design. The TPU kernels walk sequential grids and carry the dQ (resp.
 // dK, dV) sums in VMEM scratch from one grid step to the next. CUDA blocks
-// run in parallel and in no order, so each block owns one output tile and
-// loops over the other operand's tiles itself, with the sums in registers:
+// run in parallel and in no order, so each block owns one 64-row output
+// tile and loops over the other operand's 64-row tiles, with the sums in
+// registers:
 //
-// - dQ kernel: one block per (batch*head, 64-row query tile). It stages
-//   the Q and dO tiles with their LSE and delta once, then loops over
-//   64-key K/V tiles (stopping at the diagonal when causal); per tile it
-//   recomputes p, then dp, writes ds to shared memory, and accumulates
-//   ds K into registers. Query tiles issue heaviest first.
-// - dK/dV kernel: one block per (batch*head, 64-key tile). It stages K and
-//   V once, then loops over 64-row Q/dO tiles (starting at the first tile
-//   that reaches the diagonal when causal); per tile it writes p and ds to
-//   shared memory and accumulates p^T dO and ds^T Q into registers.
+// - dQ kernel: one block per (batch*head, query tile). Q and dO (with
+//   their LSE and delta) stay in shared memory; K/V tiles stream through
+//   (stopping at the diagonal when causal). Query tiles issue heaviest
+//   first.
+// - dK/dV kernel: one block per (batch*head, key tile). K and V stay;
+//   Q/dO tiles (with their LSE and delta) stream through (starting at the
+//   first tile that reaches the diagonal when causal). It computes the
+//   transposed tiles S^T = K Q^T and dP^T = V dO^T, so its rows are keys.
 //
-// Two passes, as in the reference, and no atomics: every gradient element
-// is summed by one thread in a fixed order, so results are the same from
-// run to run. (A fused one-pass FlashAttention-2 backward with atomic dQ
-// adds would save recomputing p once, at the price of that determinism.)
-// Operands are read in place through their (B, T, H, D) strides. Ragged
-// edges are handled here: rows past Tq are zero with an LSE of +1e30 (so
-// p = 0 and they add nothing), keys past Tk are masked (so padded keys get
-// dK = dV = 0 through p = ds = 0).
+// Streamed tiles go through a two-stage ring filled by cp.async (16-byte
+// copies; rows past T are zero-filled through the src-size operand, so the
+// ragged edge needs no branch): tile t+1 is in flight while tile t is
+// computed, and a block passes one barrier per tile. Two passes, as in the
+// reference, and no atomics: every gradient element is summed by one
+// thread (f32) or one fixed wgmma chain (bf16) in a fixed order, so two
+// calls give bitwise-equal results. (A fused one-pass FlashAttention-2
+// backward with atomic dQ adds would save recomputing p once, at the
+// price of that determinism.) Operands are read in place through their
+// (B, T, H, D) strides. Rows past Tq and keys past Tk add nothing: a query
+// row past Tq has p = 0 (LSE +1e30 in dQ, an explicit bound in dK/dV), a
+// key past Tk a zero validity.
 //
 // What bounds it on the H100. Per live (query, key) pair the dQ pass does
 // 6*D flops (Q.K, dO.V, ds.K) and the dK/dV pass 8*D (Q.K, dO.V, p.dO,
@@ -47,26 +51,42 @@
 // a few passes over Q, K, V and dO and the functions are bound by
 // arithmetic at the repo's shapes (T = 2048, D = 64). Two routes:
 //
-// - float32: CUDA cores (67 TFLOP/s peak), which keeps f32 exact to the
-//   reference (TF32 tensor cores would not be). Inner products read
-//   shared memory with 16-byte, bank-conflict-free loads (rows padded by
-//   4 floats; each thread owns 4 rows x 8 interleaved columns of a 64x64
-//   score tile, and 4 rows x D/8 columns of an output tile).
-// - bfloat16: tensor cores (989 TFLOP/s peak) through mma.sync m16n8k16,
-//   FlashAttention-2 style: each warp owns 16 rows of the block's tile
-//   (query rows for dQ, key rows for dK/dV) and keeps their Q/dO (resp.
-//   K/V) fragments in registers; the f32 score fragments are reused as
-//   the A operand of the next product after rounding p and ds to bf16,
-//   as FlashAttention does. Operands read along the reduction's other
-//   axis (K for ds.K; Q and dO for the dK/dV products) are also staged
-//   transposed, so every B fragment is a 32-bit shared load.
+// - float32: CUDA cores (67 TFLOP/s peak), exact f32 (TF32 tensor cores
+//   would break the 1e-4 agreement with the plain version). Each thread
+//   owns 4 rows (16 apart) x 8 interleaved columns of the 64x64 score tile
+//   and the same 4 rows x D/8 columns of the output tile; inner products
+//   read shared memory with 16-byte, bank-conflict-free loads (rows padded
+//   by 4 floats). The 8 threads of a row group are in one warp and hold
+//   their rows' p and ds over all 64 columns between them, so the second
+//   product takes them by __shfl_sync: no p/ds tile in shared memory and no
+//   barrier for it (dK/dV runs p^T dO and ds^T Q in one loop, and at D <= 64
+//   S^T and dP^T too). What holds it below its bound is instruction issue
+//   and latency on the CUDA cores rather than occupancy: 3 blocks of
+//   32-row streamed tiles per SM ran slower than 2 blocks of 64-row tiles.
+// - bfloat16: tensor cores (989 TFLOP/s peak) through wgmma. A block is
+//   one warpgroup over 64 rows, wgmma's M. Tiles are stored once, in
+//   wgmma's swizzled layout (128-byte swizzle; 64-byte rows and swizzle at
+//   D = 32; two 64-column atoms at D = 128). S = Q K^T and dP = dO V^T
+//   (dK/dV: S^T = K Q^T, dP^T = V dO^T) read both operands K-major from
+//   shared memory; dQ += dS K, dV += P^T dO and dK += dS^T Q take A from
+//   registers (the previous product's f32 accumulator, p and ds rounded to
+//   bf16 pairs, as FlashAttention does) and read the same K, dO and Q bytes
+//   MN-major through wgmma's transpose-B bit, so no tile is staged
+//   transposed.
 //
-// Not yet: cp.async/TMA double buffering, ldmatrix, wgmma.
+// In both routes a score tile that needs no mask test (no key mask, no row
+// or key past the end, wholly below the causal diagonal) skips the test per
+// score; bf16 takes p as exp2 of one FMA with log2(e) folded in.
 //
-// Shared memory per block, f32: dQ 55/88/153 KB and dK/dV 67/105/171 KB
-// at D = 32/64/128; bf16: dQ 28/46/88 KB and dK/dV 29/56/107 KB. Above 48
-// KB it must be granted, so each launch first calls cudaFuncSetAttribute
-// (Hopper allows 227 KB).
+// Budget per block at D = 32/64/128. Shared memory, f32: dQ and dK/dV
+// 55/103/199 KB (two blocks per SM at D <= 64); bf16: 26/50/98 KB (four
+// blocks per SM at D = 64, by shared memory). Above 48 KB it must be
+// granted, so each launch first calls cudaFuncSetAttribute (Hopper allows
+// 227 KB). Registers (ptxas, CUDA 12.9): f32 dQ 171/250/254, dK/dV
+// 254/254/255; bf16 dQ 128/152/176, dK/dV 159/168/251; no spills.
+//
+// Not yet: TMA with a producer warp, a second consumer warpgroup sharing
+// each streamed tile, and f32 on tensor cores (3xTF32 split).
 //
 // Interface: one plain C function per kernel, bound with ctypes. Each
 // launches on the given stream, allocates nothing, and returns
@@ -83,26 +103,112 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int BQ = 64;    // query rows per tile
 constexpr int BK = 64;    // keys per tile
-constexpr int NT = 128;   // threads per block
+constexpr int NT = 128;   // threads per block (one warpgroup)
 constexpr int RQ = 4;     // tile rows per thread (16 row groups x 4 = 64)
 constexpr int RK = 8;     // tile columns per thread (8 x 8 = 64), interleaved
 constexpr float NEG = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(BQ == BK && NT == 2 * BQ, "tile shapes the loaders assume");
+constexpr float LOG2E = 1.4426950408889634f;
+
+
+// f32 tiles: row i of row group rg (rows 16 apart, so the 4 row groups of
+// a warp read 4 consecutive, bank-disjoint rows)
+__device__ __forceinline__ int trow(int rg, int i) { return rg + 16 * i; }
+
+// ------------------------------------------------------------ async copy
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, in flight until cp_async_wait_all; zeros
+// (and no read) when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// every copy this thread issued, committed or not, has landed
+__device__ __forceinline__ void cp_async_drain() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// LSE and delta of rows [q0, q0 + BQ) into Ls and Dl (one value per
+// thread); zero past Tq (the caller excludes those rows itself)
+__device__ __forceinline__ void async_row_terms(float* Ls, float* Dl,
+                                                const float* lse,
+                                                const float* delta,
+                                                long long bh, int q0,
+                                                int Tq) {
+  const int i = threadIdx.x & (BQ - 1);
+  const int row = q0 + i;
+  const bool ok = row < Tq;
+  const long long at = bh * Tq + (ok ? row : 0);
+  if (threadIdx.x < BQ) cp_async4(Ls + i, lse + at, ok);
+  else cp_async4(Dl + i, delta + at, ok);
+}
+
+// Validity of keys [k0, k0 + BK): the mask's value, 0 past Tk
+__device__ __forceinline__ void async_key_valid(float* Ms, const float* mb,
+                                                int k0, int Tk) {
+  for (int i = threadIdx.x; i < BK; i += NT) {
+    const int kk = k0 + i;
+    const bool ok = kk < Tk;
+    if (mb != nullptr) cp_async4(Ms + i, mb + (ok ? kk : 0), ok);
+    else Ms[i] = ok ? 1.f : 0.f;
+  }
+}
+
+// Row LSE and delta of rows [q0, q0 + BQ), read once; rows past Tq get LSE
+// +1e30 (so p = 0) and delta 0
+__device__ __forceinline__ void load_row_terms(float* Ls, float* Dl,
+                                               const float* lse,
+                                               const float* delta,
+                                               long long bh, int q0, int Tq) {
+  for (int i = threadIdx.x; i < BQ; i += NT) {
+    const int row = q0 + i;
+    Ls[i] = row < Tq ? lse[bh * Tq + row] : -NEG;
+    Dl[i] = row < Tq ? delta[bh * Tq + row] : 0.f;
+  }
+}
+
+// is key k0 + kl valid (inside Tk, unmasked)
+__device__ __forceinline__ bool key_ok(const float* mb, int kpos, int Tk) {
+  return kpos < Tk && (mb == nullptr || mb[kpos] > 0.f);
+}
 
 // ---------------------------------------------------------------- float32
 // Stage rows [t0, t0 + ROWS) of one (batch, head) slice into shared memory,
-// SROW floats apart; rows past t_len are zero.
+// SROW floats apart, by cp.async; rows past t_len are zero.
 template <int D, int SROW, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* base,
-                                          int t0, int t_len, long long s_t) {
+__device__ __forceinline__ void async_rows(float* dst, const float* base,
+                                           int t0, int t_len, long long s_t) {
   constexpr int VPR = D / 4;
+#pragma unroll
   for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NT) {
     const int r = idx / VPR;
     const int c = (idx - r * VPR) * 4;
     const int t = t0 + r;
-    const float4 val = t < t_len
-        ? *reinterpret_cast<const float4*>(base + (long long)t * s_t + c)
-        : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + r * SROW + c) = val;
+    const bool ok = t < t_len;
+    cp_async16(dst + r * SROW + c, base + (ok ? (long long)t * s_t + c : 0),
+               ok);
   }
 }
 
@@ -111,7 +217,7 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c,
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
-// acc[i][j] += A row (rg*RQ+i) . B row (cg+8j) over D, both tiles in
+// acc[i][j] += A row trow(rg, i) . B row (cg + 8j) over D, both tiles in
 // shared memory ROW floats apart: one 4x8 block of a 64x64 product.
 template <int D, int ROW>
 __device__ __forceinline__ void tile_dot(float (&acc)[RQ][RK], const float* A,
@@ -121,7 +227,7 @@ __device__ __forceinline__ void tile_dot(float (&acc)[RQ][RK], const float* A,
     float4 av[RQ], bv[RK];
 #pragma unroll
     for (int i = 0; i < RQ; ++i)
-      av[i] = *reinterpret_cast<const float4*>(A + (rg * RQ + i) * ROW + d);
+      av[i] = *reinterpret_cast<const float4*>(A + trow(rg, i) * ROW + d);
 #pragma unroll
     for (int j = 0; j < RK; ++j)
       bv[j] = *reinterpret_cast<const float4*>(B + (cg + 8 * j) * ROW + d);
@@ -139,79 +245,121 @@ __device__ __forceinline__ void tile_dot(float (&acc)[RQ][RK], const float* A,
   }
 }
 
-// For one (64-query, 64-key) tile: p = exp(s - lse) on live entries (else
-// 0) and ds = p * (dp - delta), for this thread's 4 rows x 8 columns.
-// Qs/dOs/Ks/Vs are staged tiles QROW floats apart; Ms the keys' validity,
-// Ls/Dl the rows' LSE and delta.
-template <int D, int QROW>
-__device__ __forceinline__ void probs_and_dscores(
-    float (&p)[RQ][RK], float (&ds)[RQ][RK], const float* Qs,
-    const float* dOs, const float* Ks, const float* Vs, const float* Ms,
-    const float* Ls, const float* Dl, int q0, int k0, int causal,
-    float scale, int rg, int cg) {
+// Two such products in one loop: acc1 += A1 . B1 and acc2 += A2 . B2.
+template <int D, int ROW>
+__device__ __forceinline__ void tile_dot2(float (&acc1)[RQ][RK],
+                                          const float* A1, const float* B1,
+                                          float (&acc2)[RQ][RK],
+                                          const float* A2, const float* B2,
+                                          int rg, int cg) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const float* A = w ? A2 : A1;
+      const float* B = w ? B2 : B1;
+      float4 av[RQ], bv[RK];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+        av[i] = *reinterpret_cast<const float4*>(A + trow(rg, i) * ROW + d);
+#pragma unroll
+      for (int j = 0; j < RK; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(B + (cg + 8 * j) * ROW + d);
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < RK; ++j) {
+          float& a = w ? acc2[i][j] : acc1[i][j];
+          float t = a;
+          t = fmaf(av[i].x, bv[j].x, t);
+          t = fmaf(av[i].y, bv[j].y, t);
+          t = fmaf(av[i].z, bv[j].z, t);
+          t = fmaf(av[i].w, bv[j].w, t);
+          a = t;
+        }
+    }
+  }
+}
+
+// acc[i] += a[i][:] B for the rows trow(rg, i): a holds 64 columns spread
+// over the row group's 8 threads (thread s: columns s + 8j), B has 64 rows
+// SROW floats apart, and this thread sums output columns 4(cg + 8n) .. +3.
+// The row group's values arrive by shuffle from lane src0 + s, columns in
+// the fixed order s, then j. Two products at once (dK/dV: p^T dO and
+// ds^T Q) share the loop; dQ passes the same one twice with NP = 1.
+template <int NP, int NC, int SROW>
+__device__ __forceinline__ void shfl_acc(float (&acc1)[RQ][NC][4],
+                                         const float (&a1)[RQ][RK],
+                                         const float* B1,
+                                         float (&acc2)[RQ][NC][4],
+                                         const float (&a2)[RQ][RK],
+                                         const float* B2, int src0, int cg) {
+#pragma unroll 2
+  for (int s = 0; s < 8; ++s) {
+#pragma unroll
+    for (int j = 0; j < RK; ++j) {
+      const int off = (s + 8 * j) * SROW;
+      float4 b1[NC], b2[NC];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        b1[n] = *reinterpret_cast<const float4*>(B1 + off + 4 * (cg + 8 * n));
+        if (NP == 2)
+          b2[n] = *reinterpret_cast<const float4*>(B2 + off + 4 * (cg + 8 * n));
+      }
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const float x1 = __shfl_sync(FULL, a1[i][j], src0 + s);
+        const float x2 = NP == 2 ? __shfl_sync(FULL, a2[i][j], src0 + s) : 0.f;
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          acc1[i][n][0] = fmaf(x1, b1[n].x, acc1[i][n][0]);
+          acc1[i][n][1] = fmaf(x1, b1[n].y, acc1[i][n][1]);
+          acc1[i][n][2] = fmaf(x1, b1[n].z, acc1[i][n][2]);
+          acc1[i][n][3] = fmaf(x1, b1[n].w, acc1[i][n][3]);
+          if (NP == 2) {
+            acc2[i][n][0] = fmaf(x2, b2[n].x, acc2[i][n][0]);
+            acc2[i][n][1] = fmaf(x2, b2[n].y, acc2[i][n][1]);
+            acc2[i][n][2] = fmaf(x2, b2[n].z, acc2[i][n][2]);
+            acc2[i][n][3] = fmaf(x2, b2[n].w, acc2[i][n][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+struct SmemF32 {
+  static constexpr int ROW = D + 4;    // +4 floats: conflict-free float4 rows
+  static constexpr int TILE = BQ * ROW;   // floats of one 64-row tile
+  // dQ: Q, dO; two stages of K, V and key validity; row LSE and delta
+  static constexpr size_t DQ_BYTES =
+      sizeof(float) * (2 * TILE + 2 * (2 * TILE + BK) + 2 * BQ);
+  // dK/dV: K, V; two stages of Q, dO, row LSE and delta
+  static constexpr size_t DKV_BYTES =
+      sizeof(float) * (2 * TILE + 2 * (2 * TILE + 2 * BQ));
+};
+
+template <int NC>
+__device__ __forceinline__ void zero_acc(float (&acc)[RQ][NC][4]) {
 #pragma unroll
   for (int i = 0; i < RQ; ++i)
 #pragma unroll
-    for (int j = 0; j < RK; ++j) {
-      p[i][j] = 0.f;
-      ds[i][j] = 0.f;
-    }
-  tile_dot<D, QROW>(p, Qs, Ks, rg, cg);     // raw scores
-  tile_dot<D, QROW>(ds, dOs, Vs, rg, cg);   // dp = dO V^T
+    for (int n = 0; n < NC; ++n)
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = rg * RQ + i;
-    const int qpos = q0 + r;
-    const float l = Ls[r];
-    const float dl = Dl[r];
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+}
+
+__device__ __forceinline__ void zero_tile(float (&t)[RQ][RK]) {
 #pragma unroll
-    for (int j = 0; j < RK; ++j) {
-      const int kl = cg + 8 * j;
-      const bool ok = Ms[kl] > 0.f && (!causal || qpos >= k0 + kl);
-      const float s = ok ? scale * p[i][j] : NEG;
-      const float pr = s > 0.5f * NEG ? expf(s - l) : 0.f;
-      p[i][j] = pr;
-      ds[i][j] = pr * (ds[i][j] - dl);
-    }
-  }
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < RK; ++j) t[i][j] = 0.f;
 }
-
-// Row LSE and delta of rows [q0, q0 + BQ); rows past Tq get LSE +1e30 (so
-// p = 0) and delta 0. Key validity of keys [k0, k0 + BK); keys past Tk 0.
-__device__ __forceinline__ void load_row_terms(float* Ls, float* Dl,
-                                               const float* lse,
-                                               const float* delta,
-                                               long long bh, int q0, int Tq) {
-  for (int i = threadIdx.x; i < BQ; i += NT) {
-    const int row = q0 + i;
-    Ls[i] = row < Tq ? lse[bh * Tq + row] : -NEG;
-    Dl[i] = row < Tq ? delta[bh * Tq + row] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_key_valid(float* Ms, const float* mb,
-                                               int k0, int Tk) {
-  for (int i = threadIdx.x; i < BK; i += NT) {
-    const int kk = k0 + i;
-    Ms[i] = kk < Tk ? (mb == nullptr ? 1.f : mb[kk]) : 0.f;
-  }
-}
-
-template <int D>
-struct Smem {
-  static constexpr int ROW = D + 4;    // +4 floats: conflict-free float4 rows
-  static constexpr int PROW = BK + 4;
-  // dQ: Q, dO, K, V tiles; ds tile; key validity, row LSE and delta
-  static constexpr size_t DQ_BYTES =
-      sizeof(float) * (2 * BQ * ROW + 2 * BK * ROW + BQ * PROW + BK + 2 * BQ);
-  // dK/dV: K, V, Q, dO tiles; p and ds tiles; the same vectors
-  static constexpr size_t DKV_BYTES = sizeof(float) *
-      (2 * BK * ROW + 2 * BQ * ROW + 2 * BQ * PROW + BK + 2 * BQ);
-};
 
 // ------------------------------------------------------------------- dQ
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dO,
              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -221,17 +369,15 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
              long long vsT, long long vsH, long long osB, long long osT,
              long long osH, long long gsB, long long gsT, long long gsH,
              int causal, float scale) {
-  using S = Smem<D>;
+  using S = SmemF32<D>;
   constexpr int NC = D / 32;  // float4 output chunks per thread and row
 
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);  // BQ x ROW
-  float* dOs = Qs + BQ * S::ROW;                  // BQ x ROW
-  float* Ks = dOs + BQ * S::ROW;                  // BK x ROW
-  float* Vs = Ks + BK * S::ROW;                   // BK x ROW
-  float* Ds = Vs + BK * S::ROW;                   // BQ x PROW: ds
-  float* Ms = Ds + BQ * S::PROW;                  // BK key validity
-  float* Ls = Ms + BK;                            // BQ row LSE
+  float* dOs = Qs + S::TILE;                      // BQ x ROW
+  float* ring = dOs + S::TILE;   // stage s: K at ring + 2s TILE, V after it
+  float* Ms = ring + 4 * S::TILE;                // stage s: BK at Ms + s BK
+  float* Ls = Ms + 2 * BK;                        // BQ row LSE
   float* Dl = Ls + BQ;                            // BQ row delta
 
   const int bh = blockIdx.x;
@@ -241,22 +387,26 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int rg = tid >> 3;
   const int cg = tid & 7;
+  const int src0 = (tid & 31) & ~7;  // lane of the row group's first thread
 
   const float* kb = k + b * ksB + h * ksH;
   const float* vb = v + b * vsB + h * vsH;
   const float* mb = mask == nullptr ? nullptr : mask + (long long)b * Tk;
 
-  load_rows<D, S::ROW, BQ>(Qs, q + b * qsB + h * qsH, q0, Tq, qsT);
-  load_rows<D, S::ROW, BQ>(dOs, dO + b * gsB + h * gsH, q0, Tq, gsT);
+  async_rows<D, S::ROW, BQ>(Qs, q + b * qsB + h * qsH, q0, Tq, qsT);
+  async_rows<D, S::ROW, BQ>(dOs, dO + b * gsB + h * gsH, q0, Tq, gsT);
   load_row_terms(Ls, Dl, lse, delta, bh, q0, Tq);
 
+  auto issue = [&](int kt) {  // K/V tile kt into stage kt & 1
+    float* Ks = ring + (kt & 1) * 2 * S::TILE;
+    async_rows<D, S::ROW, BK>(Ks, kb, kt * BK, Tk, ksT);
+    async_rows<D, S::ROW, BK>(Ks + S::TILE, vb, kt * BK, Tk, vsT);
+    async_key_valid(Ms + (kt & 1) * BK, mb, kt * BK, Tk);
+    cp_async_commit();
+  };
+
   float acc[RQ][NC][4];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  zero_acc(acc);
 
   int n_kt = (Tk + BK - 1) / BK;
   if (causal) {
@@ -265,75 +415,62 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     n_kt = n_kt < last ? n_kt : last;
   }
 
+  issue(0);  // with Q and dO
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<D, S::ROW, BK>(Ks, kb, k0, Tk, ksT);
-    load_rows<D, S::ROW, BK>(Vs, vb, k0, Tk, vsT);
-    load_key_valid(Ms, mb, k0, Tk);
+    cp_async_wait_all();
+    // tile kt has landed for every thread, and every thread is past tile
+    // kt-1, so its stage can be refilled
     __syncthreads();
+    if (kt + 1 < n_kt) issue(kt + 1);
+    const float* Ks = ring + (kt & 1) * 2 * S::TILE;
+    const float* Vs = Ks + S::TILE;
+    const float* Mk = Ms + (kt & 1) * BK;
 
     float p[RQ][RK], ds[RQ][RK];
-    probs_and_dscores<D, S::ROW>(p, ds, Qs, dOs, Ks, Vs, Ms, Ls, Dl, q0, k0,
-                                 causal, scale, rg, cg);
+    zero_tile(p);
+    zero_tile(ds);
+    tile_dot<D, S::ROW>(p, Qs, Ks, rg, cg);     // raw scores
+    tile_dot<D, S::ROW>(ds, dOs, Vs, rg, cg);   // dp = dO V^T
+    // a tile with no key mask, no key past Tk and wholly below the
+    // diagonal needs no test per score (rows past Tq have LSE +1e30)
+    const bool plain = mb == nullptr && k0 + BK <= Tk &&
+                       (!causal || k0 + BK - 1 <= q0);
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+    for (int i = 0; i < RQ; ++i) {
+      const int r = trow(rg, i);
+      const int qpos = q0 + r;
+      const float l = Ls[r];
+      const float dl = Dl[r];
 #pragma unroll
-      for (int j = 0; j < RK; ++j) Ds[(rg * RQ + i) * S::PROW + cg + 8 * j] =
-          ds[i][j];
-    __syncthreads();  // ds complete
-
-    // acc += ds K for this thread's 4 rows x D/8 columns
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float da[RQ][4];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float4 d4 =
-            *reinterpret_cast<const float4*>(Ds + (rg * RQ + i) * S::PROW + kk);
-        da[i][0] = d4.x;
-        da[i][1] = d4.y;
-        da[i][2] = d4.z;
-        da[i][3] = d4.w;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float4 kv[NC];
-#pragma unroll
-        for (int n = 0; n < NC; ++n)
-          kv[n] = *reinterpret_cast<const float4*>(Ks + (kk + u) * S::ROW +
-                                                   4 * (cg + 8 * n));
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-          const float a = da[i][u];
-#pragma unroll
-          for (int n = 0; n < NC; ++n) {
-            acc[i][n][0] = fmaf(a, kv[n].x, acc[i][n][0]);
-            acc[i][n][1] = fmaf(a, kv[n].y, acc[i][n][1]);
-            acc[i][n][2] = fmaf(a, kv[n].z, acc[i][n][2]);
-            acc[i][n][3] = fmaf(a, kv[n].w, acc[i][n][3]);
-          }
-        }
+      for (int j = 0; j < RK; ++j) {
+        const int kl = cg + 8 * j;
+        const bool ok =
+            plain || (Mk[kl] > 0.f && (!causal || qpos >= k0 + kl));
+        const float s = ok ? scale * p[i][j] : NEG;
+        const float pr = plain || s > 0.5f * NEG ? expf(s - l) : 0.f;
+        ds[i][j] = pr * (ds[i][j] - dl);
       }
     }
+    shfl_acc<1, NC, S::ROW>(acc, ds, Ks, acc, ds, Ks, src0, cg);  // ds K
   }
 
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + rg * RQ + i;
+    const int row = q0 + trow(rg, i);
     if (row >= Tq) continue;
     float* orow = dq + b * osB + (long long)row * osT + h * osH;
 #pragma unroll
     for (int n = 0; n < NC; ++n)
       store4(orow + 4 * (cg + 8 * n), scale * acc[i][n][0],
-                scale * acc[i][n][1], scale * acc[i][n][2],
-                scale * acc[i][n][3]);
+             scale * acc[i][n][1], scale * acc[i][n][2],
+             scale * acc[i][n][3]);
   }
 }
 
 // ----------------------------------------------------------------- dK/dV
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, D <= 64 ? 2 : 1)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dO,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -344,105 +481,98 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
               long long gsB, long long gsT, long long gsH, long long dksB,
               long long dksT, long long dksH, long long dvsB, long long dvsT,
               long long dvsH, int causal, float scale) {
-  using S = Smem<D>;
+  using S = SmemF32<D>;
   constexpr int NC = D / 32;
+  constexpr int STAGE = 2 * S::TILE + 2 * BQ;   // Q, dO, LSE, delta
 
   extern __shared__ float4 smem_f4[];
   float* Ks = reinterpret_cast<float*>(smem_f4);  // BK x ROW
-  float* Vs = Ks + BK * S::ROW;                   // BK x ROW
-  float* Qs = Vs + BK * S::ROW;                   // BQ x ROW
-  float* dOs = Qs + BQ * S::ROW;                  // BQ x ROW
-  float* Ps = dOs + BQ * S::ROW;                  // BQ x PROW: p
-  float* Ds = Ps + BQ * S::PROW;                  // BQ x PROW: ds
-  float* Ms = Ds + BQ * S::PROW;                  // BK key validity
-  float* Ls = Ms + BK;                            // BQ row LSE
-  float* Dl = Ls + BQ;                            // BQ row delta
+  float* Vs = Ks + S::TILE;                       // BK x ROW
+  float* ring = Vs + S::TILE;                     // stage s at ring + s STAGE
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int k0 = blockIdx.y * BK;  // causal: tile 0 is the heaviest
   const int tid = threadIdx.x;
-  const int rg = tid >> 3;  // score tile: query rows; output: key rows
-  const int cg = tid & 7;
+  const int rg = tid >> 3;  // keys trow(rg, i) (score and output rows)
+  const int cg = tid & 7;   // score columns: queries cg + 8j
+  const int src0 = (tid & 31) & ~7;
 
   const float* qb = q + b * qsB + h * qsH;
   const float* gb = dO + b * gsB + h * gsH;
+  const float* mb = mask == nullptr ? nullptr : mask + (long long)b * Tk;
 
-  load_rows<D, S::ROW, BK>(Ks, k + b * ksB + h * ksH, k0, Tk, ksT);
-  load_rows<D, S::ROW, BK>(Vs, v + b * vsB + h * vsH, k0, Tk, vsT);
-  load_key_valid(Ms, mask == nullptr ? nullptr : mask + (long long)b * Tk,
-                 k0, Tk);
-
-  float adk[RQ][NC][4], adv[RQ][NC][4];
+  async_rows<D, S::ROW, BK>(Ks, k + b * ksB + h * ksH, k0, Tk, ksT);
+  async_rows<D, S::ROW, BK>(Vs, v + b * vsB + h * vsH, k0, Tk, vsT);
+  bool kok[RQ];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        adk[i][n][e] = 0.f;
-        adv[i][n][e] = 0.f;
-      }
+  for (int i = 0; i < RQ; ++i) kok[i] = key_ok(mb, k0 + trow(rg, i), Tk);
 
   const int n_qt = (Tq + BQ - 1) / BQ;
   // causal: query tiles wholly before this key tile see none of its keys
   const int qt0 = causal ? k0 / BQ : 0;
 
+  auto issue = [&](int qt) {  // Q/dO tile qt into stage (qt - qt0) & 1
+    float* Qs = ring + ((qt - qt0) & 1) * STAGE;
+    async_rows<D, S::ROW, BQ>(Qs, qb, qt * BQ, Tq, qsT);
+    async_rows<D, S::ROW, BQ>(Qs + S::TILE, gb, qt * BQ, Tq, gsT);
+    async_row_terms(Qs + 2 * S::TILE, Qs + 2 * S::TILE + BQ, lse, delta,
+                    bh, qt * BQ, Tq);
+    cp_async_commit();
+  };
+
+  float adk[RQ][NC][4], adv[RQ][NC][4];
+  zero_acc(adk);
+  zero_acc(adv);
+
+  if (qt0 < n_qt) issue(qt0);  // with K and V
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<D, S::ROW, BQ>(Qs, qb, q0, Tq, qsT);
-    load_rows<D, S::ROW, BQ>(dOs, gb, q0, Tq, gsT);
-    load_row_terms(Ls, Dl, lse, delta, bh, q0, Tq);
-    __syncthreads();
+    cp_async_wait_all();
+    __syncthreads();  // tile qt is in; the stage of tile qt-1 is free
+    if (qt + 1 < n_qt) issue(qt + 1);
+    const float* Qs = ring + ((qt - qt0) & 1) * STAGE;
+    const float* dOs = Qs + S::TILE;
+    const float* Ls = dOs + S::TILE;
+    const float* Dl = Ls + BQ;
 
-    float p[RQ][RK], ds[RQ][RK];
-    probs_and_dscores<D, S::ROW>(p, ds, Qs, dOs, Ks, Vs, Ms, Ls, Dl, q0, k0,
-                                 causal, scale, rg, cg);
+    float st[RQ][RK], dst[RQ][RK];
+    zero_tile(st);
+    zero_tile(dst);
+    if constexpr (D <= 64) {   // S^T and dP^T in one loop (spills at 128)
+      tile_dot2<D, S::ROW>(st, Ks, Qs, dst, Vs, dOs, rg, cg);
+    } else {
+      tile_dot<D, S::ROW>(st, Ks, Qs, rg, cg);    // S^T
+      tile_dot<D, S::ROW>(dst, Vs, dOs, rg, cg);  // dP^T
+    }
+    // a tile with no key mask, no row or key past the end and wholly
+    // below the diagonal needs no test per score
+    const bool plain = mb == nullptr && k0 + BK <= Tk && q0 + BQ <= Tq &&
+                       (!causal || q0 >= k0 + BK - 1);
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+    for (int i = 0; i < RQ; ++i) {
+      const int kpos = k0 + trow(rg, i);
 #pragma unroll
       for (int j = 0; j < RK; ++j) {
-        const int at = (rg * RQ + i) * S::PROW + cg + 8 * j;
-        Ps[at] = p[i][j];
-        Ds[at] = ds[i][j];
-      }
-    __syncthreads();  // p and ds complete
-
-    // dV += p^T dO and dK += ds^T Q for keys rg*RQ.. and D/8 columns
-#pragma unroll 2
-    for (int r = 0; r < BQ; ++r) {
-      const float4 p4 =
-          *reinterpret_cast<const float4*>(Ps + r * S::PROW + rg * RQ);
-      const float4 d4 =
-          *reinterpret_cast<const float4*>(Ds + r * S::PROW + rg * RQ);
-      const float pa[RQ] = {p4.x, p4.y, p4.z, p4.w};
-      const float da[RQ] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const float4 g4 =
-            *reinterpret_cast<const float4*>(dOs + r * S::ROW + 4 * (cg + 8 * n));
-        const float4 q4 =
-            *reinterpret_cast<const float4*>(Qs + r * S::ROW + 4 * (cg + 8 * n));
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-          adv[i][n][0] = fmaf(pa[i], g4.x, adv[i][n][0]);
-          adv[i][n][1] = fmaf(pa[i], g4.y, adv[i][n][1]);
-          adv[i][n][2] = fmaf(pa[i], g4.z, adv[i][n][2]);
-          adv[i][n][3] = fmaf(pa[i], g4.w, adv[i][n][3]);
-          adk[i][n][0] = fmaf(da[i], q4.x, adk[i][n][0]);
-          adk[i][n][1] = fmaf(da[i], q4.y, adk[i][n][1]);
-          adk[i][n][2] = fmaf(da[i], q4.z, adk[i][n][2]);
-          adk[i][n][3] = fmaf(da[i], q4.w, adk[i][n][3]);
-        }
+        const int ql = cg + 8 * j;
+        const int qpos = q0 + ql;
+        const bool ok =
+            plain || (kok[i] && qpos < Tq && (!causal || qpos >= kpos));
+        const float s = ok ? scale * st[i][j] : NEG;
+        const float pr = plain || s > 0.5f * NEG ? expf(s - Ls[ql]) : 0.f;
+        st[i][j] = pr;
+        dst[i][j] = pr * (dst[i][j] - Dl[ql]);
       }
     }
+    // dV += p^T dO, dK += ds^T Q
+    shfl_acc<2, NC, S::ROW>(adv, st, dOs, adk, dst, Qs, src0, cg);
   }
+  cp_async_drain();  // no copy outlives the block (an empty loop)
 
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    const int key = k0 + rg * RQ + i;
+    const int key = k0 + trow(rg, i);
     if (key >= Tk) continue;
     float* krow = dk + b * dksB + (long long)key * dksT + h * dksH;
     float* vrow = dv + b * dvsB + (long long)key * dvsT + h * dvsH;
@@ -458,128 +588,198 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------- bfloat16
-constexpr int KPAD = 8;  // bf16 pad per shared row: conflict-free 32-bit loads
-constexpr int NST = 8;   // 8-column n-tiles of a 64-wide score tile
+// A 64-row bf16 tile in wgmma's swizzled layout: column blocks of AC
+// columns (one swizzle atom wide), each 64 rows of RB bytes; the 16-byte
+// chunk c of row r sits at chunk c ^ (row bits), as the hardware reads it
+// (128-byte swizzle: r & 7; 64-byte swizzle: (r >> 1) & 3). Tiles start
+// 1024-byte aligned.
+template <int D>
+struct Swz {
+  static constexpr int AC = D < 64 ? D : 64;
+  static constexpr int RB = 2 * AC;              // bytes per atom row
+  static constexpr int CPR = RB / 16;            // 16-byte chunks per atom row
+  static constexpr int CB = D / AC;              // column blocks
+  static constexpr uint64_t LAYOUT = RB == 128 ? 1 : 2;  // 128B / 64B swizzle
+  static constexpr int TILE = BQ * D * 2;        // bytes of a 64-row tile
+  static_assert(RB == 128 || RB == 64, "head dims 32, 64, 128");
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+  static __device__ __forceinline__ int at(int r, int ch) {
+    const int cb = ch / CPR;
+    const int c = ch - cb * CPR;
+    const int sw = RB == 128 ? (r & 7) : ((r >> 1) & 3);
+    return cb * (BQ * RB) + r * RB + ((c ^ sw) << 4);
+  }
+};
+
+// Stage rows [t0, t0 + 64) by cp.async into a swizzled tile; rows past
+// t_len are zero.
+template <int D>
+__device__ __forceinline__ void async_tile(uint8_t* dst, const bf16* base,
+                                           int t0, int t_len, long long s_t) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < BQ * CH; idx += NT) {
+    const int r = idx / CH;
+    const int ch = idx - r * CH;
+    const int t = t0 + r;
+    const bool ok = t < t_len;
+    cp_async16(dst + Swz<D>::at(r, ch),
+               base + (ok ? (long long)t * s_t + ch * 8 : 0), ok);
+  }
 }
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle mode
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// A tile read K-major (the reduction runs along D): k-step kk is columns
+// [16kk, 16kk + 16); 8-row groups are 8 atom rows apart. Within an atom
+// the step is a 32-byte offset of the start address.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using W = Swz<D>;
+  const int byte = kk * 32;
+  return gmma_desc(tile + (byte / W::RB) * (BQ * W::RB) + byte % W::RB, 16,
+                   8 * W::RB, W::LAYOUT);
+}
+
+// A tile read MN-major (the reduction runs along its rows; transpose-B):
+// k-step kk is rows [16kk, 16kk + 16) over all D columns; 8-row groups
+// 8 atom rows apart, column blocks 64 rows apart.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  using W = Swz<D>;
+  return gmma_desc(tile + kk * 16 * W::RB, BQ * W::RB, 8 * W::RB, W::LAYOUT);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the generic-proxy (cp.async) writes to shared memory are seen by wgmma
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads across wgmma's wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define DL4J_F4(b) "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3])
+#define DL4J_F16(b) DL4J_F4(b), DL4J_F4(b + 4), DL4J_F4(b + 8), DL4J_F4(b + 12)
+
+// d (64 x 64) = A (64 x 16) B (16 x 64) (+ d when `accumulate`), A and B
+// both read K-major from shared memory. Accumulator layout (per warp w,
+// lane g*4 + t): d[4j + 2i + e] is row 16w + g + 8i, column 8j + 2t + e.
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DL4J_F16(0), DL4J_F16(16)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N) += A (64 x 16, bf16 pairs in registers, mma.sync's A
+// fragment per warp) B (16 x N), B read MN-major (transpose-B)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : DL4J_F16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : DL4J_F16(0), DL4J_F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
+      "1, 1;\n}\n"
+      : DL4J_F16(0), DL4J_F16(16), DL4J_F16(32), DL4J_F16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef DL4J_F16
+#undef DL4J_F4
 
 // two floats -> one register of two bf16, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // one cvt.rn.bf16x2
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// d += A (16x16, row) * B (16x8, col), bf16 in, f32 accumulate. Fragments
-// (PTX ISA, mma.m16n8k16): with g = lane/4 and t = lane%4,
-//   a0 (row g, cols 2t..2t+1)  a1 (row g+8, same)  a2/a3 the same at cols +8
-//   b0 (rows 2t..2t+1, col g)  b1 (rows +8)
-//   d0,d1 (row g, cols 2t..2t+1)  d2,d3 (row g+8, same)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Stage rows [t0, t0 + ROWS) (rows past t_len zero) as bf16: row-major,
-// SROW apart, into `rows`; and, when `cols` is not null, transposed too,
-// element (r, c) at cols[c * TROW + r].
-template <int D, int ROWS, int SROW, int TROW>
-__device__ __forceinline__ void stage_bf16(bf16* rows, bf16* cols,
-                                           const bf16* base, int t0,
-                                           int t_len, long long s_t) {
-  constexpr int VPR = D / 8;
-  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += NT) {
-    const int r = idx / VPR;
-    const int c = (idx - r * VPR) * 8;
-    const int t = t0 + r;
-    const uint4 val = t < t_len
-        ? *reinterpret_cast<const uint4*>(base + (long long)t * s_t + c)
-        : make_uint4(0u, 0u, 0u, 0u);
-    *reinterpret_cast<uint4*>(rows + r * SROW + c) = val;
-    if (cols != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
+// The 64 x 64 f32 accumulator c rounded to bf16 as the A operand of four
+// k-steps over its 64 columns: k-step kk is n-tiles 2kk and 2kk + 1.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4],
+                                         const float (&c)[32]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) cols[(c + i) * TROW + r] = e[i];
-    }
-  }
-}
-
-// A fragments of 16 rows [row0, row0 + 16) x D of a row-major tile
-template <int KS, int SROW>
-__device__ __forceinline__ void load_a(uint32_t (&f)[KS][4], const bf16* tile,
-                                       int row0, int g, int t4) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const bf16* p = tile + (row0 + g) * SROW + ks * 16 + 2 * t4;
-    f[ks][0] = ld32(p);
-    f[ks][1] = ld32(p + 8 * SROW);
-    f[ks][2] = ld32(p + 8);
-    f[ks][3] = ld32(p + 8 * SROW + 8);
-  }
-}
-
-// c = A (16 x D, fragments) . B^T for the 64 rows of row-major tile B:
-// a 16 x 64 f32 product in NST n-tile fragments
-template <int KS, int SROW>
-__device__ __forceinline__ void frag_dot(float (&c)[NST][4],
-                                         const uint32_t (&a)[KS][4],
-                                         const bf16* B, int g, int t4) {
-#pragma unroll
-  for (int nt = 0; nt < NST; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const bf16* p = B + (nt * 8 + g) * SROW + ks * 16 + 2 * t4;
-      mma_bf16(c[nt], a[ks][0], a[ks][1], a[ks][2], a[ks][3], ld32(p),
-               ld32(p + 8));
-    }
-  }
-}
-
-// acc (16 x D) += c (16 x 64, f32 fragments rounded to bf16) . B, with B
-// (64 x D) staged transposed (Bt[d * TROW + row]): the fragments of
-// n-tiles 2kk and 2kk+1 are the A fragment of k-step kk
-template <int NDT, int TROW>
-__device__ __forceinline__ void frag_acc(float (&acc)[NDT][4],
-                                         const float (&c)[NST][4],
-                                         const bf16* Bt, int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < NST / 2; ++kk) {
-    const uint32_t a0 = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    const uint32_t a1 = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    const uint32_t a2 = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    const uint32_t a3 = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-#pragma unroll
-    for (int nd = 0; nd < NDT; ++nd) {
-      const bf16* p = Bt + (nd * 8 + g) * TROW + kk * 16 + 2 * t4;
-      mma_bf16(acc[nd], a0, a1, a2, a3, ld32(p), ld32(p + 8));
-    }
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
   }
 }
 
 template <int D>
 struct SmemBf16 {
-  static constexpr int ROW = D + KPAD;    // row-major tiles
-  static constexpr int TROW = BQ + KPAD;  // transposed tiles: D rows of 64
-  // dQ: Q, dO, K, V row-major, K transposed; key validity, LSE, delta
+  static constexpr int TILE = Swz<D>::TILE;
+  // +1 KB to align the tiles; dQ: Q, dO, two stages of K, V and key
+  // validity
   static constexpr size_t DQ_BYTES =
-      sizeof(bf16) * (2 * BQ * ROW + 2 * BK * ROW + D * TROW) +
-      sizeof(float) * (BK + 2 * BQ);
-  // dK/dV: K, V, Q, dO row-major, Q and dO transposed; the same vectors
+      1024 + 2 * TILE + 2 * 2 * TILE + sizeof(float) * 2 * BK;
+  // dK/dV: K, V, two stages of Q, dO, row LSE and delta
   static constexpr size_t DKV_BYTES =
-      sizeof(bf16) * (2 * BK * ROW + 2 * BQ * ROW + 2 * D * TROW) +
-      sizeof(float) * (BK + 2 * BQ);
+      1024 + 2 * TILE + 2 * 2 * TILE + sizeof(float) * 2 * 2 * BQ;
 };
 
-// Each warp owns query rows warp*16 .. +15 of the block's 64.
+__device__ __forceinline__ uint8_t* align1k(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// One warpgroup owns query rows q0 .. q0 + 63 (warp w: rows 16w ..).
 template <int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -597,14 +797,10 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NDT = D / 8;   // 8-column n-tiles of the output
 
   extern __shared__ float4 smem_f4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_f4);   // BQ x ROW
-  bf16* dOs = Qs + BQ * S::ROW;                  // BQ x ROW
-  bf16* Ks = dOs + BQ * S::ROW;                  // BK x ROW
-  bf16* Vs = Ks + BK * S::ROW;                   // BK x ROW
-  bf16* Kt = Vs + BK * S::ROW;                   // D x TROW (K transposed)
-  float* Ms = reinterpret_cast<float*>(Kt + D * S::TROW);
-  float* Ls = Ms + BK;
-  float* Dl = Ls + BQ;
+  uint8_t* Qs = align1k(reinterpret_cast<uint8_t*>(smem_f4));
+  uint8_t* dOs = Qs + S::TILE;
+  uint8_t* ring = dOs + S::TILE;  // stage s: K at ring + 2s TILE, V after it
+  float* Ms = reinterpret_cast<float*>(ring + 4 * S::TILE);  // 2 x BK
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -619,21 +815,34 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * vsB + h * vsH;
   const float* mb = mask == nullptr ? nullptr : mask + (long long)b * Tk;
 
-  stage_bf16<D, BQ, S::ROW, S::TROW>(Qs, nullptr, q + b * qsB + h * qsH, q0,
-                                     Tq, qsT);
-  stage_bf16<D, BQ, S::ROW, S::TROW>(dOs, nullptr, dO + b * gsB + h * gsH,
-                                     q0, Tq, gsT);
-  load_row_terms(Ls, Dl, lse, delta, bh, q0, Tq);
-  __syncthreads();
-  uint32_t qf[KS][4], of[KS][4];
-  load_a<KS, S::ROW>(qf, Qs, warp * 16, g, t4);
-  load_a<KS, S::ROW>(of, dOs, warp * 16, g, t4);
+  async_tile<D>(Qs, q + b * qsB + h * qsH, q0, Tq, qsT);
+  async_tile<D>(dOs, dO + b * gsB + h * gsH, q0, Tq, gsT);
+  // this thread's rows warp*16 + g (+8): LSE (+1e30 past Tq) in base 2,
+  // and delta
+  float lrow[2], drow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    lrow[i] = LOG2E * (row < Tq ? lse[(long long)bh * Tq + row] : -NEG);
+    drow[i] = row < Tq ? delta[(long long)bh * Tq + row] : 0.f;
+  }
 
-  float acc[NDT][4];
-#pragma unroll
-  for (int nd = 0; nd < NDT; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  auto issue = [&](int kt) {  // K/V tile kt into stage kt & 1
+    uint8_t* Ks = ring + (kt & 1) * 2 * S::TILE;
+    async_tile<D>(Ks, kb, kt * BK, Tk, ksT);
+    async_tile<D>(Ks + S::TILE, vb, kt * BK, Tk, vsT);
+    async_key_valid(Ms + (kt & 1) * BK, mb, kt * BK, Tk);
+    cp_async_commit();
+  };
+
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t q_a = smem_addr(Qs);
+  const uint32_t o_a = smem_addr(dOs);
+  const uint32_t ring_a = smem_addr(ring);
+  float acc[D / 2], s[32], dp[32];
+  zero(acc);
+  zero(s);
+  zero(dp);
 
   int n_kt = (Tk + BK - 1) / BK;
   if (causal) {
@@ -641,36 +850,63 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     n_kt = n_kt < last ? n_kt : last;
   }
 
+  issue(0);  // with Q and dO
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's readers are done
-    stage_bf16<D, BK, S::ROW, S::TROW>(Ks, Kt, kb, k0, Tk, ksT);
-    stage_bf16<D, BK, S::ROW, S::TROW>(Vs, nullptr, vb, k0, Tk, vsT);
-    load_key_valid(Ms, mb, k0, Tk);
-    __syncthreads();
+    cp_async_wait_all();
+    fence_async_proxy();
+    __syncthreads();  // tile kt is in; the stage of tile kt-1 is free
+    if (kt + 1 < n_kt) issue(kt + 1);
+    const uint32_t k_a = ring_a + (kt & 1) * 2 * S::TILE;
+    const uint32_t v_a = k_a + S::TILE;
+    const float* Mk = Ms + (kt & 1) * BK;
 
-    float s[NST][4], dp[NST][4];
-    frag_dot<KS, S::ROW>(s, qf, Ks, g, t4);
-    frag_dot<KS, S::ROW>(dp, of, Vs, g, t4);
-    // s <- ds = p * (dp - delta); i = 0: row g, i = 1: row g+8
+    wg_fence();
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = warp * 16 + g + 8 * i;
-      const int qpos = q0 + r;
-      const float l = Ls[r];
-      const float dl = Dl[r];
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss64(s, desc_k<D>(q_a, kk), desc_k<D>(k_a, kk), kk);
 #pragma unroll
-      for (int nt = 0; nt < NST; ++nt)
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss64(dp, desc_k<D>(o_a, kk), desc_k<D>(v_a, kk), kk);
+    wg_commit();
+    wg_wait0();
+    reg_fence(s);
+    reg_fence(dp);
+    // s <- ds = p * (dp - delta), p = 2^(s scale log2e - lse log2e). A
+    // tile with no key mask, no key past Tk and wholly below the diagonal
+    // needs no test per score.
+    if (mb == nullptr && k0 + BK <= Tk && (!causal || k0 + BK - 1 <= q0)) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kl = nt * 8 + 2 * t4 + e;
-          const bool ok = Ms[kl] > 0.f && (!causal || qpos >= k0 + kl);
-          const float sv = ok ? scale * s[nt][2 * i + e] : NEG;
-          const float p = sv > 0.5f * NEG ? expf(sv - l) : 0.f;
-          s[nt][2 * i + e] = p * (dp[nt][2 * i + e] - dl);
-        }
+      for (int x = 0; x < 32; ++x) {
+        const int i = (x >> 1) & 1;
+        s[x] = exp2f(fmaf(s[x], scale_log2, -lrow[i])) * (dp[x] - drow[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qpos = q0 + warp * 16 + g + 8 * i;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kl = nt * 8 + 2 * t4 + e;
+            const int x = 4 * nt + 2 * i + e;
+            const bool ok = Mk[kl] > 0.f && (!causal || qpos >= k0 + kl);
+            const float sv = ok ? scale * s[x] : NEG;
+            const float p =
+                sv > 0.5f * NEG ? exp2f(fmaf(sv, LOG2E, -lrow[i])) : 0.f;
+            s[x] = p * (dp[x] - drow[i]);
+          }
+      }
     }
-    frag_acc<NDT, S::TROW>(acc, s, Kt, g, t4);
+    uint32_t a[4][4];
+    acc_to_a(a, s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], desc_mn<D>(k_a, kk));
+    wg_commit();
+    wg_wait0();
+    reg_fence(acc);
   }
 
 #pragma unroll
@@ -681,13 +917,13 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int nd = 0; nd < NDT; ++nd)
       *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * t4) =
-          __floats2bfloat162_rn(scale * acc[nd][2 * i],
-                                scale * acc[nd][2 * i + 1]);
+          __floats2bfloat162_rn(scale * acc[4 * nd + 2 * i],
+                                scale * acc[4 * nd + 2 * i + 1]);
   }
 }
 
-// Each warp owns keys warp*16 .. +15 of the block's 64 and computes the
-// transposed tiles S^T = K Q^T and dP^T = V dO^T directly.
+// One warpgroup owns keys k0 .. k0 + 63 (warp w: keys 16w ..) and computes
+// the transposed tiles S^T = K Q^T and dP^T = V dO^T.
 template <int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -707,15 +943,11 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NDT = D / 8;
 
   extern __shared__ float4 smem_f4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_f4);   // BK x ROW
-  bf16* Vs = Ks + BK * S::ROW;                   // BK x ROW
-  bf16* Qs = Vs + BK * S::ROW;                   // BQ x ROW
-  bf16* dOs = Qs + BQ * S::ROW;                  // BQ x ROW
-  bf16* Qt = dOs + BQ * S::ROW;                  // D x TROW (Q transposed)
-  bf16* dOt = Qt + D * S::TROW;                  // D x TROW (dO transposed)
-  float* Ms = reinterpret_cast<float*>(dOt + D * S::TROW);
-  float* Ls = Ms + BK;
-  float* Dl = Ls + BQ;
+  uint8_t* Ks = align1k(reinterpret_cast<uint8_t*>(smem_f4));
+  uint8_t* Vs = Ks + S::TILE;
+  uint8_t* ring = Vs + S::TILE;  // stage s: Q at ring + 2s TILE, dO after it
+  float* Lr = reinterpret_cast<float*>(ring + 4 * S::TILE);  // stage s: LSE
+                                                              // at 2s BQ, delta
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -728,62 +960,109 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const bf16* qb = q + b * qsB + h * qsH;
   const bf16* gb = dO + b * gsB + h * gsH;
+  const float* mb = mask == nullptr ? nullptr : mask + (long long)b * Tk;
 
-  stage_bf16<D, BK, S::ROW, S::TROW>(Ks, nullptr, k + b * ksB + h * ksH, k0,
-                                     Tk, ksT);
-  stage_bf16<D, BK, S::ROW, S::TROW>(Vs, nullptr, v + b * vsB + h * vsH, k0,
-                                     Tk, vsT);
-  load_key_valid(Ms, mask == nullptr ? nullptr : mask + (long long)b * Tk,
-                 k0, Tk);
-  __syncthreads();
-  uint32_t kf[KS][4], vf[KS][4];
-  load_a<KS, S::ROW>(kf, Ks, warp * 16, g, t4);
-  load_a<KS, S::ROW>(vf, Vs, warp * 16, g, t4);
-
-  float adk[NDT][4], adv[NDT][4];
+  async_tile<D>(Ks, k + b * ksB + h * ksH, k0, Tk, ksT);
+  async_tile<D>(Vs, v + b * vsB + h * vsH, k0, Tk, vsT);
+  bool kok[2];
 #pragma unroll
-  for (int nd = 0; nd < NDT; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      adk[nd][e] = 0.f;
-      adv[nd][e] = 0.f;
-    }
+  for (int i = 0; i < 2; ++i)
+    kok[i] = key_ok(mb, k0 + warp * 16 + g + 8 * i, Tk);
 
   const int n_qt = (Tq + BQ - 1) / BQ;
   const int qt0 = causal ? k0 / BQ : 0;
 
+  auto issue = [&](int qt) {  // Q/dO tile qt into stage (qt - qt0) & 1
+    const int st = (qt - qt0) & 1;
+    uint8_t* Qs = ring + st * 2 * S::TILE;
+    async_tile<D>(Qs, qb, qt * BQ, Tq, qsT);
+    async_tile<D>(Qs + S::TILE, gb, qt * BQ, Tq, gsT);
+    async_row_terms(Lr + st * 2 * BQ, Lr + st * 2 * BQ + BQ, lse, delta, bh,
+                    qt * BQ, Tq);
+    cp_async_commit();
+  };
+
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t k_a = smem_addr(Ks);
+  const uint32_t v_a = smem_addr(Vs);
+  const uint32_t ring_a = smem_addr(ring);
+  float adk[D / 2], adv[D / 2], st[32], dpt[32];
+  zero(adk);
+  zero(adv);
+  zero(st);
+  zero(dpt);
+
+  if (qt0 < n_qt) issue(qt0);  // with K and V
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile's readers are done
-    stage_bf16<D, BQ, S::ROW, S::TROW>(Qs, Qt, qb, q0, Tq, qsT);
-    stage_bf16<D, BQ, S::ROW, S::TROW>(dOs, dOt, gb, q0, Tq, gsT);
-    load_row_terms(Ls, Dl, lse, delta, bh, q0, Tq);
-    __syncthreads();
+    const int stage = (qt - qt0) & 1;
+    cp_async_wait_all();
+    fence_async_proxy();
+    __syncthreads();  // tile qt is in; the stage of tile qt-1 is free
+    if (qt + 1 < n_qt) issue(qt + 1);
+    const uint32_t q_a = ring_a + stage * 2 * S::TILE;
+    const uint32_t o_a = q_a + S::TILE;
+    const float* Ls = Lr + stage * 2 * BQ;
+    const float* Dl = Ls + BQ;
 
-    float st[NST][4], dst[NST][4];
-    frag_dot<KS, S::ROW>(st, kf, Qs, g, t4);    // S^T for this warp's keys
-    frag_dot<KS, S::ROW>(dst, vf, dOs, g, t4);  // dP^T
-    // st <- p^T, dst <- ds^T; i = 0: key g, i = 1: key g+8
+    wg_fence();
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int kl = warp * 16 + g + 8 * i;
-      const bool key_ok = Ms[kl] > 0.f;
-      const int kpos = k0 + kl;
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss64(st, desc_k<D>(k_a, kk), desc_k<D>(q_a, kk), kk);
 #pragma unroll
-      for (int nt = 0; nt < NST; ++nt)
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss64(dpt, desc_k<D>(v_a, kk), desc_k<D>(o_a, kk), kk);
+    wg_commit();
+    wg_wait0();
+    reg_fence(st);
+    reg_fence(dpt);
+    // st <- p^T, dpt <- ds^T; row i: key g (+8), column: query. A tile
+    // with no key mask, no row or key past the end and wholly below the
+    // diagonal needs no test per score.
+    if (mb == nullptr && k0 + BK <= Tk && q0 + BQ <= Tq &&
+        (!causal || q0 >= k0 + BK - 1)) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int ql = nt * 8 + 2 * t4 + e;
-          const bool ok = key_ok && (!causal || q0 + ql >= kpos);
-          const float sv = ok ? scale * st[nt][2 * i + e] : NEG;
-          const float p = sv > 0.5f * NEG ? expf(sv - Ls[ql]) : 0.f;
-          st[nt][2 * i + e] = p;
-          dst[nt][2 * i + e] = p * (dst[nt][2 * i + e] - Dl[ql]);
-        }
+      for (int x = 0; x < 32; ++x) {
+        const int ql = (x >> 2) * 8 + 2 * t4 + (x & 1);
+        const float p = exp2f(fmaf(st[x], scale_log2, -LOG2E * Ls[ql]));
+        st[x] = p;
+        dpt[x] = p * (dpt[x] - Dl[ql]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int kpos = k0 + warp * 16 + g + 8 * i;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ql = nt * 8 + 2 * t4 + e;
+            const int qpos = q0 + ql;
+            const int x = 4 * nt + 2 * i + e;
+            const bool ok = kok[i] && qpos < Tq && (!causal || qpos >= kpos);
+            const float sv = ok ? scale * st[x] : NEG;
+            const float p =
+                sv > 0.5f * NEG ? exp2f(fmaf(sv, LOG2E, -LOG2E * Ls[ql]))
+                                : 0.f;
+            st[x] = p;
+            dpt[x] = p * (dpt[x] - Dl[ql]);
+          }
+      }
     }
-    frag_acc<NDT, S::TROW>(adv, st, dOt, g, t4);   // dV += p^T dO
-    frag_acc<NDT, S::TROW>(adk, dst, Qt, g, t4);   // dK += ds^T Q
+    uint32_t pa[4][4], da[4][4];
+    acc_to_a(pa, st);
+    acc_to_a(da, dpt);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(adv, pa[kk], desc_mn<D>(o_a, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(adk, da[kk], desc_mn<D>(q_a, kk));
+    wg_commit();
+    wg_wait0();
+    reg_fence(adv);
+    reg_fence(adk);
   }
+  cp_async_drain();  // no copy outlives the block (an empty loop)
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -794,10 +1073,10 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int nd = 0; nd < NDT; ++nd) {
       *reinterpret_cast<__nv_bfloat162*>(krow + nd * 8 + 2 * t4) =
-          __floats2bfloat162_rn(scale * adk[nd][2 * i],
-                                scale * adk[nd][2 * i + 1]);
+          __floats2bfloat162_rn(scale * adk[4 * nd + 2 * i],
+                                scale * adk[4 * nd + 2 * i + 1]);
       *reinterpret_cast<__nv_bfloat162*>(vrow + nd * 8 + 2 * t4) =
-          __floats2bfloat162_rn(adv[nd][2 * i], adv[nd][2 * i + 1]);
+          __floats2bfloat162_rn(adv[4 * nd + 2 * i], adv[4 * nd + 2 * i + 1]);
     }
   }
 }
@@ -886,10 +1165,11 @@ int dl4j_flash_attention_bwd_dq(
   const long long st[15] = {qsB, qsT, qsH, ksB, ksT, ksH, vsB, vsT,
                             vsH, osB, osT, osH, gsB, gsT, gsH};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DL4J_F32(DIM)                                                     \
-  launch_dq<float>(flash_bwd_dq_f32<DIM>, Smem<DIM>::DQ_BYTES, q, k, v, dO, lse, \
-                   delta, mask, dq, B, H, Tq, Tk, st, causal, scale, s)
-#define DL4J_BF16(DIM)                                                    \
+#define DL4J_F32(DIM)                                                      \
+  launch_dq<float>(flash_bwd_dq_f32<DIM>, SmemF32<DIM>::DQ_BYTES, q, k, v,  \
+                   dO, lse, delta, mask, dq, B, H, Tq, Tk, st, causal,      \
+                   scale, s)
+#define DL4J_BF16(DIM)                                                     \
   launch_dq<bf16>(flash_bwd_dq_bf16<DIM>, SmemBf16<DIM>::DQ_BYTES, q, k, v, \
                   dO, lse, delta, mask, dq, B, H, Tq, Tk, st, causal, scale, \
                   s)
@@ -922,11 +1202,11 @@ int dl4j_flash_attention_bwd_dkv(
                             vsB,  vsT,  vsH,  gsB,  gsT,  gsH,
                             dksB, dksT, dksH, dvsB, dvsT, dvsH};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DL4J_F32(DIM)                                                     \
-  launch_dkv<float>(flash_bwd_dkv_f32<DIM>, Smem<DIM>::DKV_BYTES, q, k, v, dO,   \
-                    lse, delta, mask, dk, dv, B, H, Tq, Tk, st, causal,      \
-                    scale, s)
-#define DL4J_BF16(DIM)                                                    \
+#define DL4J_F32(DIM)                                                      \
+  launch_dkv<float>(flash_bwd_dkv_f32<DIM>, SmemF32<DIM>::DKV_BYTES, q, k,  \
+                    v, dO, lse, delta, mask, dk, dv, B, H, Tq, Tk, st,      \
+                    causal, scale, s)
+#define DL4J_BF16(DIM)                                                     \
   launch_dkv<bf16>(flash_bwd_dkv_bf16<DIM>, SmemBf16<DIM>::DKV_BYTES, q, k, \
                    v, dO, lse, delta, mask, dk, dv, B, H, Tq, Tk, st, causal, \
                    scale, s)

@@ -11,8 +11,9 @@ machine without it; tests/conftest.py does import JAX, so there run
 Tolerances: forward f32 atol 1e-4 (the kernel and the plain version sum
 in other orders; observed ~5e-7); forward bf16 atol/rtol 2e-2 (the bf16
 kernel rounds P to bf16 before P.V, as FlashAttention does: observed
-~8e-3). Backward f32 atol 1e-4, bf16 atol/rtol 3e-2 (the backward
-kernels widen bf16 to f32 and round each gradient once). Network
+~8e-3). Backward f32 atol 1e-4, bf16 atol/rtol 3e-2 (the bf16 backward
+kernels round p and ds to bf16 before their second products, as the
+forward rounds P, and each gradient once). Network
 gradients: per leaf, 1e-4 of the leaf's largest gradient (f32 matmuls on
 two devices, summed in other orders).
 """
@@ -109,6 +110,84 @@ def test_backward_kernels_match_plain(cuda, dtype, d, causal, masked, tq, tk,
         torch.testing.assert_close(a.float(), r.float(), **tol)
     if masked:
         assert got[0][1].abs().max().item() == 0.0
+
+
+def _bwd_case(q, k, v, mask, causal, g_lse, seed):
+    """The backward kernels' and the plain backward's gradients on the
+    forward kernel's outputs and seeded cotangents."""
+    b, tq, h, d = q.shape
+    out, lse = flash_attention_cuda(q, k, v, mask, causal)
+    gen = torch.Generator().manual_seed(seed)
+    g_out = torch.randn(b, tq, h, d, generator=gen).to(q.device, q.dtype)
+    gl = torch.randn(b * h, tq, generator=gen).to(q.device) if g_lse \
+        else torch.zeros(b * h, tq, device=q.device)
+    got = flash_attention_bwd_cuda(q, k, v, mask, out, lse, g_out, gl,
+                                   causal)
+    ref = flash_attention_bwd_plain(q, k, v, mask, out, lse, g_out, gl,
+                                    causal)
+    return got, ref
+
+
+def _assert_bwd_close(got, ref, dtype):
+    tol = dict(atol=1e-4, rtol=0.0) if dtype == torch.float32 \
+        else dict(atol=3e-2, rtol=3e-2)
+    for a, r in zip(got, ref):
+        assert torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), r.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("tq,tk", [(190, 333), (333, 190)])
+def test_backward_ragged_edges_mask_causal_g_lse(cuda, dtype, d, tq, tk):
+    """Tq and Tk not multiples of the 64-row tile, with a key mask, causal
+    masking and an LSE cotangent at once: the copy ring's zero-filled
+    rows and the key validity past Tk must add nothing."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(2, tq, tk, 4, d, dt, 6, cuda)
+    mask = torch.ones(2, tk, device=cuda)
+    mask[0, tk // 3:tk // 2] = 0.0
+    mask[1, :5] = 0.0                       # causal rows 0-4 fully masked
+    got, ref = _bwd_case(q, k, v, mask, True, True, 7)
+    _assert_bwd_close(got, ref, dt)
+    assert got[0][1, :5].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["packed_qkv", "padded_head_dim"])
+def test_backward_strided_views(cuda, dtype, layout):
+    """q, k and v as views whose T stride is not H*D (a packed (B, T, 3, H,
+    D) projection, or a head dim padded by 8): read in place, through
+    their strides."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    if layout == "packed_qkv":
+        qkv = torch.randn(2, 200, 3, 4, 64, generator=gen).to(cuda, dt)
+        q, k, v = (qkv[:, :, i] for i in range(3))
+    else:
+        q, k, v = (torch.randn(2, 200, 4, 72, generator=gen)
+                   .to(cuda, dt)[..., :64] for _ in range(3))
+    assert q.stride(1) != 4 * 64
+    got, ref = _bwd_case(q, k, v, None, True, False, 9)
+    _assert_bwd_close(got, ref, dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_is_bitwise_deterministic(cuda, dtype):
+    """No atomics and a fixed summation order: two backward calls on the
+    same inputs give bitwise-equal dQ, dK and dV."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(2, 300, 300, 4, 64, dt, 10, cuda)
+    mask = torch.ones(2, 300, device=cuda)
+    mask[0, 250:] = 0.0
+    out, lse = flash_attention_cuda(q, k, v, mask, True)
+    gen = torch.Generator().manual_seed(11)
+    g_out = torch.randn(2, 300, 4, 64, generator=gen).to(cuda, dt)
+    gl = torch.randn(8, 300, generator=gen).to(cuda)
+    first = flash_attention_bwd_cuda(q, k, v, mask, out, lse, g_out, gl, True)
+    again = flash_attention_bwd_cuda(q, k, v, mask, out, lse, g_out, gl, True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_autograd_through_flash_launches_the_backward_kernels(cuda):
