@@ -13,11 +13,16 @@ result line:
              build seconds and ptxas's register/spill report.
 3. kernels — holds each kernel against its plain PyTorch version on the
              card, on the same inputs: O and LSE, bf16 atol/rtol 2e-2,
-             f32 atol 1e-4. Then times the kernel, the plain version and
-             torch's scaled_dot_product_attention (a yardstick only; the
-             port never calls it) at the repo's attention bench shape and
-             at the main path's shape, beside the least time the card
-             could take for the same work.
+             f32 atol 1e-4; and two forward calls on the same inputs must
+             give bitwise-equal O and LSE (both routes). Then times the
+             kernel, the plain version and torch's
+             scaled_dot_product_attention (a yardstick only; the port
+             never calls it) at the repo's attention bench shape and at
+             the main path's shape, beside the least time the card could
+             take for the same work: each call by CUDA events
+             (`kernel_ms`, `library_ms`: the wrapper's host work
+             included), and the kernels alone by torch.profiler's kernel
+             events (`kernel_device_ms`, `library_device_ms`).
    Then the same for the two backward kernels (dQ, dK/dV) against the
              plain backward, on the forward kernel's outputs and random
              cotangents (a g_lse != 0 case included): f32 atol 1e-4, bf16
@@ -144,6 +149,45 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, match=None, iters: int = 10, tries: int = 3):
+    """Device time per call of the CUDA kernels `fn` launches (only those
+    whose name holds `match`, if given: one per call), from torch.profiler's
+    kernel events after a warm-up call: the kernels' own time, without the
+    host work around their launches. A window whose event count is not a
+    whole number of calls lost events and is taken again; None when no
+    window of `tries` is whole."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and (match is None or match in e.name)]
+        if us and (len(us) == iters if match else len(us) % iters == 0):
+            return sum(us) / 1e3 / iters
+    return None
+
+
+def device_columns(kernel_dev_ms, library_dev_ms, bound_ms, flops_per_pair,
+                   q, k):
+    """The kernel_time row's profiler columns; "not measured" where the
+    profiler saw no device time."""
+    if kernel_dev_ms is None:
+        return {"kernel_device_ms": "not measured",
+                "library_device_ms": library_dev_ms or "not measured"}
+    return {"kernel_device_ms": kernel_dev_ms,
+            "library_device_ms": library_dev_ms or "not measured",
+            "device_roofline_share": bound_ms / kernel_dev_ms,
+            "device_tflops": tflops(flops_per_pair, q, k, True,
+                                    kernel_dev_ms)}
+
+
 def attention_bound_ms(q, k, causal):
     """Least time for the function on these (unmasked) inputs: the larger
     of its bytes (q, k, v read once; O and LSE written once) over the
@@ -234,6 +278,34 @@ def check_kernel_cases(fa):
     if not ok:
         raise AssertionError("flash_attention wrapper disagrees with plain")
     return errs
+
+
+def check_fwd_determinism(fa):
+    """Phase 3a': two forward calls on the same inputs give bitwise-equal
+    O and LSE (no atomics, a fixed order), in both routes at the main-path
+    (f32) and bench (bf16) shapes and on a ragged, masked causal case."""
+    mask = torch.ones(2, 1000, device="cuda")
+    mask[0, 700:] = 0.0
+    mask[1, :5] = 0.0                               # causal rows 0-4 dead
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("main_path_f32_causal", make_qkv(4, SEQ, SEQ, HEADS, HEAD_DIM,
+                                               f32, 2), None),
+             ("bench_bf16_causal", make_qkv(4, 2048, 2048, 8, 64, bf16, 1),
+              None)]
+    for dt, tag in ((f32, "f32"), (bf16, "bf16")):
+        cases.append((f"{tag}_ragged_masked_causal",
+                      make_qkv(2, 1000, 1000, 4, 64, dt, 15), mask))
+    for name, (q, k, v), m in cases:
+        first = fa.flash_attention_cuda(q, k, v, m, True)
+        again = fa.flash_attention_cuda(q, k, v, m, True)
+        torch.cuda.synchronize()
+        same = {n: bool(torch.equal(a, b))
+                for n, a, b in zip(("o", "lse"), first, again)}
+        emit({"phase": "fwd_determinism", "case": name,
+              "dtype": str(q.dtype).replace("torch.", ""),
+              "bitwise_equal": same, "ok": all(same.values())})
+        if not all(same.values()):
+            raise AssertionError(f"two forward calls differ: {name} {same}")
 
 
 def bwd_inputs(fa, q, k, v, mask, causal, seed, with_g_lse=False):
@@ -353,19 +425,24 @@ def time_attention(fa, b, t, h, d, dtype, gpu):
     """Phase 3b: kernel, plain and library times at one causal shape."""
     import torch.nn.functional as F
     q, k, v = make_qkv(b, t, t, h, d, dtype, 12)
-    kernel_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, None, True))
+    kernel = lambda: fa.flash_attention_cuda(q, k, v, None, True)
+    kernel_ms = cuda_ms(kernel)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, None, True),
                        iters=5, warmup=1)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+    library_ms = cuda_ms(library)
     bound_ms, bound_by = attention_bound_ms(q, k, True)
     row = {"phase": "kernel_time", "kernel": "flash_fwd",
            "shape": [b, t, h, d], "dtype": str(dtype).replace("torch.", ""),
            "causal": True, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "roofline_share": bound_ms / kernel_ms,
-           "tflops": tflops(4, q, k, True, kernel_ms), "gpu": gpu}
+           "tflops": tflops(4, q, k, True, kernel_ms),
+           **device_columns(device_ms(kernel, "flash_fwd"),
+                            device_ms(library), bound_ms, 4, q, k),
+           "gpu": gpu}
     emit(row)
     return row
 
@@ -414,10 +491,11 @@ def time_backward(fa, b, t, h, d, dtype, gpu):
     out, lse, g_out, g_lse = bwd_inputs(fa, q, k, v, None, True, 14)
     g_out = g_out.contiguous()
     delta = fa._delta(out, g_out, g_lse, torch.float32)
-    dq_ms = cuda_ms(lambda: fa.flash_attention_bwd_dq_cuda(
-        q, k, v, None, lse, delta, g_out, True))
-    dkv_ms = cuda_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
-        q, k, v, None, lse, delta, g_out, True))
+    dq = lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, None, lse, delta,
+                                                g_out, True)
+    dkv = lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, None, lse, delta,
+                                                  g_out, True)
+    dq_ms, dkv_ms = cuda_ms(dq), cuda_ms(dkv)
     whole_ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(
         q, k, v, None, out, lse, g_out, g_lse, True))
     plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
@@ -435,9 +513,13 @@ def time_backward(fa, b, t, h, d, dtype, gpu):
         torch.autograd.grad(o, (qt, kt, vt), gt)
 
     library_ms = cuda_ms(sdpa_fwd_bwd) - cuda_ms(sdpa_fwd)
+    lib_fwd_bwd, lib_fwd = device_ms(sdpa_fwd_bwd), device_ms(sdpa_fwd)
+    library_dev_ms = lib_fwd_bwd - lib_fwd if lib_fwd_bwd and lib_fwd \
+        else None
     rows = {}
-    for name, ms, fpp, nq, nk in (("flash_bwd_dq", dq_ms, 6, 1, 0),
-                                  ("flash_bwd_dkv", dkv_ms, 8, 0, 2)):
+    for name, ms, fn, fpp, nq, nk in (
+            ("flash_bwd_dq", dq_ms, dq, 6, 1, 0),
+            ("flash_bwd_dkv", dkv_ms, dkv, 8, 0, 2)):
         bound_ms, bound_by = bwd_bound_ms(q, k, fpp, nq, nk, True)
         rows[name] = {"phase": "kernel_time", "kernel": name,
                       "shape": [b, t, h, d],
@@ -447,6 +529,8 @@ def time_backward(fa, b, t, h, d, dtype, gpu):
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "roofline_share": bound_ms / ms,
                       "tflops": tflops(fpp, q, k, True, ms),
+                      **device_columns(device_ms(fn, name), library_dev_ms,
+                                       bound_ms, fpp, q, k),
                       "backward_total_ms": whole_ms, "gpu": gpu}
         emit(rows[name])
     return rows
@@ -788,6 +872,7 @@ def main(argv=None) -> int:
                          "ptxas": ptxas_report(b.log)} for b in built]})
 
     errs = check_kernel_cases(fa)
+    check_fwd_determinism(fa)
     bwd_errs = check_bwd_cases(fa)
     check_bwd_determinism(fa)
     if args.quick:
@@ -799,7 +884,8 @@ def main(argv=None) -> int:
     serve_launches = serve(fa)
     with tempfile.TemporaryDirectory() as tmp:
         trained = train(fa, tmp)
-    timed = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+    timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
+             "library_device_ms", "bound_ms")
     table = [{
         "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
@@ -810,6 +896,8 @@ def main(argv=None) -> int:
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "kernel_device_ms": main_row["kernel_device_ms"],
+        "library_device_ms": main_row["library_device_ms"],
         "shape": main_row["shape"], "dtype": main_row["dtype"],
         "bench_shape_bf16": {k: bench[k] for k in timed}}]
     for name, grad in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dk")):
@@ -823,8 +911,10 @@ def main(argv=None) -> int:
                                          else ("dk", "dv"))),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": row["shape"],
-            "dtype": row["dtype"],
+            "library_ms": row["library_ms"],
+            "kernel_device_ms": row["kernel_device_ms"],
+            "library_device_ms": row["library_device_ms"],
+            "shape": row["shape"], "dtype": row["dtype"],
             "bench_shape_bf16": {k: bwd_bench[name][k] for k in timed}})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

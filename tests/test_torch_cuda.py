@@ -66,6 +66,83 @@ def test_kernel_matches_plain(cuda, dtype, d, causal, masked, tq, tk):
         assert out[1].abs().max().item() == 0.0
 
 
+def _assert_fwd_close(got, ref, dtype):
+    tol = dict(atol=1e-4, rtol=0.0) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=2e-2)
+    (out, lse), (rout, rlse) = got, ref
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), rout.float(), **tol)
+    torch.testing.assert_close(lse, rlse, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("tq,tk", [(190, 333), (333, 190)])
+def test_forward_ragged_edges_mask_causal(cuda, dtype, d, tq, tk):
+    """Tq and Tk not multiples of the 64-row tile, with a key mask and
+    causal masking at once: the copy ring's zero-filled rows, the key
+    validity past Tk and query rows past Tq (in bf16 a block's second
+    warpgroup) must add nothing."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(2, tq, tk, 4, d, dt, 12, cuda)
+    mask = torch.ones(2, tk, device=cuda)
+    mask[0, tk // 3:tk // 2] = 0.0
+    mask[1, :5] = 0.0                       # causal rows 0-4 fully masked
+    got = flash_attention_cuda(q, k, v, mask, True)
+    _assert_fwd_close(got, flash_attention_plain(q, k, v, mask, True), dt)
+    assert got[0][1, :5].abs().max().item() == 0.0
+    assert (got[1].reshape(2, 4, tq)[1, :, :5] == 1e30).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_single_query_row(cuda, dtype, causal):
+    """Tq = 1: one block whose rows but the first lie past Tq."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(3, 1, 200, 4, 64, dt, 13, cuda)
+    got = flash_attention_cuda(q, k, v, None, causal)
+    _assert_fwd_close(got, flash_attention_plain(q, k, v, None, causal), dt)
+
+
+def _strided_qkv(layout, dt, device, seed):
+    """q, k and v as views whose T stride is not H*D: a packed (B, T, 3, H,
+    D) projection, or a head dim padded by 8."""
+    gen = torch.Generator().manual_seed(seed)
+    if layout == "packed_qkv":
+        qkv = torch.randn(2, 200, 3, 4, 64, generator=gen).to(device, dt)
+        q, k, v = (qkv[:, :, i] for i in range(3))
+    else:
+        q, k, v = (torch.randn(2, 200, 4, 72, generator=gen)
+                   .to(device, dt)[..., :64] for _ in range(3))
+    assert q.stride(1) != 4 * 64
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["packed_qkv", "padded_head_dim"])
+def test_forward_strided_views(cuda, dtype, layout):
+    """The forward reads strided q, k and v in place, through their
+    strides, as the backward does."""
+    dt = getattr(torch, dtype)
+    q, k, v = _strided_qkv(layout, dt, cuda, 8)
+    got = flash_attention_cuda(q, k, v, None, True)
+    _assert_fwd_close(got, flash_attention_plain(q, k, v, None, True), dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_is_bitwise_deterministic(cuda, dtype):
+    """No atomics and a fixed order: two forward calls on the same inputs
+    give bitwise-equal O and LSE."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(2, 300, 300, 4, 64, dt, 14, cuda)
+    mask = torch.ones(2, 300, device=cuda)
+    mask[0, 250:] = 0.0
+    first = flash_attention_cuda(q, k, v, mask, True)
+    again = flash_attention_cuda(q, k, v, mask, True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
 def test_public_wrapper_pads_and_maps_lse(cuda):
     q, k, v = _qkv(2, 100, 100, 4, 64, torch.float32, 1, cuda)
     out, lse = flash_attention(q, k, v, causal=True, block_q=64, block_k=64,
@@ -160,14 +237,7 @@ def test_backward_strided_views(cuda, dtype, layout):
     D) projection, or a head dim padded by 8): read in place, through
     their strides."""
     dt = getattr(torch, dtype)
-    gen = torch.Generator().manual_seed(8)
-    if layout == "packed_qkv":
-        qkv = torch.randn(2, 200, 3, 4, 64, generator=gen).to(cuda, dt)
-        q, k, v = (qkv[:, :, i] for i in range(3))
-    else:
-        q, k, v = (torch.randn(2, 200, 4, 72, generator=gen)
-                   .to(cuda, dt)[..., :64] for _ in range(3))
-    assert q.stride(1) != 4 * 64
+    q, k, v = _strided_qkv(layout, dt, cuda, 8)
     got, ref = _bwd_case(q, k, v, None, True, False, 9)
     _assert_bwd_close(got, ref, dt)
 
