@@ -41,6 +41,26 @@ result line:
              launch count must equal n_layers x the batcher's dispatches
              (no backward launch), and one answer must match the same
              network run with the plain attention version on the card.
+4b. generate — the port's token-generation path: serving.cli.build()
+             with three LM servables (the same full-width LM, and its
+             @int8 and @bf16 variants; 4 slots, 16-token pages), then 12
+             POST /v1/models/{name}/generate over the socket, SSE and
+             JSON mixed: prompts of 17, 100, 700 and 1500 tokens one at a
+             time (1500 in budgeted prefill chunks, its first 1024 tokens
+             then a prefix-cache hit for the next prompt), one request on
+             each variant, then four concurrent streams (one sampled at
+             T = 1, top-k 5) and a late joiner whose first token must
+             come before the first stream is done. Every greedy token must
+             be the argmax of the served network's own output() (which
+             runs the flash kernel; near-ties under 1e-4 are counted) and
+             every sampled one in its top 5; no flash kernel may launch on
+             the request path and no program may first run there. Then
+             the sampler's distribution on the card, quality_delta of
+             each variant, engine.step() by CUDA events with four live
+             slots, a profiled window of steps (launches per step, idle
+             share, host time by operator), and the host-device
+             synchronisations of a greedy and a sampling step (at most
+             one each: the sampled tokens' copy back).
 5. train   — the port's training path: the same full-width LM saved as a
              zip, and train.cli.main (`--mode single`, batch 4, 2 epochs
              of a seeded 32-sequence token set = 16 steps) in-process.
@@ -72,6 +92,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -94,6 +115,9 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_SEQS, TRAIN_BATCH, TRAIN_EPOCHS = 32, 4, 2
 TRAIN_STEPS = TRAIN_SEQS // TRAIN_BATCH * TRAIN_EPOCHS
 GRAD_REL_TOL = 1e-4     # kernels vs plain attention, per parameter leaf
+# the generate phase: prompt lengths (1500 goes in chunks of the default
+# 64-token budget and shares its first 1024 tokens with a later prompt)
+GEN_LENGTHS = (17, 100, 700, 1500)
 
 
 def emit(obj):
@@ -652,6 +676,346 @@ def serve(fa):
         server.drain(timeout=30)
 
 
+def post_generate(url, name, payload, timeout=600):
+    """One POST /v1/models/{name}/generate over the socket. SSE answers
+    are read event by event, each token stamped on arrival. Returns
+    {"status", "tokens", "times" (SSE only), "t0", "t_done", and the done
+    event's or the JSON answer's fields}; a non-200 raises."""
+    req = urllib.request.Request(
+        f"{url}/v1/models/{name}/generate", data=json.dumps(payload).encode(),
+        method="POST", headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        status = r.status
+        if not payload.get("stream", True):
+            doc = json.loads(r.read())
+            return dict(doc, status=status, t0=t0,
+                        t_done=time.perf_counter())
+        toks, times, done = [], [], None
+        for line in r:
+            if not line.startswith(b"data: "):
+                continue
+            ev = json.loads(line[6:])
+            if "token" in ev:
+                toks.append(ev["token"])
+                times.append(time.perf_counter())
+            elif ev.get("done"):
+                done = ev
+            else:
+                raise AssertionError(f"{name}: stream failed: {ev}")
+        if done is None:
+            raise AssertionError(f"{name}: stream ended without done")
+        return dict(done, status=status, tokens=toks, times=times, t0=t0,
+                    t_done=time.perf_counter())
+
+
+def check_generation(res, payload, name):
+    if res["status"] != 200 or not res["tokens"]:
+        raise AssertionError(f"{name}: status {res['status']}, "
+                             f"{len(res['tokens'])} tokens")
+    if res["finish_reason"] != "length" or \
+            len(res["tokens"]) != payload["max_tokens"]:
+        raise AssertionError(f"{name}: finished {res['finish_reason']} "
+                             f"after {len(res['tokens'])} tokens")
+    if not all(0 <= t < VOCAB for t in res["tokens"]):
+        raise AssertionError(f"{name}: token out of the vocabulary")
+
+
+def oracle_check(net, prompt, tokens, top=1):
+    """The served network's own output() on prompt + tokens, padded to
+    the context (causal: the padding changes no position below the
+    length): every token must be the argmax (top=1) or within the top
+    `top` at its position. A miss where the oracle's deciding margin in
+    log-probability is under 1e-4 is a near-tie, counted, not failed.
+    Returns (positions checked, near-ties)."""
+    seq = list(prompt) + list(tokens)
+    x = np.zeros((1, SEQ, 1), np.float32)
+    x[0, :len(seq) - 1, 0] = seq[:-1]
+    logp = torch.log(net.output(x)[0].double().clamp_min(1e-300)).cpu() \
+        .numpy()
+    near = 0
+    for i, tok in enumerate(tokens):
+        row = logp[len(prompt) - 1 + i]
+        order = np.argsort(-row)
+        if tok in order[:top]:
+            continue
+        if row[order[top - 1]] - row[tok] < 1e-4:
+            near += 1
+            continue
+        raise AssertionError(
+            f"token {i} ({tok}) not in the oracle's top {top} "
+            f"{order[:top].tolist()} (margin "
+            f"{row[order[top - 1]] - row[tok]:.3g})")
+    return len(tokens), near
+
+
+def sample_check(engine):
+    """The engine's sampler on the card: 16384 rows of one logits vector
+    at T = 0.8, top-k 8; frequencies within total-variation 0.02 of
+    softmax(logits / T) over the top 8, every draw inside the top 8."""
+    n, temp, k = 16384, 0.8, 8
+    g = torch.Generator(device="cpu").manual_seed(77)
+    logits = torch.randn(VOCAB, generator=g, dtype=torch.float64) * 2
+    lg = logits.float().to(engine.device).expand(n, VOCAB).contiguous()
+    draws = engine._sample(lg, torch.full((n,), temp, device=engine.device),
+                           torch.full((n,), k, dtype=torch.int64,
+                                      device=engine.device), 1).cpu()
+    top = torch.topk(logits, k).indices
+    want = torch.zeros(VOCAB, dtype=torch.float64)
+    want[top] = torch.softmax(logits[top] / temp, 0)
+    freq = torch.bincount(draws, minlength=VOCAB).double() / n
+    tv = 0.5 * (freq - want).abs().sum().item()
+    inside = bool(torch.isin(draws, top).all())
+    if not (tv < 0.02 and inside):
+        raise AssertionError(f"sampler on the card: TV {tv}, inside {inside}")
+    return {"rows": n, "temperature": temp, "top_k": k, "tv": tv,
+            "all_in_top_k": inside}
+
+
+def profile_decode_steps(engine, steps=4):
+    """torch.profiler over `steps` decode steps: CUDA kernel launches and
+    copies per step, device busy ms, the device's idle share of the host's
+    wall time, and the host's time by operator (self time, per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return {"device_time": "not measured", "wall_ms": wall_ms}
+    copies = [e for e in events if "memcpy" in e.name.lower()
+              or "memset" in e.name.lower()]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "kernel_launches_per_step": (len(events) - len(copies)) / steps,
+            "copies_per_step": len(copies) / steps,
+            "top_kernels_ms": [[n[:80], v / 1e3] for n, v in top],
+            "top_host_ops_ms_per_step": [
+                [a.key[:60], a.self_cpu_time_total / 1e3 / steps,
+                 a.count / steps] for a in host[:10]]}
+
+
+def count_syncs(fn) -> int:
+    """Host-device synchronisations `fn` makes, as CUDA's sync debug mode
+    reports them."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def time_decode_steps(engine, rs):
+    """engine.step() with all four slots live (prompts 17, 100, 700,
+    1500 prefilled directly on the idle engine): per-step ms by CUDA
+    events (the step's host work and its one copy back included) and by
+    the host's clock, then a profiled window. A greedy and a sampling
+    step may each synchronise at most once: the sampled tokens' copy
+    back."""
+    slots = []
+    try:
+        for n in GEN_LENGTHS:
+            slot = engine.cache.admit(n)
+            slots.append(slot)
+            engine.prefill(slot, rs.randint(0, VOCAB, n), 0.0, 0)
+        for _ in range(3):
+            engine.step()
+        torch.cuda.synchronize()
+        dev_ms, host_ms = [], []
+        for _ in range(32):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            engine.step()
+            end.record()
+            end.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+        prof = profile_decode_steps(engine)
+        syncs = {"greedy": count_syncs(engine.step)}
+        engine._temps[slots[0]], engine._topks[slots[0]] = 1.0, 5
+        syncs["sampling"] = count_syncs(engine.step)
+    finally:
+        for slot in slots:
+            engine.release_slot(slot)
+    if any(n > 1 for n in syncs.values()):
+        raise AssertionError(f"syncs per decode step: {syncs} (at most 1)")
+    return {"active_slots": len(slots), "step_ms_p50":
+            statistics.median(dev_ms), "step_ms_max": max(dev_ms),
+            "step_host_ms_p50": statistics.median(host_ms),
+            "step_syncs": syncs, "step_profile": prof}
+
+
+def generate(fa):
+    """Phase 4b: the port's generation path, counted from zero:
+    serving.cli.build with three LM servables (the full-width LM, its
+    @int8 and @bf16 variants; 4 slots, 16-token pages), then 12 POST
+    /v1/models/{name}/generate over the socket, SSE and JSON mixed."""
+    from deeplearning4j_tpu_torch.serving import cli
+    from deeplearning4j_tpu_torch.serving.quantize import quality_delta
+    args = cli.build_parser().parse_args(
+        ["--lm", f"gen={LM_SOURCE}", "--lm", f"gen8={LM_SOURCE}@int8",
+         "--lm", f"gen16={LM_SOURCE}@bf16", "--decode-slots", "4",
+         "--decode-page-size", "16", "--port", "0"])
+    for name in KERNELS:
+        fa.KERNEL_LAUNCHES[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    registry, server = cli.build(args)
+    build_s = time.perf_counter() - t0
+    lms = {n: registry.get(n) for n in ("gen", "gen8", "gen16")}
+    engines = {n: lm.scheduler.admitting_engine() for n, lm in lms.items()}
+    rs = np.random.RandomState(4321)
+    prefix = rs.randint(0, VOCAB, 1024).tolist()
+    prompts = {n: rs.randint(0, VOCAB, n).tolist() for n in GEN_LENGTHS}
+    prompts[1500] = prefix + prompts[1500][1024:]
+    hit = prefix + rs.randint(0, VOCAB, 100).tolist()
+    greedy, results = [], []
+
+    def run(name, prompt, max_tokens, stream, tag="alone", **kw):
+        payload = dict(prompt=prompt, max_tokens=max_tokens, stream=stream,
+                       **kw)
+        res = post_generate(server.url, name, payload)
+        check_generation(res, payload, name)
+        res.update(prompt_len=len(prompt), name=name, tag=tag)
+        results.append(res)
+        if name == "gen" and not kw:
+            greedy.append((prompt, res["tokens"]))
+        return res
+
+    try:
+        # one at a time on an idle server: TTFT by prompt length; the
+        # 1500-token prompt goes in budgeted chunks and leaves its first
+        # 1024 tokens in the prefix cache for the next request
+        for n, stream in zip(GEN_LENGTHS, (False, True, False, True)):
+            res = run("gen", prompts[n], 24, stream)
+        if res["prefill_chunks"] < 2 or res["cached_tokens"] != 0:
+            raise AssertionError(f"1500-token prompt: {res['prefill_chunks']}"
+                                 f" chunks, {res['cached_tokens']} cached")
+        res = run("gen", hit, 16, False)
+        hit_cached = res["cached_tokens"]
+        if hit_cached < 1024:
+            raise AssertionError(f"shared 1024-token prefix: only "
+                                 f"{hit_cached} tokens came from the cache")
+        variant = {n: run(n, prompts[100], 16, n == "gen16")["tokens"]
+                   for n in ("gen8", "gen16")}
+        # four concurrent streams, then a late joiner once the first has
+        # its first token: it must stream before the first one is done
+        conc = [("gen", prompts[17], 160, True, {}),
+                ("gen", prompts[100], 48, False, {}),
+                ("gen", prompts[700], 32, True,
+                 {"temperature": 1.0, "top_k": 5}),
+                ("gen", prompts[17][:9] + prompts[100][:40], 48, True, {})]
+        out = [None] * 5
+        errors = []
+
+        def one(j, spec):
+            try:
+                out[j] = run(*spec[:4], tag="concurrent", **spec[4])
+            except Exception as e:      # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        t_conc = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(j, s))
+                   for j, s in enumerate(conc)]
+        for th in threads:
+            th.start()
+        # the first stream has its first token once decode steps run
+        steps0, deadline = engines["gen"].steps, time.monotonic() + 300
+        while engines["gen"].steps < steps0 + 2 and \
+                time.monotonic() < deadline:
+            time.sleep(0.001)
+        late = threading.Thread(target=one, args=(
+            4, ("gen", prompts[700][:300], 16, True, {})))
+        late.start()
+        for th in threads + [late]:
+            th.join(timeout=600)
+        if errors or any(o is None for o in out):
+            raise AssertionError(f"concurrent streams failed: {errors}")
+        conc_wall = max(o["t_done"] for o in out[:4]) - t_conc
+        conc_tokens = sum(len(o["tokens"]) for o in out[:4])
+        late_first, first_done = out[4]["times"][0], out[0]["t_done"]
+        if not late_first < first_done:
+            raise AssertionError("the late joiner's first token waited for "
+                                 "the first stream to finish")
+        launches = dict(fa.KERNEL_LAUNCHES)
+        if any(launches.values()):
+            raise AssertionError(f"the generate path launched flash kernels:"
+                                 f" {launches}")
+        first_runs = {n: e.request_path_first_runs
+                      for n, e in engines.items()}
+        if any(first_runs.values()):
+            raise AssertionError(f"programs first ran on the request path: "
+                                 f"{first_runs}")
+        # the oracle: the served network's own output(), which runs the
+        # flash forward kernel (its launches are counted apart)
+        net = lms["gen"].model
+        checked = near = 0
+        for prompt, toks in greedy:
+            c, t = oracle_check(net, prompt, toks)
+            checked, near = checked + c, near + t
+        c, t = oracle_check(net, conc[2][1], out[2]["tokens"], top=5)
+        oracle_launches = fa.KERNEL_LAUNCHES["flash_fwd"]
+        if oracle_launches != N_LAYERS * (len(greedy) + 1):
+            raise AssertionError(f"oracle: {oracle_launches} flash launches")
+        sampled = sample_check(engines["gen"])
+        toks = rs.randint(0, VOCAB, (2, 256))
+        quality = {n: quality_delta(engines["gen"], engines[n], toks)
+                   for n in ("gen8", "gen16")}
+        step = time_decode_steps(engines["gen"], rs)
+        streams = [o for o in results if "times" in o and len(o["times"]) > 1]
+        itl = [1e3 * (b - a) for o in streams
+               for a, b in zip(o["times"], o["times"][1:])]
+        ttft = {(str(o["prompt_len"]) if o["name"] == "gen"
+                 else f"{o['name']}:{o['prompt_len']}"): o["ttft_ms"]
+                for o in results if o["tag"] == "alone"}
+        row = {"phase": "generate", "source": LM_SOURCE, "slots": 4,
+               "page_size": 16, "build_and_warm_s": build_s,
+               "warmup_s": {n: lm.warmup_seconds for n, lm in lms.items()},
+               "requests": len(results),
+               "all_200": all(o["status"] == 200 for o in results),
+               "tokens": sum(len(o["tokens"]) for o in results),
+               "ttft_ms_by_prompt_len": ttft,
+               "ttft_ms_concurrent": {str(o["prompt_len"]): o["ttft_ms"]
+                                      for o in out},
+               "itl_ms_p50": statistics.median(itl), "itl_ms_max": max(itl),
+               "tokens_per_s_4_streams": conc_tokens / conc_wall,
+               "prefix_hit_cached_tokens": hit_cached,
+               "chunked_prefill_chunks": [o["prefill_chunks"] for o in results
+                                          if o["prompt_len"] == 1500],
+               "late_join_first_token_before_first_done": True,
+               "late_join_margin_ms": (first_done - late_first) * 1e3,
+               "oracle_greedy_tokens": checked, "oracle_near_ties": near,
+               "oracle_topk_tokens": c, "oracle_topk_near_ties": t,
+               "oracle_flash_launches": oracle_launches,
+               "request_path_flash_launches": launches,
+               "request_path_first_runs": first_runs,
+               "variant_tokens": {n: len(v) for n, v in variant.items()},
+               "quality_delta": quality, "sampler": sampled, **step,
+               "engine_steps": engines["gen"].steps,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        emit(row)
+        return row
+    finally:
+        server.drain(timeout=30)
+
+
 def write_tokens(path, rs):
     """A learnable token set: each row is an arithmetic sequence mod VOCAB
     (seeded start and stride); labels are the next token, one-hot uint8."""
@@ -882,6 +1246,7 @@ def main(argv=None) -> int:
     bwd_bench = time_backward(fa, 4, 2048, 8, 64, torch.bfloat16, gpu)
     bwd_main = time_backward(fa, 4, SEQ, HEADS, HEAD_DIM, torch.float32, gpu)
     serve_launches = serve(fa)
+    gen_launches = generate(fa)["request_path_flash_launches"]
     with tempfile.TemporaryDirectory() as tmp:
         trained = train(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
@@ -891,6 +1256,7 @@ def main(argv=None) -> int:
         "replaces": FLASH_REPLACES,
         "launches": trained["launches"]["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
+                             "generate": gen_launches["flash_fwd"],
                              "train": trained["launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
@@ -906,6 +1272,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": BWD_SOURCE,
             "replaces": BWD_REPLACES[name],
             "launches": trained["launches"][name],
+            "launches_by_path": {"serve": 0, "generate": gen_launches[name],
+                                 "train": trained["launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

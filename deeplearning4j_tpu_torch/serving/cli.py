@@ -1,13 +1,18 @@
 """`python -m deeplearning4j_tpu_torch.serving` — the serve CLI.
 
 Counterpart of the JAX package's `serving/cli.py`, single-replica mode:
-stands up a ModelServer over one or more predict servables and runs until
-SIGTERM/SIGINT, then drains (stop admitting, flush in-flight, exit 0).
+stands up a ModelServer over predict servables (``--model``) and LM
+decode servables (``--lm``) side by side and runs until SIGTERM/SIGINT,
+then drains (stop admitting, flush in-flight, exit 0).
 
 Usage:
     python -m deeplearning4j_tpu_torch.serving \
         --model 'lm=zoo:TransformerLM?seq_length=2048&n_embd=512&attention_impl=flash' \
         --port 8500 --buckets 1,4 --max-delay-ms 5
+    python -m deeplearning4j_tpu_torch.serving \
+        --lm 'gen=zoo:TransformerLM?seq_length=2048&n_embd=512' \
+        --lm 'gen8=zoo:TransformerLM?seq_length=2048&n_embd=512@int8' \
+        --decode-slots 4 --decode-page-size 16
 
 The first line on stdout is one JSON object:
 ``{"serving": url, "models": [...], "endpoints": [...]}``.
@@ -35,6 +40,53 @@ def build_parser() -> argparse.ArgumentParser:
                    help="predict servable to deploy; SOURCE is a model zip "
                         "or zoo:<Arch> (constructor kwargs ride a query "
                         "string: zoo:TransformerLM?n_layers=2). Repeatable.")
+    dec = p.add_argument_group("LM decode servables")
+    dec.add_argument("--lm", action="append", default=[],
+                     metavar="NAME=SOURCE",
+                     help="decode servable (continuous-batching token "
+                          "generation, POST .../generate). Same SOURCE "
+                          "forms as --model; an @int8 / @bf16 suffix "
+                          "serves a post-training-quantized variant. "
+                          "Repeatable.")
+    dec.add_argument("--decode-slots", type=int, default=4,
+                     help="fixed in-flight decode batch positions")
+    dec.add_argument("--decode-page-size", type=int, default=16,
+                     help="tokens per KV-cache page")
+    dec.add_argument("--decode-max-context", type=int, default=None,
+                     help="KV capacity per sequence (default: the "
+                          "model's seq_length)")
+    dec.add_argument("--decode-pool-pages", type=int, default=None,
+                     help="physical KV pages in the pool (default "
+                          "slots*max_context/page_size: no "
+                          "oversubscription)")
+    dec.add_argument("--decode-queue-limit", type=int, default=64,
+                     help="pending-join bound (full -> 429)")
+    dec.add_argument("--prefill-buckets", default=None,
+                     help="prefill sequence-length ladder (comma ints, "
+                          "page-aligned; default: geometric up to "
+                          "max_context)")
+    dec.add_argument("--prefill-chunk-tokens", type=int, default=None,
+                     help="per-scheduler-tick prefill-token budget: long "
+                          "uncached prompt suffixes run in chunks of at "
+                          "most this many tokens between decode steps "
+                          "(default: 4 pages; 0 disables chunking)")
+    dec.add_argument("--no-prefix-cache", action="store_true",
+                     help="disable copy-on-write KV prefix sharing across "
+                          "requests with a common prompt prefix")
+    # the reference's speculative-decoding and KV-fabric flags: accepted
+    # so a reference command line parses, refused at build()
+    for flag, kw in (("--spec-draft", {}), ("--spec-k", {"type": int}),
+                     ("--spec-accept-floor", {"type": float}),
+                     ("--spec-window", {"type": int}),
+                     ("--spec-draft-pool-pages", {"type": int})):
+        dec.add_argument(flag, default=None,
+                         help="speculative decoding: not yet ported", **kw)
+    dec.add_argument("--kv-spill-pages", type=int, default=0,
+                     help="host-RAM KV spill tier: not yet ported (only 0)")
+    dec.add_argument("--kv-role", choices=("prefill", "decode", "mixed"),
+                     default="mixed",
+                     help="disaggregation role: not yet ported (only "
+                          "'mixed')")
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (0.0.0.0 behind a load balancer)")
     p.add_argument("--port", type=int, default=8500)
@@ -54,18 +106,53 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _parse_specs(values):
+def _parse_specs(values, flag="--model"):
     out = []
     for spec in values:
         name, sep, source = spec.partition("=")
         if not sep or not name or not source:
-            raise SystemExit(f"--model expects NAME=SOURCE, got {spec!r}")
+            raise SystemExit(f"{flag} expects NAME=SOURCE, got {spec!r}")
         out.append((name, source))
     return out
 
 
+def _decode_config(args):
+    """CLI decode knobs -> DecodeConfig (shared by all --lm servables).
+    The flags of parts not yet ported exit here."""
+    from deeplearning4j_tpu_torch.serving.decode import DecodeConfig
+    spec = [f for f in ("spec_draft", "spec_k", "spec_accept_floor",
+                        "spec_window", "spec_draft_pool_pages")
+            if getattr(args, f) is not None]
+    if spec:
+        raise SystemExit(f"--{spec[0].replace('_', '-')}: speculative "
+                         "decoding is not yet ported to the PyTorch package")
+    if args.kv_spill_pages:
+        raise SystemExit("--kv-spill-pages: the host-RAM KV spill tier is "
+                         "not yet ported to the PyTorch package")
+    if args.kv_role != "mixed":
+        raise SystemExit("--kv-role: disaggregated prefill/decode is not "
+                         "yet ported to the PyTorch package")
+    prefill = None
+    if args.prefill_buckets:
+        try:
+            prefill = tuple(int(b) for b in args.prefill_buckets.split(",")
+                            if b)
+        except ValueError:
+            raise SystemExit("--prefill-buckets must be comma-separated "
+                             f"ints, got {args.prefill_buckets!r}") from None
+    return DecodeConfig(slots=args.decode_slots,
+                        page_size=args.decode_page_size,
+                        max_context=args.decode_max_context,
+                        pool_pages=args.decode_pool_pages,
+                        prefill_buckets=prefill,
+                        queue_limit=args.decode_queue_limit,
+                        prefix_cache=not args.no_prefix_cache,
+                        prefill_chunk_tokens=args.prefill_chunk_tokens)
+
+
 def build(args):
-    """Deploy every --model and start the listener: (registry, server)."""
+    """Deploy every --model and --lm and start the listener:
+    (registry, server)."""
     from deeplearning4j_tpu_torch.serving.registry import (
         ModelLoadError, ModelRegistry,
     )
@@ -78,11 +165,13 @@ def build(args):
         raise SystemExit(f"--buckets must be comma-separated ints, got "
                          f"{args.buckets!r}") from None
     specs = _parse_specs(args.model)
-    if not specs:
-        raise SystemExit("deploy at least one servable (--model)")
-    names = [n for n, _ in specs]
+    lm_specs = _parse_specs(args.lm, "--lm")
+    if not specs and not lm_specs:
+        raise SystemExit("deploy at least one servable (--model/--lm)")
+    names = [n for n, _ in specs + lm_specs]
     if len(set(names)) != len(names):
         raise SystemExit(f"duplicate servable name in {names}")
+    decode_cfg = _decode_config(args)
     registry = ModelRegistry(device=resolve_device(args.device))
     for name, source in specs:
         try:
@@ -95,6 +184,18 @@ def build(args):
         print(json.dumps({"deployed": name,
                           "input_shape": list(served.input_shape),
                           "buckets": list(served.batcher.buckets),
+                          "device": str(served.model.device),
+                          "warmup_s": served.warmup_seconds}),
+              file=sys.stderr)
+    for name, source in lm_specs:
+        try:
+            served = registry.deploy_lm(name, source, decode=decode_cfg)
+        except ModelLoadError as e:
+            registry.shutdown(drain=False)
+            raise SystemExit(f"cannot deploy LM {name!r}: {e}") from None
+        print(json.dumps({"deployed": name, "kind": "lm",
+                          "vocab_size": served.vocab,
+                          "max_context": served.max_context,
                           "device": str(served.model.device),
                           "warmup_s": served.warmup_seconds}),
               file=sys.stderr)

@@ -1,0 +1,553 @@
+"""Paged KV cache — fixed-shape attention memory for continuous batching.
+
+Counterpart of the JAX package's `serving/kvcache.py` (the PagedAttention
+design, Kwon et al., SOSP'23, with a RadixAttention-style prefix index):
+
+- **One physical pool, fixed at load time.** Per layer, keys and values
+  live in ``(L, P, page_size, H, D)`` tensors allocated once when the
+  servable loads; every step sees these exact shapes.
+- **Per-slot page tables.** Each decode *slot* owns a row of
+  ``max_context // page_size`` physical page ids. Logical position ``t``
+  lives at physical page ``table[t // page_size]``, offset
+  ``t % page_size``; pages are allocated as a sequence crosses page
+  boundaries.
+- **The dump page.** Physical page 0 is never allocated. Writes from
+  inactive slots and from prompt-padding positions are steered to page
+  0, so the step needs no dynamic shape or conditional write. Several
+  such writes may hit one (page, offset) in one scatter; which one wins
+  is undefined, and nobody reads page 0.
+
+Page sharing:
+
+- **Refcounts + a radix index.** Every full, page-aligned block of prompt
+  tokens is keyed by its token bytes in a trie rooted at the empty
+  prefix; a node maps that block (in the context of its ancestors) to the
+  one physical page holding its K/V. ``admit_prompt()`` maps every
+  matched page read-shared into the new slot's page table; only the
+  uncached suffix needs prefill.
+- **Copy-on-write.** Shared pages are never written, except when a
+  page-aligned prompt is *fully* cached: its last token must still be
+  recomputed for the first-token logits, and that write would land in
+  the last shared page, so admit hands back a (src, dst) pair the engine
+  copies on the device first.
+- **Release retains, pressure evicts.** Indexed pages whose refcount
+  reaches zero move to an LRU *retained set*; allocation takes free
+  pages first and evicts retained ones (leaf first) only under pool
+  pressure.
+
+The host side (`KVCacheState`) is numpy and free lists; the page table
+crosses to the device as a small int32 operand each call. The device side
+is the gather/scatter helpers the engine calls, which update the pools in
+place (the reference donates its pools to every compiled call).
+
+The host-RAM spill tier and page export/import (the reference's
+`kvfabric.py`) are not ported yet: `attach_spill` and `adopt_pages`
+raise NotImplementedError, and radix nodes carry no chained digest.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+#: physical page 0 — the write sink for inactive slots / padded positions.
+DUMP_PAGE = 0
+
+
+class PagePoolExhaustedError(RuntimeError):
+    """No free physical page for a sequence that must grow (the caller
+    stalls the slot or sheds the join; this never crashes a step)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmitInfo:
+    """Result of a token-aware admission (`admit_prompt`).
+
+    cached_len prompt positions are already present in pages mapped
+    read-shared into the slot; prefill only needs [cached_len, len).
+    When the whole (page-aligned) prompt was cached, cow_src/cow_dst name
+    the page the engine must copy before the forced last-token recompute
+    writes into it."""
+    slot: int
+    cached_len: int
+    cow_src: Optional[int] = None
+    cow_dst: Optional[int] = None
+
+
+class _RadixNode:
+    """One full token block in the context of its ancestors -> the
+    canonical physical page holding its K/V."""
+
+    __slots__ = ("key", "parent", "children", "page")
+
+    def __init__(self, key: Optional[bytes], parent: "Optional[_RadixNode]",
+                 page: int = DUMP_PAGE):
+        self.key = key
+        self.parent = parent
+        self.children: Dict[bytes, "_RadixNode"] = {}
+        self.page = page
+
+
+class KVCacheState:
+    """Host-side bookkeeping for one engine's paged KV cache.
+
+    Owns the slot free list, the physical-page free list, per-page
+    refcounts, the radix prefix index + LRU retained set, and the numpy
+    page table / sequence lengths sent with every device call.
+    Thread-safe, but the expected caller is one scheduler loop.
+
+    `stats` counts prefix-cache hits and misses, evicted cache entries and
+    page stalls."""
+
+    def __init__(self, slots: int, page_size: int, max_context: int,
+                 pool_pages: Optional[int] = None, name: str = "lm",
+                 prefix_cache: bool = True):
+        if page_size < 1 or slots < 1:
+            raise ValueError(f"slots/page_size must be >= 1 "
+                             f"(got {slots}/{page_size})")
+        if max_context % page_size:
+            raise ValueError(
+                f"max_context {max_context} must be a multiple of "
+                f"page_size {page_size}")
+        self.slots = int(slots)
+        self.page_size = int(page_size)
+        self.max_context = int(max_context)
+        self.pages_per_slot = self.max_context // self.page_size
+        # +1: the dump page. The default pool is NOT oversubscribed (every
+        # slot can reach max_context); size it smaller to oversubscribe
+        # memory against typical sequence lengths — joins then wait on the
+        # free list when the pool runs dry.
+        self.pool_pages = int(pool_pages) if pool_pages is not None \
+            else 1 + self.slots * self.pages_per_slot
+        if self.pool_pages < 1 + self.pages_per_slot:
+            raise ValueError(
+                f"pool_pages {self.pool_pages} cannot hold even one "
+                f"max-context sequence ({1 + self.pages_per_slot} needed)")
+        self.name = name
+        self.prefix_cache = bool(prefix_cache)
+        self._lock = threading.Lock()
+        #: logical->physical page map per slot; unallocated entries point
+        #: at the dump page so fixed-shape gathers/scatters stay safe
+        self.page_table = np.full((self.slots, self.pages_per_slot),
+                                  DUMP_PAGE, np.int32)
+        self.seq_lens = np.zeros((self.slots,), np.int32)
+        self.active = np.zeros((self.slots,), bool)
+        self._free_slots: List[int] = list(range(self.slots))
+        self._free_pages: List[int] = list(range(1, self.pool_pages))
+        self._pages_per_slot_live = [0] * self.slots
+        #: slot-mapping count per physical page (the dump page stays 0)
+        self._ref = np.zeros((self.pool_pages,), np.int64)
+        self._root = _RadixNode(None, None)
+        self._by_page: Dict[int, _RadixNode] = {}
+        #: indexed pages with refcount 0, insertion order == LRU order
+        self._retained: "OrderedDict[int, None]" = OrderedDict()
+        #: pages with refcount >= 2, maintained on ref transitions
+        self._shared_count = 0
+        self.stats = {"hits": 0, "misses": 0, "evictions": 0,
+                      "page_stalls": 0}
+
+    # ------------------------------------------------------ spill tier
+    def attach_spill(self, store, extract_fn, land_fn):
+        raise NotImplementedError(
+            "the host-RAM KV spill tier is not yet ported to the PyTorch "
+            "package")
+
+    # ------------------------------------------------- page accounting
+    def _unref_locked(self, page: int):
+        """One slot mapping gone: route a zero-ref page to the retained
+        set (still indexed — future prompts can share it) or free it."""
+        if page == DUMP_PAGE:
+            return
+        if self._ref[page] > 0:
+            if self._ref[page] == 2:
+                self._shared_count -= 1
+            self._ref[page] -= 1
+        if self._ref[page] == 0:
+            if page in self._by_page:
+                # MRU on release: the prefix was just used end-to-end
+                self._retained[page] = None
+                self._retained.move_to_end(page)
+            else:
+                self._free_pages.append(page)
+
+    def _ref_locked(self, page: int):
+        self._ref[page] += 1
+        if self._ref[page] == 2:
+            self._shared_count += 1
+        self._retained.pop(page, None)
+
+    def _drop_subtree_locked(self, node: _RadixNode) -> int:
+        """Unindex `node` and every descendant; retained pages free,
+        in-use pages merely lose future shareability. Returns the number
+        of cache entries evicted."""
+        if node.parent is not None:
+            node.parent.children.pop(node.key, None)
+        stack, evicted = [node], 0
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            n.children = {}
+            if self._by_page.get(n.page) is n:
+                del self._by_page[n.page]
+                if n.page in self._retained:
+                    del self._retained[n.page]
+                    self._free_pages.append(n.page)
+                evicted += 1
+        return evicted
+
+    def _evict_locked(self) -> bool:
+        """Reclaim one LRU retained entry (leaf-preferred: drop a chain's
+        tail before its root so the hot head of a prefix survives
+        longest). Returns False when nothing is evictable."""
+        victim = None
+        # oldest first; skipped entries are internal nodes of a chain
+        # released root-before-tail, so the first leaf surfaces within
+        # one chain depth (<= pages_per_slot probes), not O(retained)
+        for page in self._retained:
+            node = self._by_page.get(page)
+            if node is not None and not node.children:
+                victim = page
+                break
+        if victim is None:                          # every retained node
+            victim = next(iter(self._retained), None)   # has in-use kids
+        if victim is None:
+            return False
+        self.stats["evictions"] += self._drop_subtree_locked(
+            self._by_page[victim])
+        return True
+
+    def _take_page_locked(self) -> Optional[int]:
+        """One fresh page: free list first, then LRU eviction of the
+        retained set; None when the pool is genuinely dry."""
+        while True:
+            if self._free_pages:
+                return self._free_pages.pop()
+            if not self._retained or not self._evict_locked():
+                return None
+
+    # ------------------------------------------------------ radix walking
+    def _blocks(self, tokens) -> Tuple[np.ndarray, List[bytes]]:
+        """Canonical (flat, contiguous int32) token view + the trie key
+        of every FULL page-aligned block. The one definition indexing and
+        lookup share: the trie matches raw token bytes."""
+        tokens = np.ascontiguousarray(np.asarray(tokens, np.int32)
+                                      .reshape(-1))
+        ps = self.page_size
+        keys = [tokens[i * ps:(i + 1) * ps].tobytes()
+                for i in range(int(tokens.size) // ps)]
+        return tokens, keys
+
+    def _walk_locked(self, keys: List[bytes]
+                     ) -> Tuple[_RadixNode, List[int]]:
+        """Longest indexed prefix of `keys`: (deepest matched node, its
+        canonical pages root-to-match)."""
+        node, pages = self._root, []
+        for key in keys:
+            child = node.children.get(key)
+            if child is None:
+                break
+            pages.append(child.page)
+            node = child
+        return node, pages
+
+    # ----------------------------------------------------------- lifecycle
+    def pages_for(self, length: int) -> int:
+        """Physical pages needed to hold `length` cached positions."""
+        return (int(length) + self.page_size - 1) // self.page_size
+
+    def _check_capacity(self, prompt_len: int):
+        if self.pages_for(prompt_len) > self.pages_per_slot:
+            raise ValueError(
+                f"kvcache[{self.name}]: {prompt_len} cached positions "
+                f"exceed per-slot capacity ({self.max_context}); the "
+                "caller must validate prompt length first")
+
+    def admit(self, prompt_len: int) -> Optional[int]:
+        """Token-less admission: claim a slot + fresh pages covering the
+        prompt, no sharing and no later retention. None when either
+        resource is exhausted (the join waits — never an error)."""
+        self._check_capacity(prompt_len)
+        need = self.pages_for(prompt_len)
+        with self._lock:
+            return self._admit_locked(prompt_len, [], need)
+
+    def admit_prompt(self, tokens) -> Optional[AdmitInfo]:
+        """Token-aware admission: resolve the longest cached prefix of
+        full page-aligned blocks, map those pages read-shared, allocate
+        fresh pages for the rest. None when out of slots/pages.
+
+        A fully-cached page-aligned prompt still must recompute its last
+        token, and that write would diverge the last shared page — the
+        returned AdmitInfo then carries a (cow_src, cow_dst) pair the
+        engine copies on the device before the suffix prefill."""
+        tokens, keys = self._blocks(tokens)
+        prompt_len = int(tokens.size)
+        if prompt_len < 1:
+            raise ValueError("admit_prompt needs at least one token")
+        self._check_capacity(prompt_len)
+        need = self.pages_for(prompt_len)
+        with self._lock:
+            matched = self._walk_locked(keys)[1] if self.prefix_cache \
+                else []
+            cached_len = len(matched) * self.page_size
+            cow_src = None
+            if cached_len and cached_len >= prompt_len:
+                # fully covered: leave the last token to prefill; its
+                # write diverges the final shared page -> copy-on-write
+                cached_len = prompt_len - 1
+                cow_src = matched[-1]
+                shared = matched[:-1]
+            else:
+                shared = matched
+            slot = self._admit_locked(prompt_len, shared, need, pin=cow_src)
+            if slot is None:
+                return None
+            cow_dst = None if cow_src is None \
+                else int(self.page_table[slot, len(shared)])
+            if self.prefix_cache:
+                self.stats["hits" if cached_len > 0 else "misses"] += 1
+            return AdmitInfo(slot, cached_len, cow_src, cow_dst)
+
+    def _admit_locked(self, prompt_len: int, shared: Sequence[int],
+                      need: int, pin: Optional[int] = None
+                      ) -> Optional[int]:
+        """Map `shared` read-shared + allocate the remaining fresh pages
+        into a free slot; all-or-nothing (rolls back on pool pressure).
+        `pin` ref-pins an extra page (the COW source) so eviction cannot
+        reach it between admission and the on-device copy."""
+        if not self._free_slots:
+            return None
+        for p in shared:
+            self._ref_locked(p)
+        if pin is not None:
+            self._ref_locked(pin)
+        fresh: List[int] = []
+        for _ in range(need - len(shared)):
+            p = self._take_page_locked()
+            if p is None:
+                for q in fresh:
+                    self._ref[q] = 0
+                    self._free_pages.append(q)
+                for q in shared:
+                    self._unref_locked(q)
+                if pin is not None:
+                    self._unref_locked(pin)
+                return None
+            self._ref[p] = 1
+            fresh.append(p)
+        slot = self._free_slots.pop()
+        self.page_table[slot, :] = DUMP_PAGE
+        for i, p in enumerate(list(shared) + fresh):
+            self.page_table[slot, i] = p
+        self._pages_per_slot_live[slot] = need
+        self.seq_lens[slot] = prompt_len
+        self.active[slot] = True
+        return slot
+
+    def unref_page(self, page: int):
+        """Drop a temporary pin (the engine calls this once the COW copy
+        has executed)."""
+        with self._lock:
+            self._unref_locked(page)
+
+    def register_prefix(self, slot: int, tokens):
+        """Index this slot's full prompt blocks (prefill is complete —
+        every mapped prompt page now holds final K/V). Blocks already
+        indexed keep their existing canonical page; a racing duplicate
+        prompt simply fails to index and frees on release."""
+        if not self.prefix_cache:
+            return
+        _, keys = self._blocks(tokens)
+        with self._lock:
+            node = self._root
+            for i, key in enumerate(keys):
+                child = node.children.get(key)
+                if child is None:
+                    page = int(self.page_table[slot, i])
+                    if page == DUMP_PAGE or page in self._by_page:
+                        return          # defensive: never index the dump
+                    child = _RadixNode(key, node, page)
+                    node.children[key] = child
+                    self._by_page[page] = child
+                node = child
+
+    def adopt_pages(self, tokens, land_fn) -> int:
+        raise NotImplementedError(
+            "landing shipped KV pages (the KV fabric and its spill tier) "
+            "is not yet ported to the PyTorch package")
+
+    def ensure_page(self, slot: int) -> bool:
+        """Guarantee a physical page exists for this slot's NEXT position
+        (``seq_lens[slot]``). Returns False when the pool is dry or the
+        context is full — the caller masks the slot out of this step."""
+        with self._lock:
+            pos = int(self.seq_lens[slot])
+            if pos >= self.max_context:
+                return False            # context cap; caller finishes it
+            idx = pos // self.page_size
+            if idx < self._pages_per_slot_live[slot]:
+                return True
+            page = self._take_page_locked()
+            if page is None:
+                self.stats["page_stalls"] += 1
+                return False
+            self._ref[page] = 1
+            self.page_table[slot, idx] = page
+            self._pages_per_slot_live[slot] = idx + 1
+            return True
+
+    def ensure_capacity(self, slot: int, n: int) -> bool:
+        """Guarantee physical pages for this slot's next ``n`` positions.
+        Returns False when the context cap or a dry pool blocks any of
+        them; pages allocated before the pool ran dry stay mapped."""
+        with self._lock:
+            pos = int(self.seq_lens[slot])
+            if pos + n > self.max_context:
+                return False
+            if n < 1:
+                return True
+            need_idx = (pos + n - 1) // self.page_size
+            while self._pages_per_slot_live[slot] <= need_idx:
+                page = self._take_page_locked()
+                if page is None:
+                    self.stats["page_stalls"] += 1
+                    return False
+                idx = self._pages_per_slot_live[slot]
+                self._ref[page] = 1
+                self.page_table[slot, idx] = page
+                self._pages_per_slot_live[slot] = idx + 1
+            return True
+
+    def advance(self, slot: int):
+        """One token appended at ``seq_lens[slot]`` by the decode step."""
+        self.seq_lens[slot] += 1
+
+    def release(self, slot: int):
+        """Sequence finished: unreference its pages (indexed ones join
+        the retained set, the rest free) and return the slot."""
+        with self._lock:
+            if not self.active[slot]:
+                return
+            n = self._pages_per_slot_live[slot]
+            for p in self.page_table[slot, :n]:
+                self._unref_locked(int(p))
+            self.page_table[slot, :] = DUMP_PAGE
+            self._pages_per_slot_live[slot] = 0
+            self.seq_lens[slot] = 0
+            self.active[slot] = False
+            self._free_slots.append(slot)
+
+    # -------------------------------------------------------------- status
+    def active_slots(self) -> List[int]:
+        return [i for i in range(self.slots) if self.active[i]]
+
+    def free_pages(self) -> int:
+        """Allocatable pages: truly free + retained (the retained set is
+        reclaimable cache, not working memory)."""
+        with self._lock:
+            return len(self._free_pages) + len(self._retained)
+
+    def retained_pages(self) -> int:
+        with self._lock:
+            return len(self._retained)
+
+    def ref_count(self, page: int) -> int:
+        with self._lock:
+            return int(self._ref[page])
+
+    def cached_prefix_len(self, tokens) -> int:
+        """Longest currently-indexed prefix (full blocks) of `tokens` in
+        tokens — a read-only probe, no LRU touch."""
+        _, keys = self._blocks(tokens)
+        with self._lock:
+            return len(self._walk_locked(keys)[1]) * self.page_size
+
+    def describe(self) -> dict:
+        with self._lock:
+            return {
+                "slots": self.slots,
+                "active_slots": int(self.active.sum()),
+                "page_size": self.page_size,
+                "max_context": self.max_context,
+                "pool_pages": self.pool_pages - 1,
+                "pages_used": (self.pool_pages - 1 - len(self._free_pages)
+                               - len(self._retained)),
+                "prefix_cache": self.prefix_cache,
+                "retained_pages": len(self._retained),
+                "shared_pages": self._shared_count,
+                "stats": dict(self.stats),
+            }
+
+
+# --------------------------------------------------------------------------
+# Device-side helpers: the pools are (L, P, page_size, H, D) tensors,
+# updated in place; index operands are int64 tensors on the pools' device.
+# --------------------------------------------------------------------------
+def append_token_kv(kpool, vpool, layer: int, k, v, phys, off):
+    """Scatter one new (key, value) row per slot into the pools.
+
+    k/v: (S, H, D); phys/off: (S,) physical page id and in-page offset per
+    slot (inactive slots steered to DUMP_PAGE by the caller)."""
+    kpool[layer].index_put_((phys, off), k)
+    vpool[layer].index_put_((phys, off), v)
+
+
+def write_prompt_kv(kpool, vpool, layer: int, k_seq, v_seq, page_row,
+                    page_size: int):
+    """Write a prefilled prompt's (key, value) rows into its slot's pages.
+
+    k_seq/v_seq: (T, H, D) with T a multiple of page_size (the prefill
+    bucket); page_row: (pages_per_slot,) — entries past the prompt's
+    allocation point at DUMP_PAGE, so the fixed-count scatter cannot touch
+    another sequence's pages."""
+    t, h, d = k_seq.shape
+    npages = t // page_size
+    rows = page_row[:npages]
+    kpool[layer].index_put_((rows,), k_seq.reshape(npages, page_size, h, d))
+    vpool[layer].index_put_((rows,), v_seq.reshape(npages, page_size, h, d))
+
+
+def write_chunk_kv(kpool, vpool, layer: int, k_seq, v_seq, phys, off):
+    """Scatter a prefill chunk's (key, value) rows by absolute position.
+
+    No page alignment is assumed (the COW recompute starts mid-page).
+    k_seq/v_seq: (T, H, D); phys/off: (T,) physical page and in-page
+    offset per row, with padding rows steered to DUMP_PAGE by the
+    caller."""
+    kpool[layer].index_put_((phys, off), k_seq)
+    vpool[layer].index_put_((phys, off), v_seq)
+
+
+def gather_kv(kpool, vpool, layer: int, page_table, max_context: int):
+    """Page-table gather back to dense per-slot key/value sequences.
+
+    page_table: (S, pages_per_slot). Returns (keys, values) shaped
+    (S, max_context, H, D); positions past a slot's live length hold
+    stale or dump garbage — the attention mask is the single source of
+    validity."""
+    s = page_table.shape[0]
+    h, d = kpool.shape[-2], kpool.shape[-1]
+    keys = kpool[layer][page_table].reshape(s, max_context, h, d)
+    vals = vpool[layer][page_table].reshape(s, max_context, h, d)
+    return keys, vals
+
+
+def copy_page(kpool, vpool, src: int, dst: int):
+    """Copy one physical page across every layer (the COW divergence)."""
+    kpool[:, dst] = kpool[:, src]
+    vpool[:, dst] = vpool[:, src]
+
+
+def default_prefill_buckets(page_size: int, max_context: int
+                            ) -> Sequence[int]:
+    """Prefill bucket ladder: page-aligned, geometric (x4), capped by and
+    always including max_context."""
+    buckets, b = [], page_size
+    while b < max_context:
+        buckets.append(b)
+        b *= 4
+    buckets.append(max_context)
+    return tuple(sorted(set(buckets)))

@@ -7,8 +7,10 @@ either package), or a live network. Each `ServedModel` owns a
 `ShapeBucketedBatcher` whose runner is the network's `output()` on its
 device, warmed at load time.
 
-Checkpoint-manifest directories, Keras sources, hot swap and rollback,
-and the mesh-backed ParallelInference runner come with later slices.
+`deploy_lm` publishes a decode servable (`serving/decode.py`'s
+`ServedLM`) beside them. Checkpoint-manifest directories, Keras sources,
+hot swap and rollback, and the mesh-backed ParallelInference runner come
+with later slices.
 """
 from __future__ import annotations
 
@@ -186,6 +188,43 @@ class ModelRegistry:
         log.info("serving: deployed %r (%s) on %s, buckets %s, input %s",
                  name, source, model.device, served.batcher.buckets,
                  served.input_shape)
+        return served
+
+    def deploy_lm(self, name: str, source, decode=None):
+        """Load, warm, and publish a DECODE servable (serving/decode.py:
+        continuous-batching generation over a paged KV cache) under
+        `name`, on the registry's device. `decode` is a DecodeConfig; a
+        ``@int8`` / ``@bf16`` suffix on a string source selects a
+        post-training-quantized variant (serving/quantize.py)."""
+        from deeplearning4j_tpu_torch.serving.decode import (
+            DecodeConfig, ServedLM, apply_variant,
+        )
+        from deeplearning4j_tpu_torch.serving.quantize import parse_variant
+        with self._deploy_lock:
+            with self._lock:
+                existing = self._models.get(name)
+            if existing is not None:
+                if not hasattr(existing, "generate"):
+                    raise ModelLoadError(
+                        f"{name!r} is live as a PREDICT servable; a "
+                        "decode servable cannot take its name — undeploy "
+                        "first or pick a new name")
+                raise ModelLoadError(
+                    f"{name!r} is already deployed; version swaps of LM "
+                    "servables are not yet ported — undeploy first")
+            base, variant = source, None
+            if isinstance(source, str):
+                base, variant = parse_variant(source)
+            if variant is not None:
+                decode = apply_variant(
+                    decode if decode is not None else DecodeConfig(),
+                    variant)
+            model = load_servable(base, device=self.device)
+            served = ServedLM(name, model, str(source), decode=decode)
+            with self._lock:
+                self._models[name] = served
+        log.info("serving: deployed LM %r (%s) on %s, decode %s", name,
+                 source, model.device, served.describe().get("decode"))
         return served
 
     def get(self, name: str) -> Optional[ServedModel]:

@@ -1,32 +1,41 @@
 """ModelServer — the HTTP front end over a ModelRegistry.
 
 Counterpart of the JAX package's `serving/server.py`, for the predict
-surface:
+and generate surfaces:
 
     POST /v1/models/{name}/predict    JSON {"inputs": [...]} or raw .npy
                                       (Content-Type:
                                       application/octet-stream); answers
                                       JSON, or .npy with
                                       Accept: application/octet-stream
+    POST /v1/models/{name}/generate   JSON {"prompt": [ids...],
+                                      "max_tokens", "temperature",
+                                      "top_k", "eos_id", "stream"} on an
+                                      LM servable (`deploy_lm`); answers
+                                      chunked text/event-stream, one
+                                      event per token and a done event,
+                                      or one JSON document
     GET  /v1/models                   all servables
     GET  /v1/models/{name}            one servable
     GET  /healthz                     process liveness (always 200)
     GET  /readyz                      200 only when warmed and not draining
 
 Status contract: 404 unknown model, 400 bad payload, 429 with
-Retry-After when the batcher's queue is full, 504 when a request's
-deadline expires, 503 with Retry-After while draining, and anything
+Retry-After when the batcher's or the join queue is full, 504 when a
+request's deadline expires, 503 with Retry-After while draining, 499
+(logged, nothing sent) when a streaming client went away, and anything
 unexpected a JSON 500 with the error class only — a traceback never
 crosses the wire.
 
-`/generate`, `/metrics`, flight, SLO, fault and KV endpoints come with
-later slices.
+`/metrics`, swap, flight, SLO, fault and KV endpoints come with later
+slices.
 """
 from __future__ import annotations
 
 import io
 import json
 import logging
+import queue
 import random
 import threading
 import time
@@ -46,7 +55,7 @@ log = logging.getLogger("deeplearning4j_tpu_torch")
 _MAX_BODY = 256 << 20           # admission guard on Content-Length
 
 ENDPOINTS = ["/v1/models", "/v1/models/{name}", "/v1/models/{name}/predict",
-             "/healthz", "/readyz"]
+             "/v1/models/{name}/generate", "/healthz", "/readyz"]
 
 
 def retry_after_seconds(queue_depth: int, queue_limit: int,
@@ -128,10 +137,13 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         url = urlparse(self.path)
         parts = [p for p in url.path.split("/") if p]
-        if parts[:2] == ["v1", "models"] and len(parts) == 4 \
-                and parts[3] == "predict":
-            self._predict(parts[2], url)
-            return
+        if parts[:2] == ["v1", "models"] and len(parts) == 4:
+            if parts[3] == "predict":
+                self._predict(parts[2], url)
+                return
+            if parts[3] == "generate":
+                self._generate(parts[2], url)
+                return
         self._json({"error": "not found"}, code=404)
 
     def _parse_inputs(self) -> np.ndarray:
@@ -163,6 +175,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._json({"error": f"unknown model {name!r}"}, code=404)
             return
         try:
+            if not hasattr(served, "predict"):
+                raise ValueError(
+                    f"model {name!r} is an LM servable; it answers "
+                    "POST /v1/models/{name}/generate")
             x = self._parse_inputs()
             batched = x.shape[1:] == served.input_shape
             if not batched and x.shape == served.input_shape:
@@ -199,6 +215,165 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:          # noqa: BLE001 — never a traceback
             log.exception("serving[%s]: predict failed", name)
             self._json({"error": f"{type(e).__name__}: {e}"}, code=500)
+
+    # ---------------------------------------------------------- generation
+    @staticmethod
+    def _sse(obj) -> bytes:
+        return b"data: " + json.dumps(obj).encode() + b"\n\n"
+
+    def _chunk(self, data: bytes):
+        """One HTTP/1.1 chunked-transfer frame (the stream has no
+        Content-Length, so chunking is mandatory on a keep-alive wire)."""
+        self.wfile.write(f"{len(data):X}\r\n".encode())
+        self.wfile.write(data)
+        self.wfile.write(b"\r\n")
+        self.wfile.flush()
+
+    def _generate(self, name: str, url):
+        """POST /v1/models/{name}/generate — token-level generation on a
+        decode servable (serving/decode.py). JSON body::
+
+            {"prompt": [ids...], "max_tokens": 32, "temperature": 0.0,
+             "top_k": 0, "eos_id": null, "stream": true}
+
+        stream=true (default) answers ``text/event-stream`` over chunked
+        transfer — one ``data: {"token": id, "index": i}`` event per
+        generated token as it is sampled, closed by a ``done`` event with
+        the finish reason. stream=false buffers the generation into one
+        JSON answer. Status mapping matches predict: 429 (join queue
+        full, Retry-After), 503 (draining), 504 (deadline before the
+        first token), 400 (bad prompt/params); 499 when the client went
+        away mid-stream."""
+        t0 = time.perf_counter()
+        q = parse_qs(url.query)
+        served = self._srv.registry.get(name)
+        if served is None:
+            if self._srv.draining:
+                self._json({"error": "server draining"}, code=503,
+                           extra=(("Retry-After", self._srv.retry_after()),))
+                return
+            self._json({"error": f"unknown model {name!r}"}, code=404)
+            return
+        self._gen_started = False
+        req = None
+        try:
+            if not hasattr(served, "generate"):
+                raise ValueError(
+                    f"model {name!r} is a predict servable; generation "
+                    "needs an LM deployed via --lm / deploy_lm")
+            payload = json.loads(self._body() or b"{}")
+            if not isinstance(payload, dict) or "prompt" not in payload:
+                raise ValueError('JSON body must be {"prompt": [ids...]}')
+            stream = bool(payload.get("stream", True))
+            try:
+                deadline = float(q["deadline_ms"][0]) / 1e3 \
+                    if "deadline_ms" in q else self._srv.default_deadline
+            except ValueError:
+                raise ValueError("deadline_ms must be a number") from None
+            req = served.generate(
+                payload["prompt"],
+                max_new_tokens=int(payload.get("max_tokens", 32)),
+                temperature=float(payload.get("temperature", 0.0)),
+                top_k=int(payload.get("top_k", 0)),
+                eos_id=payload.get("eos_id"),
+                deadline=deadline)
+            self._relay_generation(name, req, t0, deadline, stream)
+        except ServerOverloadedError as e:
+            self._json({"error": str(e)}, code=429,
+                       extra=(("Retry-After", self._srv.retry_after(served)),))
+        except DeadlineExceededError as e:
+            self._json({"error": str(e)}, code=504)
+        except ServerDrainingError as e:
+            self._json({"error": str(e)}, code=503,
+                       extra=(("Retry-After", self._srv.retry_after(served)),))
+        except (ValueError, TypeError) as e:
+            self._json({"error": str(e)}, code=400)
+        except (BrokenPipeError, ConnectionResetError):
+            # 499: the client went away mid-stream; free the slot, there
+            # is nobody to answer
+            log.info("serving[%s]: generate client went away (499)", name)
+            if req is not None:
+                req.cancel()
+        except Exception as e:          # noqa: BLE001 — never a traceback
+            log.exception("serving[%s]: generate failed", name)
+            if req is not None:
+                req.cancel()
+            if not self._gen_started:   # headers not sent: clean JSON 500
+                self._json({"error": f"{type(e).__name__}: {e}"}, code=500)
+
+    def _relay_generation(self, name: str, req, t0: float, deadline: float,
+                          stream: bool):
+        """Pump one GenerateRequest's event queue onto the wire. Raises
+        the serving errors the caller maps (only BEFORE the first byte is
+        sent)."""
+        wait = max(0.05, deadline) + 5.0
+        first = self._event(req, wait)
+        # the first event decides the status line: an error before any
+        # token maps to a clean non-200 exactly like predict
+        if first[0] == "error":
+            raise first[1]
+        if not stream:
+            tokens = []
+            ev = first
+            while ev[0] == "token":
+                tokens.append(ev[1])
+                ev = self._event(req, wait)
+            if ev[0] == "error":
+                raise ev[1]
+            info = ev[1]
+            self._json({
+                "model": name, "version": info.get("version"),
+                "tokens": tokens,
+                "finish_reason": info.get("finish_reason"),
+                "cached_tokens": info.get("cached_tokens"),
+                "prefill_chunks": info.get("prefill_chunks"),
+                "spec_proposed": info.get("spec_proposed"),
+                "spec_accepted": info.get("spec_accepted"),
+                "spec_rounds": info.get("spec_rounds"),
+                "ttft_ms": round((req.first_token_at - req.enqueued) * 1e3,
+                                 3) if req.first_token_at else None,
+                "latency_ms": round((time.perf_counter() - t0) * 1e3, 3),
+            })
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        if req.version is not None:
+            self.send_header("X-Model-Version", str(req.version))
+        self.end_headers()
+        self._gen_started = True
+        ev, index = first, 0
+        while True:
+            if ev[0] == "token":
+                self._chunk(self._sse({"token": ev[1], "index": index}))
+                index += 1
+            elif ev[0] == "done":
+                info = dict(ev[1])
+                info["done"] = True
+                info["ttft_ms"] = round(
+                    (req.first_token_at - req.enqueued) * 1e3, 3) \
+                    if req.first_token_at else None
+                self._chunk(self._sse(info))
+                break
+            else:                               # mid-stream failure
+                self._chunk(self._sse(
+                    {"error": f"{type(ev[1]).__name__}: {ev[1]}"}))
+                break
+            ev = self._event(req, wait)
+        self.wfile.write(b"0\r\n\r\n")
+        self.wfile.flush()
+
+    @staticmethod
+    def _event(req, wait: float):
+        """Next scheduler event, or a synthesized deadline error if the
+        stream stalls past its budget."""
+        try:
+            return req.events.get(timeout=wait)
+        except queue.Empty:
+            req.cancel()
+            return ("error", DeadlineExceededError(
+                f"generation produced no event within {wait:.1f}s"))
 
 
 class ModelServer:
@@ -241,7 +416,11 @@ class ModelServer:
             m for m in map(self.registry.get, self.registry.names()) if m]
         depth, limit = 0, 1
         for m in models:
-            d, lim = m.batcher._queue.qsize(), m.batcher._queue.maxsize or 1
+            if hasattr(m, "queue_state"):           # an LM's join queue
+                d, lim = m.queue_state()
+            else:
+                d, lim = m.batcher._queue.qsize(), m.batcher._queue.maxsize
+            lim = lim or 1
             if d / lim >= depth / limit:
                 depth, limit = d, lim
         return str(retry_after_seconds(depth, limit, draining=self.draining))

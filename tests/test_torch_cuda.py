@@ -1,6 +1,7 @@
 """The port on an NVIDIA GPU: the flash kernels (forward, dQ, dK/dV)
-against their plain versions, and the network on the card against the
-same network on the CPU, forward and gradients.
+against their plain versions, the network on the card against the same
+network on the CPU, forward and gradients, and the decode engine on the
+card against the same engine on the CPU.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -326,3 +327,88 @@ def test_network_on_the_card_matches_the_cpu(cuda, tmp_path):
     again = load_model(path)                  # default device: cuda
     assert again.device.type == "cuda"
     torch.testing.assert_close(again.output(x), y, atol=0.0, rtol=0.0)
+
+
+def _decode_pair(cuda, tmp_path, **cfg):
+    """The decode engine on the card and on the CPU, from one zip."""
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeConfig, DecodeEngine,
+    )
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    kw = dict(vocab_size=128, seq_length=96, n_layers=2, n_embd=64,
+              n_heads=2, attention_impl="flash", block_size=64)
+    path = save_model(model_by_name("TransformerLM", **kw).init(device="cpu"),
+                      str(tmp_path / "lm.zip"))
+    conf = DecodeConfig(slots=2, page_size=16, prefill_buckets=(32, 96),
+                        prefill_chunk_tokens=16, **cfg)
+    return [DecodeEngine(load_model(path, device=dev), conf, name=str(dev))
+            for dev in (cuda, "cpu")]
+
+
+@pytest.mark.parametrize("quantize,atol", [(None, 1e-4), ("int8", 1e-4)])
+def test_decode_engine_on_the_card_matches_the_cpu(cuda, tmp_path, quantize,
+                                                   atol):
+    """Prefill (dense and in 16-token chunks after a prefix-cache hit) and
+    20 greedy steps of two slots: the card's logits within `atol` of the
+    CPU's and the same tokens; the decode path launches no flash kernel
+    and runs no program first on the request path."""
+    gpu, cpu = _decode_pair(cuda, tmp_path, quantize=quantize)
+    for e in (gpu, cpu):
+        e.warm()
+    before = dict(KERNEL_LAUNCHES)
+    rs = np.random.RandomState(3)
+    prefix = rs.randint(0, 128, 32).tolist()
+    prompts = [prefix + [5, 9, 1], prefix + rs.randint(0, 128, 20).tolist()]
+    slots = []
+    for i, prompt in enumerate(prompts):
+        infos = [e.admit_prompt(np.array(prompt)) for e in (gpu, cpu)]
+        assert infos[0] == infos[1] and infos[0].cached_len == 32 * i
+        slot = infos[0].slot
+        if i == 0:
+            (tg, lg), (tc, lc) = (e.prefill(slot, np.array(prompt), 0.0, 0)
+                                  for e in (gpu, cpu))
+            torch.testing.assert_close(lg.cpu(), lc, atol=atol, rtol=0)
+        else:
+            for start in range(32, len(prompt), 16):
+                n = min(16, len(prompt) - start)
+                tg, tc = (e.prefill_chunk(slot, np.array(prompt), start, n,
+                                          0.0, 0) for e in (gpu, cpu))
+        assert tg == tc
+        for e in (gpu, cpu):
+            e.cache.register_prefix(slot, prompt)
+        slots.append(slot)
+    for _ in range(20):
+        (tg, ag, lg), (tc, ac, lc) = gpu.step(), cpu.step()
+        assert (ag == ac).all() and ag[slots].all()
+        torch.testing.assert_close(lg.cpu()[slots], lc[slots], atol=atol,
+                                   rtol=0)
+        np.testing.assert_array_equal(tg[slots], tc[slots])
+    assert dict(KERNEL_LAUNCHES) == before
+    assert gpu.request_path_first_runs == 0
+    full = np.array([prompts[1][:40]])
+    np.testing.assert_allclose(gpu.logits_full(full), cpu.logits_full(full),
+                               atol=atol, rtol=0)
+
+
+def test_decode_engine_bf16_and_sampling_on_the_card(cuda, tmp_path):
+    """bf16 pools and weights on the card: prefill logits within 5e-2 of
+    the CPU's bf16 engine; a sampled step draws only from each slot's
+    top-k, and one seed gives one stream."""
+    gpu, cpu = _decode_pair(cuda, tmp_path, quantize="bf16")
+    assert gpu._kpool.dtype == torch.bfloat16 and gpu._kpool.is_cuda
+    prompt = np.random.RandomState(4).randint(0, 128, 40)
+    slot = gpu.cache.admit(40)
+    assert cpu.cache.admit(40) == slot
+    (_, lg), (_, lc) = (e.prefill(slot, prompt, 0.0, 0) for e in (gpu, cpu))
+    torch.testing.assert_close(lg.float().cpu(), lc.float(), atol=5e-2,
+                               rtol=0)
+    lgf = lg.float()[None].expand(4096, -1).contiguous()
+    temps = torch.full((4096,), 1.0, device=cuda)
+    topks = torch.full((4096,), 5, dtype=torch.int64, device=cuda)
+    draws = gpu._sample(lgf, temps, topks, 9)
+    assert torch.isin(draws, torch.topk(lgf[0], 5).indices).all()
+    assert torch.equal(draws, gpu._sample(lgf, temps, topks, 9))
+    assert len(set(draws.tolist())) > 1

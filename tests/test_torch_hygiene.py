@@ -7,7 +7,8 @@
 - The package calls no library attention or compiler in place of its own
   kernels: no `scaled_dot_product_attention`, no `torch.compile`.
 - Entry points default to CUDA and raise without it; they never fall
-  back to the CPU.
+  back to the CPU (the predict and training paths, and the decode path:
+  `--lm`, `deploy_lm`).
 """
 import ast
 import os
@@ -70,6 +71,9 @@ def test_importing_the_port_pulls_in_no_jax():
     code = ("import sys\n"
             "import deeplearning4j_tpu_torch.serving.cli\n"
             "import deeplearning4j_tpu_torch.serving.server\n"
+            "import deeplearning4j_tpu_torch.serving.decode\n"
+            "import deeplearning4j_tpu_torch.serving.kvcache\n"
+            "import deeplearning4j_tpu_torch.serving.quantize\n"
             "import deeplearning4j_tpu_torch.util.serialization\n"
             "import deeplearning4j_tpu_torch.models.transformer\n"
             "import deeplearning4j_tpu_torch.ops.flash_attention\n"
@@ -89,7 +93,9 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     from deeplearning4j_tpu_torch.models.zoo import model_by_name
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.serving import cli
-    from deeplearning4j_tpu_torch.serving.registry import load_servable
+    from deeplearning4j_tpu_torch.serving.registry import (
+        ModelRegistry, load_servable,
+    )
     from deeplearning4j_tpu_torch.util.platform import (
         is_hopper, resolve_device,
     )
@@ -104,6 +110,12 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.build(args)
+    args = cli.build_parser().parse_args(["--lm", "g=zoo:TransformerLM"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.build(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelRegistry().deploy_lm("g", "zoo:TransformerLM?n_layers=1")
     assert resolve_device("cpu") == torch.device("cpu")
     assert not is_hopper()
     assert MultiLayerNetwork(conf, device="cpu").device.type == "cpu"

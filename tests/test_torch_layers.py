@@ -113,6 +113,20 @@ def test_dot_product_attention(causal, masked):
     np.testing.assert_allclose(yp.numpy(), np.asarray(yj), **TOL)
 
 
+@pytest.mark.parametrize("q_offset", [1, 9, 16])
+def test_dot_product_attention_causal_q_offset(q_offset):
+    """The decode engine's chunk path: queries at absolute positions
+    q_offset.. attend a longer key sequence causally, with no mask."""
+    rs = np.random.RandomState(5)
+    q = rs.randn(2, 8, 4, 8).astype("float32")
+    k, v = (rs.randn(2, 24, 4, 8).astype("float32") for _ in range(2))
+    yj = jax_attn.dot_product_attention(*map(jnp.asarray, (q, k, v)),
+                                        causal=True, q_offset=q_offset)
+    yp = port_attn.dot_product_attention(*map(torch.from_numpy, (q, k, v)),
+                                         causal=True, q_offset=q_offset)
+    np.testing.assert_allclose(yp.numpy(), np.asarray(yj), **TOL)
+
+
 @pytest.mark.parametrize("impl", ["dense", "flash", "blockwise"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
