@@ -74,6 +74,27 @@ result line:
              profiled (torch.profiler: device time by kernel category and
              the device's idle share of the host's wall time).
 
+6. resnet  — ResNet-50 through the port's ComputationGraph (no flash
+             kernel on this path: convolution, pooling, batch norm and
+             the residual adds go to PyTorch, so cuDNN, as the reference
+             leaves them to XLA). (a) card against CPU: the zoo's
+             ResNet50(num_classes=10, input_shape=(64, 64, 3)) from one
+             zip, batch 4: output() within 1e-4 in f32 (TF32 off), and one
+             fit step, in f32 (score rtol 1e-4) and in f64 (every leaf
+             within 1e-4 of its largest update, BN state within 1e-8);
+             (b) the entry point: the full zoo ResNet50() (224², 1000
+             classes) saved with save_model, 64 seeded images in an npz,
+             train.cli.main(--mode single --batch-size 32) = 2 steps, the
+             output zip reloaded; (c) timed at the reference bench's shape
+             (bench.py:209: batch 128, 224², Nesterovs(0.1, 0.9), l2
+             1e-4, one seeded batch on the card), f32 and bf16 compute:
+             per-call fit steps (3 to warm up, 10 timed by CUDA events),
+             imgs/s, TFLOP/s at 24.6 GFLOP per image, launches and
+             host-device syncs per step, device ms by category (two steps
+             split at syncs into forward / backward / optimizer), idle
+             share, peak memory; over 20 f32 steps on the one batch the
+             loss must fall.
+
 Each path's counts are set to 0 just before it is driven and read just
 after. The second-to-last line is the kernel table
 (``{"kernels": [...]}``); the last is
@@ -118,6 +139,13 @@ GRAD_REL_TOL = 1e-4     # kernels vs plain attention, per parameter leaf
 # the generate phase: prompt lengths (1500 goes in chunks of the default
 # 64-token budget and shares its first 1024 tokens with a later prompt)
 GEN_LENGTHS = (17, 100, 700, 1500)
+# the resnet phase: the reference bench's shape (bench.py:209, batch 128 at
+# 224x224) and its FLOP count (bench.py:277: 2 x 4.1 GMAC x 3 a image)
+RESNET_BATCH, RESNET_HW, RESNET_STEPS = 128, 224, 20
+RESNET_WARMUP, RESNET_TIMED = 3, 10
+RESNET_FLOP_PER_IMAGE = 24.6e9
+RESNET_PARITY = dict(num_classes=10, input_shape=(64, 64, 3))
+RESNET_CLI_IMAGES, RESNET_CLI_BATCH = 64, 32
 
 
 def emit(obj):
@@ -1207,6 +1235,334 @@ def train(fa, tmp):
     return row
 
 
+def _leaf_errors(a_tree, b_tree, before=None):
+    """Largest |a - b| over the leaves of two trees (b on the CPU); with
+    `before` (b's leaves before a step), each leaf's error over that leaf's
+    largest update, the worst of them."""
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    b_leaves = dict(iter_leaves(b_tree))
+    worst = 0.0
+    for path, a in iter_leaves(a_tree):
+        b = b_leaves[path]
+        err = (a.detach().cpu() - b).abs().max().item()
+        if before is not None:
+            err /= max((b - before[path]).abs().max().item(), 1e-300)
+        worst = max(worst, err)
+    return worst
+
+
+def resnet_parity(tmp):
+    """Phase 6a: ResNet50 (64x64, 10 classes) from one zip on the card and
+    on the CPU, batch 4: output(), then one fit step, in f32 and f64."""
+    import dataclasses
+    import os
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    rs = np.random.RandomState(7)
+    hw = RESNET_PARITY["input_shape"][0]
+    X = rs.rand(4, hw, hw, 3)
+    Y = np.eye(10)[rs.randint(0, 10, 4)]
+    rows = {}
+    for dtype in ("float32", "float64"):
+        conf = dataclasses.replace(ResNet50(**RESNET_PARITY).conf(),
+                                   dtype=dtype)
+        src = ComputationGraph(conf, device="cpu").init()
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():                   # BN state off its init
+            for _, t in iter_leaves(src.state):
+                t.add_(0.2 * torch.rand(t.shape, generator=g))
+        path = save_model(src, os.path.join(tmp, f"resnet_{dtype}.zip"),
+                          save_updater=False)
+        gpu, cpu = load_model(path), load_model(path, device="cpu")
+        x, y = X.astype(dtype), Y.astype(dtype)
+        out = gpu.output(x)
+        out_err = (out.cpu() - cpu.output(x)).abs().max().item()
+        before = dict((p, t.clone()) for p, t in iter_leaves(cpu.params))
+        mds = MultiDataSet((x,), (y,))
+        gpu.fit(mds)
+        cpu.fit(mds)
+        rows[dtype] = {
+            "output_max_abs_err": out_err,
+            "output_finite": bool(torch.isfinite(out).all()),
+            "score_card": gpu.score(), "score_cpu": cpu.score(),
+            "score_rel_err": abs(gpu.score() - cpu.score())
+            / abs(cpu.score()),
+            "params_err_over_update": _leaf_errors(gpu.params, cpu.params,
+                                                   before),
+            "bn_state_max_abs_err": _leaf_errors(gpu.state, cpu.state)}
+    f32, f64 = rows["float32"], rows["float64"]
+    ok = (f32["output_finite"] and f32["output_max_abs_err"] <= 1e-4
+          and f32["score_rel_err"] <= 1e-4
+          and f64["output_max_abs_err"] <= 1e-10
+          and f64["score_rel_err"] <= 1e-10
+          and f64["params_err_over_update"] <= 1e-4
+          and f64["bn_state_max_abs_err"] <= 1e-8)
+    row = {"phase": "resnet_parity", "model": RESNET_PARITY, "batch": 4,
+           "cudnn_benchmark": torch.backends.cudnn.benchmark,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "by_dtype": rows, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"ResNet50 on the card vs the CPU: {rows}")
+    return row
+
+
+def resnet_cli(tmp):
+    """Phase 6b: the entry point: the zoo's full ResNet50 saved with
+    save_model, trained 2 steps by train.cli.main from an npz."""
+    import contextlib
+    import os
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.train import cli as train_cli
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    src, out = os.path.join(tmp, "resnet50.zip"), os.path.join(tmp, "o.zip")
+    data = os.path.join(tmp, "images.npz")
+    t0 = time.perf_counter()
+    net = ResNet50().init()
+    n_params = net.num_params()
+    save_model(net, src)
+    del net
+    rs = np.random.RandomState(11)
+    labels = np.zeros((RESNET_CLI_IMAGES, 1000), np.uint8)
+    labels[np.arange(RESNET_CLI_IMAGES),
+           rs.randint(0, 1000, RESNET_CLI_IMAGES)] = 1
+    np.savez(data, features=rs.rand(RESNET_CLI_IMAGES, RESNET_HW, RESNET_HW,
+                                    3).astype("float32"), labels=labels)
+    setup_s = time.perf_counter() - t0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        code = train_cli.main(["--model", src, "--output", out, "--dataset",
+                               data, "--mode", "single", "--batch-size",
+                               str(RESNET_CLI_BATCH), "--score-every", "1"])
+    wall_s = time.perf_counter() - t0
+    last = stdout.getvalue().strip().splitlines()[-1]
+    result = json.loads(last)
+    steps = RESNET_CLI_IMAGES // RESNET_CLI_BATCH
+    trained = load_model(out)
+    ok = (code == 0 and result["iterations"] == steps
+          and result["epochs"] == 1 and np.isfinite(result["final_score"])
+          and isinstance(trained, ComputationGraph)
+          and trained.iteration_count == steps
+          and trained.opt_state is not None
+          and trained.num_params() == n_params)
+    row = {"phase": "resnet_cli", "params": n_params,
+           "images": RESNET_CLI_IMAGES, "batch": RESNET_CLI_BATCH,
+           "setup_s": setup_s, "cli_wall_s": wall_s, "result": result,
+           "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"train CLI on ResNet50: exit {code}, {last}")
+    return row
+
+
+def _resnet_category(name: str, phase: str) -> str:
+    low = name.lower()
+    if phase == "optimizer":
+        return "optimizer"
+    if "batch_norm" in low or "batchnorm" in low or "bn_fw" in low \
+            or "bn_bw" in low:
+        return "batch_norm"
+    if any(t in low for t in ("conv", "xmma", "gemm", "cutlass", "implicit",
+                              "winograd", "dgrad", "wgrad", "fprop")):
+        return "convolution_" + phase
+    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
+        return "elementwise"
+    return "other"
+
+
+def resnet_phased_profile(net, mds, gen, steps=2):
+    """Device ms by category over `steps` train steps, each split by
+    synchronisations into forward, backward and optimizer (the step's own
+    calls: `_score_fn`, autograd, the updater chain); a kernel belongs to
+    the phase whose host range holds its start."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from deeplearning4j_tpu_torch.nn.updaters import (
+        apply_updates, tree_leaves, tree_map,
+    )
+    losses = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            live = tree_map(lambda t: t.detach().requires_grad_(True),
+                            net.params)
+            leaves = tree_leaves(live)
+            with record_function("resnet/forward"):
+                loss, new_state = net._score_fn(
+                    live, net.state, net._as_inputs(mds.features),
+                    net._as_labels(mds.labels), None, None, True, gen)
+                torch.cuda.synchronize()
+            with record_function("resnet/backward"):
+                grads = torch.autograd.grad(loss, leaves)
+                torch.cuda.synchronize()
+            by_leaf = {id(t): g for t, g in zip(leaves, grads)}
+            grad_tree = tree_map(lambda t: by_leaf[id(t)], live)
+            with record_function("resnet/optimizer"), torch.no_grad():
+                updates, net.opt_state = net._tx.update(
+                    grad_tree, net.opt_state, net.params)
+                apply_updates(net.params, updates)
+                torch.cuda.synchronize()
+            net.state = tree_map(lambda t: t.detach(), new_state)
+            losses.append(float(loss.detach()))
+    events = prof.events()
+    # the host's ranges; the profiler also puts each range on the device
+    # timeline (a span over its kernels), which is not a kernel
+    ranges = [(e.time_range.start, e.time_range.end, e.name.split("/")[1])
+              for e in events if e.name.startswith("resnet/")
+              and e.device_type == DeviceType.CPU]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("resnet/")]
+    if not kernels or not ranges:
+        return {"device_time": "not measured"}, losses
+    by_cat, by_name, unplaced = {}, {}, 0
+    for e in kernels:
+        phase = next((p for a, b, p in ranges
+                      if a <= e.time_range.start <= b), None)
+        if phase is None:
+            unplaced += 1
+            continue
+        cat = _resnet_category(e.name, phase)
+        ms = e.time_range.elapsed_us() / 1e3
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        key = (cat, e.name[:70])
+        by_name[key] = by_name.get(key, 0.0) + ms
+    top = {}
+    for (cat, name), ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        if len(top.setdefault(cat, [])) < 3:
+            top[cat].append([name, ms / steps])
+    return {"steps": steps, "device_ms_per_step_by_category":
+            {k: v / steps for k, v in sorted(by_cat.items())},
+            "device_ms_per_step": sum(by_cat.values()) / steps,
+            "top_kernels_ms_per_step": top,
+            "kernels_outside_the_phases": unplaced}, losses
+
+
+def resnet_timed(compute_dtype):
+    """Phase 6c: the zoo ResNet50 at the bench shape, per-call fit steps
+    on one seeded batch on the card, timed by CUDA events; then the
+    profiles, the sync count and the rest of RESNET_STEPS steps."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = ResNet50().conf()
+    if compute_dtype is not None:
+        conf = dataclasses.replace(conf, compute_dtype=compute_dtype)
+    net = ComputationGraph(conf).init()
+    g = torch.Generator(device="cuda").manual_seed(2024)
+    x = torch.rand(RESNET_BATCH, RESNET_HW, RESNET_HW, 3, generator=g,
+                   device="cuda")
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device="cuda"),
+        1000).float()
+    mds = MultiDataSet((x,), (y,))
+    losses, step_ms, host_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(RESNET_WARMUP + RESNET_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        net.fit(mds)                       # ends in the step's loss fetch
+        end.record()
+        end.synchronize()
+        losses.append(net.score())
+        if i >= RESNET_WARMUP:
+            step_ms.append(start.elapsed_time(end))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prof = profile_steps(net, mds, gen)
+    prof["phase"] = "resnet_profile"
+    losses += [None] * prof.get("steps", 2)   # not fetched one by one
+    phased, phased_losses = resnet_phased_profile(net, mds, gen)
+    losses += phased_losses
+    syncs = count_syncs(lambda: float(net._train_step(mds, gen)))
+    losses.append(None)
+    while len(losses) < RESNET_STEPS:
+        net.fit(mds)
+        losses.append(net.score())
+    p50 = statistics.median(step_ms)
+    tflops = RESNET_FLOP_PER_IMAGE * RESNET_BATCH / (p50 / 1e3) / 1e12
+    dtype = compute_dtype or "float32"
+    peak_flops = PEAK_FLOPS[torch.bfloat16 if dtype == "bfloat16"
+                            else torch.float32]
+    steps = prof.get("steps", 2)
+    row = {"phase": "resnet_timed", "compute_dtype": dtype,
+           "params": net.num_params(), "batch": RESNET_BATCH,
+           "image": [RESNET_HW, RESNET_HW, 3], "classes": 1000,
+           "updater": "Nesterovs(0.1, 0.9)", "l2": 1e-4,
+           "cudnn_benchmark": torch.backends.cudnn.benchmark,
+           "step_ms_p50": p50, "step_ms_max": max(step_ms),
+           "step_ms": step_ms, "step_host_ms_p50": statistics.median(host_ms),
+           "imgs_per_s": RESNET_BATCH / (p50 / 1e3),
+           "tflops_at_24.6_gflop_per_image": tflops,
+           "peak_tflops": peak_flops / 1e12,
+           "share_of_peak": tflops * 1e12 / peak_flops,
+           "launches_per_step": prof.get("kernel_launches", 0) / steps,
+           "syncs_per_step": syncs,
+           "idle_share": prof.get("idle_share", "not measured"),
+           # the host sets the pace when the device waits a quarter of
+           # the step or more
+           "paced_by": "host" if prof.get("idle_share", 0.0) >= 0.25
+           else "device",
+           "device_busy_ms_per_step": prof["device_busy_ms"] / steps
+           if "device_busy_ms" in prof else "not measured",
+           "by_category": phased, "peak_memory_bytes": peak,
+           "losses": losses}
+    emit(prof)
+    emit(row)
+    del net, mds, x, y
+    torch.cuda.empty_cache()
+    return row
+
+
+def resnet(fa, tmp):
+    """Phase 6: ResNet-50 through the ComputationGraph, counted from zero:
+    parity with the CPU, the train CLI, and the timed steps."""
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    parity = resnet_parity(tmp)
+    cli_row = resnet_cli(tmp)
+    timed = {"float32": resnet_timed(None),
+             "bfloat16": resnet_timed("bfloat16")}
+    launches = dict(fa.KERNEL_LAUNCHES)
+    f32, bf16 = ([s for s in timed[d]["losses"] if s is not None]
+                 for d in ("float32", "bfloat16"))
+    if len(timed["float32"]["losses"]) != RESNET_STEPS or \
+            not np.isfinite(f32 + bf16).all() or not f32[-1] < f32[0]:
+        raise AssertionError(f"ResNet50 f32 loss over {RESNET_STEPS} steps: "
+                             f"{timed['float32']['losses']}")
+    if any(launches.values()):
+        raise AssertionError(f"flash kernels launched on the ResNet path: "
+                             f"{launches}")
+    summary = {"phase": "resnet", "gpu": gpu_line(),
+               "seconds": time.perf_counter() - t0,
+               "flash_launches": launches,
+               "first_loss_f32": f32[0], "last_loss_f32": f32[-1],
+               **{f"{d}_{k}": timed[d][k] for d in timed
+                  for k in ("step_ms_p50", "imgs_per_s",
+                            "tflops_at_24.6_gflop_per_image", "idle_share",
+                            "paced_by", "launches_per_step",
+                            "peak_memory_bytes")}}
+    emit(summary)
+    return {"launches": launches, "parity": parity, "cli": cli_row,
+            "timed": timed}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1249,6 +1605,8 @@ def main(argv=None) -> int:
     gen_launches = generate(fa)["request_path_flash_launches"]
     with tempfile.TemporaryDirectory() as tmp:
         trained = train(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        resnet_run = resnet(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -1257,7 +1615,8 @@ def main(argv=None) -> int:
         "launches": trained["launches"]["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "generate": gen_launches["flash_fwd"],
-                             "train": trained["launches"]["flash_fwd"]},
+                             "train": trained["launches"]["flash_fwd"],
+                             "resnet": resnet_run["launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1273,7 +1632,8 @@ def main(argv=None) -> int:
             "replaces": BWD_REPLACES[name],
             "launches": trained["launches"][name],
             "launches_by_path": {"serve": 0, "generate": gen_launches[name],
-                                 "train": trained["launches"][name]},
+                                 "train": trained["launches"][name],
+                                 "resnet": resnet_run["launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

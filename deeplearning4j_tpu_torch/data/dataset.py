@@ -1,10 +1,10 @@
-"""The DataSet container.
+"""The DataSet containers.
 
 A copy of the JAX package's `data/dataset.py` (numpy only): ND4J's
-DataSet, consumed by `MultiLayerNetwork.fit` (MultiDataSet comes with the
-ComputationGraph slice). Arrays are
-host numpy arrays; `fit` moves each batch to the network's device. Masks
-follow DL4J semantics ((B, T) 0/1 arrays for time series).
+DataSet, consumed by `MultiLayerNetwork.fit`, and MultiDataSet, consumed
+by `ComputationGraph.fit`. Arrays are host numpy arrays; `fit` moves each
+batch to the network's device. Masks follow DL4J semantics ((B, T) 0/1
+arrays for time series).
 """
 from __future__ import annotations
 
@@ -46,3 +46,16 @@ class DataSet:
         for i in range(0, n - batch_size + 1, batch_size):
             yield DataSet(*(None if a is None else a[i:i + batch_size]
                             for a in self._arrays()))
+
+
+@dataclasses.dataclass
+class MultiDataSet:
+    """Multi-input, multi-output container (ND4J MultiDataSet), consumed by
+    ComputationGraph.fit: one array per network input and per output."""
+    features: Tuple["np.ndarray", ...]
+    labels: Tuple["np.ndarray", ...]
+    features_masks: Optional[Tuple[Optional["np.ndarray"], ...]] = None
+    labels_masks: Optional[Tuple[Optional["np.ndarray"], ...]] = None
+
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])

@@ -125,6 +125,8 @@ def layer_from_dict(d: dict):
         # registration happens when a layer module is imported; a
         # standalone load_model() may deserialize before that
         import deeplearning4j_tpu_torch.nn.layers  # noqa: F401
+        import deeplearning4j_tpu_torch.nn.conf.graph_vertices  # noqa: F401
+        import deeplearning4j_tpu_torch.nn.regularization  # noqa: F401
         cls = _LAYER_REGISTRY.get(name) or _AUX_REGISTRY.get(name)
     if cls is None:
         raise ValueError(f"Unknown layer/config class '{name}' (not ported "
@@ -170,10 +172,10 @@ class LayerConf:
       apply(params, state, x, *, train, mask)  -> (y, new_state) forward
 
     The fields are the reference's, so configs serialize to the same JSON.
-    Training reads `dropout` (a float probability; the reference's
-    dropout objects come with the regularization slice) and l1/l2; a
-    per-layer `updater`, `frozen`, `weight_noise` and `constraints` come
-    with later slices and raise when a fit would need them.
+    Training reads `dropout` (a float probability or an IDropout object),
+    `weight_noise`, `constraints` (`nn/regularization.py`) and l1/l2; a
+    per-layer `updater` and `frozen` come with a later slice and raise
+    when a fit would need them.
     """
     name: Optional[str] = None
     dropout: Any = 0.0
@@ -203,12 +205,12 @@ class LayerConf:
         from `generator`, which lies on x's device."""
         if not train or generator is None:
             return x
-        if not isinstance(self.dropout, (int, float)):
-            raise NotImplementedError(
-                f"{type(self).__name__}: dropout objects "
-                f"({type(self.dropout).__name__}) come with the "
-                "regularization slice of the port; use a float probability")
-        return dropout(x, self.dropout, generator)
+        if isinstance(self.dropout, (int, float)):
+            return dropout(x, self.dropout, generator)
+        from deeplearning4j_tpu_torch.nn.regularization import (
+            apply_input_dropout,
+        )
+        return apply_input_dropout(self.dropout, x, train, generator)
 
     def regularization_score(self, params) -> torch.Tensor:
         """L1/L2 penalty (DL4J BaseLayer.calcRegularizationScore): l1 *
@@ -231,6 +233,9 @@ class LayerConf:
             if self.l2:
                 score = score + 0.5 * self.l2 * (v * v).sum()
         return score
+
+    def has_params(self) -> bool:
+        return True
 
 
 # ------------------------------------------------------------ preprocessors

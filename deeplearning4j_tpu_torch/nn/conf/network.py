@@ -1,10 +1,11 @@
-"""Network-level configuration: the sequential config and its builder.
+"""Network-level configuration: the sequential and DAG configs and their
+builders.
 
 Counterpart of the JAX package's `nn/conf/network.py`:
-`MultiLayerConfiguration` with its JSON round-trip, and the
-`NeuralNetConfiguration.Builder().list()` path. The JSON carries the
-reference's format tag, so a config written by either package loads in
-the other. `ComputationGraphConfiguration` comes with a later slice.
+`MultiLayerConfiguration` and `ComputationGraphConfiguration` with their
+JSON and YAML round-trips, the `NeuralNetConfiguration.Builder().list()`
+path and `GraphBuilder`. The JSON carries the reference's format tags,
+so a config written by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -17,8 +18,19 @@ from deeplearning4j_tpu_torch.nn.conf.base import (
 )
 from deeplearning4j_tpu_torch.nn.updaters import Sgd, get_updater
 
-#: the reference's format tag, kept so the two packages share one format
+#: the reference's format tags, kept so the two packages share one format
 MULTILAYER_FORMAT = "deeplearning4j_tpu.MultiLayerConfiguration.v1"
+GRAPH_FORMAT = "deeplearning4j_tpu.ComputationGraphConfiguration.v1"
+
+
+def _to_yaml(d: dict) -> str:
+    import yaml
+    return yaml.safe_dump(d, sort_keys=False)
+
+
+def _from_yaml(s: str) -> dict:
+    import yaml
+    return yaml.safe_load(s)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +68,13 @@ class MultiLayerConfiguration:
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2)
+
+    def to_yaml(self) -> str:
+        return _to_yaml(self.to_dict())
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration.from_dict(_from_yaml(s))
 
     @staticmethod
     def from_dict(d: dict) -> "MultiLayerConfiguration":
@@ -160,6 +179,9 @@ class NeuralNetConfiguration:
         def list(self) -> "ListBuilder":
             return ListBuilder(self)
 
+        def graph_builder(self) -> "GraphBuilder":
+            return GraphBuilder(self)
+
 
 def _apply_global_defaults(b: "NeuralNetConfiguration.Builder",
                            layer: LayerConf) -> LayerConf:
@@ -220,6 +242,179 @@ class ListBuilder:
         return MultiLayerConfiguration(
             layers=tuple(self._layers),
             input_type=self._input_type,
+            seed=p._seed,
+            updater=p._updater,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
+            dtype=p._dtype,
+            compute_dtype=p._compute_dtype,
+            grad_clip_norm=p._grad_clip_norm,
+            grad_clip_value=p._grad_clip_value,
+            gradient_checkpointing=p._gradient_checkpointing,
+        )
+
+
+# ------------------------------------------------------------------- graph
+@dataclasses.dataclass(frozen=True)
+class VertexDef:
+    """One node of the DAG: a LayerConf or a GraphVertexConf, and the
+    names of its inputs."""
+    vertex: Any
+    inputs: Tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ComputationGraphConfiguration:
+    """DAG config (DL4J ComputationGraphConfiguration): vertices keyed by
+    name, in insertion order; `topological_order` is the reference's."""
+    vertices: Dict[str, VertexDef] = dataclasses.field(default_factory=dict)
+    network_inputs: Tuple[str, ...] = ()
+    network_outputs: Tuple[str, ...] = ()
+    input_types: Tuple[InputType, ...] = ()
+    seed: int = 0
+    updater: Any = dataclasses.field(default_factory=lambda: Sgd(1e-2))
+    backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+    dtype: str = "float32"
+    compute_dtype: Optional[str] = None
+    grad_clip_norm: Optional[float] = None
+    grad_clip_value: Optional[float] = None
+    gradient_checkpointing: bool = False
+
+    def topological_order(self) -> List[str]:
+        """Sweeps over the vertices in insertion order, taking each whose
+        inputs are all known, until none is left (the reference's order,
+        which fixes the order of the parameter dict)."""
+        order: List[str] = []
+        seen = set(self.network_inputs)
+        pending = dict(self.vertices)
+        while pending:
+            progressed = False
+            for name, vd in list(pending.items()):
+                if all(i in seen for i in vd.inputs):
+                    order.append(name)
+                    seen.add(name)
+                    del pending[name]
+                    progressed = True
+            if not progressed:
+                raise ValueError(f"Graph has a cycle or missing inputs: "
+                                 f"{list(pending)}")
+        return order
+
+    def to_dict(self) -> dict:
+        return {
+            "format": GRAPH_FORMAT,
+            "vertices": {
+                name: {"vertex": layer_to_dict(vd.vertex),
+                       "inputs": list(vd.inputs)}
+                for name, vd in self.vertices.items()
+            },
+            "network_inputs": list(self.network_inputs),
+            "network_outputs": list(self.network_outputs),
+            "input_types": [t.to_dict() for t in self.input_types],
+            "seed": self.seed,
+            "updater": layer_to_dict(get_updater(self.updater)),
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
+            "dtype": self.dtype,
+            "compute_dtype": self.compute_dtype,
+            "grad_clip_norm": self.grad_clip_norm,
+            "grad_clip_value": self.grad_clip_value,
+            "gradient_checkpointing": self.gradient_checkpointing,
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    def to_yaml(self) -> str:
+        return _to_yaml(self.to_dict())
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        return ComputationGraphConfiguration.from_dict(_from_yaml(s))
+
+    @staticmethod
+    def from_dict(d: dict) -> "ComputationGraphConfiguration":
+        return ComputationGraphConfiguration(
+            vertices={name: VertexDef(layer_from_dict(vd["vertex"]),
+                                      tuple(vd["inputs"]))
+                      for name, vd in d["vertices"].items()},
+            network_inputs=tuple(d["network_inputs"]),
+            network_outputs=tuple(d["network_outputs"]),
+            input_types=tuple(InputType.from_dict(t)
+                              for t in d.get("input_types", [])),
+            seed=d.get("seed", 0),
+            updater=layer_from_dict(d["updater"])
+            if isinstance(d.get("updater"), dict)
+            else d.get("updater", Sgd(1e-2)),
+            backprop_type=d.get("backprop_type", "standard"),
+            tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
+            tbptt_back_length=d.get("tbptt_back_length", 20),
+            dtype=d.get("dtype", "float32"),
+            compute_dtype=d.get("compute_dtype"),
+            grad_clip_norm=d.get("grad_clip_norm"),
+            grad_clip_value=d.get("grad_clip_value"),
+            gradient_checkpointing=d.get("gradient_checkpointing", False),
+        )
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        return ComputationGraphConfiguration.from_dict(json.loads(s))
+
+
+class GraphBuilder:
+    """DL4J ComputationGraphConfiguration.GraphBuilder analog; layers get
+    the parent builder's global defaults, as in the list path."""
+
+    def __init__(self, parent: Optional["NeuralNetConfiguration.Builder"]
+                 = None):
+        self._parent = parent or NeuralNetConfiguration.Builder()
+        self._vertices: Dict[str, VertexDef] = {}
+        self._inputs: Tuple[str, ...] = ()
+        self._outputs: Tuple[str, ...] = ()
+        self._input_types: Tuple[InputType, ...] = ()
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
+
+    def add_inputs(self, *names: str):
+        self._inputs = tuple(names)
+        return self
+
+    def set_input_types(self, *types: InputType):
+        self._input_types = tuple(types)
+        return self
+
+    def add_layer(self, name: str, layer: LayerConf, *inputs: str):
+        self._vertices[name] = VertexDef(
+            _apply_global_defaults(self._parent, layer), tuple(inputs))
+        return self
+
+    def add_vertex(self, name: str, vertex, *inputs: str):
+        self._vertices[name] = VertexDef(vertex, tuple(inputs))
+        return self
+
+    def set_outputs(self, *names: str):
+        self._outputs = tuple(names)
+        return self
+
+    def backprop_type(self, t: str, fwd_length: int = 20,
+                      back_length: int = 20):
+        self._backprop_type = t
+        self._tbptt_fwd = fwd_length
+        self._tbptt_back = back_length
+        return self
+
+    def build(self) -> ComputationGraphConfiguration:
+        p = self._parent
+        return ComputationGraphConfiguration(
+            vertices=dict(self._vertices),
+            network_inputs=self._inputs,
+            network_outputs=self._outputs,
+            input_types=self._input_types,
             seed=p._seed,
             updater=p._updater,
             backprop_type=self._backprop_type,

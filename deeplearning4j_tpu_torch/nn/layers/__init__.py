@@ -3,10 +3,37 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     EmbeddingSequenceLayer, LayerNormLayer, MoEFeedForward, MultiHeadAttention,
     PositionalEmbeddingLayer, TransformerBlock, dot_product_attention, rope,
 )
+from deeplearning4j_tpu_torch.nn.layers.convolution import (
+    CnnLossLayer, Convolution1DLayer, ConvolutionLayer, Cropping1D,
+    Cropping2D, Deconvolution2D, DepthwiseConvolution2D, GlobalPoolingLayer,
+    LocallyConnected1D, LocallyConnected2D, SeparableConvolution2D,
+    SpaceToBatchLayer, SpaceToDepthLayer, Subsampling1DLayer,
+    SubsamplingLayer, Upsampling1D, Upsampling2D, ZeroPadding1DLayer,
+    ZeroPaddingLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+    ActivationLayer, AutoEncoder, CenterLossOutputLayer, DenseLayer,
+    DropoutLayer, ElementWiseMultiplicationLayer, EmbeddingLayer, LossLayer,
+    OutputLayer, PermuteLayer, RepeatVector, ReshapeLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.normalization import (
+    BatchNormalization, LocalResponseNormalization,
+)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 
 __all__ = [
-    "EmbeddingSequenceLayer", "LayerNormLayer", "MoEFeedForward",
-    "MultiHeadAttention", "PositionalEmbeddingLayer", "RnnOutputLayer",
-    "TransformerBlock", "dot_product_attention", "rope",
+    "ActivationLayer", "AutoEncoder", "BatchNormalization",
+    "CenterLossOutputLayer", "CnnLossLayer", "Convolution1DLayer",
+    "ConvolutionLayer", "Cropping1D", "Cropping2D", "Deconvolution2D",
+    "DenseLayer", "DepthwiseConvolution2D", "DropoutLayer",
+    "ElementWiseMultiplicationLayer", "EmbeddingLayer",
+    "EmbeddingSequenceLayer", "GlobalPoolingLayer", "LayerNormLayer",
+    "LocalResponseNormalization", "LocallyConnected1D", "LocallyConnected2D",
+    "LossLayer", "MoEFeedForward", "MultiHeadAttention", "OutputLayer",
+    "PermuteLayer", "PositionalEmbeddingLayer", "RepeatVector",
+    "ReshapeLayer", "RnnOutputLayer", "SeparableConvolution2D",
+    "SpaceToBatchLayer", "SpaceToDepthLayer", "Subsampling1DLayer",
+    "SubsamplingLayer", "TransformerBlock", "Upsampling1D", "Upsampling2D",
+    "ZeroPadding1DLayer", "ZeroPaddingLayer", "dot_product_attention",
+    "rope",
 ]

@@ -14,10 +14,13 @@ transposes; the optimizer state keeps optax's state-dict layout
 The network lives on one device, CUDA unless the caller asks for the CPU
 (`util.platform.resolve_device`); without CUDA the default raises.
 
+Dropout objects and weight noise act in the training forward, and
+constraints are projected after each update (`nn/regularization.py`).
+
 Not yet ported, each raising NotImplementedError that names its slice:
 the scan, accumulate and tbptt fit paths, sharding plans, the prefetching
-wrapper, per-layer updaters and frozen layers, weight noise and
-constraints, gradient checkpointing and `evaluate`.
+wrapper, per-layer updaters and frozen layers, gradient checkpointing and
+`evaluate`.
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ from deeplearning4j_tpu_torch.nn.conf.base import (
     InputType, Kind, LayerConf, preprocess_forward, preprocessed_type,
 )
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.regularization import (
+    apply_constraints, apply_weight_noise, constraint_map, has_constraints,
+)
 from deeplearning4j_tpu_torch.nn.updaters import (
     apply_updates, build_optimizer, tree_leaves, tree_map,
 )
@@ -45,9 +51,24 @@ from deeplearning4j_tpu_torch.util.platform import (
 # layer-kind requirements for automatic preprocessor insertion; a class
 # not listed accepts any kind (elementwise layers)
 _KIND_BY_CLASS = {
+    "DenseLayer": Kind.FF, "EmbeddingLayer": Kind.FF, "OutputLayer": Kind.FF,
+    "AutoEncoder": Kind.FF, "VariationalAutoencoder": Kind.FF,
+    "ConvolutionLayer": Kind.CNN, "Deconvolution2D": Kind.CNN,
+    "SeparableConvolution2D": Kind.CNN, "DepthwiseConvolution2D": Kind.CNN,
+    "SubsamplingLayer": Kind.CNN, "Upsampling2D": Kind.CNN,
+    "ZeroPaddingLayer": Kind.CNN, "Cropping2D": Kind.CNN,
+    "SpaceToDepthLayer": Kind.CNN, "SpaceToBatchLayer": Kind.CNN,
+    "Yolo2OutputLayer": Kind.CNN,
     "MultiHeadAttention": Kind.RNN, "TransformerBlock": Kind.RNN,
-    "MoEFeedForward": Kind.RNN, "PositionalEmbeddingLayer": Kind.RNN,
-    "EmbeddingSequenceLayer": Kind.RNN, "RnnOutputLayer": Kind.RNN,
+    "MoEFeedForward": Kind.RNN,
+    "PositionalEmbeddingLayer": Kind.RNN, "EmbeddingSequenceLayer": Kind.RNN,
+    "LocalResponseNormalization": Kind.CNN, "CnnLossLayer": Kind.CNN,
+    "LSTM": Kind.RNN, "GravesLSTM": Kind.RNN, "SimpleRnn": Kind.RNN,
+    "GRU": Kind.RNN,
+    "Bidirectional": Kind.RNN, "GravesBidirectionalLSTM": Kind.RNN,
+    "RnnOutputLayer": Kind.RNN, "RnnLossLayer": Kind.RNN,
+    "LastTimeStep": Kind.RNN, "MaskZeroLayer": Kind.RNN,
+    "Convolution1DLayer": Kind.RNN, "Subsampling1DLayer": Kind.RNN,
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -88,6 +109,33 @@ def tree_to(tree, device: torch.device, dtype: Optional[torch.dtype] = None):
     return tree.to(device=device)
 
 
+def _tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+
+
+def as_input(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """Features -> a tensor on `device`; floats in the compute dtype,
+    integer ids stay integer."""
+    x = _tensor(x)
+    if x.is_floating_point():
+        return x.to(device=device, dtype=dtype)
+    return x.to(device=device)
+
+
+def as_labels(y, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """Labels -> `device`; floats and uint8 (a one-hot .npz) in the compute
+    dtype, as the reference's `_as_jnp(y, compute_dtype)`; wider ints
+    (class ids) stay integer."""
+    y = _tensor(y).to(device)
+    if y.is_floating_point() or y.dtype == torch.uint8:
+        return y.to(dtype)
+    return y
+
+
+def as_mask(m, device: torch.device) -> Optional[torch.Tensor]:
+    return None if m is None else _tensor(m).to(device)
+
+
 def _not_ported(what: str, slice_name: str):
     return NotImplementedError(f"{what} comes with the {slice_name} slice of "
                                "the PyTorch port")
@@ -112,6 +160,8 @@ class MultiLayerNetwork:
         self._param_dtype = torch_dtype(conf.dtype)
         self._compute_dtype = torch_dtype(conf.compute_dtype or conf.dtype)
         self._input_types: Optional[List[InputType]] = None
+        self._constraints = constraint_map(self) \
+            if has_constraints(self.layers) else {}
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
@@ -188,29 +238,13 @@ class MultiLayerNetwork:
         return tree_to(params, self.device, self._compute_dtype)
 
     def _as_input(self, x) -> torch.Tensor:
-        """Features -> a tensor on the device; floats in the compute dtype,
-        integer ids stay integer."""
-        x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
-                            else x)
-        if x.is_floating_point():
-            return x.to(device=self.device, dtype=self._compute_dtype)
-        return x.to(device=self.device)
+        return as_input(x, self.device, self._compute_dtype)
 
     def _as_labels(self, y) -> torch.Tensor:
-        """Labels -> the device; floats and uint8 (a one-hot .npz) in the
-        compute dtype, as the reference's `_as_jnp(y, compute_dtype)`;
-        wider ints (class ids) stay integer."""
-        y = torch.as_tensor(np.asarray(y) if not isinstance(y, torch.Tensor)
-                            else y).to(self.device)
-        if y.is_floating_point() or y.dtype == torch.uint8:
-            return y.to(self._compute_dtype)
-        return y
+        return as_labels(y, self.device, self._compute_dtype)
 
     def _as_mask(self, m) -> Optional[torch.Tensor]:
-        if m is None:
-            return None
-        return torch.as_tensor(np.asarray(m) if not isinstance(m, torch.Tensor)
-                               else m).to(self.device)
+        return as_mask(m, self.device)
 
     def _forward(self, params, state, x, train: bool, generator=None,
                  fmask=None, upto: Optional[int] = None):
@@ -229,12 +263,11 @@ class MultiLayerNetwork:
             if need is not None and cur_type.kind != need:
                 x = preprocess_forward(cur_type, need, x)
                 cur_type = preprocessed_type(cur_type, need)
-            if train and layer.weight_noise is not None:
-                raise _not_ported(f"layer {i}: weight noise in training",
-                                  "regularization")
             mask = fmask if cur_type.kind == Kind.RNN else None
+            layer_params = apply_weight_noise(layer, params[str(i)], train,
+                                              generator)
             x, new_state[str(i)] = layer.apply(
-                params[str(i)], state[str(i)], x, train=train, mask=mask,
+                layer_params, state[str(i)], x, train=train, mask=mask,
                 generator=generator)
             cur_type = layer.output_type(cur_type)
         if upto is not None and upto < len(self.layers):
@@ -311,6 +344,8 @@ class MultiLayerNetwork:
             updates, self.opt_state = self._tx.update(grads, self.opt_state,
                                                       self.params)
             apply_updates(self.params, updates)
+            if self._constraints:
+                apply_constraints(self._constraints, self.params)
         self.state = new_state
         return loss
 
@@ -328,10 +363,6 @@ class MultiLayerNetwork:
             raise _not_ported("tbptt training", "recurrent")
         if self.conf.gradient_checkpointing:
             raise _not_ported("gradient checkpointing", "CUDA-graph fit")
-        for i, layer in enumerate(self.layers):
-            if layer.constraints:
-                raise _not_ported(f"layer {i}: weight constraints",
-                                  "regularization")
         if self._tx is None:
             raise _not_ported(self._unported_optimizer(), "optimizer")
 

@@ -1,8 +1,9 @@
 """CLI training entry point.
 
 Counterpart of the JAX package's `train/cli.py` (DL4J's
-ParallelWrapperMain): a model zip in, a dataset, fit, the trained model
-zip out, and as the last stdout line
+ParallelWrapperMain): a model zip in (a MultiLayerNetwork or a
+ComputationGraph, as `load_model` finds it), a dataset, fit, the trained
+model zip out, and as the last stdout line
 
     {"output": ..., "final_score": ..., "iterations": ..., "epochs": ...}
 

@@ -2,10 +2,13 @@
 
 Counterpart of the JAX package's `util/serialization.py`. The zip holds:
 
-- configuration.json : MultiLayerConfiguration JSON
+- configuration.json : MultiLayerConfiguration or
+                       ComputationGraphConfiguration JSON
 - coefficients.npz   : params, keys are '/'-joined paths (``1/attn/Wq``,
-                       ``1/ln1/gamma``, ``0/W``, ``5/b``)
-- state.npz          : layer state
+                       ``1/ln1/gamma``, ``0/W``, ``5/b``; a graph's start
+                       with the vertex name, ``stem_conv/W``)
+- state.npz          : layer state (BatchNormalization's running
+                       ``mean``/``var``)
 - metadata.json      : model type, iteration/epoch counters, version
 - updaterState.bin   : the optimizer state, in optax's state-dict layout,
                        as flax's msgpack writes it (`to_bytes`): a map per
@@ -13,8 +16,8 @@ Counterpart of the JAX package's `util/serialization.py`. The zip holds:
                        ``(shape, dtype name, C-order bytes)``.
 
 So a zip written by either package loads in the other, and training
-resumes there with its optimizer state. Weights keep their (in, out)
-layout: nothing is transposed.
+resumes there with its optimizer state. Weights keep their (in, out) and
+HWIO layouts: nothing is transposed.
 """
 from __future__ import annotations
 
@@ -196,11 +199,16 @@ def save_model(model, path, save_updater: bool = True, atomic: bool = True):
     updaterState.bin when `save_updater` and the model has an optimizer
     state. `atomic`: written to a temp file and renamed, so a kill
     mid-save never leaves a truncated zip at `path`."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-    if not isinstance(model, MultiLayerNetwork):
+    if isinstance(model, MultiLayerNetwork):
+        model_type = "MultiLayerNetwork"
+    elif isinstance(model, ComputationGraph):
+        model_type = "ComputationGraph"
+    else:
         raise ValueError(f"Cannot serialize {type(model)}")
     meta = {"format_version": _FORMAT_VERSION,
-            "model_type": "MultiLayerNetwork",
+            "model_type": model_type,
             "iteration_count": model.iteration_count,
             "epoch_count": model.epoch_count}
     atomic = atomic and isinstance(path, (str, os.PathLike))
@@ -226,22 +234,25 @@ def save_model(model, path, save_updater: bool = True, atomic: bool = True):
 def _restore(path, expect_type: Optional[str], device: DeviceLike,
              load_updater: bool):
     from deeplearning4j_tpu_torch.nn.conf.network import (
-        MultiLayerConfiguration,
+        ComputationGraphConfiguration, MultiLayerConfiguration,
     )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    kinds = {"MultiLayerNetwork": (MultiLayerConfiguration,
+                                   MultiLayerNetwork),
+             "ComputationGraph": (ComputationGraphConfiguration,
+                                  ComputationGraph)}
     with zipfile.ZipFile(path, "r") as zf:
         meta = json.loads(zf.read("metadata.json"))
         model_type = meta["model_type"]
         if expect_type and model_type != expect_type:
             raise ValueError(f"Checkpoint holds a {model_type}, expected "
                              f"{expect_type}")
-        if model_type != "MultiLayerNetwork":
-            raise NotImplementedError(
-                f"{model_type} checkpoints come with a later slice of the "
-                "port")
-        conf = MultiLayerConfiguration.from_json(
-            zf.read("configuration.json").decode())
-        model = MultiLayerNetwork(conf, device=device).init()
+        if model_type not in kinds:
+            raise ValueError(f"unknown model_type {model_type!r}")
+        conf_cls, model_cls = kinds[model_type]
+        conf = conf_cls.from_json(zf.read("configuration.json").decode())
+        model = model_cls(conf, device=device).init()
         model.params = params_from_numpy(
             _npz_bytes_to_tree(zf.read("coefficients.npz")), model.device,
             template=model.params)
@@ -259,6 +270,11 @@ def _restore(path, expect_type: Optional[str], device: DeviceLike,
 def restore_multilayer_network(path, device: DeviceLike = None,
                                load_updater: bool = True):
     return _restore(path, "MultiLayerNetwork", device, load_updater)
+
+
+def restore_computation_graph(path, device: DeviceLike = None,
+                              load_updater: bool = True):
+    return _restore(path, "ComputationGraph", device, load_updater)
 
 
 def load_model(path, device: DeviceLike = None, load_updater: bool = True):

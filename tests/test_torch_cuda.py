@@ -1,7 +1,8 @@
 """The port on an NVIDIA GPU: the flash kernels (forward, dQ, dK/dV)
 against their plain versions, the network on the card against the same
-network on the CPU, forward and gradients, and the decode engine on the
-card against the same engine on the CPU.
+network on the CPU, forward and gradients, the decode engine on the
+card against the same engine on the CPU, and ResNet-50's layers and a
+small residual ComputationGraph on the card against the CPU.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -16,7 +17,10 @@ kernel rounds P to bf16 before P.V, as FlashAttention does: observed
 kernels round p and ds to bf16 before their second products, as the
 forward rounds P, and each gradient once). Network
 gradients: per leaf, 1e-4 of the leaf's largest gradient (f32 matmuls on
-two devices, summed in other orders).
+two devices, summed in other orders). ResNet's layers: f32 with TF32
+off, outputs and gradients within 1e-4 of each tensor's largest value
+(cuDNN against the CPU's convolutions). The small graph runs in f64:
+training-mode values within 1e-10 (scores) and 1e-8 (gradients).
 """
 import numpy as np
 import pytest
@@ -145,13 +149,27 @@ def test_forward_is_bitwise_deterministic(cuda, dtype):
 
 
 def test_public_wrapper_pads_and_maps_lse(cuda):
+    """The wrapper's padding to the block and its LSE layout, against the
+    plain version on the card (as every other forward test: a reference
+    on the host CPU sums in another order again)."""
     q, k, v = _qkv(2, 100, 100, 4, 64, torch.float32, 1, cuda)
     out, lse = flash_attention(q, k, v, causal=True, block_q=64, block_k=64,
                                return_lse=True)
-    ref, rlse = flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True,
-                                return_lse=True)
-    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0.0)
-    torch.testing.assert_close(lse.cpu(), rlse, atol=1e-4, rtol=0.0)
+    ref, rlse = flash_attention_plain(q, k, v, None, True)
+    rlse = rlse.reshape(2, 4, 100).transpose(1, 2)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0.0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0.0)
+
+
+def test_f32_forward_is_bitwise_stable_over_fifty_calls(cuda):
+    """The f32 forward kernel, called 50 times on one input, gives the
+    first call's O and LSE bitwise every time."""
+    q, k, v = _qkv(2, 100, 100, 4, 64, torch.float32, 1, cuda)
+    first = flash_attention_cuda(q, k, v, None, True)
+    for _ in range(49):
+        again = flash_attention_cuda(q, k, v, None, True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -412,3 +430,128 @@ def test_decode_engine_bf16_and_sampling_on_the_card(cuda, tmp_path):
     assert torch.isin(draws, torch.topk(lgf[0], 5).indices).all()
     assert torch.equal(draws, gpu._sample(lgf, temps, topks, 9))
     assert len(set(draws.tolist())) > 1
+
+
+# ------------------------------------------------------ ResNet's path
+def _to(tree, device, dtype=None):
+    from deeplearning4j_tpu_torch.nn.multilayer import tree_to
+    return tree_to(tree, torch.device(device), dtype)
+
+
+def _layer_on_both(layer, params, state, x, train):
+    """The layer's forward and gradients of sum(y * g) on the card and on
+    the CPU, from the same CPU tensors."""
+    out = []
+    g = torch.randn(layer.apply(params, state, x, train=train)[0].shape,
+                    generator=torch.Generator().manual_seed(3))
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        xx = x.to(dev).requires_grad_(True)
+        y, st = layer.apply(p, _to(state, dev), xx, train=train)
+        grads = torch.autograd.grad((y * g.to(dev)).sum(),
+                                    [xx] + list(p.values()))
+        out.append((y, st, grads))
+    return out
+
+
+@pytest.mark.parametrize("case", ["conv_same_s1", "conv_1x1_s2",
+                                  "conv_stem_7x7_s2", "bn_train", "bn_eval",
+                                  "pool_same_3x3_s2", "global_avg",
+                                  "relu", "output"])
+def test_resnet_layers_on_the_card_match_the_cpu(cuda, case):
+    """ResNet50's layers at its own shapes (batch 4, a quarter of the
+    spatial size) on the card against the CPU, f32 with TF32 off:
+    outputs and gradients within 1e-4 of each tensor's largest value."""
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ActivationLayer, BatchNormalization, ConvolutionLayer,
+        GlobalPoolingLayer, OutputLayer, SubsamplingLayer,
+    )
+    from deeplearning4j_tpu_torch.util.platform import set_f32_matmul_exact
+    set_f32_matmul_exact()
+    gen = torch.Generator().manual_seed(0)
+    layers = {
+        "conv_same_s1": (ConvolutionLayer(n_out=64, kernel=(3, 3),
+                                          convolution_mode="same",
+                                          has_bias=False), (4, 14, 14, 64)),
+        "conv_1x1_s2": (ConvolutionLayer(n_out=128, kernel=(1, 1),
+                                         stride=(2, 2),
+                                         convolution_mode="same",
+                                         has_bias=False), (4, 14, 14, 64)),
+        "conv_stem_7x7_s2": (ConvolutionLayer(n_out=64, kernel=(7, 7),
+                                              stride=(2, 2),
+                                              has_bias=False),
+                             (4, 62, 62, 3)),
+        "bn_train": (BatchNormalization(), (4, 14, 14, 64)),
+        "bn_eval": (BatchNormalization(), (4, 14, 14, 64)),
+        "pool_same_3x3_s2": (SubsamplingLayer(kernel=(3, 3), stride=(2, 2),
+                                              convolution_mode="same"),
+                             (4, 28, 28, 64)),
+        "global_avg": (GlobalPoolingLayer(pooling_type="avg"),
+                       (4, 7, 7, 256)),
+        "relu": (ActivationLayer(activation="relu"), (4, 14, 14, 64)),
+        "output": (OutputLayer(n_out=100), (4, 256)),
+    }
+    layer, shape = layers[case]
+    x = torch.randn(shape, generator=gen)
+    it = InputType.feed_forward(shape[-1]) if len(shape) == 2 \
+        else InputType.convolutional(*shape[1:])
+    params, state = layer.init(gen, it)
+    params = {k: v + 0.1 * torch.randn(v.shape, generator=gen)
+              for k, v in params.items()}
+    (yg, sg, gg), (yc, sc, gc) = _layer_on_both(layer, params, state, x,
+                                                train=case != "bn_eval")
+    assert yg.is_contiguous()
+    for a, b in [(yg, yc)] + list(zip(gg, gc)):
+        err = (a.detach().cpu() - b).abs().max().item()
+        assert err <= 1e-4 * max(b.abs().max().item(), 1e-30)
+    for k in sc:
+        torch.testing.assert_close(sg[k].cpu(), sc[k], atol=1e-6, rtol=1e-5)
+
+
+def test_small_graph_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A small residual ComputationGraph (stem, two bottlenecks, BN,
+    global pool, softmax head) from one zip on the card and on the CPU:
+    output(), then one batch's score and gradients, then a fit step."""
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    conf = ResNet50(num_classes=10, input_shape=(32, 32, 3)).conf()
+    import dataclasses
+    keep = [n for n in conf.topological_order() if not n.startswith(
+        ("res3", "res4", "res5"))]
+    verts = {n: conf.vertices[n] for n in keep if n not in
+             ("avgpool", "output")}
+    verts["avgpool"] = dataclasses.replace(conf.vertices["avgpool"],
+                                           inputs=("res2c_out",))
+    verts["output"] = conf.vertices["output"]
+    small = dataclasses.replace(conf, vertices=verts,
+                                dtype="float64")
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    path = save_model(ComputationGraph(small, device="cpu").init(),
+                      str(tmp_path / "g.zip"))
+    gpu, cpu = load_model(path), load_model(path, device="cpu")
+    rs = np.random.RandomState(0)
+    X = rs.rand(8, 32, 32, 3)
+    Y = np.eye(10)[rs.randint(0, 10, 8)]
+    # inference normalizes by the f32 running variance (BN state is f32
+    # in both packages): the card's f32 rsqrt may differ from the CPU's
+    # by an ulp, so output() is held at f32 level even in f64
+    torch.testing.assert_close(gpu.output(X).cpu(), cpu.output(X),
+                               atol=1e-6, rtol=1e-5)
+    mds = MultiDataSet((X,), (Y,))
+    lg, gg, sg = gpu.compute_gradient_and_score(mds)
+    lc, gc, sc = cpu.compute_gradient_and_score(mds)
+    assert abs(lg.item() - lc.item()) <= 1e-10 * abs(lc.item())
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 1e-8 * max(b.abs().max().item(), 1e-30)
+    for a, b in zip(tree_leaves(sg), tree_leaves(sc)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-10, rtol=1e-10)
+    gpu.fit(mds)
+    cpu.fit(mds)
+    for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-9, rtol=1e-9)

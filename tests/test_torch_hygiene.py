@@ -79,6 +79,9 @@ def test_importing_the_port_pulls_in_no_jax():
             "import deeplearning4j_tpu_torch.ops.flash_attention\n"
             "import deeplearning4j_tpu_torch.train.cli\n"
             "import deeplearning4j_tpu_torch.nn.multilayer\n"
+            "import deeplearning4j_tpu_torch.nn.graph\n"
+            "import deeplearning4j_tpu_torch.nn.regularization\n"
+            "import deeplearning4j_tpu_torch.models.zoo\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED_ROOTS)!r})\n"
             "print(bad)\n"

@@ -48,6 +48,7 @@ from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.layers import attention as port_attn
 from deeplearning4j_tpu_torch.nn.layers import recurrent as port_rec
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.regularization import GaussianDropout
 from deeplearning4j_tpu_torch.nn.updaters import Adam, Sgd, tree_leaves
 from deeplearning4j_tpu_torch.ops import flash_attention as fa
 from deeplearning4j_tpu_torch.train import cli
@@ -238,10 +239,17 @@ def test_dropout_objects_and_attention_dropout_raise_in_training():
     mha.apply(p, {}, x)                                   # inference is fine
     with pytest.raises(NotImplementedError, match="later slice"):
         mha.apply(p, {}, x, train=True)
+    # dropout objects apply (nn/regularization.py); a dict is no dropout
     obj = port_attn.MultiHeadAttention(n_out=16, n_heads=2,
+                                       dropout=GaussianDropout(rate=0.3))
+    x1 = torch.ones(1, 4, 16)
+    noisy = obj.apply(p, {}, x1, train=True,
+                      generator=torch.Generator().manual_seed(0))[0]
+    assert not torch.allclose(noisy, obj.apply(p, {}, x1)[0])
+    bad = port_attn.MultiHeadAttention(n_out=16, n_heads=2,
                                        dropout={"@class": "GaussianDropout"})
-    with pytest.raises(NotImplementedError, match="regularization slice"):
-        obj.apply(p, {}, x, train=True, generator=torch.Generator())
+    with pytest.raises(TypeError, match="IDropout"):
+        bad.apply(p, {}, x, train=True, generator=torch.Generator())
 
 
 # ------------------------------------------------------------ the slice
@@ -406,7 +414,10 @@ def test_configs_not_yet_ported_raise_at_fit(case):
         lb.backprop_type("tbptt")
     net = MultiLayerNetwork(lb.build(), device="cpu").init()
     X, Y = _tokens(2, 4, 10, seed=6)
-    with pytest.raises(NotImplementedError, match="slice"):
+    # weight noise is ported (nn/regularization.py); a dict is no noise
+    error, match = (TypeError, "IWeightNoise") if case == "weight_noise" \
+        else (NotImplementedError, "slice")
+    with pytest.raises(error, match=match):
         net.fit((X, Y), batch_size=2)
     net.output(X)                                # inference still works
 
