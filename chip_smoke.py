@@ -92,8 +92,33 @@ result line:
              imgs/s, TFLOP/s at 24.6 GFLOP per image, launches and
              host-device syncs per step, device ms by category (two steps
              split at syncs into forward / backward / optimizer), idle
-             share, peak memory; over 20 f32 steps on the one batch the
-             loss must fall.
+             share, peak memory; over 20 f32 steps on the one batch with
+             cuDNN's deterministic algorithms (a trajectory that repeats
+             from run to run) the loss must fall.
+7. fit_graph — the reference's production fit loop (bench.py:320-345's
+             "fit" mode). (a) ResNet-50 at the bench shape through
+             ComputationGraph.fit(iterator, scan_steps=10): uint8 pixels,
+             ImagePreProcessingScaler applied on the card, prefetch on,
+             two chunks a fit; per-call (scan_steps=1, same pipeline)
+             first, then the replayed CUDA graph, f32 and bf16: fit and
+             chunk wall ms, step ms, imgs/s, TFLOP/s, host launch calls,
+             graph launches and device kernels a step, device busy ms
+             and idle share (torch.profiler), peak memory, and the
+             host-device syncs of a fit by site (none inside a chunk's
+             dispatch, one loss fetch a chunk). (b) the full-width LM
+             through fit(scan_steps=8) over 16 steps, per-call and graph:
+             step ms, the same profile; each captured step must run each
+             flash kernel n_layers times (the profiler's kernel events).
+             (c) equality on the card, graph against per-call from one
+             init: the LM (16 steps) bitwise, a small MLP with dropout
+             0.5 bitwise, ResNet50 at 64² (batch 4, two chunks of 3,
+             cuDNN deterministic) bitwise or within 1e-5 of each update;
+             in f64 at 64²: one update of accumulate_steps=2, card
+             against CPU, within 1e-12 of the update, and scan_steps=2
+             over two chunks bitwise equal to per-call steps on the card
+             (both reported against the CPU after 4 updates); evaluate()
+             of one network on the card and the CPU with equal accuracy
+             and confusion matrix.
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The second-to-last line is the kernel table
@@ -1247,6 +1272,8 @@ def _leaf_errors(a_tree, b_tree, before=None):
         err = (a.detach().cpu() - b).abs().max().item()
         if before is not None:
             err /= max((b - before[path]).abs().max().item(), 1e-300)
+        if err != err:                  # a NaN is the worst error
+            return err
         worst = max(worst, err)
     return worst
 
@@ -1529,9 +1556,40 @@ def resnet_timed(compute_dtype):
     return row
 
 
+def resnet_loss_fall():
+    """The f32 loss over RESNET_STEPS per-call steps on resnet_timed's one
+    seeded batch, with cuDNN's deterministic algorithms: at lr 0.1 the
+    trajectory is chaotic (it climbs to ~20 before it falls), and with
+    the default algorithms, whose backward sums in a varying order, where
+    it ends after 20 steps changes from run to run; this one repeats."""
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    net = ComputationGraph(ResNet50().conf()).init()
+    g = torch.Generator(device="cuda").manual_seed(2024)
+    x = torch.rand(RESNET_BATCH, RESNET_HW, RESNET_HW, 3, generator=g,
+                   device="cuda")
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device="cuda"),
+        1000).float()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    losses = []
+    try:
+        for _ in range(RESNET_STEPS):
+            net.fit(MultiDataSet((x,), (y,)))
+            losses.append(net.score())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del net
+    torch.cuda.empty_cache()
+    return losses
+
+
 def resnet(fa, tmp):
     """Phase 6: ResNet-50 through the ComputationGraph, counted from zero:
-    parity with the CPU, the train CLI, and the timed steps."""
+    parity with the CPU, the train CLI, the timed steps, and the f32 loss
+    falling over RESNET_STEPS deterministic steps."""
     for k in KERNELS:
         fa.KERNEL_LAUNCHES[k] = 0
     t0 = time.perf_counter()
@@ -1539,20 +1597,24 @@ def resnet(fa, tmp):
     cli_row = resnet_cli(tmp)
     timed = {"float32": resnet_timed(None),
              "bfloat16": resnet_timed("bfloat16")}
+    falling = resnet_loss_fall()
     launches = dict(fa.KERNEL_LAUNCHES)
     f32, bf16 = ([s for s in timed[d]["losses"] if s is not None]
                  for d in ("float32", "bfloat16"))
-    if len(timed["float32"]["losses"]) != RESNET_STEPS or \
-            not np.isfinite(f32 + bf16).all() or not f32[-1] < f32[0]:
-        raise AssertionError(f"ResNet50 f32 loss over {RESNET_STEPS} steps: "
-                             f"{timed['float32']['losses']}")
+    if len(falling) != RESNET_STEPS or \
+            len(timed["float32"]["losses"]) != RESNET_STEPS or \
+            not np.isfinite(f32 + bf16 + falling).all() or \
+            not falling[-1] < falling[0]:
+        raise AssertionError(f"ResNet50 f32 loss over {RESNET_STEPS} "
+                             f"deterministic steps: {falling}")
     if any(launches.values()):
         raise AssertionError(f"flash kernels launched on the ResNet path: "
                              f"{launches}")
     summary = {"phase": "resnet", "gpu": gpu_line(),
                "seconds": time.perf_counter() - t0,
                "flash_launches": launches,
-               "first_loss_f32": f32[0], "last_loss_f32": f32[-1],
+               "first_loss_f32": falling[0], "last_loss_f32": falling[-1],
+               "losses_f32_deterministic": falling,
                **{f"{d}_{k}": timed[d][k] for d in timed
                   for k in ("step_ms_p50", "imgs_per_s",
                             "tflops_at_24.6_gflop_per_image", "idle_share",
@@ -1561,6 +1623,416 @@ def resnet(fa, tmp):
     emit(summary)
     return {"launches": launches, "parity": parity, "cli": cli_row,
             "timed": timed}
+
+
+# the fit_graph phase: the reference bench's "fit" mode (bench.py:320-345):
+# fit(iterator, scan_steps=K) over uint8 images with an
+# ImagePreProcessingScaler, two chunks of K a fit
+FIT_K = 10
+LM_SCAN_K, LM_SCAN_STEPS = 8, 16
+# host-side CUDA API calls that put work on a stream
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def launch_profile(fn, steps):
+    """fn() under torch.profiler: per step the host's launch calls, the
+    device's kernels (memcopies apart) and busy ms, each flash kernel's
+    count, and the device's idle share of the host's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if not e.name.startswith("Memcpy")
+               and not e.name.startswith("Memset")]
+    launches = [e for e in events if e.device_type == DeviceType.CPU
+                and e.name in LAUNCH_CALLS]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    if not device:
+        return {"device_time": "not measured", "wall_ms": wall_ms}
+    return {"steps": steps, "wall_ms": wall_ms,
+            "host_launch_calls_per_step": len(launches) / steps,
+            "graph_launches_per_step": sum(
+                e.name == "cudaGraphLaunch" for e in launches) / steps,
+            "device_kernels_per_step": len(kernels) / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "flash_kernels_per_step": {
+                k: sum(k in e.name for e in kernels) / steps
+                for k in KERNELS}}
+
+
+def sync_sites(fn):
+    """Host-device synchronisations during fn(), as CUDA's sync debug
+    mode reports them, each by where it happened: inside a chunk's
+    dispatch (must not happen), in a chunk's deferred loss fetch, or
+    elsewhere (fit's own set-up)."""
+    import traceback
+    sites = {"dispatch": 0, "chunk_loss_fetch": 0, "other": 0}
+    where = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        names = [f.name for f in traceback.extract_stack()]
+        site = "dispatch" if "dispatch" in names else \
+            "chunk_loss_fetch" if "_process" in names else "other"
+        sites[site] += 1
+        if site != "chunk_loss_fetch":
+            where.append([f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno} "
+                          f"{f.name}" for f in traceback.extract_stack()
+                          if "site-packages" not in f.filename][-4:])
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        saved, warnings.showwarning = warnings.showwarning, hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = saved
+    return sites, where[:4]
+
+
+def resnet_fit(compute_dtype):
+    """Phase 7a: ResNet-50 at the bench shape through
+    ComputationGraph.fit(iterator, scan_steps=FIT_K): uint8 pixels, the
+    scaler as a device affine, prefetch on, two chunks a fit. The same
+    net's per-call fit (scan_steps=1, the same pipeline) runs first, for
+    its numbers beside."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.normalization import (
+        ImagePreProcessingScaler,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = ResNet50().conf()
+    if compute_dtype is not None:
+        conf = dataclasses.replace(conf, compute_dtype=compute_dtype)
+    net = ComputationGraph(conf).init()
+    rs = np.random.RandomState(2024)
+    x8 = rs.randint(0, 256, (RESNET_BATCH, RESNET_HW, RESNET_HW, 3),
+                    dtype=np.uint8)
+    y = np.eye(1000, dtype=np.float32)[rs.randint(0, 1000, RESNET_BATCH)]
+    batches = [DataSet(x8, y)] * (2 * FIT_K)
+
+    def make_it(n=2 * FIT_K):
+        return ExistingDataSetIterator(batches[:n]).set_pre_processor(
+            ImagePreProcessingScaler())
+
+    def timed(scan, n=2 * FIT_K):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(make_it(n), scan_steps=scan)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    dtype = compute_dtype or "float32"
+    rows = {}
+    for mode, scan in (("per_call", 1), ("graph", FIT_K)):
+        # the peak over the first fit too: the graph's pool is allocated
+        # at capture
+        torch.cuda.reset_peak_memory_stats()
+        first_ms = timed(scan, 2 if scan == 1 else 2 * FIT_K)  # warm/capture
+        walls = [timed(scan) for _ in range(2 if scan == 1 else 3)]
+        peak = torch.cuda.max_memory_allocated()
+        n_prof = 4 if scan == 1 else 2 * FIT_K
+        prof = launch_profile(lambda: net.fit(make_it(n_prof),
+                                              scan_steps=scan), n_prof)
+        sites, where = sync_sites(lambda: net.fit(make_it(n_prof),
+                                                  scan_steps=scan))
+        wall = statistics.median(walls)
+        step_ms = wall / (2 * FIT_K)
+        rows[mode] = {
+            "scan_steps": scan, "first_fit_ms": first_ms,
+            "fit_wall_ms": walls, "chunk_wall_ms_median": wall / 2,
+            "step_ms": step_ms, "step_ms_min": min(walls) / (2 * FIT_K),
+            "imgs_per_s": RESNET_BATCH / (step_ms / 1e3),
+            "tflops_at_24.6_gflop_per_image":
+                RESNET_FLOP_PER_IMAGE * RESNET_BATCH / (step_ms / 1e3) / 1e12,
+            "peak_memory_bytes": peak,
+            "allocated_bytes_after": torch.cuda.memory_allocated(),
+            "syncs_per_fit": sites, "sync_sites": where, **prof}
+    graph = rows["graph"]
+    ok = (np.isfinite(net.score()) and graph["syncs_per_fit"]["dispatch"] == 0
+          and graph["syncs_per_fit"]["chunk_loss_fetch"] <= 2)
+    row = {"phase": "resnet_fit", "compute_dtype": dtype,
+           "params": net.num_params(), "batch": RESNET_BATCH,
+           "image": [RESNET_HW, RESNET_HW, 3], "input": "uint8 + "
+           "ImagePreProcessingScaler (device affine)", "prefetch": True,
+           "chunks_per_fit": 2, "score": net.score(), "ok": ok, **rows}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"resnet fit {dtype}: {row}")
+    del net
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_scan(fa):
+    """Phase 7b: the full-width LM through fit(scan_steps=LM_SCAN_K) over
+    LM_SCAN_STEPS steps (two chunks): each captured step must run each
+    flash kernel n_layers times (the profiler's kernel events; the
+    wrappers' counters see only the warm-up step and the capture)."""
+    from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.registry import parse_zoo_source
+    name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
+    net = model_by_name(name, **kw).init()
+    rs = np.random.RandomState(77)
+    n = LM_SCAN_STEPS * TRAIN_BATCH
+    seq = (rs.randint(0, VOCAB, (n, 1))
+           + rs.randint(1, 8, (n, 1)) * np.arange(SEQ + 1)) % VOCAB
+    x = seq[:, :SEQ, None].astype("float32")
+    y = np.zeros((n, SEQ, VOCAB), np.uint8)
+    np.put_along_axis(y, seq[:, 1:, None], 1, axis=-1)
+
+    def fit(scan):
+        net.fit(ArrayDataSetIterator(x, y, batch_size=TRAIN_BATCH),
+                scan_steps=scan)
+
+    def timed(scan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(scan)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / LM_SCAN_STEPS
+
+    rows = {}
+    for mode, scan in (("per_call", 1), ("graph", LM_SCAN_K)):
+        for k in KERNELS:
+            fa.KERNEL_LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        first = timed(scan)                  # warm-up / capture
+        counted = dict(fa.KERNEL_LAUNCHES)
+        steps = [timed(scan) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        prof = launch_profile(lambda: fit(scan), LM_SCAN_STEPS)
+        sites, where = sync_sites(lambda: fit(scan))
+        step_ms = statistics.median(steps)
+        rows[mode] = {"scan_steps": scan, "first_fit_step_ms": first,
+                      "step_ms_by_fit": steps, "step_ms": step_ms,
+                      "tokens_per_s": TRAIN_BATCH * SEQ / (step_ms / 1e3),
+                      "wrapper_counts_first_fit": counted,
+                      "peak_memory_bytes": peak,
+                      "allocated_bytes_after": torch.cuda.memory_allocated(),
+                      "syncs_per_fit": sites, "sync_sites": where, **prof}
+    graph = rows["graph"]
+    flash = graph.get("flash_kernels_per_step", {})
+    ok = (np.isfinite(net.score())
+          and all(flash.get(k) == N_LAYERS for k in KERNELS)
+          and graph["syncs_per_fit"]["dispatch"] == 0
+          and graph["syncs_per_fit"]["chunk_loss_fetch"] <= 2)
+    row = {"phase": "train_scan", "source": LM_SOURCE, "steps":
+           LM_SCAN_STEPS, "batch": TRAIN_BATCH, "seq": SEQ,
+           "score": net.score(), "ok": ok, **rows}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"LM scan fit: {row}")
+    del net
+    torch.cuda.empty_cache()
+    return {k: int(flash.get(k, 0) * LM_SCAN_STEPS) for k in KERNELS}
+
+
+def _bitwise(a_tree, b_tree) -> bool:
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a_tree),
+                                                 tree_leaves(b_tree)))
+
+
+def fit_equality(tmp):
+    """Phase 7c: graph against per-call from one init on the card, and the
+    card against the CPU in f64:
+    - the full-width LM, LM_SCAN_STEPS steps: parameters bitwise equal;
+    - a small MLP with dropout 0.5 (the registered dropout generator):
+      bitwise;
+    - ResNet50 at RESNET_PARITY, batch 4, two chunks of 3, cuDNN
+      deterministic: parameters and BN state bitwise (or, if capture
+      picks another algorithm, within 1e-5 of each update, reported);
+    - f64 at RESNET_PARITY: one update of accumulate_steps=2, card
+      against CPU, every leaf within 1e-12 of its update; scan_steps=2
+      over two chunks bitwise equal to per-call steps on the card;
+    - evaluate() of one network on the card and on the CPU: equal
+      accuracy and confusion matrix."""
+    import dataclasses
+    import os
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import (
+        ArrayDataSetIterator, ExistingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.data.normalization import (
+        ImagePreProcessingScaler,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50, model_by_name
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam, tree_map
+    from deeplearning4j_tpu_torch.serving.registry import parse_zoo_source
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    out = {"phase": "fit_equality"}
+    # the LM
+    name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
+    rs = np.random.RandomState(5)
+    n = LM_SCAN_STEPS * TRAIN_BATCH
+    seq = rs.randint(0, VOCAB, (n, SEQ + 1))
+    x, y = seq[:, :SEQ, None].astype("float32"), seq[:, 1:]
+    y1 = np.zeros((n, SEQ, VOCAB), np.uint8)
+    np.put_along_axis(y1, y[..., None], 1, axis=-1)
+    nets = []
+    for scan in (1, LM_SCAN_K):
+        net = model_by_name(name, **kw).init()
+        net.fit(ArrayDataSetIterator(x, y1, batch_size=TRAIN_BATCH),
+                scan_steps=scan)
+        nets.append(net)
+    out["lm_bitwise"] = _bitwise(nets[0].params, nets[1].params)
+    del nets
+    torch.cuda.empty_cache()
+    # dropout through the registered generator
+    mconf = (NeuralNetConfiguration.Builder().seed(7).updater(Adam(1e-2))
+             .list().layer(DenseLayer(n_out=64, activation="relu",
+                                      dropout=0.5))
+             .layer(OutputLayer(n_out=3, activation="softmax",
+                                loss="mcxent"))
+             .set_input_type(InputType.feed_forward(16)).build())
+    xm = rs.randn(640, 16).astype("float32")
+    ym = np.eye(3, dtype="float32")[rs.randint(0, 3, 640)]
+    nets = []
+    for scan in (1, 4):
+        net = MultiLayerNetwork(mconf).init()
+        net.fit(ArrayDataSetIterator(xm, ym, batch_size=64), epochs=2,
+                scan_steps=scan)
+        nets.append(net)
+    out["dropout_mlp_bitwise"] = _bitwise(nets[0].params, nets[1].params)
+    # ResNet50 at the parity config, graph against per-call
+    hw = RESNET_PARITY["input_shape"][0]
+    x8 = rs.randint(0, 256, (24, hw, hw, 3), dtype=np.uint8)
+    yr = np.eye(10, dtype=np.float32)[rs.randint(0, 10, 24)]
+    batches = [DataSet(x8[i:i + 4], yr[i:i + 4]) for i in range(0, 24, 4)]
+    src = ComputationGraph(ResNet50(**RESNET_PARITY).conf()).init()
+    path = save_model(src, os.path.join(tmp, "parity.zip"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        nets = []
+        for scan in (1, 3):
+            net = load_model(path)
+            net.fit(ExistingDataSetIterator(batches).set_pre_processor(
+                ImagePreProcessingScaler()), scan_steps=scan)
+            nets.append(net)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    before = dict(iter_leaves(load_model(path, device="cpu").params))
+    out["resnet_parity_bitwise"] = (_bitwise(nets[0].params, nets[1].params)
+                                    and _bitwise(nets[0].state,
+                                                 nets[1].state))
+    out["resnet_parity_err_over_update"] = _leaf_errors(
+        nets[1].params, tree_map(lambda t: t.cpu(), nets[0].params), before)
+    # evaluate on the card and on the CPU, one network
+    xe = (x8.astype(np.float32) / 255)[:16]
+    card_ev = load_model(path).evaluate(DataSet(xe, yr[:16]), batch_size=8)
+    cpu_ev = load_model(path, device="cpu").evaluate(DataSet(xe, yr[:16]),
+                                                     batch_size=8)
+    out["evaluate_accuracy"] = [card_ev.accuracy(), cpu_ev.accuracy()]
+    out["evaluate_equal"] = bool(
+        card_ev.accuracy() == cpu_ev.accuracy()
+        and np.array_equal(card_ev.confusion.matrix,
+                           cpu_ev.confusion.matrix))
+    # f64 at the parity config. One update of accumulate_steps=2 (its
+    # second micro-step replays the captured micro-step), card against
+    # CPU within 1e-12 of the update. Scan over two chunks of 2: the
+    # card's graph steps bitwise equal to its per-call steps, both
+    # against the CPU after 4 updates (training drifts the devices apart
+    # step by step, per-call alike, so that error is reported, not held
+    # to 1e-12)
+    conf64 = dataclasses.replace(ResNet50(**RESNET_PARITY).conf(),
+                                 dtype="float64")
+    path64 = save_model(ComputationGraph(conf64, device="cpu").init(),
+                        os.path.join(tmp, "parity64.zip"),
+                        save_updater=False)
+    x64 = (x8[:16].astype(np.float64) / 255)
+    b64 = [DataSet(x64[i:i + 4], yr[i:i + 4].astype(np.float64))
+           for i in range(0, 16, 4)]
+    before64 = dict(iter_leaves(load_model(path64, device="cpu").params))
+    card, cpu = load_model(path64), load_model(path64, device="cpu")
+    card.fit(ExistingDataSetIterator(b64[:2]), accumulate_steps=2)
+    cpu.fit(ExistingDataSetIterator(b64[:2]), accumulate_steps=2)
+    out["accumulate_f64_err_over_update"] = _leaf_errors(
+        card.params, cpu.params, before64)
+    out["accumulate_f64_scores"] = [card.score(), cpu.score()]
+    out["accumulate_f64_iterations"] = [card.iteration_count,
+                                        cpu.iteration_count]
+    out["accumulate_f64_bn_state_err"] = _leaf_errors(card.state, cpu.state)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for scan in (1, 2):
+            net = load_model(path64)
+            net.fit(ExistingDataSetIterator(b64), scan_steps=scan)
+            runs[scan] = net
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    cpu = load_model(path64, device="cpu")
+    cpu.fit(ExistingDataSetIterator(b64))
+    out["scan_f64_bitwise_per_call"] = (
+        _bitwise(runs[1].params, runs[2].params)
+        and _bitwise(runs[1].state, runs[2].state))
+    out["scan_f64_4_steps_err_over_update"] = {
+        f"scan_steps={k}": _leaf_errors(n.params, cpu.params, before64)
+        for k, n in runs.items()}
+    out["ok"] = bool(
+        out["lm_bitwise"] and out["dropout_mlp_bitwise"]
+        and (out["resnet_parity_bitwise"]
+             or out["resnet_parity_err_over_update"] <= 1e-5)
+        and out["evaluate_equal"]
+        and out["accumulate_f64_iterations"] == [1, 1]
+        and out["accumulate_f64_err_over_update"] <= 1e-12
+        and out["scan_f64_bitwise_per_call"])
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"fit_graph equality: {out}")
+    return out
+
+
+def fit_graph(fa, tmp):
+    """Phase 7: the reference's production fit loop on the card, counted
+    from zero: ResNet-50's fit mode in f32 and bf16, the LM's scan fit,
+    and the equality checks."""
+    t0 = time.perf_counter()
+    rows = {"float32": resnet_fit(None), "bfloat16": resnet_fit("bfloat16")}
+    flash = train_scan(fa)
+    equality = fit_equality(tmp)
+    summary = {"phase": "fit_graph", "gpu": gpu_line(),
+               "seconds": time.perf_counter() - t0,
+               "train_graph_flash_launches": flash,
+               **{f"{d}_{m}_{k}": rows[d][m][k] for d in rows
+                  for m in ("per_call", "graph")
+                  for k in ("step_ms", "imgs_per_s", "idle_share",
+                            "host_launch_calls_per_step",
+                            "peak_memory_bytes")
+                  if k in rows[d][m]},
+               "equality_ok": equality["ok"]}
+    emit(summary)
+    return {"train_graph": flash, "resnet": rows, "equality": equality}
 
 
 def main(argv=None) -> int:
@@ -1607,6 +2079,8 @@ def main(argv=None) -> int:
         trained = train(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         resnet_run = resnet(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        graph_run = fit_graph(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -1616,7 +2090,9 @@ def main(argv=None) -> int:
         "launches_by_path": {"serve": serve_launches,
                              "generate": gen_launches["flash_fwd"],
                              "train": trained["launches"]["flash_fwd"],
-                             "resnet": resnet_run["launches"]["flash_fwd"]},
+                             "resnet": resnet_run["launches"]["flash_fwd"],
+                             "train_graph":
+                                 graph_run["train_graph"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1633,7 +2109,8 @@ def main(argv=None) -> int:
             "launches": trained["launches"][name],
             "launches_by_path": {"serve": 0, "generate": gen_launches[name],
                                  "train": trained["launches"][name],
-                                 "resnet": resnet_run["launches"][name]},
+                                 "resnet": resnet_run["launches"][name],
+                                 "train_graph": graph_run["train_graph"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

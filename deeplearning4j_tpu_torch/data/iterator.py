@@ -3,8 +3,8 @@
 A copy of the first part of the JAX package's `data/iterator.py` (numpy
 only): DL4J's DataSetIterator contract (reset, iteration with batching)
 as Python iterables with an explicit reset(), and the two in-memory
-iterators. The asynchronous prefetching wrapper comes with the data
-slice; `fit` moves each batch to the device itself.
+iterators. The asynchronous prefetching wrapper is in
+`data/async_iterator.py`; `fit` wraps a source in it by default.
 """
 from __future__ import annotations
 
@@ -20,9 +20,12 @@ class DataSetIterator:
 
     `set_pre_processor` attaches a DataSetPreProcessor (normalizer) the
     DL4J way — source iterators route every yielded batch through
-    `self._pp(ds)` (DataSetIterator.setPreProcessor contract)."""
+    `self._pp(ds)` (DataSetIterator.setPreProcessor contract).
+    `async_supported = False` marks a source that fit's prefetching
+    wrapper passes through unwrapped (DL4J asyncSupported())."""
 
     pre_processor = None
+    async_supported = True
 
     def reset(self):
         pass

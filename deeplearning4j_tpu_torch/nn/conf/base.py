@@ -149,6 +149,52 @@ def _register_aux_dataclasses():
 _register_aux_dataclasses()
 
 
+class RandomTape:
+    """Stands in for a torch.Generator inside a gradient-checkpointed
+    layer: the forward draws from `generator` and records each draw, and
+    the recompute in the backward replays them in order, so both passes
+    use one set of masks (the reference passes its rng key into
+    jax.checkpoint for the same reason). torch.utils.checkpoint restores
+    only the default generators, and its own restore is not used."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self._draws = []
+        self._pos = None            # None: recording; else the replay index
+        self._recorded = False
+
+    def begin(self):
+        self._pos = 0 if self._recorded else None
+
+    def end(self):
+        self._recorded = True
+
+    def draw(self, fn, shape, device):
+        if self._pos is None:
+            t = fn(shape, generator=self.generator, device=device)
+            self._draws.append(t)
+            return t
+        t = self._draws[self._pos]
+        self._pos += 1
+        return t
+
+
+def uniform(shape, generator, device) -> torch.Tensor:
+    """U[0, 1) draws in f32 from `generator` (a torch.Generator or a
+    RandomTape); every random draw of a training forward goes through
+    here or `normal`."""
+    if isinstance(generator, RandomTape):
+        return generator.draw(torch.rand, shape, device)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def normal(shape, generator, device) -> torch.Tensor:
+    """Standard normal draws in f32, as `uniform`."""
+    if isinstance(generator, RandomTape):
+        return generator.draw(torch.randn, shape, device)
+    return torch.randn(shape, generator=generator, device=device)
+
+
 def dropout(x, rate: float, generator: torch.Generator):
     """Inverted dropout: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), the mask drawn from `generator` (on x's
@@ -156,7 +202,7 @@ def dropout(x, rate: float, generator: torch.Generator):
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    kept = uniform(x.shape, generator, x.device) < keep
     return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
@@ -174,8 +220,8 @@ class LayerConf:
     The fields are the reference's, so configs serialize to the same JSON.
     Training reads `dropout` (a float probability or an IDropout object),
     `weight_noise`, `constraints` (`nn/regularization.py`) and l1/l2; a
-    per-layer `updater` and `frozen` come with a later slice and raise
-    when a fit would need them.
+    per-layer `updater` and `frozen` (the NoOp updater) label the
+    layer's parameters for the containers' multi_transform.
     """
     name: Optional[str] = None
     dropout: Any = 0.0

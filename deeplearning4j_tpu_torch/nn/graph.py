@@ -21,20 +21,24 @@ weights and optimizer state stay f32.
 The graph lives on one device, CUDA unless the caller asks for the CPU
 (`util.platform.resolve_device`); without CUDA the default raises.
 
-Not yet ported, each raising NotImplementedError that names ROADMAP A.6:
-the scan and accumulate fit paths, tbptt, sharding plans, gradient
-checkpointing, `evaluate*`, `rnn_time_step`, per-vertex updaters and
-frozen vertices.
+`fit` runs the reference's paths as `MultiLayerNetwork.fit` does: scan-of-K
+(a replayed CUDA graph of the train step on CUDA, `nn/step_graph.py`),
+gradient accumulation, prefetch with device-side normalization, per-vertex
+updaters and frozen vertices, and per-vertex gradient checkpointing; then
+`evaluate*`. tbptt and `rnn_time_step` raise NotImplementedError naming
+ROADMAP A.7 (recurrent layers), sharding plans ROADMAP A.15.
 """
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.data.async_iterator import (
+    fit_prefetch_enabled, prefetch_to_device,
+)
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.data.normalization import engaged_device_affine
 from deeplearning4j_tpu_torch.nn.conf.base import (
     InputType, Kind, LayerConf, preprocess_forward, preprocessed_type,
 )
@@ -42,15 +46,14 @@ from deeplearning4j_tpu_torch.nn.conf.graph_vertices import GraphVertexConf
 from deeplearning4j_tpu_torch.nn.conf.network import (
     ComputationGraphConfiguration,
 )
+from deeplearning4j_tpu_torch.nn import step_graph
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _required_kind, as_input, as_labels, as_mask, torch_dtype, tree_to,
+    TrainableNet, _required_kind, as_input, as_labels, as_mask, host_array,
+    layer_call, masked_eval_pair, not_ported, torch_dtype, tree_to,
     validate_layer_conf,
 )
 from deeplearning4j_tpu_torch.nn.regularization import (
-    apply_constraints, apply_weight_noise, constraint_map, has_constraints,
-)
-from deeplearning4j_tpu_torch.nn.updaters import (
-    apply_updates, build_optimizer, tree_leaves, tree_map,
+    apply_weight_noise, constraint_map, has_constraints,
 )
 from deeplearning4j_tpu_torch.util import params as param_util
 from deeplearning4j_tpu_torch.util.platform import (
@@ -58,12 +61,7 @@ from deeplearning4j_tpu_torch.util.platform import (
 )
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not yet ported to the PyTorch "
-                               "port (ROADMAP A.6)")
-
-
-class ComputationGraph:
+class ComputationGraph(TrainableNet):
     def __init__(self, conf: ComputationGraphConfiguration,
                  device: DeviceLike = None):
         self.conf = conf
@@ -77,7 +75,7 @@ class ComputationGraph:
         self.iteration_count = 0
         self.epoch_count = 0
         self._score: Optional[float] = None
-        self._tx = None
+        self._reset_fit_state()
         self._param_dtype = torch_dtype(conf.dtype)
         self._compute_dtype = torch_dtype(conf.compute_dtype or conf.dtype)
         self._topo = conf.topological_order()
@@ -161,31 +159,9 @@ class ComputationGraph:
         return preprocessed_type(t, need) if need is not None \
             and t.kind != need else t
 
-    def _unported_optimizer(self) -> Optional[str]:
-        for name, vd in self.conf.vertices.items():
-            if getattr(vd.vertex, "frozen", False) or \
-                    getattr(vd.vertex, "updater", None) is not None:
-                return (f"vertex {name!r}: per-vertex updaters and frozen "
-                        "vertices (optax.multi_transform)")
-        return None
-
-    def _build_optimizer(self):
-        """The global updater chain and a fresh state. A config the port
-        cannot train yet gets no optimizer; fit() then raises."""
-        self._tx = None
-        self.opt_state = None
-        if self._unported_optimizer() is None:
-            self._tx = build_optimizer(self.conf.updater,
-                                       self.conf.grad_clip_norm,
-                                       self.conf.grad_clip_value)
-            self.opt_state = self._tx.init(self.params)
-
-    def optimizer_state_template(self) -> dict:
-        """A fresh optimizer state: the structure, shapes and dtypes a
-        loaded updaterState.bin must have."""
-        if self._tx is None:
-            raise _not_ported(self._unported_optimizer())
-        return self._tx.init(self.params)
+    def _label_tree(self):
+        return [(name, "v_", self.conf.vertices[name].vertex)
+                for name in self.params]
 
     # -------------------------------------------------------------- forward
     def _cast_params(self, params):
@@ -263,9 +239,10 @@ class ComputationGraph:
                     continue
             layer_params = apply_weight_noise(
                 vd.vertex, params.get(name, {}), train, generator)
-            acts[name], new_state[name] = vd.vertex.apply(
-                layer_params, state.get(name, {}), x, train=train, mask=m,
-                generator=generator)
+            acts[name], new_state[name] = layer_call(
+                vd.vertex, layer_params, state.get(name, {}), x,
+                train=train, mask=m, generator=generator,
+                remat=train and self.conf.gradient_checkpointing)
             masks[name] = (in_masks[0]
                            if self._vertex_types[name].kind == Kind.RNN
                            else None)
@@ -274,6 +251,9 @@ class ComputationGraph:
     def _as_inputs(self, features) -> tuple:
         return tuple(as_input(f, self.device, self._compute_dtype)
                      for f in features)
+
+    def _stage_inputs(self, features) -> tuple:
+        return tuple(self._stage_x(f) for f in features)
 
     def _as_labels(self, labels) -> tuple:
         return tuple(as_labels(l, self.device, self._compute_dtype)
@@ -333,94 +313,87 @@ class ComputationGraph:
                 total = total + vertex.regularization_score(p)
         return total, new_state
 
+    @staticmethod
+    def _batch_struct(mds: MultiDataSet) -> tuple:
+        tup = lambda t: None if t is None else tuple(t)
+        return (tuple(mds.features), tuple(mds.labels),
+                tup(mds.features_masks), tup(mds.labels_masks))
+
+    def _grad_struct(self, struct, generator):
+        feats, labels, fmasks, lmasks = struct
+        return self._gradients(lambda live: self._score_fn(
+            live, self.state, self._stage_inputs(feats),
+            self._as_labels(labels), self._as_masks(fmasks),
+            self._as_masks(lmasks), True, generator))
+
+    def _id_inputs(self):
+        """Features that feed an embedding vertex directly (their flat
+        leaf index is the input's position)."""
+        inputs = self.conf.network_inputs
+        out = []
+        for name, vd in self.conf.vertices.items():
+            if hasattr(vd.vertex, "id_range") and vd.inputs[0] in inputs:
+                out.append((inputs.index(vd.inputs[0]), vd.vertex,
+                            vd.vertex.id_range(self.params[name])))
+        return out
+
     def compute_gradient_and_score(self, mds: MultiDataSet, generator=None):
         """DL4J computeGradientAndScore on one batch, in training mode:
         (score tensor, gradient tree shaped like `params`, new vertex
         state). Gradients are taken with respect to the parameters as
         stored (f32 master weights under bf16 compute)."""
-        live = tree_map(lambda t: t.detach().requires_grad_(
-            t.is_floating_point()), self.params)
-        leaves = [t for t in tree_leaves(live) if t.requires_grad]
-        with torch.enable_grad():
-            loss, new_state = self._score_fn(
-                live, self.state, self._as_inputs(mds.features),
-                self._as_labels(mds.labels),
-                self._as_masks(mds.features_masks),
-                self._as_masks(mds.labels_masks), True, generator)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        by_leaf = {id(t): g for t, g in zip(leaves, grads) if g is not None}
-        grad_tree = tree_map(lambda t: by_leaf[id(t)] if id(t) in by_leaf
-                             else torch.zeros_like(t), live)
-        new_state = tree_map(lambda t: t.detach(), new_state)
-        return loss.detach(), grad_tree, new_state
+        return self._grad_struct(self._batch_struct(mds), generator)
 
     def _train_step(self, mds: MultiDataSet, generator) -> torch.Tensor:
         """One optimizer step: forward and backward, the updater chain,
-        the in-place update, the constraints' projection. The loss is
-        returned on the device; the caller fetches it."""
-        loss, grads, new_state = self.compute_gradient_and_score(mds,
-                                                                 generator)
-        with torch.no_grad():
-            updates, self.opt_state = self._tx.update(grads, self.opt_state,
-                                                      self.params)
-            apply_updates(self.params, updates)
-            if self._constraints:
-                apply_constraints(self._constraints, self.params)
-        self.state = new_state
-        return loss
-
-    def _check_trainable(self, scan_steps, accumulate_steps, plan):
-        if scan_steps is not None and scan_steps > 1:
-            raise _not_ported("fit(scan_steps > 1)")
-        if accumulate_steps > 1:
-            raise _not_ported("fit(accumulate_steps > 1)")
-        if plan is not None:
-            raise _not_ported("fit(plan=...)")
-        if self.conf.backprop_type == "tbptt":
-            raise _not_ported("tbptt training")
-        if self.conf.gradient_checkpointing:
-            raise _not_ported("gradient checkpointing")
-        if self._tx is None:
-            raise _not_ported(self._unported_optimizer())
+        the in-place update, the constraints' projection; the new
+        optimizer and vertex state are written into the old tensors. The
+        loss is returned on the device; the caller fetches it."""
+        return self._step_struct(self._batch_struct(mds), generator)
 
     def fit(self, data, epochs: int = 1, scan_steps: Optional[int] = None,
             accumulate_steps: int = 1, plan=None):
         """Train (ComputationGraph.fit) on a MultiDataSet, a DataSet, a
         (features, labels) pair of arrays, or an iterable of these, with
-        the reference's signature. Each step: forward and backward, update
-        in place, one `float(loss)` fetch, then the listeners. The
-        reference's scan, accumulate and plan options raise (scan_steps=1
-        is the plain per-call path and is accepted)."""
+        the reference's signature; the paths and options are
+        `MultiLayerNetwork.fit`'s. As in the reference the graph's
+        prefetch follows DL4J_CUDA_FIT_PREFETCH / DL4J_CUDA_PREFETCH_DEPTH
+        (default on); unlike the reference, its scan and accumulate paths
+        prefetch too (the worker's device copies feed the captured
+        step's static buffers device to device)."""
         if self.params is None:
             self.init()
-        self._check_trainable(scan_steps, accumulate_steps, plan)
-        for _ in range(epochs):
-            for lst in self.listeners:
-                lst.on_epoch_start(self, self.epoch_count)
-            self._fit_epoch(data)
-            for lst in self.listeners:
-                lst.on_epoch_end(self, self.epoch_count)
-            self.epoch_count += 1
-            if hasattr(data, "reset"):
-                data.reset()
+        scan_steps = self._fit_modes(scan_steps, accumulate_steps, plan)
+        with engaged_device_affine(data, self.listeners) as aff:
+            self._set_input_affine(aff)
+            try:
+                for _ in range(epochs):
+                    for lst in self.listeners:
+                        lst.on_epoch_start(self, self.epoch_count)
+                    self._run_epoch(self._mds_stream(data), scan_steps,
+                                    accumulate_steps, 331)
+                    for lst in self.listeners:
+                        lst.on_epoch_end(self, self.epoch_count)
+                    self.epoch_count += 1
+                    if hasattr(data, "reset"):
+                        data.reset()
+            finally:
+                self._input_affine = None
         return self
 
-    def _fit_epoch(self, data):
-        # dropout masks: one generator per epoch on the device, seeded as
-        # the reference seeds its epoch key (the streams themselves differ)
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(self.conf.seed + 331 * (self.epoch_count + 1))
-        etl_start = time.perf_counter()
-        for mds in self._iter_data(data):
-            etl_ms = (time.perf_counter() - etl_start) * 1e3
-            loss = self._train_step(mds, generator)
-            self._score = float(loss)         # the step's one loss fetch
-            bs = int(np.shape(mds.features[0])[0])
-            for lst in self.listeners:
-                lst.iteration_done(self, self.iteration_count,
-                                   self.epoch_count, self._score, etl_ms, bs)
-            self.iteration_count += 1
-            etl_start = time.perf_counter()
+    def _mds_stream(self, data):
+        """One epoch's MultiDataSets, staged onto the device by a prefetch
+        thread (ids range-checked there first), unless prefetch is off or
+        the source is not async_supported."""
+        if not fit_prefetch_enabled() \
+                or getattr(data, "async_supported", True) is False:
+            return self._iter_data(data)
+        return prefetch_to_device(
+            self._iter_data(data), self.device,
+            lambda mds: step_graph.flatten(self._batch_struct(mds)),
+            lambda mds, arrays: MultiDataSet(*step_graph.unflatten(
+                self._batch_struct(mds), arrays)),
+            self._check_ids)
 
     def _iter_data(self, data):
         if isinstance(data, (tuple, list)) and len(data) == 2 \
@@ -451,20 +424,29 @@ class ComputationGraph:
                 self._as_labels(mds.labels), None, None, False)
         return float(loss)
 
-    def evaluate(self, data, batch_size: int = 32):
-        raise _not_ported("evaluate()")
-
-    def evaluate_roc(self, data, batch_size: int = 32):
-        raise _not_ported("evaluate_roc()")
-
-    def evaluate_roc_multi_class(self, data, batch_size: int = 32):
-        raise _not_ported("evaluate_roc_multi_class()")
+    def _evaluate_with(self, ev, data, batch_size: int = 32):
+        """Feed an eval accumulator from the first output, chunked by
+        batch_size, mask-padded entries excluded."""
+        for mds in self._iter_data(data):
+            labels = host_array(mds.labels[0])
+            lm = None if mds.labels_masks is None else mds.labels_masks[0]
+            for i in range(0, labels.shape[0], batch_size):
+                out = self.output(*(f[i:i + batch_size]
+                                    for f in mds.features))
+                out = out[0] if isinstance(out, (tuple, list)) else out
+                ev.eval(*masked_eval_pair(
+                    labels[i:i + batch_size], host_array(out),
+                    None if lm is None else lm[i:i + batch_size]))
+        if hasattr(data, "reset"):
+            data.reset()
+        return ev
 
     def rnn_time_step(self, *inputs):
-        raise _not_ported("rnn_time_step()")
+        raise not_ported("rnn_time_step() (needs the recurrent layers)",
+                         "A.7")
 
     def rnn_clear_previous_state(self):
-        raise _not_ported("rnn_clear_previous_state()")
+        raise not_ported("rnn_clear_previous_state()", "A.7")
 
     # -------------------------------------------------------------- summary
     def summary(self) -> str:
@@ -493,3 +475,4 @@ class ComputationGraph:
 
     def set_params_flat(self, flat):
         self.params = param_util.flat_to_params(flat, self.params)
+        self._drop_graphs()

@@ -15,10 +15,12 @@ branches come with the parallel slice.
 
 Training draws its dropout masks from an explicit `torch.Generator` on the
 activations' device (the reference splits a JAX key per layer; the two
-streams differ, so parity tests run dropout-free). Input dropout
-(`dropout`) applies where the reference applies it: `MultiHeadAttention`
-and the output head; `TransformerBlock` adds its residual dropout.
-Attention-probability dropout in training comes with a later slice.
+streams differ, so parity tests run dropout-free or compare
+distributions). Input dropout (`dropout`) applies where the reference
+applies it: `MultiHeadAttention` and the output head; `TransformerBlock`
+adds its residual dropout. Attention-probability dropout in training runs
+the plain product (the kernels draw no masks), as the reference runs its
+blockwise path.
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.base import (
-    InputType, Kind, LayerConf, dropout, register_layer,
+    InputType, Kind, LayerConf, dropout, register_layer, uniform,
 )
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
+from deeplearning4j_tpu_torch.nn.step_graph import check_ids
 
 NEG = -1e30
 
@@ -88,11 +91,14 @@ def rope(x, positions, base: float = 10000.0):
 
 
 def dot_product_attention(q, k, v, *, mask=None, causal=False,
-                          q_offset=0, k_offset=0):
+                          q_offset=0, k_offset=0, dropout=0.0,
+                          generator=None):
     """Stable softmax attention on (B, T, H, D) tensors.
 
     mask: (B, Tk) 0/1 key-validity mask. q_offset/k_offset: global
-    position offsets for causal masking across sequence shards."""
+    position offsets for causal masking across sequence shards.
+    dropout: attention-probability dropout, the mask drawn from
+    `generator` (none without one), applied to the normalized weights."""
     tq, tk, d = q.shape[1], k.shape[1], q.shape[-1]
     acc_t = torch.promote_types(torch.float32, q.dtype)
     scale = 1.0 / math.sqrt(d)
@@ -111,6 +117,10 @@ def dot_product_attention(q, k, v, *, mask=None, causal=False,
     denom = weights.sum(dim=-1, keepdim=True)
     weights = weights / denom.clamp_min(1e-30)
     weights = torch.where(m <= NEG / 2, torch.zeros_like(weights), weights)
+    if dropout > 0.0 and generator is not None:
+        keep = 1.0 - dropout
+        weights = weights * (uniform(weights.shape, generator, weights.device)
+                             < keep) / keep
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
 
 
@@ -120,8 +130,8 @@ class MultiHeadAttention(LayerConf):
     """Multi-head self-attention over (B, T, F).
 
     attention_impl: "dense" | "blockwise" | "flash". Both "blockwise" and
-    "flash" run `ops.flash_attention` when there is no dropout: the
-    Hopper kernel on CUDA, its plain version on the CPU."""
+    "flash" run `ops.flash_attention` unless attention dropout is on in
+    training: the Hopper kernel on CUDA, its plain version on the CPU."""
     n_out: int = 0
     n_heads: int = 8
     n_in: Optional[int] = None
@@ -167,18 +177,15 @@ class MultiHeadAttention(LayerConf):
 
     def apply(self, params, state, x, *, train=False, mask=None,
               generator=None):
-        if train and self.attention_dropout > 0:
-            raise NotImplementedError(
-                "attention-probability dropout in training comes with a "
-                "later slice of the port (the reference trains it through "
-                "its blockwise path, not the flash kernels)")
+        drop = self.attention_dropout \
+            if train and generator is not None else 0.0
         x = self.maybe_dropout_input(x, train, generator)
         q, k, v = self._qkv(params, x)
         if self.use_rope:
             pos = torch.arange(x.shape[1], device=x.device)[None]
             q = rope(q, pos)
             k = rope(k, pos)
-        if self.attention_impl in ("flash", "blockwise"):
+        if self.attention_impl in ("flash", "blockwise") and drop == 0.0:
             from deeplearning4j_tpu_torch.ops.flash_attention import (
                 flash_attention,
             )
@@ -186,8 +193,12 @@ class MultiHeadAttention(LayerConf):
                                   block_q=self.block_size,
                                   block_k=self.block_size)
         else:
+            # the kernels draw no dropout: training with attention
+            # dropout takes the plain product, as the reference takes its
+            # blockwise path there
             out = dot_product_attention(q, k, v, mask=mask,
-                                        causal=self.causal)
+                                        causal=self.causal, dropout=drop,
+                                        generator=generator)
         y = _merge_heads(out) @ params["Wo"]
         if self.has_bias:
             y = y + params["bo"]
@@ -364,6 +375,10 @@ class EmbeddingSequenceLayer(LayerConf):
         table = torch.randn((self.n_in, self.n_out), generator=generator) * 0.02
         return {"W": table.to(dtype)}, {}
 
+    def id_range(self, params):
+        """(vocabulary size, the ValueError message of an id outside)."""
+        return self.n_in, f"token ids must lie in [0, {self.n_in})"
+
     def apply(self, params, state, x, *, train=False, mask=None,
               generator=None):
         if x.dim() == 3:
@@ -371,8 +386,7 @@ class EmbeddingSequenceLayer(LayerConf):
         idx = x.to(torch.int64)
         # an id out of range would trip a device-side assert on CUDA,
         # which poisons the whole context: refuse it as bad input instead
-        if bool(((idx < 0) | (idx >= self.n_in)).any()):
-            raise ValueError(f"token ids must lie in [0, {self.n_in})")
+        check_ids(self, idx, *self.id_range(params))
         y = params["W"][idx]
         if mask is not None:
             y = y * mask[..., None].to(y.dtype)

@@ -23,6 +23,7 @@ from deeplearning4j_tpu_torch.nn.conf.base import (
 )
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
 from deeplearning4j_tpu_torch.nn.losses import get_loss
+from deeplearning4j_tpu_torch.nn.step_graph import check_ids
 
 
 def _dense_init(layer, generator, input_type, dtype, bias_init=0.0):
@@ -128,14 +129,17 @@ class EmbeddingLayer(LayerConf):
             params["b"] = torch.zeros((self.n_out,), dtype=dtype)
         return params, {}
 
+    def id_range(self, params):
+        """(vocabulary size, the ValueError message of an id outside)."""
+        vocab = params["W"].shape[0]
+        return vocab, f"EmbeddingLayer: ids outside [0, {vocab})"
+
     def apply(self, params, state, x, *, train=False, mask=None,
               generator=None):
         idx = x.to(torch.int64)
         if idx.ndim == 2 and idx.shape[-1] == 1:
             idx = idx[..., 0]
-        vocab = params["W"].shape[0]
-        if bool(((idx < 0) | (idx >= vocab)).any()):
-            raise ValueError(f"EmbeddingLayer: ids outside [0, {vocab})")
+        check_ids(self, idx, *self.id_range(params))
         y = params["W"][idx]
         if self.has_bias:
             y = y + params["b"]

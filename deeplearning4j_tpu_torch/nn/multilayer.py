@@ -16,11 +16,16 @@ The network lives on one device, CUDA unless the caller asks for the CPU
 
 Dropout objects and weight noise act in the training forward, and
 constraints are projected after each update (`nn/regularization.py`).
+Per-layer updaters and frozen layers label the parameters for the
+updaters' multi_transform, as the reference's optax.multi_transform.
 
-Not yet ported, each raising NotImplementedError that names its slice:
-the scan, accumulate and tbptt fit paths, sharding plans, the prefetching
-wrapper, per-layer updaters and frozen layers, gradient checkpointing and
-`evaluate`.
+`fit` also runs the reference's other paths: scan-of-K
+(`scan_steps > 1`, a replayed CUDA graph of the train step on CUDA,
+`nn/step_graph.py`), gradient accumulation (`accumulate_steps > 1`),
+prefetch (`data/async_iterator.py`) with device-side normalization
+(`data/normalization.py`), and gradient checkpointing. tbptt and
+`rnn_time_step` raise NotImplementedError naming ROADMAP A.7 (recurrent
+layers), sharding plans ROADMAP A.15.
 """
 from __future__ import annotations
 
@@ -30,19 +35,28 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.data.async_iterator import (
+    AsyncDataSetIterator, pinned, fit_prefetch_enabled,
+)
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterator import (
     ArrayDataSetIterator, DataSetIterator, ExistingDataSetIterator,
 )
+from deeplearning4j_tpu_torch.data.normalization import (
+    apply_device_affine, engaged_device_affine,
+)
+from deeplearning4j_tpu_torch.nn import step_graph
 from deeplearning4j_tpu_torch.nn.conf.base import (
-    InputType, Kind, LayerConf, preprocess_forward, preprocessed_type,
+    InputType, Kind, LayerConf, RandomTape, preprocess_forward,
+    preprocessed_type,
 )
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.regularization import (
     apply_constraints, apply_weight_noise, constraint_map, has_constraints,
 )
 from deeplearning4j_tpu_torch.nn.updaters import (
-    apply_updates, build_optimizer, tree_leaves, tree_map,
+    NoOp, apply_updates, build_optimizer, multi_transform, tree_leaves,
+    tree_map,
 )
 from deeplearning4j_tpu_torch.util.platform import (
     DeviceLike, resolve_device, set_f32_matmul_exact,
@@ -114,10 +128,11 @@ def _tensor(a) -> torch.Tensor:
 
 
 def as_input(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """Features -> a tensor on `device`; floats in the compute dtype,
-    integer ids stay integer."""
+    """Features -> a tensor on `device`; floats and raw uint8 pixels in
+    the compute dtype (the reference's `_as_jnp`), wider integer ids stay
+    integer."""
     x = _tensor(x)
-    if x.is_floating_point():
+    if x.is_floating_point() or x.dtype == torch.uint8:
         return x.to(device=device, dtype=dtype)
     return x.to(device=device)
 
@@ -136,12 +151,283 @@ def as_mask(m, device: torch.device) -> Optional[torch.Tensor]:
     return None if m is None else _tensor(m).to(device)
 
 
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(f"{what} comes with the {slice_name} slice of "
-                               "the PyTorch port")
+def not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not yet ported to the PyTorch "
+                               f"port (ROADMAP {item})")
 
 
-class MultiLayerNetwork:
+def layer_call(layer, params, state, x, *, train: bool, mask, generator,
+               remat: bool):
+    """layer.apply, under torch.utils.checkpoint when `remat` (gradient
+    checkpointing: the backward recomputes the layer's activations). The
+    recompute must draw the forward's dropout masks: a RandomTape records
+    them in the forward and replays them. Shared by both containers."""
+    if not remat:
+        return layer.apply(params, state, x, train=train, mask=mask,
+                           generator=generator)
+    tape = None if generator is None else RandomTape(generator)
+
+    def fn(p, s, xx, m):
+        if tape is not None:
+            tape.begin()
+        out = layer.apply(p, s, xx, train=train, mask=m, generator=tape)
+        if tape is not None:
+            tape.end()
+        return out
+    return torch.utils.checkpoint.checkpoint(
+        fn, params, state, x, mask, use_reentrant=False,
+        preserve_rng_state=False)
+
+
+def host_array(a):
+    """A network output or a label as a numpy array (16-bit floats as
+    f32) for the evaluation accumulators."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach()
+        if a.dtype in (torch.bfloat16, torch.float16):
+            a = a.float()
+        return a.cpu().numpy()
+    return np.asarray(a)
+
+
+def masked_eval_pair(labels, preds, labels_mask):
+    """(labels, preds) for the eval accumulators: mask-padded entries
+    dropped (the mask reshaped to the labels' leading dims), rank >= 3
+    sequences flattened to (N, C). The reference's _masked_eval_pair."""
+    if labels_mask is not None:
+        m = host_array(labels_mask).astype(bool).reshape(labels.shape[:-1])
+        labels, preds = labels[m], preds[m]
+    if labels.ndim >= 3:
+        labels = labels.reshape(-1, labels.shape[-1])
+        preds = preds.reshape(-1, preds.shape[-1])
+    return labels, preds
+
+
+class TrainableNet:
+    """What both containers share of the fit machinery: the optimizer with
+    per-layer labels, the epoch's dropout generator, the device affine,
+    the in-place step helpers `nn/step_graph.ChunkedFit` drives, and the
+    evaluation entry points."""
+
+    def _reset_fit_state(self):
+        self._tx = None
+        self.opt_state = None
+        self._step_graphs = {}
+        self._accum_buffers = None
+        self._input_affine = None
+        self._affine_held = None
+        self._dropout_gen = None
+
+    def _drop_graphs(self):
+        """Captured steps read the tensors they were captured with: a
+        rebind of params or optimizer state ends them."""
+        self._step_graphs = {}
+        self._accum_buffers = None
+
+    def _label_tree(self):
+        """(key, label prefix, layer conf) of every parameter group, in
+        order."""
+        raise NotImplementedError
+
+    def _build_optimizer(self):
+        """The global updater chain, or optax.multi_transform's
+        counterpart when a layer has its own updater or is frozen (NoOp),
+        labelled as the reference labels (`_label_params`)."""
+        transforms = {"__global__": build_optimizer(
+            self.conf.updater, self.conf.grad_clip_norm,
+            self.conf.grad_clip_value)}
+        labels = {}
+        any_override = False
+        for key, prefix, layer in self._label_tree():
+            lab = "__global__"
+            if getattr(layer, "frozen", False):
+                lab = "__noop__"
+                transforms.setdefault("__noop__", NoOp().transform())
+                any_override = True
+            elif getattr(layer, "updater", None) is not None:
+                lab = prefix + key
+                transforms[lab] = build_optimizer(
+                    layer.updater, self.conf.grad_clip_norm,
+                    self.conf.grad_clip_value)
+                any_override = True
+            labels[key] = tree_map(lambda _, lab=lab: lab, self.params[key])
+        self._tx = multi_transform(transforms, labels) if any_override \
+            else transforms["__global__"]
+        self.opt_state = self._tx.init(self.params)
+        self._drop_graphs()
+
+    def optimizer_state_template(self) -> dict:
+        """A fresh optimizer state: the structure, shapes and dtypes a
+        loaded updaterState.bin must have."""
+        return self._tx.init(self.params)
+
+    def _epoch_generator(self, stride: int) -> torch.Generator:
+        """The dropout generator of this epoch: one generator on the
+        device for the network's life (captured steps register it),
+        reseeded each epoch as the reference seeds its epoch key (the
+        streams themselves differ)."""
+        if self._dropout_gen is None:
+            self._dropout_gen = torch.Generator(device=self.device)
+        self._dropout_gen.manual_seed(self.conf.seed
+                                      + stride * (self.epoch_count + 1))
+        return self._dropout_gen
+
+    def _set_input_affine(self, aff):
+        """Engage (shift, scale) for this fit, in tensors that persist
+        across fits of one shape, so captured steps stay valid."""
+        if aff is None:
+            self._input_affine = None
+            return
+        vals = [np.asarray(v, np.float32) for v in aff]
+        held = self._affine_held
+        if held is None or [tuple(h.shape) for h in held] != [v.shape
+                                                               for v in vals]:
+            held = self._affine_held = [
+                torch.empty(v.shape, device=self.device) for v in vals]
+        for h, v in zip(held, vals):       # stream-ordered, no host sync
+            h.copy_(pinned(v) if h.is_cuda else torch.from_numpy(v),
+                    non_blocking=True)
+        self._input_affine = tuple(held)
+
+    def _affine_key(self):
+        aff = self._input_affine
+        return None if aff is None else tuple(tuple(a.shape) for a in aff)
+
+    def _stage_x(self, x) -> torch.Tensor:
+        """Features -> the compute dtype on the device; with a device
+        affine engaged, raw features are normalized there first."""
+        if self._input_affine is None:
+            return as_input(x, self.device, self._compute_dtype)
+        shift, scale = self._input_affine
+        return apply_device_affine(_tensor(x).to(self.device), shift, scale,
+                                   self._compute_dtype)
+
+    def _bound_tensors(self) -> list:
+        return step_graph.tree_tensors(self.params, self.opt_state,
+                                       self.state) \
+            + list(self._input_affine or ())
+
+    def _apply_grads(self, grads):
+        """The updater chain (clipping included), the in-place update, the
+        constraints' projection, the new optimizer state written into the
+        old one's tensors."""
+        with torch.no_grad():
+            updates, new_opt = self._tx.update(grads, self.opt_state,
+                                               self.params)
+            apply_updates(self.params, updates)
+            if self._constraints:
+                apply_constraints(self._constraints, self.params)
+            step_graph.commit(self.opt_state, new_opt)
+
+    def _commit_state(self, new_state):
+        with torch.no_grad():
+            step_graph.commit(self.state, new_state)
+
+    def _step_struct(self, struct, generator) -> torch.Tensor:
+        """One optimizer step on a batch struct; the loss stays on the
+        device."""
+        loss, grads, new_state = self._grad_struct(struct, generator)
+        self._apply_grads(grads)
+        self._commit_state(new_state)
+        return loss
+
+    def _gradients(self, score):
+        """(loss, grads, new_state) of `score(live_params)`, gradients with
+        respect to the parameters as stored."""
+        live = tree_map(lambda t: t.detach().requires_grad_(
+            t.is_floating_point()), self.params)
+        leaves = [t for t in tree_leaves(live) if t.requires_grad]
+        with torch.enable_grad():
+            loss, new_state = score(live)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        by_leaf = {id(t): g for t, g in zip(leaves, grads) if g is not None}
+        grad_tree = tree_map(lambda t: by_leaf[id(t)] if id(t) in by_leaf
+                             else torch.zeros_like(t), live)
+        return loss.detach(), grad_tree, tree_map(lambda t: t.detach(),
+                                                  new_state)
+
+    def _check_ids(self, batch):
+        """Range-check the ids of the features that feed an embedding, on
+        the host for a host array (the prefetch thread runs this before
+        its copy, the chunked fit before a chunk's first step)."""
+        leaves = step_graph.flatten(self._batch_struct(batch))
+        for i, layer, (n, message) in self._id_inputs():
+            a = leaves[i]
+            if isinstance(a, torch.Tensor) and a.is_cuda:
+                step_graph.check_ids(layer, a.to(torch.int64), n, message)
+            else:
+                step_graph.check_host_ids(host_array(a), n, message)
+
+    def _run_epoch(self, batches, scan_steps, accumulate_steps, stride):
+        generator = self._epoch_generator(stride)
+        lockstep = step_graph.scan_incompatible_listeners(self.listeners)
+        if accumulate_steps > 1:
+            # accumulation cannot fall back to per-call steps (that would
+            # change the optimization): it drops the one-chunk deferral
+            step_graph.ChunkedFit(self, generator).accumulate(
+                batches, accumulate_steps, defer=not lockstep)
+        elif scan_steps > 1 and not lockstep:
+            step_graph.ChunkedFit(self, generator).scan(batches, scan_steps)
+        else:
+            self._fit_epoch(batches, generator)
+
+    def _fit_epoch(self, batches, generator):
+        """The per-call path: each step ends in its loss fetch, then the
+        listeners."""
+        etl_start = time.perf_counter()
+        for b in batches:
+            etl_ms = (time.perf_counter() - etl_start) * 1e3
+            struct = self._batch_struct(b)
+            loss = self._step_struct(struct, generator)
+            self._score = float(loss)          # the step's one loss fetch
+            bs = int(np.shape(step_graph.flatten(struct)[0])[0])
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration_count,
+                                   self.epoch_count, self._score, etl_ms, bs)
+            self.iteration_count += 1
+            etl_start = time.perf_counter()
+
+    def _fit_modes(self, scan_steps, accumulate_steps, plan):
+        """Validate fit's options as the reference does; the resolved
+        scan_steps."""
+        if plan is not None:
+            raise not_ported("fit(plan=...) (sharding plans)", "A.15")
+        if self.conf.backprop_type == "tbptt":
+            raise not_ported("tbptt training", "A.7")
+        if accumulate_steps > 1:
+            if scan_steps is not None and scan_steps > 1:
+                raise ValueError("accumulate_steps and scan_steps are "
+                                 "mutually exclusive (one fuses K optimizer "
+                                 "steps, the other folds K micro-batches "
+                                 "into one step)")
+            return 1
+        return step_graph.default_scan_steps() if scan_steps is None \
+            else scan_steps
+
+    # ---------------------------------------------------------- evaluation
+    def evaluate(self, data, batch_size: int = 32):
+        """Classification evaluation (DL4J evaluate(DataSetIterator))."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        return self._evaluate_with(Evaluation(), data, batch_size)
+
+    def evaluate_roc(self, data, batch_size: int = 32):
+        """Binary ROC evaluation (DL4J evaluateROC)."""
+        from deeplearning4j_tpu_torch.eval.roc import ROC
+        return self._evaluate_with(ROC(), data, batch_size)
+
+    def evaluate_roc_multi_class(self, data, batch_size: int = 32):
+        """One-vs-all per-class ROC (DL4J evaluateROCMultiClass)."""
+        from deeplearning4j_tpu_torch.eval.roc import ROCMultiClass
+        return self._evaluate_with(ROCMultiClass(), data, batch_size)
+
+    def evaluate_regression(self, data, batch_size: int = 32):
+        from deeplearning4j_tpu_torch.eval.regression import (
+            RegressionEvaluation,
+        )
+        return self._evaluate_with(RegressionEvaluation(), data, batch_size)
+
+
+class MultiLayerNetwork(TrainableNet):
     def __init__(self, conf: MultiLayerConfiguration,
                  device: DeviceLike = None):
         self.conf = conf
@@ -156,7 +442,7 @@ class MultiLayerNetwork:
         self.iteration_count = 0
         self.epoch_count = 0
         self._score: Optional[float] = None
-        self._tx = None
+        self._reset_fit_state()
         self._param_dtype = torch_dtype(conf.dtype)
         self._compute_dtype = torch_dtype(conf.compute_dtype or conf.dtype)
         self._input_types: Optional[List[InputType]] = None
@@ -205,32 +491,9 @@ class MultiLayerNetwork:
         self._build_optimizer()
         return self
 
-    def _unported_optimizer(self) -> Optional[str]:
-        """What of the reference's optimizer set-up the port lacks for
-        this config, or None."""
-        for i, layer in enumerate(self.layers):
-            if layer.frozen or layer.updater is not None:
-                return (f"layer {i}: per-layer updaters and frozen layers "
-                        "(optax.multi_transform)")
-        return None
-
-    def _build_optimizer(self):
-        """The global updater chain and a fresh state. A config the port
-        cannot train yet gets no optimizer; fit() then raises."""
-        self._tx = None
-        self.opt_state = None
-        if self._unported_optimizer() is None:
-            self._tx = build_optimizer(self.conf.updater,
-                                       self.conf.grad_clip_norm,
-                                       self.conf.grad_clip_value)
-            self.opt_state = self._tx.init(self.params)
-
-    def optimizer_state_template(self) -> dict:
-        """A fresh optimizer state: the structure, shapes and dtypes a
-        loaded updaterState.bin must have."""
-        if self._tx is None:
-            raise _not_ported(self._unported_optimizer(), "optimizer")
-        return self._tx.init(self.params)
+    def _label_tree(self):
+        return [(str(i), "layer_", layer)
+                for i, layer in enumerate(self.layers)]
 
     def _cast_params(self, params):
         if self._compute_dtype == self._param_dtype:
@@ -266,9 +529,10 @@ class MultiLayerNetwork:
             mask = fmask if cur_type.kind == Kind.RNN else None
             layer_params = apply_weight_noise(layer, params[str(i)], train,
                                               generator)
-            x, new_state[str(i)] = layer.apply(
-                layer_params, state[str(i)], x, train=train, mask=mask,
-                generator=generator)
+            x, new_state[str(i)] = layer_call(
+                layer, layer_params, state[str(i)], x, train=train,
+                mask=mask, generator=generator,
+                remat=train and self.conf.gradient_checkpointing)
             cur_type = layer.output_type(cur_type)
         if upto is not None and upto < len(self.layers):
             need = _required_kind(self.layers[upto])
@@ -312,59 +576,37 @@ class MultiLayerNetwork:
         return y
 
     # ----------------------------------------------------------------- fit
+    @staticmethod
+    def _batch_struct(ds: DataSet) -> tuple:
+        return (ds.features, ds.labels, ds.features_mask, ds.labels_mask)
+
+    def _grad_struct(self, struct, generator):
+        x, y, fm, lm = struct
+        return self._gradients(lambda live: self._score_fn(
+            live, self.state, self._stage_x(x), self._as_labels(y),
+            self._as_mask(fm), self._as_mask(lm), True, generator))
+
+    def _id_inputs(self):
+        """The features feed an embedding when the first layer is one."""
+        first = self.layers[0] if self.layers else None
+        if hasattr(first, "id_range"):
+            return [(0, first, first.id_range(self.params["0"]))]
+        return []
+
     def compute_gradient_and_score(self, dataset: DataSet,
                                    generator=None):
         """DL4J computeGradientAndScore on one batch, in training mode:
         (score tensor, gradient tree shaped like `params`, new layer
         state). Gradients are taken with respect to the parameters as
         stored (f32 master weights under bf16 compute)."""
-        live = tree_map(lambda t: t.detach().requires_grad_(
-            t.is_floating_point()), self.params)
-        leaves = [t for t in tree_leaves(live) if t.requires_grad]
-        with torch.enable_grad():
-            loss, new_state = self._score_fn(
-                live, self.state, self._as_input(dataset.features),
-                self._as_labels(dataset.labels),
-                self._as_mask(dataset.features_mask),
-                self._as_mask(dataset.labels_mask), True, generator)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        by_leaf = {id(t): g for t, g in zip(leaves, grads) if g is not None}
-        grad_tree = tree_map(lambda t: by_leaf[id(t)] if id(t) in by_leaf
-                             else torch.zeros_like(t), live)
-        new_state = tree_map(lambda t: t.detach(), new_state)
-        return loss.detach(), grad_tree, new_state
+        return self._grad_struct(self._batch_struct(dataset), generator)
 
     def _train_step(self, ds: DataSet, generator) -> torch.Tensor:
         """One optimizer step: forward and backward, the updater chain
-        (clipping included), the in-place update. The loss is returned on
-        the device; the caller fetches it."""
-        loss, grads, new_state = self.compute_gradient_and_score(ds,
-                                                                 generator)
-        with torch.no_grad():
-            updates, self.opt_state = self._tx.update(grads, self.opt_state,
-                                                      self.params)
-            apply_updates(self.params, updates)
-            if self._constraints:
-                apply_constraints(self._constraints, self.params)
-        self.state = new_state
-        return loss
-
-    def _check_trainable(self, scan_steps, prefetch, accumulate_steps, plan):
-        if scan_steps is not None and scan_steps > 1:
-            raise _not_ported("fit(scan_steps > 1)", "CUDA-graph fit")
-        if accumulate_steps > 1:
-            raise _not_ported("fit(accumulate_steps > 1)", "CUDA-graph fit")
-        if plan is not None:
-            raise _not_ported("fit(plan=...)", "parallel")
-        if prefetch:
-            raise _not_ported("fit(prefetch=True) (AsyncDataSetIterator)",
-                              "data")
-        if self.conf.backprop_type == "tbptt":
-            raise _not_ported("tbptt training", "recurrent")
-        if self.conf.gradient_checkpointing:
-            raise _not_ported("gradient checkpointing", "CUDA-graph fit")
-        if self._tx is None:
-            raise _not_ported(self._unported_optimizer(), "optimizer")
+        (clipping included), the in-place update; the new optimizer and
+        layer state are written into the old tensors. The loss is
+        returned on the device; the caller fetches it."""
+        return self._step_struct(self._batch_struct(ds), generator)
 
     def fit(self, data, epochs: int = 1, batch_size: int = 32,
             scan_steps: Optional[int] = None,
@@ -373,23 +615,54 @@ class MultiLayerNetwork:
             plan=None):
         """Train (DL4J fit(DataSetIterator)) on a DataSetIterator, a
         DataSet, or (features, labels) arrays, with the reference's
-        signature. Each step: forward and backward, clip, update in place,
-        one `float(loss)` fetch, then the listeners' `iteration_done`.
-        The reference's scan, accumulate, prefetch and plan options raise
-        NotImplementedError here (scan_steps=1 and prefetch=False are the
-        plain per-call path and are accepted)."""
+        signature and semantics.
+
+        - Per-call (the default, scan_steps=1): each step ends in one
+          `float(loss)` fetch, then the listeners' `iteration_done`.
+        - scan_steps > 1: consecutive same-shape batches in chunks of K;
+          on CUDA each step replays a captured graph of the train step
+          (`nn/step_graph.py`), the K losses are fetched once per chunk,
+          one chunk late. The update math, the dropout stream and the
+          listener calls are the per-call path's. Model-reading listeners
+          force the per-call path; a ragged tail runs per-call steps.
+          Default: DL4J_CUDA_SCAN_STEPS, else 1.
+        - accumulate_steps > 1: K micro-batch gradients averaged into one
+          optimizer step (a short group at a shape change or the epoch's
+          end takes the mean of what it holds); batch-norm statistics
+          stay per micro-batch. Exclusive with scan_steps > 1.
+        - prefetch (default on; DL4J_CUDA_FIT_PREFETCH=0 or
+          DL4J_CUDA_PREFETCH_DEPTH=0 turn it off): a worker thread
+          stages the next batches onto the device (AsyncDataSetIterator).
+        - A pre-processor with a `device_affine()` (e.g.
+          ImagePreProcessingScaler) is detached for the fit and applied
+          on the device: raw uint8 pixels cross the link.
+
+        tbptt and `plan` raise NotImplementedError naming their ROADMAP
+        items."""
         if self.params is None:
             self.init()
-        self._check_trainable(scan_steps, prefetch, accumulate_steps, plan)
+        scan_steps = self._fit_modes(scan_steps, accumulate_steps, plan)
         iterator = self._as_iterator(data, batch_size)
-        for _ in range(epochs):
-            for lst in self.listeners:
-                lst.on_epoch_start(self, self.epoch_count)
-            self._fit_epoch(iterator)
-            for lst in self.listeners:
-                lst.on_epoch_end(self, self.epoch_count)
-            self.epoch_count += 1
-            iterator.reset()
+        if prefetch is None:
+            prefetch = fit_prefetch_enabled()
+        with engaged_device_affine(iterator, self.listeners) as aff:
+            self._set_input_affine(aff)
+            if prefetch and not isinstance(iterator, AsyncDataSetIterator) \
+                    and getattr(iterator, "async_supported", True):
+                iterator = AsyncDataSetIterator(iterator, device=self.device,
+                                                check=self._check_ids)
+            try:
+                for _ in range(epochs):
+                    for lst in self.listeners:
+                        lst.on_epoch_start(self, self.epoch_count)
+                    self._run_epoch(iterator, scan_steps, accumulate_steps,
+                                    7919)
+                    for lst in self.listeners:
+                        lst.on_epoch_end(self, self.epoch_count)
+                    self.epoch_count += 1
+                    iterator.reset()
+            finally:
+                self._input_affine = None
         return self
 
     def _as_iterator(self, data, batch_size) -> DataSetIterator:
@@ -400,25 +673,6 @@ class MultiLayerNetwork:
         if isinstance(data, (tuple, list)) and len(data) == 2:
             return ArrayDataSetIterator(data[0], data[1], batch_size=batch_size)
         raise ValueError(f"Cannot interpret training data: {type(data)}")
-
-    def _fit_epoch(self, iterator):
-        # dropout masks: one generator per epoch on the device, seeded as
-        # the reference seeds its epoch key (the streams themselves differ)
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(self.conf.seed + 7919 * (self.epoch_count + 1))
-        etl_start = time.perf_counter()
-        for ds in iterator:
-            etl_ms = (time.perf_counter() - etl_start) * 1e3
-            loss = self._train_step(ds, generator)
-            # the step's loss fetch; the only other host read is the
-            # embedding layer's id-range flag at the start of the forward
-            self._score = float(loss)
-            bs = int(np.shape(ds.features)[0])
-            for lst in self.listeners:
-                lst.iteration_done(self, self.iteration_count,
-                                   self.epoch_count, self._score, etl_ms, bs)
-            self.iteration_count += 1
-            etl_start = time.perf_counter()
 
     def score(self, dataset: Optional[DataSet] = None) -> float:
         """The last training score, with no forward; or the score on
@@ -433,8 +687,21 @@ class MultiLayerNetwork:
                 self._as_mask(dataset.labels_mask), False)
         return float(loss)
 
-    def evaluate(self, data, batch_size: int = 32):
-        raise _not_ported("evaluate()", "evaluation")
+    def _evaluate_with(self, ev, data, batch_size: int = 32):
+        iterator = self._as_iterator(data, batch_size)
+        for ds in iterator:
+            ev.eval(*masked_eval_pair(host_array(ds.labels),
+                                      host_array(self.output(ds.features)),
+                                      ds.labels_mask))
+        iterator.reset()
+        return ev
+
+    def rnn_time_step(self, x):
+        raise not_ported("rnn_time_step() (needs the recurrent layers)",
+                         "A.7")
+
+    def rnn_clear_previous_state(self):
+        raise not_ported("rnn_clear_previous_state()", "A.7")
 
     def num_params(self) -> int:
         def count(t):

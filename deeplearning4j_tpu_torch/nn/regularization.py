@@ -25,19 +25,20 @@ from typing import Tuple
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.base import dropout as plain_dropout
-from deeplearning4j_tpu_torch.nn.conf.base import register_layer
+from deeplearning4j_tpu_torch.nn.conf.base import (
+    normal, register_layer, uniform,
+)
 
 
 def _bernoulli(keep: float, shape, like: torch.Tensor,
                generator: torch.Generator) -> torch.Tensor:
     """A boolean mask, True with probability `keep`, on `like`'s device."""
-    return torch.rand(shape, generator=generator, device=like.device) < keep
+    return uniform(shape, generator, like.device) < keep
 
 
 def _normal(like: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Standard normal noise shaped and typed like `like` (drawn in f32)."""
-    return torch.randn(like.shape, generator=generator,
-                       device=like.device).to(like.dtype)
+    return normal(like.shape, generator, like.device).to(like.dtype)
 
 
 # ------------------------------------------------------------ dropout family

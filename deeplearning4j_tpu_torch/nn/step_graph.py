@@ -1,0 +1,379 @@
+"""The chunked fit loop of both containers, and its captured train steps.
+
+The reference's input-pipelined fit runs K optimizer steps in one jit
+(`lax.scan`) and fetches the K losses once per chunk, one chunk late, so
+the host never waits on the device inside a chunk
+(`deeplearning4j_tpu/nn/multilayer.py:117-166,1133-1239`). The port's
+counterpart on CUDA is a `torch.cuda.CUDAGraph` of the whole train step
+(forward, backward, the updater chain with clipping, the in-place update,
+the constraints' projection and the write-back of batch-norm state),
+captured once per batch signature and replayed once per step. What the
+reference promises of scan-of-K holds here too: the update math, the
+dropout stream and the listener calls are the per-call path's; only the
+overlap between host and device changes.
+
+- The graph reads static input buffers that each step copies its batch
+  into (from pinned memory, or device to device from the prefetch
+  thread's tensors), and writes the new optimizer and layer state into
+  the same tensors it read (`commit`). Parameters are updated in place.
+- The first step of a signature runs eagerly, on a side stream: it is a
+  real step of the sequence and warms up autograd, the cuBLAS and cuDNN
+  workspaces and the flash libraries' first load. Then the step is
+  captured and the chunk's later steps replay it.
+- The epoch's dropout generator is registered with each graph, so a
+  replay advances it as an eager step would and draws the same masks.
+- Each step's loss is copied into a (K,) device buffer; `process` reads
+  it once per chunk, one chunk late (`run_scan_pipeline`).
+- Gradient accumulation captures a micro-step graph (forward, backward,
+  add into a static gradient sum, batch-norm state per micro-batch) and
+  one update graph (the 1/len mean, the updater, the update).
+
+On the CPU, which the caller asked for, the same chunked loop runs eager
+steps. On CUDA the graph is always used: a failure to capture or replay
+raises, and nothing falls back to eager steps.
+"""
+from __future__ import annotations
+
+import operator
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.data.async_iterator import dtype_of, pinned
+from deeplearning4j_tpu_torch.util.env import env_int
+
+_CAPTURE = threading.local()
+
+
+def default_scan_steps() -> int:
+    """fit()'s scan default: DL4J_CUDA_SCAN_STEPS, else 1 (per-call), the
+    reference's default off the TPU."""
+    return env_int("DL4J_CUDA_SCAN_STEPS", 1)
+
+
+def scan_incompatible_listeners(listeners) -> bool:
+    """Listeners that read the model or capture gradients need
+    iteration_done in lockstep with the params; the chunked fit delivers
+    it up to 2K-1 steps late, so they force the per-call path."""
+    return any(getattr(lst, "wants_gradients", False)
+               or getattr(lst, "reads_model", False) for lst in listeners)
+
+
+def run_scan_pipeline(batches, sig_of, dispatch, process, K, defer=True):
+    """Group consecutive batches of one signature into chunks of at most
+    K, `dispatch(group, etl_ms)` each, and `process(pending)` chunk i only
+    after chunk i+1 is dispatched (defer=False: in lockstep)."""
+    pending = None
+    group, gsig = [], None
+    etl_start = time.perf_counter()
+
+    def flush():
+        nonlocal pending, group, etl_start
+        fresh = dispatch(group, (time.perf_counter() - etl_start) * 1e3)
+        if not defer:
+            process(fresh)
+        else:
+            if pending is not None:
+                process(pending)
+            pending = fresh
+        group, etl_start = [], time.perf_counter()
+
+    for b in batches:
+        s = sig_of(b)
+        if group and (s != gsig or len(group) == K):
+            flush()
+        group.append(b)
+        gsig = s
+    if group:
+        flush()
+    if pending is not None:
+        process(pending)
+
+
+# --------------------------------------------------------------- structures
+def flatten(struct) -> list:
+    """Leaves of nested tuples (None is a leaf)."""
+    if isinstance(struct, tuple):
+        return [leaf for s in struct for leaf in flatten(s)]
+    return [struct]
+
+
+def unflatten(like, leaves):
+    """Rebuild `like`'s nesting from `leaves` (consumed in order)."""
+    it = iter(leaves)
+
+    def build(s):
+        if isinstance(s, tuple):
+            return tuple(build(x) for x in s)
+        return next(it)
+    return build(like)
+
+
+def signature(struct) -> tuple:
+    """Shape and dtype of every leaf (None for an absent one)."""
+    return tuple(None if a is None else (tuple(np.shape(a)), dtype_of(a))
+                 for a in flatten(struct))
+
+
+def tree_tensors(*trees) -> list:
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    return [t for tree in trees for t in tree_leaves(tree)]
+
+
+def commit(dst, src):
+    """Write the values of tree `src` into the tensors of tree `dst` (one
+    structure), so a captured step finds its state where it was captured.
+    A leaf whose dtype or shape changed takes the new tensor instead (f32
+    batch-norm statistics become f64 in the first step of an f64 network,
+    as in the reference's per-call step)."""
+    pairs = []
+
+    def walk(d, s):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, s[k])
+            elif v is not s[k]:
+                if v.dtype == s[k].dtype and v.shape == s[k].shape:
+                    pairs.append((v, s[k]))
+                else:
+                    d[k] = s[k]
+    walk(dst, src)
+    if pairs:
+        torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+
+
+# -------------------------------------------------------------- id checks
+def check_ids(layer, idx: torch.Tensor, n: int, message: str):
+    """Raise ValueError(message) for an id outside [0, n): on CUDA such an
+    index trips a device-side assert that poisons the context. Inside a
+    capture the device check (a host sync) is not allowed: there the fit
+    loop has checked the batch's host array before it was copied in, and
+    only the layers it checked may skip."""
+    if idx.is_cuda and torch.cuda.is_current_stream_capturing():
+        if id(layer) not in getattr(_CAPTURE, "checked", ()):
+            raise RuntimeError(
+                f"{type(layer).__name__} reads ids that are not a network "
+                "input; they cannot be range-checked inside a CUDA graph")
+        return
+    if bool(((idx < 0) | (idx >= n)).any()):
+        raise ValueError(message)
+
+
+def check_host_ids(a, n: int, message: str):
+    """The same check on a host array (float ids truncate, as the
+    layer's int64 conversion does)."""
+    ids = np.asarray(a).astype(np.int64)
+    if ids.size and (ids.min() < 0 or ids.max() >= n):
+        raise ValueError(message)
+
+
+# --------------------------------------------------------- captured steps
+class StepGraph:
+    """One function captured for one input signature: static input
+    buffers, the graph and its output. `bound` holds the tensors the
+    capture read (parameters, optimizer and layer state, the affine); a
+    replay is valid only while the network still holds those very
+    tensors."""
+
+    def __init__(self, like_struct, device):
+        self.static = [None if a is None else torch.empty(
+            tuple(np.shape(a)), dtype=dtype_of(a), device=device)
+            for a in flatten(like_struct)]
+        self.struct = unflatten(like_struct, [None] * len(self.static))
+        self.bound: Optional[List[torch.Tensor]] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out = None
+
+    def valid_for(self, bound: List[torch.Tensor]) -> bool:
+        return self.bound is not None and len(bound) == len(self.bound) \
+            and all(map(operator.is_, bound, self.bound))
+
+    def load(self, struct):
+        """Copy a batch into the static buffers, in stream order."""
+        for dst, a in zip(self.static, flatten(struct)):
+            if dst is None:
+                continue
+            if isinstance(a, torch.Tensor) and a.is_cuda:
+                dst.copy_(a)
+            else:
+                dst.copy_(pinned(a), non_blocking=True)
+
+    def inputs(self):
+        return unflatten(self.struct, self.static)
+
+    @staticmethod
+    def warm_up(fn: Callable):
+        """Run `fn` eagerly on a side stream (a real step) and return its
+        output."""
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = fn()
+        cur.wait_stream(side)
+        return out
+
+    def capture(self, fn: Callable, bound: List[torch.Tensor],
+                generator=None, checked_layers=()):
+        g = torch.cuda.CUDAGraph()
+        if generator is not None:
+            g.register_generator_state(generator)
+        _CAPTURE.checked = {id(layer) for layer in checked_layers}
+        try:
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                self.out = fn()
+        finally:
+            _CAPTURE.checked = ()
+        self.graph, self.bound = g, bound
+
+    def replay(self):
+        self.graph.replay()
+        return self.out
+
+
+class ChunkedFit:
+    """One epoch of the chunked fit for a container. The container gives:
+
+    - `_batch_struct(batch)`: the batch as nested tuples of arrays;
+    - `_step_struct(struct, generator)`: one train step on host arrays
+      or device tensors, state committed in place; returns the loss;
+    - `_grad_struct(struct, generator)`: (loss, grads, new_state);
+    - `_apply_grads(grads)`: the updater chain and the in-place update;
+    - `_bound_tensors()`: the tensors a captured step reads;
+    - `_affine_key()`: what of the device affine a captured step reads;
+    - `_id_inputs()`: (flat leaf index, layer, (n, message)) of each
+      feature that feeds an embedding, and `_check_ids(batch)`;
+    - listeners, counters and `_score`.
+    """
+
+    def __init__(self, net, generator):
+        self.net = net
+        self.gen = generator
+        self.cuda = net.device.type == "cuda"
+
+    # ------------------------------------------------------------ helpers
+    def _check_group(self, group):
+        """Range-check the ids of a chunk's batches before any of its
+        steps runs, unless the fit's prefetch thread already did (the
+        batch is marked so). The CPU checks in the layers."""
+        if self.cuda:
+            for batch in group:
+                if not getattr(batch, "_host_checked", False):
+                    self.net._check_ids(batch)
+
+    def _graph(self, key, struct, extra) -> StepGraph:
+        graphs: Dict[Any, StepGraph] = self.net._step_graphs
+        g = graphs.get(key)
+        if g is None or not g.valid_for(self.net._bound_tensors()
+                                        + list(extra)):
+            g = graphs[key] = StepGraph(struct, self.net.device)
+        return g
+
+    def _run_step(self, key, struct, fn, extra=()):
+        """fn(struct_on_device) -> output, through the graph of `key` on
+        CUDA (warm-up, capture or replay), eagerly on the CPU. `extra`:
+        tensors besides the network's that fn reads and writes."""
+        if not self.cuda:
+            return fn(struct)
+        g = self._graph(key, struct, extra)
+        g.load(struct)
+        if g.graph is not None:
+            return g.replay()
+        out = g.warm_up(lambda: fn(g.inputs()))
+        # the warm-up may rebind widened state (see `commit`): the graph
+        # reads what the network holds now
+        checked = [layer for _, layer, _ in self.net._id_inputs()]
+        g.capture(lambda: fn(g.inputs()),
+                  self.net._bound_tensors() + list(extra), self.gen, checked)
+        return out
+
+    def _process(self, pending):
+        losses, bs, etl_ms = pending
+        net = self.net
+        for loss in losses.tolist():        # the chunk's one host sync
+            net._score = float(loss)
+            for lst in net.listeners:
+                lst.iteration_done(net, net.iteration_count, net.epoch_count,
+                                   net._score, etl_ms, bs)
+            net.iteration_count += 1
+            etl_ms = 0.0
+
+    def _sig(self, batch):
+        return signature(self.net._batch_struct(batch))
+
+    # --------------------------------------------------------------- scan
+    def scan(self, batches, K: int):
+        net = self.net
+
+        def dispatch(group, etl_ms):
+            structs = [net._batch_struct(b) for b in group]
+            bs = int(np.shape(flatten(structs[0])[0])[0])
+            if len(group) < K:
+                # a ragged tail or a shape change: per-call steps, as the
+                # reference runs its compiled per-call step there
+                losses = [net._step_struct(s, self.gen) for s in structs]
+                return torch.stack(losses), bs, etl_ms
+            key = ("scan", signature(structs[0]), net._affine_key())
+            self._check_group(group)
+            buf = None
+            for i, s in enumerate(structs):
+                loss = self._run_step(
+                    key, s, lambda st: net._step_struct(st, self.gen))
+                if buf is None:
+                    buf = torch.empty(len(group), dtype=loss.dtype,
+                                      device=loss.device)
+                buf[i].copy_(loss)
+            return buf, bs, etl_ms
+
+        run_scan_pipeline(batches, self._sig, dispatch, self._process, K)
+
+    # --------------------------------------------------------- accumulate
+    def accumulate(self, batches, K: int, defer: bool):
+        net = self.net
+        params = tree_tensors(net.params)
+        acc = net._accum_buffers
+        if acc is None or len(acc["gsum"]) != len(params) or not all(
+                g.shape == p.shape and g.dtype == p.dtype
+                for g, p in zip(acc["gsum"], params)):
+            score_dtype = torch.promote_types(torch.float32, torch.promote_types(
+                net._compute_dtype, net._param_dtype))
+            acc = net._accum_buffers = {
+                "gsum": [torch.zeros_like(p) for p in params],
+                "lsum": torch.zeros((), dtype=score_dtype, device=net.device),
+                "n": torch.zeros((), dtype=torch.float32, device=net.device)}
+        extra = acc["gsum"] + [acc["lsum"], acc["n"]]
+
+        def micro(struct):
+            loss, grads, new_state = net._grad_struct(struct, self.gen)
+            torch._foreach_add_(acc["gsum"], tree_tensors(grads))
+            net._commit_state(new_state)
+            acc["lsum"].add_(loss)
+            return acc["lsum"]
+
+        def update():
+            from deeplearning4j_tpu_torch.nn.updaters import tree_map
+            it = iter(acc["gsum"])
+            n = acc["n"]
+            grads = tree_map(lambda p: next(it) / n.to(p.dtype), net.params)
+            net._apply_grads(grads)
+            loss = acc["lsum"] / n.to(acc["lsum"].dtype)
+            torch._foreach_zero_(acc["gsum"])
+            acc["lsum"].zero_()
+            return loss
+
+        def dispatch(group, etl_ms):
+            structs = [net._batch_struct(b) for b in group]
+            self._check_group(group)
+            for s in structs:
+                self._run_step(("micro", signature(s), net._affine_key()),
+                               s, micro, extra)
+            acc["n"].fill_(float(len(group)))
+            loss = self._run_step(("update",), (), lambda _: update(), extra)
+            bs = int(np.shape(flatten(structs[0])[0])[0]) * len(group)
+            return loss.reshape(1).clone(), bs, etl_ms
+
+        run_scan_pipeline(batches, self._sig, dispatch, self._process, K,
+                          defer=defer)

@@ -406,6 +406,46 @@ def clip_by_global_norm(max_norm: float) -> Transform:
     return Transform(lambda params: {}, update)
 
 
+def _masked(tree, labels, label):
+    """`tree` with every leaf not labelled `label` replaced by an empty
+    subtree (optax's MaskedNode, which its state dict writes as {})."""
+    if isinstance(tree, dict):
+        return {k: _masked(tree[k], labels[k], label) for k in tree}
+    return tree if labels == label else {}
+
+
+def _merge(like, labels, by_label):
+    """Each leaf of `like` taken from the tree of its own label."""
+    if isinstance(like, dict):
+        return {k: _merge(like[k], labels[k],
+                          {lab: t[k] for lab, t in by_label.items()})
+                for k in sorted(like)}
+    return by_label[labels]
+
+
+def multi_transform(transforms: dict, labels) -> Transform:
+    """optax.multi_transform: each leaf goes through the transformation of
+    its label (`labels` is a tree of label strings shaped like the
+    params). Each transformation sees only its own leaves, so a global
+    clip inside one measures only them. State ``{"inner_states": {label:
+    {"inner_state": ...}}}`` in `transforms`' order, optax's layout."""
+    def init(params):
+        return {"inner_states": {
+            lab: {"inner_state": tx.init(_masked(params, labels, lab))}
+            for lab, tx in transforms.items()}}
+
+    def update(updates, state, params=None):
+        inner, by_label = {}, {}
+        for lab, tx in transforms.items():
+            by_label[lab], s = tx.update(
+                _masked(updates, labels, lab),
+                state["inner_states"][lab]["inner_state"],
+                None if params is None else _masked(params, labels, lab))
+            inner[lab] = {"inner_state": s}
+        return _merge(updates, labels, by_label), {"inner_states": inner}
+    return Transform(init, update)
+
+
 def apply_updates(params, updates):
     """params += updates, leaf by leaf in place (optax.apply_updates,
     which returns new arrays; the port updates its master weights where

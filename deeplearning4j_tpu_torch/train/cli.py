@@ -16,7 +16,10 @@ The parser keeps the reference's flags and defaults and adds `--device`
 (default ``cuda``; ``cpu`` runs on the CPU, and without CUDA the default
 raises). `--mode single` runs `net.fit`; `--mode sync` (the default) is
 data parallelism, which over one worker is the same plain fit, so it runs
-that when exactly one worker is visible. Every flag of a part not yet
+that when exactly one worker is visible. The fit takes `fit`'s own
+defaults, as the reference's CLI does: prefetch on (DL4J_CUDA_FIT_PREFETCH,
+DL4J_CUDA_PREFETCH_DEPTH) and DL4J_CUDA_SCAN_STEPS steps a chunk (default
+1, per-call). Every flag of a part not yet
 ported (more than one worker, `averaging`, checkpoints and resume, the
 dashboard, telemetry, the serve handoff, sharding plans, the fetchers
 that need a download) stops the run with "not yet ported"; none is

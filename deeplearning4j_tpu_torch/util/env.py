@@ -7,6 +7,17 @@ knobs:
   disables. Unset, ``""``, ``"false"``, ``"2"`` leave the feature ON.
 - **Opt-ins** (features off by default): ONLY the literal ``"1"`` enables.
 - **Values**: ``""`` is UNSET, never a value.
+
+The port's knobs, each read where it acts:
+
+- ``DL4J_CUDA_FLASH_BLOCK_Q`` / ``_K`` (value): flash padding blocks
+  (`ops/flash_attention.py`);
+- ``DL4J_CUDA_SCAN_STEPS`` (value, default 1): fit's scan_steps
+  (`nn/step_graph.default_scan_steps`), the counterpart of
+  ``DL4J_TPU_SCAN_STEPS``;
+- ``DL4J_CUDA_FIT_PREFETCH`` (kill switch) and ``DL4J_CUDA_PREFETCH_DEPTH``
+  (value, default 2; ``0`` disables the thread): fit's prefetch
+  (`data/async_iterator.py`).
 """
 from __future__ import annotations
 

@@ -1,8 +1,12 @@
 """The port on an NVIDIA GPU: the flash kernels (forward, dQ, dK/dV)
 against their plain versions, the network on the card against the same
 network on the CPU, forward and gradients, the decode engine on the
-card against the same engine on the CPU, and ResNet-50's layers and a
-small residual ComputationGraph on the card against the CPU.
+card against the same engine on the CPU, ResNet-50's layers and a
+small residual ComputationGraph on the card against the CPU, and the
+fit loop's captured steps: replays bitwise equal to per-call steps (with
+dropout), no host sync inside a chunk, an out-of-range id refused before
+a replay, a capture error raised with no fallback, and accumulation's
+graphs against the big-batch step (rtol 1e-5).
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -555,3 +559,138 @@ def test_small_graph_on_the_card_matches_the_cpu(cuda, tmp_path):
     cpu.fit(mds)
     for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
         torch.testing.assert_close(a.cpu(), b, atol=1e-9, rtol=1e-9)
+
+
+# ------------------------------------------------- the captured fit step
+def _dropout_mlp(device, seed=7, dropout=0.5):
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(seed).updater(Adam(1e-2))
+            .list().layer(DenseLayer(n_out=16, activation="relu",
+                                     dropout=dropout))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(4)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _blob_iter(n=700):
+    from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+    rs = np.random.RandomState(0)
+    X = rs.randn(n, 4).astype("float32")
+    Y = np.eye(3, dtype="float32")[rs.randint(0, 3, n)]
+    return ArrayDataSetIterator(X, Y, batch_size=64)
+
+
+def _lm(device, **kw):
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    return model_by_name("TransformerLM", vocab_size=64, seq_length=64,
+                         n_layers=2, n_embd=64, n_heads=2, mlp_ratio=2,
+                         attention_impl="flash", block_size=64, seed=7,
+                         **kw).init(device=device)
+
+
+def _lm_iter(bad_id=False):
+    from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+    rs = np.random.RandomState(3)
+    t = rs.randint(0, 64, (48, 65))
+    x = t[:, :64, None].astype("float32")
+    if bad_id:
+        x[21, 5, 0] = 64
+    return ArrayDataSetIterator(x, np.eye(64, dtype="float32")[t[:, 1:]],
+                                batch_size=4)
+
+
+def _same(a, b):
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                                 tree_leaves(b.params)))
+
+
+@pytest.mark.parametrize("model", ["mlp_dropout", "lm_dropout"])
+def test_graph_fit_is_bitwise_the_per_call_fit(cuda, model):
+    """Replays of the captured step equal per-call steps from one init:
+    parameters, scores and the dropout stream."""
+    from deeplearning4j_tpu_torch.train.listeners import (
+        CollectScoresIterationListener,
+    )
+    nets, scores = [], []
+    for scan in (1, 4):
+        net = _dropout_mlp(cuda) if model == "mlp_dropout" \
+            else _lm(cuda, dropout=0.1)
+        lst = CollectScoresIterationListener()
+        net.set_listeners(lst)
+        net.fit(_blob_iter() if model == "mlp_dropout" else _lm_iter(),
+                epochs=2, scan_steps=scan)
+        nets.append(net)
+        scores.append([s for _, s in lst.scores])
+    assert scores[0] == scores[1] and _same(*nets)
+    assert nets[1]._step_graphs                  # the graph path ran
+
+
+def test_no_host_sync_inside_a_chunk(cuda):
+    """With the graph captured, a fit of 12 steps in chunks of 4 syncs at
+    most once per chunk (the loss fetch)."""
+    import warnings
+    net = _lm(cuda)
+    net.fit(_lm_iter(), scan_steps=4)             # capture
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            net.fit(_lm_iter(), scan_steps=4, prefetch=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "called a synchronizing CUDA operation"
+             in str(w.message)]
+    assert len(syncs) <= 12 // 4, [str(w.message)[:120] for w in syncs]
+
+
+def test_out_of_range_id_raises_before_any_replay(cuda):
+    """The bad batch's chunk is checked on the host before its first
+    replay: a ValueError, and the context stays usable (an index out of
+    range on the card would trip a device-side assert)."""
+    net = _lm(cuda)
+    net.fit(_lm_iter(), scan_steps=4, prefetch=False)        # capture
+    with pytest.raises(ValueError, match="token ids"):
+        net.fit(_lm_iter(bad_id=True), scan_steps=4, prefetch=False)
+    net.fit(_lm_iter(), scan_steps=4)
+    assert np.isfinite(net.score())
+
+
+def test_capture_error_propagates_and_nothing_falls_back(cuda, monkeypatch):
+    from deeplearning4j_tpu_torch.nn import step_graph
+
+    def refuse(self, fn, bound, generator=None, checked_layers=()):
+        raise RuntimeError("capture refused")
+
+    monkeypatch.setattr(step_graph.StepGraph, "capture", refuse)
+    net = _dropout_mlp(cuda)
+    with pytest.raises(RuntimeError, match="capture refused"):
+        net.fit(_blob_iter(), scan_steps=4)
+
+
+def test_graph_accumulation_equals_the_big_batch_step(cuda):
+    """Four micro-batches of 16 through the captured micro-step and update
+    graphs against per-call steps on batches of 64, on the card (no
+    dropout): rtol 1e-5 (the same means summed in other orders)."""
+    from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    rs = np.random.RandomState(3)
+    X = rs.randn(128, 4).astype("float32")
+    Y = np.eye(3, dtype="float32")[rs.randint(0, 3, 128)]
+    nets = []
+    for batch, acc in ((16, 4), (64, 1)):
+        net = _dropout_mlp(cuda, dropout=0.0)
+        net.fit(ArrayDataSetIterator(X, Y, batch_size=batch), epochs=2,
+                accumulate_steps=acc)
+        nets.append(net)
+    assert nets[0].iteration_count == nets[1].iteration_count == 4
+    assert nets[0]._step_graphs
+    for a, b in zip(tree_leaves(nets[0].params), tree_leaves(nets[1].params)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

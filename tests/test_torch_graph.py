@@ -378,8 +378,16 @@ def test_paths_not_yet_ported_raise_and_name_the_roadmap(case):
     fit_kw = {"scan": dict(scan_steps=4), "accumulate":
               dict(accumulate_steps=2), "plan": dict(plan=object())
               }.get(case, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        net.fit(MultiDataSet((seq, vec), (y_seq, y_ff)), **fit_kw)
+    mds = MultiDataSet((seq, vec), (y_seq, y_ff))
+    if case in ("plan", "tbptt"):
+        item = "A.15" if case == "plan" else "A.7"
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            net.fit(mds, **fit_kw)
+    else:
+        # the A.6 paths train now (tests/test_torch_fit_paths.py holds
+        # them to the reference)
+        net.fit([mds, mds], **fit_kw)
+        assert np.isfinite(net.score()) and net.iteration_count >= 1
     net.output(seq, vec)                          # inference still works
 
 
@@ -388,8 +396,15 @@ def test_paths_not_yet_ported_raise_and_name_the_roadmap(case):
                                     "rnn_time_step"])
 def test_evaluation_and_streaming_raise(method):
     net = ComputationGraph(_port_small(), device="cpu").init()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        getattr(net, method)(None)
+    seq, vec, mask, y_seq, y_ff = _batch()
+    if method == "rnn_time_step":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+            getattr(net, method)(seq, vec)
+        return
+    # evaluation is ported: the first output, mask-padded steps excluded
+    ev = getattr(net, method)(MultiDataSet((seq, vec), (y_seq, y_ff),
+                                           None, (mask, None)))
+    assert ev is not None
 
 
 def test_graph_defaults_to_cuda_and_never_falls_back(monkeypatch):

@@ -235,10 +235,15 @@ def test_dropout_objects_and_attention_dropout_raise_in_training():
                                        attention_dropout=0.1)
     p, _ = mha.init(torch.Generator().manual_seed(0),
                     InputType.recurrent(16, 4))
-    x = torch.zeros(1, 4, 16)
-    mha.apply(p, {}, x)                                   # inference is fine
-    with pytest.raises(NotImplementedError, match="later slice"):
-        mha.apply(p, {}, x, train=True)
+    x = torch.randn(1, 4, 16, generator=torch.Generator().manual_seed(1))
+    eval_y = mha.apply(p, {}, x)[0]                       # inference is fine
+    # attention dropout trains now (the plain product, masks from the
+    # generator); without a generator it draws nothing, as the reference
+    # without a key
+    assert torch.equal(mha.apply(p, {}, x, train=True)[0], eval_y)
+    trained = mha.apply(p, {}, x, train=True,
+                        generator=torch.Generator().manual_seed(0))[0]
+    assert not torch.allclose(trained, eval_y)
     # dropout objects apply (nn/regularization.py); a dict is no dropout
     obj = port_attn.MultiHeadAttention(n_out=16, n_heads=2,
                                        dropout=GaussianDropout(rate=0.3))
@@ -386,8 +391,14 @@ def test_bf16_compute_keeps_f32_master_weights():
 def test_fit_options_not_yet_ported_raise(kw, match):
     net = model_by_name("TransformerLM", **LM).init(device="cpu")
     X, Y = _tokens(4, 24, 48, seed=5)
-    with pytest.raises(NotImplementedError, match=match):
+    if match == "plan":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.15"):
+            net.fit((X, Y), batch_size=4, **kw)
+    else:
+        # scan, accumulation and prefetch train now
+        # (tests/test_torch_fit_paths.py)
         net.fit((X, Y), batch_size=4, **kw)
+        assert net.iteration_count == 1 and np.isfinite(net.score())
     # the plain per-call path's own values are accepted
     net.fit((X, Y), batch_size=4, scan_steps=1, prefetch=False)
 
@@ -414,11 +425,21 @@ def test_configs_not_yet_ported_raise_at_fit(case):
         lb.backprop_type("tbptt")
     net = MultiLayerNetwork(lb.build(), device="cpu").init()
     X, Y = _tokens(2, 4, 10, seed=6)
-    # weight noise is ported (nn/regularization.py); a dict is no noise
-    error, match = (TypeError, "IWeightNoise") if case == "weight_noise" \
-        else (NotImplementedError, "slice")
-    with pytest.raises(error, match=match):
+    # weight noise is ported (nn/regularization.py); a dict is no noise.
+    # Frozen layers, per-layer updaters and checkpointing train now
+    # (tests/test_torch_fit_paths.py holds them to the reference); tbptt
+    # waits for the recurrent layers
+    if case in ("weight_noise", "tbptt"):
+        error, match = (TypeError, "IWeightNoise") \
+            if case == "weight_noise" else (NotImplementedError,
+                                            "ROADMAP A.7")
+        with pytest.raises(error, match=match):
+            net.fit((X, Y), batch_size=2)
+    else:
+        before = net.params["0"]["W"].clone()
         net.fit((X, Y), batch_size=2)
+        assert np.isfinite(net.score())
+        assert torch.equal(net.params["0"]["W"], before) == (case == "frozen")
     net.output(X)                                # inference still works
 
 
