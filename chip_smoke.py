@@ -119,6 +119,33 @@ result line:
              (both reported against the CPU after 4 updates); evaluate()
              of one network on the card and the CPU with equal accuracy
              and confusion matrix.
+8. rnn     — the recurrent path (no hand-written kernel: the LSTM step
+             is PyTorch ops, cuBLAS for the GEMMs). (a) card against CPU:
+             an LSTM + GravesLSTM + Bidirectional(LSTM) net from one zip,
+             output() and a masked forward in f32 within 1e-5, two tbptt
+             chunks in f64 (a masked tail across the boundary) within
+             1e-10 of each leaf's largest update, and check_gradients in
+             f64 on the card for a masked GravesLSTM; (b) the entry
+             point: the zoo's full-width TextGenerationLSTM (47
+             characters, 2 x 256, tbptt 50, Adam 1e-3, clip 5) at
+             sequences of 1000 characters, saved with save_model, 64
+             seeded sequences, train.cli.main(--mode single --batch-size
+             32) = 2 batches x 20 chunks = 40 iterations, the result
+             line, the reloaded zip and a falling loss; then its tbptt
+             chunk steps on one batch on the card: chunk ms by CUDA
+             events, chars/s, syncs a chunk, peak memory, and two
+             chunks profiled (launches, device busy, idle share); (c)
+             streaming: rnn_time_step primed with 50 characters, then
+             200 one-step calls at batch 1, equal to output() within
+             1e-5, ms a call; (d) bench.py's char-LSTM at its chip sizes
+             (2 x LSTM(200), 77 characters, T = 50, batch 64, f32)
+             through fit(scan_steps=1) then fit(scan_steps=10): step ms,
+             chars/s, host launch calls and device kernels a step, idle
+             share, syncs by site, and the graph steps bitwise equal to
+             the per-call steps from one init; (e) torch.nn.LSTM (cuDNN)
+             forward and backward at (d)'s shape, a yardstick the port
+             never calls. The kernel table's `launches_by_path` gains
+             "rnn", which must read 0 for every flash kernel.
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The second-to-last line is the kernel table
@@ -1426,7 +1453,7 @@ def resnet_phased_profile(net, mds, gen, steps=2):
                             net.params)
             leaves = tree_leaves(live)
             with record_function("resnet/forward"):
-                loss, new_state = net._score_fn(
+                loss, (new_state, _) = net._score_fn(
                     live, net.state, net._as_inputs(mds.features),
                     net._as_labels(mds.labels), None, None, True, gen)
                 torch.cuda.synchronize()
@@ -2035,6 +2062,389 @@ def fit_graph(fa, tmp):
     return {"train_graph": flash, "resnet": rows, "equality": equality}
 
 
+# the rnn phase: the zoo's TextGenerationLSTM at the sizes of DL4J's
+# GravesLSTMCharModellingExample (sequences of 1000 characters, minibatch
+# 32, tbptt 50), and bench.py's char-LSTM at its chip sizes
+# (_run_char_lstm: 2 x LSTM(200), 77 characters, T = 50, batch 64,
+# Adam(1e-3), standard backprop)
+CHARS, CHAR_SEQ, CHAR_BATCH, CHAR_SEQS, TBPTT = 47, 1000, 32, 64, 50
+STREAM_PRIME, STREAM_STEPS = 50, 200
+BENCH_VOCAB, BENCH_UNITS, BENCH_T, BENCH_BATCH, RNN_K = 77, 200, 50, 64, 10
+
+
+def char_sequences(rs, n, t, vocab):
+    """A learnable character set: each row an arithmetic sequence mod
+    `vocab` (seeded start, stride 1-3); one-hot f32 features and the next
+    character one-hot as uint8 labels."""
+    start = rs.randint(0, vocab, (n, 1))
+    stride = rs.randint(1, 4, (n, 1))
+    ids = (start + stride * np.arange(t + 1)) % vocab
+    eye = np.eye(vocab, dtype=np.uint8)
+    return eye[ids[:, :-1]].astype(np.float32), eye[ids[:, 1:]]
+
+
+def rnn_parity(tmp):
+    """Phase 8a: card against CPU. A small LSTM + GravesLSTM +
+    Bidirectional(LSTM) net from one zip: output() and a masked forward in
+    f32 within 1e-5; two tbptt chunks (T = 12, chunks of 6, a masked tail
+    across the boundary) in f64, every parameter within 1e-10 of its
+    largest update; check_gradients in f64 on the card for a masked
+    GravesLSTM."""
+    import dataclasses
+    import os
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.gradientcheck import check_gradients
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        LSTM, Bidirectional, GravesLSTM, RnnOutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    conf = (NeuralNetConfiguration.Builder().seed(11).updater(Adam(1e-2))
+            .list().layer(LSTM(n_out=8)).layer(GravesLSTM(n_out=6))
+            .layer(Bidirectional(layer=LSTM(n_out=5)))
+            .layer(RnnOutputLayer(n_out=3))
+            .set_input_type(InputType.recurrent(4, 12)).tbptt(6).build())
+    rs = np.random.RandomState(8)
+    x = rs.randn(4, 12, 4).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rs.randint(0, 3, (4, 12))]
+    m = np.ones((4, 12), np.float32)
+    m[:2, 4:] = 0                       # masked from inside chunk 1 on
+    path = save_model(MultiLayerNetwork(conf, device="cpu").init(),
+                      os.path.join(tmp, "rnn.zip"))
+    card, cpu = load_model(path), load_model(path, device="cpu")
+    out = {"phase": "rnn_parity",
+           "output_f32_max_abs_err":
+               (card.output(x).cpu() - cpu.output(x)).abs().max().item()}
+    with torch.no_grad():
+        masked = [n._forward(n.params, n.state, torch.from_numpy(x).to(
+            n.device), False, fmask=torch.from_numpy(m).to(n.device))[0]
+            for n in (card, cpu)]
+    out["masked_forward_f32_max_abs_err"] = \
+        (masked[0].cpu() - masked[1]).abs().max().item()
+    path64 = save_model(
+        MultiLayerNetwork(dataclasses.replace(conf, dtype="float64"),
+                          device="cpu").init(),
+        os.path.join(tmp, "rnn64.zip"), save_updater=False)
+    card, cpu = load_model(path64), load_model(path64, device="cpu")
+    before = {k: v.clone() for k, v in iter_leaves(cpu.params)}
+    batch = DataSet(x.astype(np.float64), y.astype(np.float64), m, m)
+    for net in (card, cpu):
+        net.fit(batch, prefetch=False)
+    out["tbptt_f64_iterations"] = [card.iteration_count, cpu.iteration_count]
+    out["tbptt_f64_err_over_update"] = _leaf_errors(card.params, cpu.params,
+                                                    before)
+    gconf = (NeuralNetConfiguration.Builder().seed(0).updater(Adam(1e-2))
+             .list().layer(GravesLSTM(n_out=5))
+             .layer(RnnOutputLayer(n_out=2))
+             .set_input_type(InputType.recurrent(4, 5)).build())
+    gx = rs.rand(3, 5, 4).astype(np.float32)
+    gy = np.eye(2, dtype=np.float32)[rs.randint(0, 2, (3, 5))]
+    gm = np.ones((3, 5), np.float32)
+    gm[1, 3:] = 0
+    gm[2, 2:] = 0
+    res = check_gradients(MultiLayerNetwork(gconf).init(), gx, gy,
+                          features_mask=gm, max_per_param=8)
+    out.update({"gradcheck_passed": res.passed,
+                "gradcheck_entries": res.n_params_checked,
+                "gradcheck_max_rel_error": res.max_rel_error})
+    out["ok"] = bool(out["output_f32_max_abs_err"] <= 1e-5
+                     and out["masked_forward_f32_max_abs_err"] <= 1e-5
+                     and out["tbptt_f64_iterations"] == [2, 2]
+                     and out["tbptt_f64_err_over_update"] <= 1e-10
+                     and res.passed)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"rnn card against CPU: {out}")
+    return out
+
+
+def syncs_of(fn) -> int:
+    """Host-device synchronisations during fn(), as CUDA's sync debug mode
+    reports them."""
+    sites, _ = sync_sites(fn)
+    return sum(sites.values())
+
+
+def rnn_cli(tmp):
+    """Phase 8b: the zoo's full-width TextGenerationLSTM at
+    max_length=CHAR_SEQ through train.cli.main (batch 32 over 64 seeded
+    sequences: 2 batches x 20 chunks = 40 iterations); the result line,
+    the reloaded zip and a falling loss. Then tbptt chunk steps on one
+    batch resident on the card: chunk ms by CUDA events, chars/s, peak
+    memory; launches, device busy and idle share of two chunks
+    (torch.profiler), syncs a chunk. Returns the trained net and its
+    numbers."""
+    import contextlib
+    import os
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.train import cli as train_cli
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    src, out_zip = os.path.join(tmp, "charlstm.zip"), os.path.join(
+        tmp, "charlstm_out.zip")
+    data = os.path.join(tmp, "chars.npz")
+    model = TextGenerationLSTM(max_length=CHAR_SEQ)
+    save_model(model.init(), src)
+    features, labels = char_sequences(np.random.RandomState(47), CHAR_SEQS,
+                                      CHAR_SEQ, CHARS)
+    np.savez(data, features=features, labels=labels)
+    log = logging.getLogger("deeplearning4j_tpu_torch")
+    handler, level = _ScoreLog(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            code = train_cli.main([
+                "--model", src, "--output", out_zip, "--dataset", data,
+                "--mode", "single", "--batch-size", str(CHAR_BATCH),
+                "--score-every", "1"])
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    wall_s = time.perf_counter() - t0
+    lines = stdout.getvalue().strip().splitlines()
+    result = json.loads(lines[-1])
+    chunks = CHAR_SEQ // TBPTT
+    want = CHAR_SEQS // CHAR_BATCH * chunks
+    scores = handler.scores
+    if code != 0 or result["iterations"] != want or result["epochs"] != 1:
+        raise AssertionError(f"char-LSTM CLI: exit {code}, {lines[-1]}")
+    # the second batch's chunks against the first's: each batch starts
+    # from the zero state, so chunk k of one is compared with chunk k of
+    # the other
+    falling = bool(np.mean(scores[chunks:]) < np.mean(scores[:chunks]))
+    if len(scores) != want or not all(np.isfinite(scores)) or not falling:
+        raise AssertionError(f"char-LSTM scores {scores}")
+    net = load_model(out_zip)
+    if net.iteration_count != want or \
+            int(net.opt_state["1"]["0"]["count"]) != want:
+        raise AssertionError("the char-LSTM zip lost its counters or "
+                             "updaterState.bin")
+    ds = DataSet(torch.from_numpy(features[:CHAR_BATCH]).cuda(),
+                 torch.from_numpy(labels[:CHAR_BATCH]).cuda())
+    net.fit(ds, prefetch=False)                          # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # earlier phases' tensors too
+    walls = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        net.fit(ds, prefetch=False)
+        end.record()
+        end.synchronize()
+        walls.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    chunk_ms = statistics.median(walls) / chunks
+    two = DataSet(ds.features[:, :2 * TBPTT], ds.labels[:, :2 * TBPTT])
+    prof = launch_profile(lambda: net.fit(two, prefetch=False), 2)
+    syncs = syncs_of(lambda: net.fit(two, prefetch=False)) / 2
+    row = {"phase": "rnn_cli", "params": net.num_params(),
+           "chars": CHARS, "seq": CHAR_SEQ, "batch": CHAR_BATCH,
+           "tbptt": TBPTT, "iterations": result["iterations"],
+           "cli_wall_s": wall_s, "first_score": scores[0],
+           "last_score": scores[-1],
+           "mean_score_batch_1": float(np.mean(scores[:chunks])),
+           "mean_score_batch_2": float(np.mean(scores[chunks:])),
+           "fit_ms_by_events": walls, "chunk_ms": chunk_ms,
+           "chars_per_s": CHAR_BATCH * TBPTT / (chunk_ms / 1e3),
+           "syncs_per_chunk": syncs, "peak_memory_bytes": peak,
+           "allocated_bytes_before": held, "profile_of_two_chunks": prof}
+    emit(row)
+    return net, row
+
+
+def rnn_stream(net):
+    """Phase 8c: the trained char-LSTM streams: primed with STREAM_PRIME
+    characters in one rnn_time_step call, then STREAM_STEPS one-step calls
+    at batch 1; the stepped outputs must equal output() of the whole
+    sequence within 1e-5 (f32). Call ms by CUDA events (the calls queued
+    back to back), and with each step's output fetched to the host, as a
+    sampler would; one call's launches and idle share."""
+    feats, _ = char_sequences(np.random.RandomState(99), 1,
+                              STREAM_PRIME + STREAM_STEPS, CHARS)
+    x = torch.from_numpy(feats).cuda()
+    full = net.output(x)
+    net.rnn_clear_previous_state()
+    outs = [net.rnn_time_step(x[:, :STREAM_PRIME])]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for t in range(STREAM_PRIME, STREAM_PRIME + STREAM_STEPS):
+        outs.append(net.rnn_time_step(x[:, t])[:, None])
+    end.record()
+    end.synchronize()
+    queued_ms = start.elapsed_time(end) / STREAM_STEPS
+    err = (torch.cat(outs, 1) - full).abs().max().item()
+    net.rnn_clear_previous_state()
+    net.rnn_time_step(x[:, :STREAM_PRIME])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(STREAM_PRIME, STREAM_PRIME + STREAM_STEPS):
+        net.rnn_time_step(x[:, t]).cpu()
+    fetched_ms = (time.perf_counter() - t0) * 1e3 / STREAM_STEPS
+    prof = launch_profile(lambda: net.rnn_time_step(x[:, 0]), 1)
+    row = {"phase": "rnn_stream", "prime": STREAM_PRIME,
+           "calls": STREAM_STEPS, "batch": 1,
+           "max_abs_err_vs_output": err, "call_ms_queued": queued_ms,
+           "call_ms_fetched": fetched_ms, "profile_of_one_call": prof}
+    row["ok"] = bool(err <= 1e-5)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"rnn_time_step against output(): {row}")
+    return row
+
+
+def char_lstm_fit():
+    """Phase 8d: bench.py's char-LSTM at its chip sizes, f32, standard
+    backprop, through fit(scan_steps=1) then fit(scan_steps=RNN_K) on one
+    net, two chunks of RNN_K a fit: step ms, chars/s, host launch calls,
+    device kernels, device busy and idle share a step, syncs by site, peak
+    memory; and, from one init, the graph steps bitwise equal to the
+    per-call steps. (e) beside it: torch.nn.LSTM (cuDNN) forward and
+    backward at the same shape, a yardstick the port never calls."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import LSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(0).updater(Adam(1e-3))
+            .list().layer(LSTM(n_out=BENCH_UNITS, activation="tanh"))
+            .layer(LSTM(n_out=BENCH_UNITS, activation="tanh"))
+            .layer(RnnOutputLayer(n_out=BENCH_VOCAB, activation="softmax",
+                                  loss="mcxent"))
+            .set_input_type(InputType.recurrent(BENCH_VOCAB, BENCH_T))
+            .build())
+    rs = np.random.RandomState(2)
+    ids = rs.randint(0, BENCH_VOCAB, (BENCH_BATCH, BENCH_T))
+    eye = np.eye(BENCH_VOCAB, dtype=np.float32)
+    x, y = eye[ids], eye[np.roll(ids, -1, 1)]
+    n = 2 * RNN_K
+    batches = [DataSet(x, y)] * n
+
+    def fit(net, scan, k=n):
+        net.fit(ExistingDataSetIterator(batches[:k]), scan_steps=scan)
+
+    nets = []
+    for scan in (1, RNN_K):
+        nets.append(MultiLayerNetwork(conf).init())
+        fit(nets[-1], scan)
+    bitwise = _bitwise(nets[0].params, nets[1].params)
+    net = nets[1]
+
+    def timed(scan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(net, scan)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rows = {}
+    for mode, scan in (("per_call", 1), ("graph", RNN_K)):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        first_ms = timed(scan)
+        walls = [timed(scan) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        n_prof = 2 if scan == 1 else n
+        prof = launch_profile(lambda: fit(net, scan, n_prof), n_prof)
+        sites, where = sync_sites(lambda: fit(net, scan))
+        step_ms = statistics.median(walls) / n
+        busy = prof.get("device_busy_ms_per_step")
+        rows[mode] = {"scan_steps": scan, "first_fit_ms": first_ms,
+                      "fit_wall_ms": walls, "step_ms": step_ms,
+                      "chars_per_s": BENCH_BATCH * BENCH_T / (step_ms / 1e3),
+                      # the profiler's own overhead widens its window;
+                      # this share is against the unprofiled step
+                      "idle_share_of_timed_step": "not measured"
+                      if busy is None else max(0.0, 1 - busy / step_ms),
+                      "peak_memory_bytes": peak,
+                      "allocated_bytes_before": held,
+                      "syncs_per_fit": sites, "sync_sites": where, **prof}
+    # (e) the cuDNN yardstick at (d)'s shape: the two LSTM layers only
+    lstm = torch.nn.LSTM(BENCH_VOCAB, BENCH_UNITS, num_layers=2,
+                         batch_first=True).cuda()
+    xin = torch.from_numpy(x).cuda()
+
+    def cudnn_step():
+        out, _ = lstm(xin)
+        out.sum().backward()
+
+    prof = launch_profile(lambda: [cudnn_step() for _ in range(5)], 5)
+    yard = {"cudnn_lstm_fwd_bwd_ms": cuda_ms(cudnn_step),
+            "cudnn_lstm_fwd_bwd_device_ms":
+                prof.get("device_busy_ms_per_step", "not measured"),
+            "cudnn_lstm_device_kernels": prof.get("device_kernels_per_step")}
+    graph = rows["graph"]
+    row = {"phase": "char_lstm_fit", "params": net.num_params(),
+           "vocab": BENCH_VOCAB, "units": BENCH_UNITS, "T": BENCH_T,
+           "batch": BENCH_BATCH, "dtype": "float32", "steps_per_fit": n,
+           "graph_bitwise_per_call": bitwise, "score": net.score(),
+           **rows, "yardstick": yard}
+    row["ok"] = bool(bitwise and np.isfinite(net.score())
+                     and graph["syncs_per_fit"]["dispatch"] == 0
+                     and graph["syncs_per_fit"]["chunk_loss_fetch"] <= 2)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"char-LSTM fit: {row}")
+    return row
+
+
+def rnn(fa, tmp):
+    """Phase 8: the recurrent path, counted from zero: card against CPU,
+    the char-LSTM through the train CLI and its tbptt chunk steps,
+    streaming, the char-LSTM fit loop and its cuDNN yardstick. No flash
+    kernel may launch: the wrappers' counts and the profiled windows'
+    kernel events must read 0 of each."""
+    t0 = time.perf_counter()
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    parity = rnn_parity(tmp)
+    net, cli_row = rnn_cli(tmp)
+    stream = rnn_stream(net)
+    fit_row = char_lstm_fit()
+    profiled = [cli_row["profile_of_two_chunks"],
+                stream["profile_of_one_call"], fit_row["per_call"],
+                fit_row["graph"]]
+    launches = {k: fa.KERNEL_LAUNCHES[k] + round(sum(
+        p.get("flash_kernels_per_step", {}).get(k, 0) * p.get("steps", 0)
+        for p in profiled)) for k in KERNELS}
+    summary = {"phase": "rnn", "gpu": gpu_line(),
+               "seconds": time.perf_counter() - t0,
+               "flash_launches": launches,
+               "card_vs_cpu_ok": parity["ok"],
+               "cli_iterations": cli_row["iterations"],
+               "chunk_ms": cli_row["chunk_ms"],
+               "chunk_idle_share":
+                   cli_row["profile_of_two_chunks"].get("idle_share"),
+               "stream_max_abs_err": stream["max_abs_err_vs_output"],
+               "char_lstm_step_ms": {m: fit_row[m]["step_ms"]
+                                     for m in ("per_call", "graph")},
+               "char_lstm_graph_bitwise": fit_row["graph_bitwise_per_call"],
+               "cudnn_yardstick": fit_row["yardstick"]}
+    emit(summary)
+    if any(launches.values()):
+        raise AssertionError(f"flash kernels on the rnn path: {launches}")
+    return {"flash_launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2081,6 +2491,8 @@ def main(argv=None) -> int:
         resnet_run = resnet(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         graph_run = fit_graph(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        rnn_run = rnn(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -2092,7 +2504,8 @@ def main(argv=None) -> int:
                              "train": trained["launches"]["flash_fwd"],
                              "resnet": resnet_run["launches"]["flash_fwd"],
                              "train_graph":
-                                 graph_run["train_graph"]["flash_fwd"]},
+                                 graph_run["train_graph"]["flash_fwd"],
+                             "rnn": rnn_run["flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2110,7 +2523,8 @@ def main(argv=None) -> int:
             "launches_by_path": {"serve": 0, "generate": gen_launches[name],
                                  "train": trained["launches"][name],
                                  "resnet": resnet_run["launches"][name],
-                                 "train_graph": graph_run["train_graph"][name]},
+                                 "train_graph": graph_run["train_graph"][name],
+                                 "rnn": rnn_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

@@ -2,12 +2,12 @@
 registry.
 
 Counterpart of the JAX package's `models/zoo.py`: `ZooModel`, `LeNet`,
-`SimpleCNN` and `ResNet50` (with its `space_to_depth_stem` option and
-`s2d_stem_weights`) build the reference's configs field for field, so a
-zoo model's `configuration.json` is the same in both packages. The
-transformer LM family lives in `models/transformer.py`; the other CNN
-architectures are not ported yet (ROADMAP A.5). Activations are NHWC and
-kernels HWIO, as in the reference.
+`SimpleCNN`, `ResNet50` (with its `space_to_depth_stem` option and
+`s2d_stem_weights`) and `TextGenerationLSTM` build the reference's configs
+field for field, so a zoo model's `configuration.json` is the same in both
+packages. The transformer LM family lives in `models/transformer.py`; the
+other architectures are not ported yet (ROADMAP A.4). Activations are
+NHWC and kernels HWIO, as in the reference.
 """
 from __future__ import annotations
 
@@ -23,9 +23,9 @@ from deeplearning4j_tpu_torch.nn.conf.network import (
     ComputationGraphConfiguration, GraphBuilder, NeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.layers import (
-    ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-    DropoutLayer, GlobalPoolingLayer, OutputLayer, SpaceToDepthLayer,
-    SubsamplingLayer, ZeroPaddingLayer,
+    LSTM, ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
+    DropoutLayer, GlobalPoolingLayer, OutputLayer, RnnOutputLayer,
+    SpaceToDepthLayer, SubsamplingLayer, ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.updaters import Adam, Nesterovs
 from deeplearning4j_tpu_torch.util.platform import DeviceLike
@@ -238,6 +238,34 @@ def s2d_stem_weights(w7):
     k8[1:, 1:] = w7
     w4 = k8.reshape(4, 2, 4, 2, c, f).transpose(0, 2, 1, 3, 4, 5)
     return w4.reshape(4, 4, 4 * c, f)
+
+
+# -------------------------------------------------------- TextGenerationLSTM
+@dataclasses.dataclass
+class TextGenerationLSTM(ZooModel):
+    """Char-level text generation LSTM (DL4J
+    `zoo/model/TextGenerationLSTM.java`): two stacked LSTMs and a softmax
+    RnnOutputLayer, Adam(1e-3), gradient norm clipped at 5, truncated BPTT
+    of 50 steps."""
+    total_unique_characters: int = 47
+    max_length: int = 40
+    units: int = 256
+    seed: int = 123
+
+    def conf(self):
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed)
+                .updater(Adam(1e-3))
+                .grad_clip_norm(5.0)
+                .list()
+                .layer(LSTM(n_out=self.units, activation="tanh"))
+                .layer(LSTM(n_out=self.units, activation="tanh"))
+                .layer(RnnOutputLayer(n_out=self.total_unique_characters,
+                                      activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.recurrent(
+                    self.total_unique_characters, self.max_length))
+                .backprop_type("tbptt", 50, 50)
+                .build())
 
 
 def zoo_models() -> dict:

@@ -24,9 +24,11 @@ The graph lives on one device, CUDA unless the caller asks for the CPU
 `fit` runs the reference's paths as `MultiLayerNetwork.fit` does: scan-of-K
 (a replayed CUDA graph of the train step on CUDA, `nn/step_graph.py`),
 gradient accumulation, prefetch with device-side normalization, per-vertex
-updaters and frozen vertices, and per-vertex gradient checkpointing; then
-`evaluate*`. tbptt and `rnn_time_step` raise NotImplementedError naming
-ROADMAP A.7 (recurrent layers), sharding plans ROADMAP A.15.
+updaters and frozen vertices, per-vertex gradient checkpointing, and
+truncated BPTT (every sequence input, label and mask chunked along one
+shared T, the recurrent vertices' state carried across chunks); then
+`evaluate*` and `rnn_time_step`. Sharding plans raise
+NotImplementedError naming ROADMAP A.15.
 """
 from __future__ import annotations
 
@@ -48,9 +50,9 @@ from deeplearning4j_tpu_torch.nn.conf.network import (
 )
 from deeplearning4j_tpu_torch.nn import step_graph
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    TrainableNet, _required_kind, as_input, as_labels, as_mask, host_array,
-    layer_call, masked_eval_pair, not_ported, torch_dtype, tree_to,
-    validate_layer_conf,
+    TrainableNet, _is_stateful_recurrent, _required_kind, as_input,
+    as_labels, as_mask, host_array, layer_call, masked_eval_pair,
+    torch_dtype, tree_to, unwrap_frozen, validate_layer_conf,
 )
 from deeplearning4j_tpu_torch.nn.regularization import (
     apply_weight_noise, constraint_map, has_constraints,
@@ -88,6 +90,7 @@ class ComputationGraph(TrainableNet):
         # their input (the reference's XLA program drops their forward)
         consumed = {i for vd in conf.vertices.values() for i in vd.inputs}
         self._unread_outputs = set(conf.network_outputs) - consumed
+        self._rnn_carries: dict = {}
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
@@ -201,12 +204,14 @@ class ComputationGraph(TrainableNet):
 
     def _forward(self, params, state, inputs: Sequence, train: bool,
                  generator=None, fmasks: Optional[Sequence] = None,
-                 stash_pre: bool = False):
-        """Run the DAG. Returns (activations by name, new state, masks by
-        name). Each vertex sees the mask propagated along its own inputs.
-        With `stash_pre`, the input of each output vertex is kept under
-        ``"__pre__" + name`` for its score, and an output vertex that no
-        other vertex reads is not run."""
+                 stash_pre: bool = False, carries: Optional[dict] = None):
+        """Run the DAG. Returns (activations by name, new state, new
+        carries, masks by name). Each vertex sees the mask propagated along
+        its own inputs. With `stash_pre`, the input of each output vertex
+        is kept under ``"__pre__" + name`` for its score, and an output
+        vertex that no other vertex reads is not run. With `carries` (a
+        dict by vertex name; {} is the zero state), the recurrent vertices
+        run `apply_seq` from their carry (rnn_time_step, tbptt)."""
         if self._vertex_types is None:
             self._vertex_types = self._resolve_types()
         params = self._cast_params(params)
@@ -217,6 +222,7 @@ class ComputationGraph(TrainableNet):
             masks[name] = (None if fmasks is None or i >= len(fmasks)
                            else fmasks[i])
         new_state = {}
+        new_carries = {}
         for name in self._topo:
             vd = self.conf.vertices[name]
             xs = [acts[i] for i in vd.inputs]
@@ -239,14 +245,21 @@ class ComputationGraph(TrainableNet):
                     continue
             layer_params = apply_weight_noise(
                 vd.vertex, params.get(name, {}), train, generator)
-            acts[name], new_state[name] = layer_call(
-                vd.vertex, layer_params, state.get(name, {}), x,
-                train=train, mask=m, generator=generator,
-                remat=train and self.conf.gradient_checkpointing)
+            remat = train and self.conf.gradient_checkpointing
+            if carries is not None and _is_stateful_recurrent(vd.vertex):
+                acts[name], new_carries[name] = layer_call(
+                    vd.vertex, layer_params, None, x, train=train, mask=m,
+                    generator=generator, remat=remat, seq=True,
+                    carry=carries.get(name))
+                new_state[name] = state.get(name, {})
+            else:
+                acts[name], new_state[name] = layer_call(
+                    vd.vertex, layer_params, state.get(name, {}), x,
+                    train=train, mask=m, generator=generator, remat=remat)
             masks[name] = (in_masks[0]
                            if self._vertex_types[name].kind == Kind.RNN
                            else None)
-        return acts, new_state, masks
+        return acts, new_state, new_carries, masks
 
     def _as_inputs(self, features) -> tuple:
         return tuple(as_input(f, self.device, self._compute_dtype)
@@ -273,27 +286,28 @@ class ComputationGraph(TrainableNet):
             raise RuntimeError("Network is not initialized — call init() "
                                "first")
         with torch.inference_mode():
-            acts, _, _ = self._forward(self.params, self.state,
-                                       self._as_inputs(inputs), False)
+            acts, _, _, _ = self._forward(self.params, self.state,
+                                          self._as_inputs(inputs), False)
         outs = tuple(acts[o] for o in self.conf.network_outputs)
         return outs[0] if len(outs) == 1 else outs
 
     def feed_forward(self, *inputs, train: bool = False):
         """Every vertex's activation, by name (DL4J feedForward)."""
         with torch.no_grad():
-            acts, _, _ = self._forward(self.params, self.state,
-                                       self._as_inputs(inputs), train)
+            acts, _, _, _ = self._forward(self.params, self.state,
+                                          self._as_inputs(inputs), train)
         return acts
 
     # ------------------------------------------------------------------ fit
     def _score_fn(self, params, state, inputs, labels, fmasks, lmasks,
-                  train: bool, generator=None):
+                  train: bool, generator=None, carries=None):
         """Loss on a batch: every output's score on its `__pre__` features,
-        plus the l1/l2 penalty over the layer vertices, in f32 or wider."""
+        plus the l1/l2 penalty over the layer vertices, in f32 or wider;
+        and (new state, new carries)."""
         params_c = self._cast_params(params)
-        acts, new_state, masks = self._forward(
+        acts, new_state, new_carries, masks = self._forward(
             params_c, state, inputs, train, generator, fmasks,
-            stash_pre=True)
+            stash_pre=True, carries=carries)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, out_name in enumerate(self.conf.network_outputs):
             vd = self.conf.vertices[out_name]
@@ -311,7 +325,7 @@ class ComputationGraph(TrainableNet):
             vertex = self.conf.vertices[name].vertex
             if isinstance(vertex, LayerConf):
                 total = total + vertex.regularization_score(p)
-        return total, new_state
+        return total, (new_state, new_carries)
 
     @staticmethod
     def _batch_struct(mds: MultiDataSet) -> tuple:
@@ -319,12 +333,52 @@ class ComputationGraph(TrainableNet):
         return (tuple(mds.features), tuple(mds.labels),
                 tup(mds.features_masks), tup(mds.labels_masks))
 
-    def _grad_struct(self, struct, generator):
+    def _grad_struct(self, struct, generator, carries=None):
+        """(loss, grads, new state, new carries) of one batch struct."""
         feats, labels, fmasks, lmasks = struct
-        return self._gradients(lambda live: self._score_fn(
-            live, self.state, self._stage_inputs(feats),
-            self._as_labels(labels), self._as_masks(fmasks),
-            self._as_masks(lmasks), True, generator))
+        loss, grads, (new_state, new_carries) = self._gradients(
+            lambda live: self._score_fn(
+                live, self.state, self._stage_inputs(feats),
+                self._as_labels(labels), self._as_masks(fmasks),
+                self._as_masks(lmasks), True, generator, carries))
+        return loss, grads, new_state, new_carries
+
+    def _tbptt_chunks(self, struct):
+        """The batch in chunks of tbptt_fwd_length along the one T that
+        every sequence (B, T, F) input shares (ComputationGraph's
+        doTruncatedBPTT): sequences of that T, rank >= 3, and (B, T) masks
+        are sliced; a rank-2 label is one per example and is not, even
+        when its width equals T."""
+        feats, labels, fmasks, lmasks = struct
+        in_types = [self._vertex_types[n] for n in self.conf.network_inputs]
+        lengths = [f.shape[1] for t, f in zip(in_types, feats)
+                   if t.kind == Kind.RNN]
+        if not lengths:
+            raise ValueError("tbptt backprop requires at least one RNN "
+                             "(B, T, F) network input")
+        if len(set(lengths)) > 1:
+            raise ValueError(
+                f"tbptt requires all RNN inputs to share one sequence "
+                f"length, got {lengths} — chunking cannot be aligned "
+                f"across inputs of different T")
+        T = lengths[0]
+
+        def cut(arr, t0, t1, is_mask=False):
+            if arr is not None and arr.shape[1:2] == (T,) and (
+                    arr.ndim >= 3 or (is_mask and arr.ndim == 2)):
+                return arr[:, t0:t1]
+            return arr
+
+        def cut_all(arrs, t0, t1, is_mask=False):
+            return None if arrs is None else tuple(
+                cut(a, t0, t1, is_mask) for a in arrs)
+
+        fwd = self.conf.tbptt_fwd_length
+        for t0 in range(0, T, fwd):
+            t1 = t0 + fwd
+            yield (cut_all(feats, t0, t1), cut_all(labels, t0, t1),
+                   cut_all(fmasks, t0, t1, True),
+                   cut_all(lmasks, t0, t1, True))
 
     def _id_inputs(self):
         """Features that feed an embedding vertex directly (their flat
@@ -332,9 +386,10 @@ class ComputationGraph(TrainableNet):
         inputs = self.conf.network_inputs
         out = []
         for name, vd in self.conf.vertices.items():
-            if hasattr(vd.vertex, "id_range") and vd.inputs[0] in inputs:
-                out.append((inputs.index(vd.inputs[0]), vd.vertex,
-                            vd.vertex.id_range(self.params[name])))
+            layer = unwrap_frozen(vd.vertex)
+            if hasattr(layer, "id_range") and vd.inputs[0] in inputs:
+                out.append((inputs.index(vd.inputs[0]), layer,
+                            layer.id_range(self.params[name])))
         return out
 
     def compute_gradient_and_score(self, mds: MultiDataSet, generator=None):
@@ -342,7 +397,7 @@ class ComputationGraph(TrainableNet):
         (score tensor, gradient tree shaped like `params`, new vertex
         state). Gradients are taken with respect to the parameters as
         stored (f32 master weights under bf16 compute)."""
-        return self._grad_struct(self._batch_struct(mds), generator)
+        return self._grad_struct(self._batch_struct(mds), generator)[:3]
 
     def _train_step(self, mds: MultiDataSet, generator) -> torch.Tensor:
         """One optimizer step: forward and backward, the updater chain,
@@ -441,12 +496,35 @@ class ComputationGraph(TrainableNet):
             data.reset()
         return ev
 
+    # ------------------------------------------------------ recurrent state
     def rnn_time_step(self, *inputs):
-        raise not_ported("rnn_time_step() (needs the recurrent layers)",
-                         "A.7")
+        """Stateful streaming inference over the DAG (ComputationGraph
+        rnnTimeStep): each sequence input is (B, F) for one step or (B, T,
+        F) for several; the recurrent vertices' state persists across
+        calls until `rnn_clear_previous_state()`. With a one-step input,
+        sequence outputs come back as their last step. Runs under
+        no_grad."""
+        if self.params is None:
+            raise RuntimeError("Network is not initialized — call init() "
+                               "first")
+        in_types = [self._vertex_types[n] for n in self.conf.network_inputs]
+        singles, prep = [], []
+        for t, x in zip(in_types, self._as_inputs(inputs)):
+            single = t.kind == Kind.RNN and x.ndim == 2
+            singles.append(single)
+            prep.append(x[:, None, :] if single else x)
+        with torch.no_grad():
+            acts, _, self._rnn_carries, _ = self._forward(
+                self.params, self.state, tuple(prep), False,
+                carries=self._rnn_carries)
+        outs = []
+        for o in self.conf.network_outputs:
+            y = acts[o]
+            outs.append(y[:, -1, :] if any(singles) and y.ndim == 3 else y)
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
     def rnn_clear_previous_state(self):
-        raise not_ported("rnn_clear_previous_state()", "A.7")
+        self._rnn_carries = {}
 
     # -------------------------------------------------------------- summary
     def summary(self) -> str:

@@ -19,19 +19,28 @@ from deeplearning4j_tpu_torch.nn.layers.feedforward import (
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNormalization, LocalResponseNormalization,
 )
-from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    GRU, LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
+    LastTimeStep, MaskZeroLayer, RnnLossLayer, RnnOutputLayer, SimpleRnn,
+)
+from deeplearning4j_tpu_torch.nn.layers.samediff import (
+    FrozenLayerWrapper, SameDiffLayer,
+)
 
 __all__ = [
-    "ActivationLayer", "AutoEncoder", "BatchNormalization",
+    "ActivationLayer", "AutoEncoder", "BatchNormalization", "Bidirectional",
     "CenterLossOutputLayer", "CnnLossLayer", "Convolution1DLayer",
     "ConvolutionLayer", "Cropping1D", "Cropping2D", "Deconvolution2D",
     "DenseLayer", "DepthwiseConvolution2D", "DropoutLayer",
     "ElementWiseMultiplicationLayer", "EmbeddingLayer",
-    "EmbeddingSequenceLayer", "GlobalPoolingLayer", "LayerNormLayer",
+    "EmbeddingSequenceLayer", "FrozenLayerWrapper", "GRU",
+    "GlobalPoolingLayer", "GravesBidirectionalLSTM", "GravesLSTM", "LSTM",
+    "LastTimeStep", "LayerNormLayer",
     "LocalResponseNormalization", "LocallyConnected1D", "LocallyConnected2D",
-    "LossLayer", "MoEFeedForward", "MultiHeadAttention", "OutputLayer",
-    "PermuteLayer", "PositionalEmbeddingLayer", "RepeatVector",
-    "ReshapeLayer", "RnnOutputLayer", "SeparableConvolution2D",
+    "LossLayer", "MaskZeroLayer", "MoEFeedForward", "MultiHeadAttention",
+    "OutputLayer", "PermuteLayer", "PositionalEmbeddingLayer",
+    "RepeatVector", "ReshapeLayer", "RnnLossLayer", "RnnOutputLayer",
+    "SameDiffLayer", "SeparableConvolution2D", "SimpleRnn",
     "SpaceToBatchLayer", "SpaceToDepthLayer", "Subsampling1DLayer",
     "SubsamplingLayer", "TransformerBlock", "Upsampling1D", "Upsampling2D",
     "ZeroPadding1DLayer", "ZeroPaddingLayer", "dot_product_attention",

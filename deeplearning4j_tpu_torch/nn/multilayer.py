@@ -23,9 +23,13 @@ updaters' multi_transform, as the reference's optax.multi_transform.
 (`scan_steps > 1`, a replayed CUDA graph of the train step on CUDA,
 `nn/step_graph.py`), gradient accumulation (`accumulate_steps > 1`),
 prefetch (`data/async_iterator.py`) with device-side normalization
-(`data/normalization.py`), and gradient checkpointing. tbptt and
-`rnn_time_step` raise NotImplementedError naming ROADMAP A.7 (recurrent
-layers), sharding plans ROADMAP A.15.
+(`data/normalization.py`), gradient checkpointing, and truncated BPTT
+(`backprop_type="tbptt"`: chunks of `tbptt_fwd_length` along time, the
+recurrent layers' state carried across chunks and detached at each
+boundary, one optimizer step a chunk, run per call as the reference
+does). `rnn_time_step` streams through the recurrent layers with their
+state kept between calls. Sharding plans raise NotImplementedError
+naming ROADMAP A.15.
 """
 from __future__ import annotations
 
@@ -97,8 +101,30 @@ def torch_dtype(name: str) -> torch.dtype:
                          f"known: {sorted(_DTYPES)}") from None
 
 
+_RECURRENT_CLASSES = {"LSTM", "GravesLSTM", "SimpleRnn", "GRU"}
+
+
+def unwrap_frozen(layer):
+    """The layer a FrozenLayerWrapper wraps, else the layer itself."""
+    if type(layer).__name__ == "FrozenLayerWrapper":
+        return layer.layer
+    return layer
+
+
+def is_frozen(layer) -> bool:
+    """Frozen layers take the NoOp updater: `frozen=True` or wrapped."""
+    return bool(getattr(layer, "frozen", False)) \
+        or type(layer).__name__ == "FrozenLayerWrapper"
+
+
+def _is_stateful_recurrent(layer) -> bool:
+    """Recurrent layers carry state through `apply_seq` (tbptt,
+    rnn_time_step); a frozen one keeps its state semantics."""
+    return type(unwrap_frozen(layer)).__name__ in _RECURRENT_CLASSES
+
+
 def _required_kind(layer: LayerConf) -> Optional[Kind]:
-    return _KIND_BY_CLASS.get(type(layer).__name__)
+    return _KIND_BY_CLASS.get(type(unwrap_frozen(layer)).__name__)
 
 
 def validate_layer_conf(layer: LayerConf):
@@ -157,26 +183,42 @@ def not_ported(what: str, item: str):
 
 
 def layer_call(layer, params, state, x, *, train: bool, mask, generator,
-               remat: bool):
-    """layer.apply, under torch.utils.checkpoint when `remat` (gradient
-    checkpointing: the backward recomputes the layer's activations). The
-    recompute must draw the forward's dropout masks: a RandomTape records
-    them in the forward and replays them. Shared by both containers."""
+               remat: bool, seq: bool = False, carry=None):
+    """layer.apply -> (y, new_state), or with `seq` layer.apply_seq from
+    `carry` -> (y, final_carry); under torch.utils.checkpoint when
+    `remat` (gradient checkpointing: the backward recomputes the layer's
+    activations), with the carry a checkpoint argument. The recompute must
+    draw the forward's dropout masks: a RandomTape records them in the
+    forward and replays them. Shared by both containers."""
+    def run(p, s, xx, m, g, c):
+        if seq:
+            return layer.apply_seq(p, xx, c, train=train, mask=m,
+                                   generator=g)
+        return layer.apply(p, s, xx, train=train, mask=m, generator=g)
+
     if not remat:
-        return layer.apply(params, state, x, train=train, mask=mask,
-                           generator=generator)
+        return run(params, state, x, mask, generator, carry)
     tape = None if generator is None else RandomTape(generator)
 
-    def fn(p, s, xx, m):
+    def fn(p, s, xx, m, c):
         if tape is not None:
             tape.begin()
-        out = layer.apply(p, s, xx, train=train, mask=m, generator=tape)
+        out = run(p, s, xx, m, tape, c)
         if tape is not None:
             tape.end()
         return out
     return torch.utils.checkpoint.checkpoint(
-        fn, params, state, x, mask, use_reentrant=False,
+        fn, params, state, x, mask, carry, use_reentrant=False,
         preserve_rng_state=False)
+
+
+def detach_tree(tree):
+    """Detach every tensor of nested dicts, tuples and lists."""
+    if isinstance(tree, dict):
+        return {k: detach_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(detach_tree(v) for v in tree)
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
 def host_array(a):
@@ -240,7 +282,7 @@ class TrainableNet:
         any_override = False
         for key, prefix, layer in self._label_tree():
             lab = "__global__"
-            if getattr(layer, "frozen", False):
+            if is_frozen(layer):
                 lab = "__noop__"
                 transforms.setdefault("__noop__", NoOp().transform())
                 any_override = True
@@ -326,25 +368,32 @@ class TrainableNet:
     def _step_struct(self, struct, generator) -> torch.Tensor:
         """One optimizer step on a batch struct; the loss stays on the
         device."""
-        loss, grads, new_state = self._grad_struct(struct, generator)
+        return self._carry_step(struct, generator, None)[0]
+
+    def _carry_step(self, struct, generator, carries):
+        """One optimizer step from the recurrent `carries` (None: the
+        standard forward; {}: zero state): (loss on the device, the final
+        carries, detached)."""
+        loss, grads, new_state, new_carries = self._grad_struct(
+            struct, generator, carries)
         self._apply_grads(grads)
         self._commit_state(new_state)
-        return loss
+        return loss, new_carries
 
     def _gradients(self, score):
-        """(loss, grads, new_state) of `score(live_params)`, gradients with
-        respect to the parameters as stored."""
+        """(loss, grads, aux) of `score(live_params)` -> (loss, aux),
+        gradients with respect to the parameters as stored, `aux` (the new
+        layer state and carries) detached."""
         live = tree_map(lambda t: t.detach().requires_grad_(
             t.is_floating_point()), self.params)
         leaves = [t for t in tree_leaves(live) if t.requires_grad]
         with torch.enable_grad():
-            loss, new_state = score(live)
+            loss, aux = score(live)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         by_leaf = {id(t): g for t, g in zip(leaves, grads) if g is not None}
         grad_tree = tree_map(lambda t: by_leaf[id(t)] if id(t) in by_leaf
                              else torch.zeros_like(t), live)
-        return loss.detach(), grad_tree, tree_map(lambda t: t.detach(),
-                                                  new_state)
+        return loss.detach(), grad_tree, detach_tree(aux)
 
     def _check_ids(self, batch):
         """Range-check the ids of the features that feed an embedding, on
@@ -361,7 +410,10 @@ class TrainableNet:
     def _run_epoch(self, batches, scan_steps, accumulate_steps, stride):
         generator = self._epoch_generator(stride)
         lockstep = step_graph.scan_incompatible_listeners(self.listeners)
-        if accumulate_steps > 1:
+        if self.conf.backprop_type == "tbptt":
+            # as in the reference, tbptt never scans
+            self._fit_epoch_tbptt(batches, generator)
+        elif accumulate_steps > 1:
             # accumulation cannot fall back to per-call steps (that would
             # change the optimization): it drops the one-chunk deferral
             step_graph.ChunkedFit(self, generator).accumulate(
@@ -387,14 +439,38 @@ class TrainableNet:
             self.iteration_count += 1
             etl_start = time.perf_counter()
 
+    def _fit_epoch_tbptt(self, batches, generator):
+        """Truncated BPTT (doTruncatedBPTT): each batch's time axis in
+        chunks of `tbptt_fwd_length` (`_tbptt_chunks`), the recurrent
+        state carried from chunk to chunk and detached at each boundary,
+        zero at each batch's start. Each chunk is one optimizer step, one
+        iteration, one loss fetch and one `iteration_done`."""
+        etl_start = time.perf_counter()
+        for b in batches:
+            etl_ms = (time.perf_counter() - etl_start) * 1e3
+            struct = self._batch_struct(b)
+            bs = int(np.shape(step_graph.flatten(struct)[0])[0])
+            carries = {}
+            for chunk in self._tbptt_chunks(struct):
+                loss, carries = self._carry_step(chunk, generator, carries)
+                self._score = float(loss)      # the chunk's one loss fetch
+                for lst in self.listeners:
+                    lst.iteration_done(self, self.iteration_count,
+                                       self.epoch_count, self._score,
+                                       etl_ms, bs)
+                self.iteration_count += 1
+                etl_ms = 0.0
+            etl_start = time.perf_counter()
+
     def _fit_modes(self, scan_steps, accumulate_steps, plan):
         """Validate fit's options as the reference does; the resolved
         scan_steps."""
         if plan is not None:
             raise not_ported("fit(plan=...) (sharding plans)", "A.15")
-        if self.conf.backprop_type == "tbptt":
-            raise not_ported("tbptt training", "A.7")
         if accumulate_steps > 1:
+            if self.conf.backprop_type == "tbptt":
+                raise ValueError("accumulate_steps does not apply to "
+                                 "tbptt (chunked-time) training")
             if scan_steps is not None and scan_steps > 1:
                 raise ValueError("accumulate_steps and scan_steps are "
                                  "mutually exclusive (one fuses K optimizer "
@@ -448,6 +524,7 @@ class MultiLayerNetwork(TrainableNet):
         self._input_types: Optional[List[InputType]] = None
         self._constraints = constraint_map(self) \
             if has_constraints(self.layers) else {}
+        self._rnn_carries: dict = {}
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
@@ -510,47 +587,60 @@ class MultiLayerNetwork(TrainableNet):
         return as_mask(m, self.device)
 
     def _forward(self, params, state, x, train: bool, generator=None,
-                 fmask=None, upto: Optional[int] = None):
+                 fmask=None, upto: Optional[int] = None, carries=None):
         """Forward through layers [0, upto) (all by default) with the auto
         preprocessors; RNN-kind layers get the features mask. When `upto`
         stops before the head, the activation is preprocessed into the
-        head's kind, ready for head.score()."""
+        head's kind, ready for head.score(). With `carries` (a dict by
+        layer key; {} is the zero state), the recurrent layers run
+        `apply_seq` from their carry. Returns (activation, new state, new
+        carries)."""
         if self._input_types is None:
             self._input_types = self._resolve_types()
         params = self._cast_params(params)
         cur_type = self.conf.input_type
         n = len(self.layers) if upto is None else upto
         new_state = dict(state)
+        new_carries = {}
         for i, layer in enumerate(self.layers[:n]):
+            key = str(i)
             need = _required_kind(layer)
             if need is not None and cur_type.kind != need:
                 x = preprocess_forward(cur_type, need, x)
                 cur_type = preprocessed_type(cur_type, need)
             mask = fmask if cur_type.kind == Kind.RNN else None
-            layer_params = apply_weight_noise(layer, params[str(i)], train,
+            layer_params = apply_weight_noise(layer, params[key], train,
                                               generator)
-            x, new_state[str(i)] = layer_call(
-                layer, layer_params, state[str(i)], x, train=train,
-                mask=mask, generator=generator,
-                remat=train and self.conf.gradient_checkpointing)
+            remat = train and self.conf.gradient_checkpointing
+            if carries is not None and _is_stateful_recurrent(layer):
+                x, new_carries[key] = layer_call(
+                    layer, layer_params, state[key], x, train=train,
+                    mask=mask, generator=generator, remat=remat, seq=True,
+                    carry=carries.get(key))
+            else:
+                x, new_state[key] = layer_call(
+                    layer, layer_params, state[key], x, train=train,
+                    mask=mask, generator=generator, remat=remat)
             cur_type = layer.output_type(cur_type)
         if upto is not None and upto < len(self.layers):
             need = _required_kind(self.layers[upto])
             if need is not None and cur_type.kind != need:
                 x = preprocess_forward(cur_type, need, x)
-        return x, new_state
+        return x, new_state, new_carries
 
     def _score_fn(self, params, state, x, y, fmask, lmask, train: bool,
-                  generator=None):
+                  generator=None, carries=None):
         """Loss on a batch: the head's score plus regularization
-        (computeGradientAndScore), in f32 or wider."""
+        (computeGradientAndScore), in f32 or wider; and (new state, new
+        carries)."""
         if not self.layers or not hasattr(self.layers[-1], "score"):
             raise ValueError("Last layer must be an output/loss layer with a "
                              "score() method to compute training loss")
         head_i = len(self.layers) - 1
         params_c = self._cast_params(params)
-        feat, new_state = self._forward(params_c, state, x, train, generator,
-                                        fmask, upto=head_i)
+        feat, new_state, new_carries = self._forward(
+            params_c, state, x, train, generator, fmask, upto=head_i,
+            carries=carries)
         out_mask = lmask if lmask is not None else (
             fmask if _required_kind(self.layers[head_i]) == Kind.RNN
             else None)
@@ -562,7 +652,7 @@ class MultiLayerNetwork(TrainableNet):
         for i, layer in enumerate(self.layers):
             reg = reg + layer.regularization_score(params[str(i)])
         score_dtype = torch.promote_types(torch.float32, loss.dtype)
-        return loss.to(score_dtype) + reg, new_state
+        return loss.to(score_dtype) + reg, (new_state, new_carries)
 
     def output(self, x, train: bool = False) -> torch.Tensor:
         """Inference (DL4J output()): a tensor on the network's device.
@@ -571,8 +661,8 @@ class MultiLayerNetwork(TrainableNet):
         if self.params is None:
             raise RuntimeError("Network is not initialized — call init() first")
         with torch.inference_mode():
-            y, _ = self._forward(self.params, self.state, self._as_input(x),
-                                 False)
+            y, _, _ = self._forward(self.params, self.state,
+                                    self._as_input(x), False)
         return y
 
     # ----------------------------------------------------------------- fit
@@ -580,15 +670,32 @@ class MultiLayerNetwork(TrainableNet):
     def _batch_struct(ds: DataSet) -> tuple:
         return (ds.features, ds.labels, ds.features_mask, ds.labels_mask)
 
-    def _grad_struct(self, struct, generator):
+    def _grad_struct(self, struct, generator, carries=None):
+        """(loss, grads, new state, new carries) of one batch struct."""
         x, y, fm, lm = struct
-        return self._gradients(lambda live: self._score_fn(
-            live, self.state, self._stage_x(x), self._as_labels(y),
-            self._as_mask(fm), self._as_mask(lm), True, generator))
+        loss, grads, (new_state, new_carries) = self._gradients(
+            lambda live: self._score_fn(
+                live, self.state, self._stage_x(x), self._as_labels(y),
+                self._as_mask(fm), self._as_mask(lm), True, generator,
+                carries))
+        return loss, grads, new_state, new_carries
+
+    def _tbptt_chunks(self, struct):
+        """The batch in chunks of tbptt_fwd_length along time: features,
+        (B, T) masks and rank-3 labels are sliced; rank-2 labels (one per
+        sequence) are not."""
+        x, y, fm, lm = struct
+        fwd = self.conf.tbptt_fwd_length
+        for t0 in range(0, x.shape[1], fwd):
+            t1 = t0 + fwd
+            yield (x[:, t0:t1],
+                   y[:, t0:t1] if y is not None and y.ndim >= 3 else y,
+                   None if fm is None else fm[:, t0:t1],
+                   None if lm is None else lm[:, t0:t1])
 
     def _id_inputs(self):
         """The features feed an embedding when the first layer is one."""
-        first = self.layers[0] if self.layers else None
+        first = unwrap_frozen(self.layers[0]) if self.layers else None
         if hasattr(first, "id_range"):
             return [(0, first, first.id_range(self.params["0"]))]
         return []
@@ -599,7 +706,7 @@ class MultiLayerNetwork(TrainableNet):
         (score tensor, gradient tree shaped like `params`, new layer
         state). Gradients are taken with respect to the parameters as
         stored (f32 master weights under bf16 compute)."""
-        return self._grad_struct(self._batch_struct(dataset), generator)
+        return self._grad_struct(self._batch_struct(dataset), generator)[:3]
 
     def _train_step(self, ds: DataSet, generator) -> torch.Tensor:
         """One optimizer step: forward and backward, the updater chain
@@ -636,9 +743,10 @@ class MultiLayerNetwork(TrainableNet):
         - A pre-processor with a `device_affine()` (e.g.
           ImagePreProcessingScaler) is detached for the fit and applied
           on the device: raw uint8 pixels cross the link.
+        - backprop_type "tbptt": per-call chunk steps whatever scan_steps
+          says (`_fit_epoch_tbptt`); accumulate_steps > 1 raises.
 
-        tbptt and `plan` raise NotImplementedError naming their ROADMAP
-        items."""
+        `plan` raises NotImplementedError naming its ROADMAP item."""
         if self.params is None:
             self.init()
         scan_steps = self._fit_modes(scan_steps, accumulate_steps, plan)
@@ -696,15 +804,39 @@ class MultiLayerNetwork(TrainableNet):
         iterator.reset()
         return ev
 
+    # ------------------------------------------------------ recurrent state
     def rnn_time_step(self, x):
-        raise not_ported("rnn_time_step() (needs the recurrent layers)",
-                         "A.7")
+        """Stateful streaming inference (DL4J rnnTimeStep): x is (B, F),
+        one step, which returns (B, n_out); or (B, T, F), which returns
+        (B, T, n_out). The recurrent layers' state persists across calls
+        until `rnn_clear_previous_state()`. Runs under no_grad, so the
+        state it keeps can enter a later training forward."""
+        x = self._as_input(x)
+        single = x.ndim == 2
+        if single:
+            x = x[:, None, :]
+        with torch.no_grad():
+            y, _, self._rnn_carries = self._forward(
+                self.params, self.state, x, False,
+                carries=self._rnn_carries)
+        return y[:, -1, :] if single and y.ndim == 3 else y
 
     def rnn_clear_previous_state(self):
-        raise not_ported("rnn_clear_previous_state()", "A.7")
+        self._rnn_carries = {}
 
     def num_params(self) -> int:
         def count(t):
             return sum(count(v) for v in t.values()) if isinstance(t, dict) \
                 else t.numel()
         return count(self.params or {})
+
+    def copy(self) -> "MultiLayerNetwork":
+        """A network of the same configuration on the same device, with
+        copies of the parameters and layer state and a fresh optimizer."""
+        clone = MultiLayerNetwork(self.conf, device=self.device)
+        if self.params is not None:
+            clone._input_types = self._resolve_types()
+            clone.params = tree_map(torch.clone, self.params)
+            clone.state = tree_map(torch.clone, self.state)
+            clone._build_optimizer()
+        return clone

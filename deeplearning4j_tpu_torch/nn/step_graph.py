@@ -240,7 +240,8 @@ class ChunkedFit:
     - `_batch_struct(batch)`: the batch as nested tuples of arrays;
     - `_step_struct(struct, generator)`: one train step on host arrays
       or device tensors, state committed in place; returns the loss;
-    - `_grad_struct(struct, generator)`: (loss, grads, new_state);
+    - `_grad_struct(struct, generator)`: (loss, grads, new_state,
+      new_carries);
     - `_apply_grads(grads)`: the updater chain and the in-place update;
     - `_bound_tensors()`: the tensors a captured step reads;
     - `_affine_key()`: what of the device affine a captured step reads;
@@ -347,7 +348,7 @@ class ChunkedFit:
         extra = acc["gsum"] + [acc["lsum"], acc["n"]]
 
         def micro(struct):
-            loss, grads, new_state = net._grad_struct(struct, self.gen)
+            loss, grads, new_state, _ = net._grad_struct(struct, self.gen)
             torch._foreach_add_(acc["gsum"], tree_tensors(grads))
             net._commit_state(new_state)
             acc["lsum"].add_(loss)

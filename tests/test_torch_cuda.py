@@ -6,7 +6,11 @@ small residual ComputationGraph on the card against the CPU, and the
 fit loop's captured steps: replays bitwise equal to per-call steps (with
 dropout), no host sync inside a chunk, an out-of-range id refused before
 a replay, a capture error raised with no fallback, and accumulation's
-graphs against the big-batch step (rtol 1e-5).
+graphs against the big-batch step (rtol 1e-5). Recurrent nets: tbptt and
+standard LSTM steps card against CPU in f64 (each leaf within 1e-10 of
+its largest update), an LSTM net's captured steps bitwise equal to its
+per-call steps, and rnn_time_step equal to output() on the card (f32,
+atol 1e-5).
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -694,3 +698,103 @@ def test_graph_accumulation_equals_the_big_batch_step(cuda):
     assert nets[0]._step_graphs
     for a, b in zip(tree_leaves(nets[0].params), tree_leaves(nets[1].params)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------------- recurrent nets
+def _lstm_net(device, dtype="float32", tbptt=None, dropout=0.0, seed=3,
+              bidirectional=True):
+    import dataclasses
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        LSTM, Bidirectional, GravesLSTM, RnnOutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    lb = (NeuralNetConfiguration.Builder().seed(seed).updater(Adam(1e-2))
+          .list().layer(LSTM(n_out=16, dropout=dropout))
+          .layer(GravesLSTM(n_out=12)))
+    if bidirectional:
+        lb = lb.layer(Bidirectional(layer=LSTM(n_out=8)))
+    lb = (lb.layer(RnnOutputLayer(n_out=5))
+          .set_input_type(InputType.recurrent(6, 12)))
+    if tbptt:
+        lb = lb.tbptt(tbptt)
+    conf = dataclasses.replace(lb.build(), dtype=dtype)
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _seq_batch(n=8, dtype=np.float32, seed=4):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, 12, 6).astype(dtype)
+    y = np.eye(5, dtype=dtype)[rs.randint(0, 5, (n, 12))]
+    m = np.ones((n, 12), dtype)
+    m[: n // 2, 5:] = 0                  # a masked tail across a boundary
+    return x, y, m
+
+
+def test_lstm_train_steps_on_the_card_match_the_cpu_in_f64(cuda):
+    """Two tbptt chunks (a masked tail crossing the boundary) and one
+    standard step, card against CPU from one init in f64: every leaf
+    within 1e-10 of its largest update."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    for tbptt in (6, None):
+        cpu = _lstm_net("cpu", "float64", tbptt)
+        gpu = _lstm_net(cuda, "float64", tbptt)
+        before = [t.clone() for t in tree_leaves(cpu.params)]
+        x, y, m = _seq_batch(dtype=np.float64)
+        for net in (cpu, gpu):
+            net.fit(DataSet(x, y, m, m), prefetch=False)
+        assert cpu.iteration_count == gpu.iteration_count == (
+            2 if tbptt else 1)
+        for a, b, b0 in zip(tree_leaves(gpu.params), tree_leaves(cpu.params),
+                            before):
+            scale = (b - b0).abs().max().item()
+            assert (a.cpu() - b).abs().max().item() <= 1e-10 * scale
+
+
+def test_lstm_graph_fit_is_bitwise_the_per_call_fit(cuda):
+    """Standard-backprop LSTM training captures as it is: the unrolled
+    loop, masks by torch.where, dropout through the registered
+    generator; replays equal per-call steps bitwise."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.train.listeners import (
+        CollectScoresIterationListener,
+    )
+    batches = []
+    for s in range(8):
+        x, y, m = _seq_batch(seed=s)
+        batches.append(DataSet(x, y, m, m))
+    nets, scores = [], []
+    for scan in (1, 4):
+        net = _lstm_net(cuda, dropout=0.2)
+        lst = CollectScoresIterationListener()
+        net.set_listeners(lst)
+        net.fit(ExistingDataSetIterator(batches), epochs=2, scan_steps=scan)
+        nets.append(net)
+        scores.append([s for _, s in lst.scores])
+    assert scores[0] == scores[1] and _same(*nets)
+    assert nets[1]._step_graphs
+
+
+def test_rnn_time_step_on_the_card_equals_output(cuda):
+    """On the card, streaming one step and several steps at a time equals
+    output() of the whole sequence (f32, atol 1e-5), which equals the
+    CPU's. (A Bidirectional layer sees only the steps of each call, so
+    the streamed net is the unidirectional one.)"""
+    x, _, _ = _seq_batch()
+    gpu = _lstm_net(cuda, bidirectional=False)
+    cpu = _lstm_net("cpu", bidirectional=False)
+    full = gpu.output(x)
+    torch.testing.assert_close(full.cpu(), cpu.output(x), atol=1e-5, rtol=0)
+    steps = torch.stack([gpu.rnn_time_step(x[:, t]) for t in range(12)], 1)
+    torch.testing.assert_close(steps, full, atol=1e-5, rtol=0)
+    gpu.rnn_clear_previous_state()
+    first = gpu.rnn_time_step(x[:, :7])
+    rest = gpu.rnn_time_step(x[:, 7:])
+    torch.testing.assert_close(torch.cat([first, rest], 1), full, atol=1e-5,
+                               rtol=0)

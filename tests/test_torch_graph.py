@@ -379,10 +379,19 @@ def test_paths_not_yet_ported_raise_and_name_the_roadmap(case):
               dict(accumulate_steps=2), "plan": dict(plan=object())
               }.get(case, {})
     mds = MultiDataSet((seq, vec), (y_seq, y_ff))
-    if case in ("plan", "tbptt"):
-        item = "A.15" if case == "plan" else "A.7"
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    if case == "plan":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.15"):
             net.fit(mds, **fit_kw)
+    elif case == "tbptt":
+        # tbptt trains now (ROADMAP A.7 is ported): one chunk covers T = 5,
+        # so it equals the standard fit bitwise (tests/test_torch_tbptt.py
+        # holds tbptt to the reference)
+        std = ComputationGraph(_port_small(), device="cpu").init()
+        net.fit([mds, mds])
+        std.fit([mds, mds])
+        assert net.iteration_count == std.iteration_count == 2
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(net.params), tree_leaves(std.params)))
     else:
         # the A.6 paths train now (tests/test_torch_fit_paths.py holds
         # them to the reference)
@@ -398,8 +407,11 @@ def test_evaluation_and_streaming_raise(method):
     net = ComputationGraph(_port_small(), device="cpu").init()
     seq, vec, mask, y_seq, y_ff = _batch()
     if method == "rnn_time_step":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            getattr(net, method)(seq, vec)
+        # streaming is ported (ROADMAP A.7): with no recurrent vertex, a
+        # whole sequence streams to output()'s values
+        outs = getattr(net, method)(seq, vec)
+        for a, b in zip(outs, net.output(seq, vec)):
+            torch.testing.assert_close(a, b)
         return
     # evaluation is ported: the first output, mask-padded steps excluded
     ev = getattr(net, method)(MultiDataSet((seq, vec), (y_seq, y_ff),

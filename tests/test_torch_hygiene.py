@@ -67,6 +67,17 @@ def test_no_library_attention_or_compile_in_the_package():
     assert hits == []
 
 
+def test_no_library_rnn_in_the_package():
+    """The recurrent layers are the reference's step math in PyTorch ops
+    (masked steps zero the state, peepholes, any gate activation); cuDNN's
+    fused RNNs are not called."""
+    banned = ("nn.LSTM", "nn.GRU", "nn.RNN", "_VF.lstm", "_VF.gru",
+              "torch.lstm", "torch.gru", "_cudnn_rnn")
+    hits = [(str(p.relative_to(REPO)), t) for p in sorted(PKG.rglob("*.py"))
+            for t in banned if t in p.read_text()]
+    assert hits == []
+
+
 def test_importing_the_port_pulls_in_no_jax():
     code = ("import sys\n"
             "import deeplearning4j_tpu_torch.serving.cli\n"
@@ -82,6 +93,8 @@ def test_importing_the_port_pulls_in_no_jax():
             "import deeplearning4j_tpu_torch.nn.graph\n"
             "import deeplearning4j_tpu_torch.nn.regularization\n"
             "import deeplearning4j_tpu_torch.models.zoo\n"
+            "import deeplearning4j_tpu_torch.nn.transferlearning\n"
+            "import deeplearning4j_tpu_torch.gradientcheck\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(BANNED_ROOTS)!r})\n"
             "print(bad)\n"

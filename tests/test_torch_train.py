@@ -426,14 +426,11 @@ def test_configs_not_yet_ported_raise_at_fit(case):
     net = MultiLayerNetwork(lb.build(), device="cpu").init()
     X, Y = _tokens(2, 4, 10, seed=6)
     # weight noise is ported (nn/regularization.py); a dict is no noise.
-    # Frozen layers, per-layer updaters and checkpointing train now
-    # (tests/test_torch_fit_paths.py holds them to the reference); tbptt
-    # waits for the recurrent layers
-    if case in ("weight_noise", "tbptt"):
-        error, match = (TypeError, "IWeightNoise") \
-            if case == "weight_noise" else (NotImplementedError,
-                                            "ROADMAP A.7")
-        with pytest.raises(error, match=match):
+    # Frozen layers, per-layer updaters, checkpointing and tbptt train
+    # now (tests/test_torch_fit_paths.py and tests/test_torch_tbptt.py
+    # hold them to the reference); tbptt runs one step a chunk
+    if case == "weight_noise":
+        with pytest.raises(TypeError, match="IWeightNoise"):
             net.fit((X, Y), batch_size=2)
     else:
         before = net.params["0"]["W"].clone()
@@ -479,6 +476,40 @@ def test_cli_matches_the_jax_cli(jax_zip, tmp_path, capsys):
                                jax_line["final_score"], rtol=1e-4)
     _assert_params_close(load_model(str(tmp_path / "p.zip"), device="cpu"),
                          jax_load_model(str(tmp_path / "j.zip")))
+
+
+def test_cli_trains_a_tbptt_zip_one_iteration_per_chunk(tmp_path, capsys):
+    """A saved TextGenerationLSTM (120 steps, tbptt 50) through both CLIs:
+    6 sequences in batches of 3 are 2 batches x 3 chunks = 6 iterations
+    in the result line; the port's output zip reloads with its count and
+    updaterState.bin, and its parameters match the reference CLI's."""
+    from deeplearning4j_tpu.util.serialization import save_model as jsave
+    src = jsave(jax_model_by_name("TextGenerationLSTM",
+                                  total_unique_characters=12,
+                                  max_length=120, units=8).init(),
+                str(tmp_path / "charlstm.zip"))
+    rs = np.random.RandomState(4)
+    ids = rs.randint(0, 12, (6, 121))
+    eye = np.eye(12, dtype=np.uint8)
+    data = str(tmp_path / "chars.npz")
+    np.savez(data, features=eye[ids[:, :-1]].astype(np.float32),
+             labels=eye[ids[:, 1:]])
+    common = ["--model", src, "--dataset", data, "--mode", "single",
+              "--batch-size", "3", "--score-every", "1"]
+    out = str(tmp_path / "p.zip")
+    assert cli.main(common + ["--output", out, "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jax_cli.main(common + ["--output", str(tmp_path / "j.zip")]) == 0
+    jline = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (line["iterations"], line["epochs"]) == (6, 1) == (
+        jline["iterations"], jline["epochs"])
+    np.testing.assert_allclose(line["final_score"], jline["final_score"],
+                               rtol=1e-4)
+    net = load_model(out, device="cpu")
+    assert net.iteration_count == 6 and net.conf.backprop_type == "tbptt"
+    assert "updaterState.bin" in zipfile.ZipFile(out).namelist()
+    assert int(net.opt_state["1"]["0"]["count"]) == 6     # Adam after clip
+    _assert_params_close(net, jax_load_model(str(tmp_path / "j.zip")))
 
 
 def test_cli_sync_mode_runs_the_plain_fit_on_one_worker(tmp_path, capsys):
