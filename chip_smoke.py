@@ -146,6 +146,46 @@ result line:
              forward and backward at (d)'s shape, a yardstick the port
              never calls. The kernel table's `launches_by_path` gains
              "rnn", which must read 0 for every flash kernel.
+9. zoo     — detection, the VAE and the rest of the zoo (no hand-written
+             kernel: convolution, pooling, batch norm and the YOLO loss
+             are PyTorch ops, cuDNN for the convolutions). (a) card
+             against CPU: TinyYOLO (3 classes, 64²) from one zip, batch 4
+             with 1-2 boxes an image, output() within 1e-4 in f32 (TF32
+             off) and the score within rtol 1e-4; in f64 the training
+             score and gradients within 1e-10 and one Adam fit step
+             within 1e-6 of each leaf's largest update (Adam's first step
+             amplifies entries with |g| near its eps), the batch norm
+             state within 1e-10; a VAE's negative ELBO with one fixed
+             noise and its gradients in f64 within 1e-10; check_gradients
+             in f64 on the card for a YOLO head and a VAE net; (b) the
+             entry point at full width: the zoo's YOLO2() (608², 80
+             classes, 5 anchors, a 19x19 grid) saved with save_model, 32
+             seeded images with 1-4 boxes each in an npz,
+             train.cli.main(--mode single --batch-size 16) = 2 steps, the
+             output zip reloaded, its output() on 4 images through
+             decode_detections and non_max_suppression; (c) YOLO2 at
+             608², batch 16, Adam(1e-3), one seeded batch: per-call f32
+             and bf16 steps (3 warm, 10 timed by CUDA events), imgs/s,
+             TFLOP/s at 3x the forward GFLOP counted from the conv
+             shapes, host launch calls and device kernels a step, syncs a
+             step, device ms by category, the loss's own time, idle
+             share, peak memory; then bf16 fit(scan_steps=10) beside
+             per-call fit over uint8 images with the scaler on the card,
+             and the graph's steps bitwise equal to per-call steps from
+             one init (cuDNN deterministic); over 20 deterministic f32
+             steps the loss must fall; (d) VGG16 at 224², batch 64, f32
+             and bf16: step ms, imgs/s, TFLOP/s, device ms by category,
+             peak memory; (e) AlexNet, VGG19, GoogLeNet, Darknet19,
+             TinyYOLO, InceptionResNetV1, FaceNetNN4Small2 and UNet at
+             their default inputs, batch 8: one fit step with a finite
+             score and output() of the conf's output shape, a second step
+             timed; (f) LeNet through train.cli.main(--dataset mnist
+             --synthetic-data --mode single --batch-size 64) = 32 steps,
+             then AutoEncoder -> VAE -> OutputLayer on the flattened
+             synthetic MNIST through fit_pretrain and fit: the VAE's
+             negative ELBO on one batch with one fixed noise must be
+             lower after pretraining. `launches_by_path` gains "zoo",
+             which must read 0 for every flash kernel.
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The second-to-last line is the kernel table
@@ -1435,10 +1475,19 @@ def _resnet_category(name: str, phase: str) -> str:
 
 
 def resnet_phased_profile(net, mds, gen, steps=2):
+    """Device ms by category over `steps` ResNet train steps
+    (`phased_profile`)."""
+    return phased_profile(net, lambda live: net._score_fn(
+        live, net.state, net._as_inputs(mds.features),
+        net._as_labels(mds.labels), None, None, True, gen), steps)
+
+
+def phased_profile(net, score, steps=2):
     """Device ms by category over `steps` train steps, each split by
     synchronisations into forward, backward and optimizer (the step's own
-    calls: `_score_fn`, autograd, the updater chain); a kernel belongs to
-    the phase whose host range holds its start."""
+    calls: `score(live params)` -> (loss, (new state, ...)), autograd, the
+    updater chain); a kernel belongs to the phase whose host range holds
+    its start."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from deeplearning4j_tpu_torch.nn.updaters import (
@@ -1452,17 +1501,15 @@ def resnet_phased_profile(net, mds, gen, steps=2):
             live = tree_map(lambda t: t.detach().requires_grad_(True),
                             net.params)
             leaves = tree_leaves(live)
-            with record_function("resnet/forward"):
-                loss, (new_state, _) = net._score_fn(
-                    live, net.state, net._as_inputs(mds.features),
-                    net._as_labels(mds.labels), None, None, True, gen)
+            with record_function("step/forward"):
+                loss, (new_state, _) = score(live)
                 torch.cuda.synchronize()
-            with record_function("resnet/backward"):
+            with record_function("step/backward"):
                 grads = torch.autograd.grad(loss, leaves)
                 torch.cuda.synchronize()
             by_leaf = {id(t): g for t, g in zip(leaves, grads)}
             grad_tree = tree_map(lambda t: by_leaf[id(t)], live)
-            with record_function("resnet/optimizer"), torch.no_grad():
+            with record_function("step/optimizer"), torch.no_grad():
                 updates, net.opt_state = net._tx.update(
                     grad_tree, net.opt_state, net.params)
                 apply_updates(net.params, updates)
@@ -1473,10 +1520,10 @@ def resnet_phased_profile(net, mds, gen, steps=2):
     # the host's ranges; the profiler also puts each range on the device
     # timeline (a span over its kernels), which is not a kernel
     ranges = [(e.time_range.start, e.time_range.end, e.name.split("/")[1])
-              for e in events if e.name.startswith("resnet/")
+              for e in events if e.name.startswith("step/")
               and e.device_type == DeviceType.CPU]
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("resnet/")]
+               and not e.name.startswith("step/")]
     if not kernels or not ranges:
         return {"device_time": "not measured"}, losses
     by_cat, by_name, unplaced = {}, {}, 0
@@ -1502,6 +1549,27 @@ def resnet_phased_profile(net, mds, gen, steps=2):
             "kernels_outside_the_phases": unplaced}, losses
 
 
+def timed_fit_steps(net, batch, warmup, timed):
+    """Per-call fit steps on one batch by CUDA events: (losses, step ms,
+    host ms); the peak memory counter is reset first."""
+    losses, step_ms, host_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        net.fit(batch)                     # ends in the step's loss fetch
+        end.record()
+        end.synchronize()
+        losses.append(net.score())
+        if i >= warmup:
+            step_ms.append(start.elapsed_time(end))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, host_ms
+
+
 def resnet_timed(compute_dtype):
     """Phase 6c: the zoo ResNet50 at the bench shape, per-call fit steps
     on one seeded batch on the card, timed by CUDA events; then the
@@ -1521,21 +1589,8 @@ def resnet_timed(compute_dtype):
         torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device="cuda"),
         1000).float()
     mds = MultiDataSet((x,), (y,))
-    losses, step_ms, host_ms = [], [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(RESNET_WARMUP + RESNET_TIMED):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        net.fit(mds)                       # ends in the step's loss fetch
-        end.record()
-        end.synchronize()
-        losses.append(net.score())
-        if i >= RESNET_WARMUP:
-            step_ms.append(start.elapsed_time(end))
-            host_ms.append((time.perf_counter() - t0) * 1e3)
+    losses, step_ms, host_ms = timed_fit_steps(net, mds, RESNET_WARMUP,
+                                               RESNET_TIMED)
     peak = torch.cuda.max_memory_allocated()
     gen = torch.Generator(device="cuda").manual_seed(5)
     prof = profile_steps(net, mds, gen)
@@ -2445,6 +2500,757 @@ def rnn(fa, tmp):
     return {"flash_launches": launches}
 
 
+# the zoo phase: YOLO2 at full width (the zoo's YOLO2(): 608², 80 classes,
+# 5 anchors, a 19x19 grid, Adam(1e-3)), VGG16 at BASELINE's "ResNet-50 /
+# VGG16" shape, every other new zoo model at its default input, and
+# BASELINE's "LeNet MNIST" through the train CLI
+YOLO_HW, YOLO_GRID, YOLO_CLASSES = 608, 19, 80
+YOLO_BATCH, YOLO_CLI_IMAGES = 16, 32
+YOLO_WARMUP, YOLO_TIMED, YOLO_FALL_STEPS, YOLO_SCAN_K = 3, 10, 20, 10
+YOLO_PARITY = dict(num_classes=3, input_shape=(64, 64, 3))
+VGG_BATCH, VGG_HW = 64, 224
+ZOO_BATCH = 8
+ZOO_OTHERS = ("AlexNet", "VGG19", "GoogLeNet", "Darknet19", "TinyYOLO",
+              "InceptionResNetV1", "FaceNetNN4Small2", "UNet")
+ZOO_INPUT = {}          # per-model overrides of the default input shape
+MNIST_BATCH = 64
+
+
+def forward_gflop_per_image(conf) -> float:
+    """Forward GFLOP an image of the convolutions and dense layers (2 a
+    multiply-add), from the shapes the configuration resolves to:
+    bench.py's way of counting ResNet-50 (24.6 = 3 x 8.2 a step)."""
+    from deeplearning4j_tpu_torch.nn.conf.graph_vertices import (
+        GraphVertexConf,
+    )
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        ComputationGraphConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    if isinstance(conf, ComputationGraphConfiguration):
+        shapes = ComputationGraph(conf, device="cpu")   # types only
+        shapes._vertex_types = shapes._resolve_types()
+        pairs = [(conf.vertices[n].vertex, shapes._layer_input_type(n))
+                 for n in shapes._topo
+                 if not isinstance(conf.vertices[n].vertex, GraphVertexConf)]
+    else:
+        pairs = list(zip(conf.layers, MultiLayerNetwork(
+            conf, device="cpu")._resolve_types()))
+    flops = 0
+    for layer, t in pairs:
+        kind = type(layer).__name__
+        if kind == "ConvolutionLayer":
+            out = layer.output_type(t)
+            kh, kw = layer.kernel
+            flops += (2 * out.shape[0] * out.shape[1] * kh * kw * t.shape[2]
+                      * out.shape[2])
+        elif kind in ("DenseLayer", "OutputLayer"):
+            flops += 2 * t.features * layer.n_out
+    return flops / 1e9
+
+
+def yolo_labels(rs, n, grid, classes, max_boxes=2):
+    """(n, grid, grid, 4 + classes) float32: 1..max_boxes boxes an image,
+    [x1, y1, x2, y2] in grid units in the cell of the box's centre, and
+    the one-hot class."""
+    y = np.zeros((n, grid, grid, 4 + classes), np.float32)
+    for i in range(n):
+        for _ in range(1 + i % max_boxes):
+            cx, cy = rs.uniform(0.2, grid - 0.2, 2)
+            w, h = rs.uniform(0.3, min(4.0, grid / 2), 2)
+            y[i, int(cy), int(cx), :4] = [cx - w / 2, cy - h / 2,
+                                         cx + w / 2, cy + h / 2]
+            y[i, int(cy), int(cx), 4:] = 0
+            y[i, int(cy), int(cx), 4 + rs.randint(classes)] = 1
+    return y
+
+
+def _tree_rel(a_tree, b_tree):
+    """The worst over leaves of |a - b| (b on the CPU) over b's largest
+    value."""
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    b_leaves = dict(iter_leaves(b_tree))
+    worst = 0.0
+    for path, a in iter_leaves(a_tree):
+        b = b_leaves[path]
+        err = (a.detach().cpu() - b).abs().max().item() \
+            / max(b.abs().max().item(), 1e-300)
+        if err != err:
+            return err
+        worst = max(worst, err)
+    return worst
+
+
+def _vae_mln(device, dtype="float64"):
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        OutputLayer, VariationalAutoencoder,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(4).updater(Adam(1e-3))
+            .dtype(dtype).list()
+            .layer(VariationalAutoencoder(n_out=8, encoder_layer_sizes=(32,),
+                                          decoder_layer_sizes=(32,),
+                                          num_samples=2))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(20)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def zoo_parity(tmp):
+    """Phase 9a: the card against the CPU. TinyYOLO (3 classes, 64²) from
+    one zip, batch 4 with 1-2 labelled boxes an image: output() within
+    1e-4 in f32 (TF32 off) and the score within rtol 1e-4; in f64 the
+    training score and gradients within 1e-10 (of each leaf's largest
+    gradient) and one fit step: Adam's first step is g / (|g| + 1e-8) an
+    entry, which multiplies the error of entries with |g| near 1e-8 by up
+    to max|g| / 1e-8, so the step is held within 1e-6 of each leaf's
+    largest update and the batch norm state within 1e-10. A VAE network's
+    negative ELBO with one fixed noise, and its gradients, in f64 within
+    1e-10. check_gradients in f64 on the card for a Yolo2OutputLayer head
+    and a VAE network."""
+    import dataclasses
+    import os
+    from deeplearning4j_tpu_torch import gradientcheck as gc
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.models.zoo import TinyYOLO
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer, Yolo2OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd, tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    rs = np.random.RandomState(17)
+    hw = YOLO_PARITY["input_shape"][0]
+    grid = hw // 32
+    X = rs.rand(4, hw, hw, 3)
+    Y = yolo_labels(rs, 4, grid, YOLO_PARITY["num_classes"])
+    row = {"phase": "zoo_parity", "model": "TinyYOLO", **YOLO_PARITY,
+           "batch": 4, "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    for dtype in ("float32", "float64"):
+        conf = dataclasses.replace(TinyYOLO(**YOLO_PARITY).conf(),
+                                   dtype=dtype)
+        src = ComputationGraph(conf, device="cpu").init()
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():                   # BN state off its init
+            for _, t in iter_leaves(src.state):
+                t.add_(0.2 * torch.rand(t.shape, generator=g))
+        path = save_model(src, os.path.join(tmp, f"tinyyolo_{dtype}.zip"))
+        card, cpu = load_model(path), load_model(path, device="cpu")
+        mds = MultiDataSet((X.astype(dtype),), (Y.astype(dtype),))
+        if dtype == "float32":
+            out = card.output(X.astype(dtype))
+            row["f32_output_max_abs_err"] = (
+                out.cpu() - cpu.output(X.astype(dtype))).abs().max().item()
+            row["f32_output_finite"] = bool(torch.isfinite(out).all())
+            sc, sp = card.score(mds), cpu.score(mds)
+            row["f32_score"] = [sc, sp]
+            row["f32_score_rel_err"] = abs(sc - sp) / abs(sp)
+            continue
+        c_loss, c_grads, _ = card.compute_gradient_and_score(mds)
+        p_loss, p_grads, _ = cpu.compute_gradient_and_score(mds)
+        row["f64_score_rel_err"] = abs(float(c_loss) - float(p_loss)) \
+            / abs(float(p_loss))
+        row["f64_grad_err_over_leaf_max"] = _tree_rel(c_grads, p_grads)
+        before = dict((p, t.clone()) for p, t in iter_leaves(cpu.params))
+        card.fit(mds)
+        cpu.fit(mds)
+        row["f64_fit_step_err_over_update"] = _leaf_errors(
+            card.params, cpu.params, before)
+        row["f64_bn_state_err_over_leaf_max"] = _tree_rel(card.state,
+                                                          cpu.state)
+    # the VAE's ELBO with one fixed noise, and its gradients
+    xv = rs.randn(16, 20)
+    eps = [rs.randn(16, 8) for _ in range(2)]
+    vae = {}
+    for device in ("cuda", "cpu"):
+        net = _vae_mln(device)
+        live = tree_map(lambda t: t.clone().requires_grad_(True),
+                        net.params["0"])
+        score = net.layers[0].pretrain_score(
+            live, torch.from_numpy(xv).to(device),
+            eps=[torch.from_numpy(e) for e in eps])
+        grads = torch.autograd.grad(score, tree_leaves(live))
+        vae[device] = (float(score.detach()), {str(i): g.cpu() for i, g in
+                                      enumerate(grads)})
+    row["vae_elbo"] = [vae["cuda"][0], vae["cpu"][0]]
+    row["vae_elbo_rel_err"] = abs(vae["cuda"][0] - vae["cpu"][0]) \
+        / abs(vae["cpu"][0])
+    row["vae_grad_err_over_leaf_max"] = _tree_rel(vae["cuda"][1],
+                                                  vae["cpu"][1])
+    # gradient checks in f64 on the card
+    head = (NeuralNetConfiguration.Builder().seed(0).updater(Sgd(1e-2))
+            .list()
+            .layer(ConvolutionLayer(n_out=14, kernel=(3, 3), stride=(2, 2),
+                                    convolution_mode="same"))
+            .layer(Yolo2OutputLayer(anchors=((1.0, 1.0), (0.5, 0.5)),
+                                    n_classes=2))
+            .set_input_type(InputType.convolutional(4, 4, 3)).build())
+    yh = np.zeros((2, 2, 2, 6))
+    yh[0, 0, 0] = [0.1, 0.1, 0.9, 0.9, 1, 0]
+    yh[1, 1, 1] = [1.2, 1.2, 1.9, 1.8, 0, 1]
+    checks = {
+        "yolo_head": gc.check_gradients(
+            MultiLayerNetwork(head).init(), rs.rand(2, 4, 4, 3), yh,
+            max_per_param=8, max_rel_error=2e-3),
+        "vae": gc.check_gradients(
+            _vae_mln("cuda"), rs.randn(6, 20), np.eye(3)[rs.randint(0, 3, 6)],
+            max_per_param=8, max_rel_error=2e-3)}
+    row["gradient_checks"] = {
+        k: {"passed": r.passed, "entries": r.n_params_checked,
+            "max_rel_error": r.max_rel_error} for k, r in checks.items()}
+    row["ok"] = bool(
+        row["f32_output_finite"] and row["f32_output_max_abs_err"] <= 1e-4
+        and row["f32_score_rel_err"] <= 1e-4
+        and row["f64_score_rel_err"] <= 1e-10
+        and row["f64_grad_err_over_leaf_max"] <= 1e-10
+        and row["f64_fit_step_err_over_update"] <= 1e-6
+        and row["f64_bn_state_err_over_leaf_max"] <= 1e-10
+        and row["vae_elbo_rel_err"] <= 1e-10
+        and row["vae_grad_err_over_leaf_max"] <= 1e-10
+        and all(r.passed and r.n_params_checked >= 16
+                for r in checks.values()))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"zoo card against CPU: {row}")
+    return row
+
+
+def yolo_cli(tmp):
+    """Phase 9b: the entry point at full width: the zoo's YOLO2() saved
+    with save_model, YOLO_CLI_IMAGES seeded images with 1-4 boxes each in
+    an npz, train.cli.main(--mode single --batch-size YOLO_BATCH); then the
+    reloaded zip's output() on 4 images through decode_detections and
+    non_max_suppression."""
+    import contextlib
+    import os
+    from deeplearning4j_tpu_torch.models.zoo import YOLO2
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import (
+        decode_detections, non_max_suppression,
+    )
+    from deeplearning4j_tpu_torch.train import cli as train_cli
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    src, out = os.path.join(tmp, "yolo2.zip"), os.path.join(tmp, "o.zip")
+    data = os.path.join(tmp, "boxes.npz")
+    t0 = time.perf_counter()
+    model = YOLO2(num_classes=YOLO_CLASSES,
+                  input_shape=(YOLO_HW, YOLO_HW, 3))
+    net = model.init()
+    n_params = net.num_params()
+    save_model(net, src)
+    del net
+    rs = np.random.RandomState(23)
+    x = rs.rand(YOLO_CLI_IMAGES, YOLO_HW, YOLO_HW, 3).astype("float32")
+    np.savez(data, features=x, labels=yolo_labels(
+        rs, YOLO_CLI_IMAGES, YOLO_GRID, YOLO_CLASSES, max_boxes=4))
+    setup_s = time.perf_counter() - t0
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        code = train_cli.main(["--model", src, "--output", out, "--dataset",
+                               data, "--mode", "single", "--batch-size",
+                               str(YOLO_BATCH), "--score-every", "1"])
+    wall_s = time.perf_counter() - t0
+    last = stdout.getvalue().strip().splitlines()[-1]
+    result = json.loads(last)
+    steps = YOLO_CLI_IMAGES // YOLO_BATCH
+    trained = load_model(out)
+    preds = trained.output(x[:4])
+    boxes, kept, valid = [], [], True
+    for b, s, c in decode_detections(preds, model.anchors, YOLO_CLASSES,
+                                     conf_threshold=0.5):
+        boxes.append(len(b))
+        kept.append(len(non_max_suppression(b, s, c, 0.45)))
+        valid = valid and bool(np.isfinite(b).all() and (b[:, 2] >= b[:, 0])
+                               .all() and (b[:, 3] >= b[:, 1]).all()
+                               and ((s >= 0.5) & (s <= 1)).all()
+                               and ((c >= 0) & (c < YOLO_CLASSES)).all())
+    ok = (code == 0 and set(result) == {"output", "final_score",
+                                        "iterations", "epochs"}
+          and result["iterations"] == steps and result["epochs"] == 1
+          and np.isfinite(result["final_score"])
+          and isinstance(trained, ComputationGraph)
+          and trained.iteration_count == steps
+          and trained.opt_state is not None
+          and trained.num_params() == n_params
+          and tuple(preds.shape) == (4, YOLO_GRID, YOLO_GRID,
+                                     5 * (5 + YOLO_CLASSES))
+          and bool(torch.isfinite(preds).all()) and valid
+          and all(k <= b and (k > 0) == (b > 0)
+                  for k, b in zip(kept, boxes)))
+    row = {"phase": "zoo_yolo_cli", "params": n_params,
+           "images": YOLO_CLI_IMAGES, "image": [YOLO_HW, YOLO_HW, 3],
+           "batch": YOLO_BATCH, "setup_s": setup_s, "cli_wall_s": wall_s,
+           "result": result, "decoded_boxes_per_image": boxes,
+           "boxes_after_nms": kept, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"train CLI on YOLO2: exit {code}, {row}")
+    return row
+
+
+def _yolo_batch_on_card(n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(n, YOLO_HW, YOLO_HW, 3, generator=g, device="cuda")
+    y = torch.from_numpy(yolo_labels(np.random.RandomState(seed), n,
+                                     YOLO_GRID, YOLO_CLASSES, 4)).cuda()
+    return x, y
+
+
+def _yolo2(compute_dtype=None, dtype=None):
+    import dataclasses
+    from deeplearning4j_tpu_torch.models.zoo import YOLO2
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = YOLO2(num_classes=YOLO_CLASSES,
+                  input_shape=(YOLO_HW, YOLO_HW, 3)).conf()
+    if compute_dtype is not None:
+        conf = dataclasses.replace(conf, compute_dtype=compute_dtype)
+    return ComputationGraph(conf).init()
+
+
+def step_rate_row(name, compute_dtype, batch, gflop, step_ms, host_ms, peak):
+    p50 = statistics.median(step_ms)
+    dtype = compute_dtype or "float32"
+    peak_flops = PEAK_FLOPS[torch.bfloat16 if dtype == "bfloat16"
+                            else torch.float32]
+    tflops = 3 * gflop * 1e9 * batch / (p50 / 1e3) / 1e12
+    return {"phase": name, "compute_dtype": dtype, "batch": batch,
+            "step_ms_p50": p50, "step_ms_max": max(step_ms),
+            "step_ms": step_ms, "step_host_ms_p50": statistics.median(host_ms),
+            "imgs_per_s": batch / (p50 / 1e3),
+            "forward_gflop_per_image": gflop,
+            "tflops_at_3x_forward": tflops, "peak_tflops": peak_flops / 1e12,
+            "share_of_peak": tflops * 1e12 / peak_flops,
+            "peak_memory_bytes": peak}
+
+
+def yolo_timed(compute_dtype):
+    """Phase 9c: the zoo's YOLO2 at 608², batch YOLO_BATCH, one seeded
+    batch on the card, Adam(1e-3): per-call fit steps (YOLO_WARMUP, then
+    YOLO_TIMED timed by CUDA events), imgs/s, TFLOP/s at 3x the forward
+    GFLOP, host launch calls and device kernels a step, syncs a step,
+    device ms by category, the loss's own time, idle share, peak memory."""
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    net = _yolo2(compute_dtype)
+    gflop = forward_gflop_per_image(net.conf)
+    x, y = _yolo_batch_on_card(YOLO_BATCH, 2024)
+    mds = MultiDataSet((x,), (y,))
+    losses, step_ms, host_ms = timed_fit_steps(net, mds, YOLO_WARMUP,
+                                               YOLO_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    launches = launch_profile(
+        lambda: [float(net._train_step(mds, gen)) for _ in range(2)], 2)
+    phased, _ = phased_profile(net, lambda live: net._score_fn(
+        live, net.state, net._as_inputs(mds.features),
+        net._as_labels(mds.labels), None, None, True, gen))
+    syncs = count_syncs(lambda: float(net._train_step(mds, gen)))
+    # the loss alone, forward and backward, on the head's input
+    head = net.conf.vertices["yolo"].vertex
+    with torch.no_grad():
+        acts, _, _, _ = net._forward(net._cast_params(net.params), net.state,
+                                     net._as_inputs(mds.features), False,
+                                     stash_pre=True)
+    pre = acts["__pre__yolo"].detach().requires_grad_(True)
+    labels = net._as_labels(mds.labels)[0]
+    loss_ms = cuda_ms(lambda: torch.autograd.grad(
+        head.score({}, pre, labels), pre), iters=10)
+    row = step_rate_row("zoo_yolo_timed", compute_dtype, YOLO_BATCH, gflop,
+                        step_ms, host_ms, peak)
+    row.update({"params": net.num_params(), "image": [YOLO_HW, YOLO_HW, 3],
+                "classes": YOLO_CLASSES, "updater": "Adam(1e-3)",
+                "cudnn_benchmark": torch.backends.cudnn.benchmark,
+                "host_launch_calls_per_step":
+                    launches.get("host_launch_calls_per_step"),
+                "device_kernels_per_step":
+                    launches.get("device_kernels_per_step"),
+                "device_busy_ms_per_step":
+                    launches.get("device_busy_ms_per_step", "not measured"),
+                "idle_share": launches.get("idle_share", "not measured"),
+                "syncs_per_step": syncs, "by_category": phased,
+                "loss_fwd_bwd_ms": loss_ms, "losses": losses})
+    emit(row)
+    del net, mds, x, y, acts, pre
+    torch.cuda.empty_cache()
+    return row
+
+
+def yolo_graph():
+    """Phase 9c, continued: YOLO2 in bf16 through the fit loop's replayed
+    graph, fit(iterator, scan_steps=YOLO_SCAN_K) over one seeded batch of
+    uint8 pixels with the ImagePreProcessingScaler applied on the card,
+    per-call (scan_steps=1, the same pipeline) beside it: step ms, host
+    launch calls, device kernels, idle share, syncs by site, peak memory.
+    Then the graph's steps against per-call steps from one init, one
+    chunk of YOLO_SCAN_K with cuDNN's deterministic algorithms: the
+    parameters and batch norm state bitwise equal."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.normalization import (
+        ImagePreProcessingScaler,
+    )
+    rs = np.random.RandomState(29)
+    x8 = rs.randint(0, 256, (YOLO_BATCH, YOLO_HW, YOLO_HW, 3), dtype=np.uint8)
+    y = yolo_labels(rs, YOLO_BATCH, YOLO_GRID, YOLO_CLASSES, 4)
+    batches = [DataSet(x8, y)] * (2 * YOLO_SCAN_K)
+
+    def make_it(n=2 * YOLO_SCAN_K):
+        return ExistingDataSetIterator(batches[:n]).set_pre_processor(
+            ImagePreProcessingScaler())
+
+    net = _yolo2("bfloat16")
+    rows = {}
+    for mode, scan in (("per_call", 1), ("graph", YOLO_SCAN_K)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        net.fit(make_it(2 if scan == 1 else 2 * YOLO_SCAN_K),
+                scan_steps=scan)                        # warm / capture
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(make_it(), scan_steps=scan)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        n_prof = 4 if scan == 1 else 2 * YOLO_SCAN_K
+        prof = launch_profile(lambda: net.fit(make_it(n_prof),
+                                              scan_steps=scan), n_prof)
+        sites, where = sync_sites(lambda: net.fit(make_it(n_prof),
+                                                  scan_steps=scan))
+        step = statistics.median(walls) / (2 * YOLO_SCAN_K)
+        rows[mode] = {"scan_steps": scan, "fit_wall_ms": walls,
+                      "step_ms": step, "imgs_per_s": YOLO_BATCH / (step / 1e3),
+                      "peak_memory_bytes": peak, "syncs_per_fit": sites,
+                      "sync_sites": where, **prof}
+    del net
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        nets = []
+        for scan in (1, YOLO_SCAN_K):
+            net = _yolo2("bfloat16")
+            net.fit(make_it(YOLO_SCAN_K), scan_steps=scan)
+            nets.append(net)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bitwise = _bitwise(nets[0].params, nets[1].params) \
+        and _bitwise(nets[0].state, nets[1].state)
+    scores = [n.score() for n in nets]
+    del nets
+    torch.cuda.empty_cache()
+    graph = rows["graph"]
+    row = {"phase": "zoo_yolo_graph", "compute_dtype": "bfloat16",
+           "batch": YOLO_BATCH, "image": [YOLO_HW, YOLO_HW, 3],
+           "chunks_per_fit": 2, **rows,
+           "graph_bitwise_per_call": bitwise,
+           "bitwise_check": {"steps": YOLO_SCAN_K, "image": YOLO_HW,
+                             "scores": scores},
+           "ok": bool(bitwise and graph["syncs_per_fit"]["dispatch"] == 0
+                      and np.isfinite(scores).all())}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"YOLO2 graph fit: {row}")
+    return row
+
+
+def yolo_loss_fall():
+    """The f32 loss over YOLO_FALL_STEPS per-call steps on yolo_timed's one
+    seeded batch, with cuDNN's deterministic algorithms (a trajectory that
+    repeats from run to run)."""
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    net = _yolo2()
+    x, y = _yolo_batch_on_card(YOLO_BATCH, 2024)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    losses = []
+    try:
+        for _ in range(YOLO_FALL_STEPS):
+            net.fit(MultiDataSet((x,), (y,)))
+            losses.append(net.score())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del net
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"YOLO2 f32 loss over {YOLO_FALL_STEPS} "
+                             f"deterministic steps: {losses}")
+    return losses
+
+
+def vgg16_timed(compute_dtype):
+    """Phase 9d: the zoo's VGG16 (a MultiLayerNetwork, Nesterovs, dropout
+    0.5) at 224², batch VGG_BATCH, one seeded batch on the card: per-call
+    fit steps timed by CUDA events, imgs/s, TFLOP/s at 3x the forward
+    GFLOP, device ms by category, peak memory. The losses are reported;
+    only the first must be finite."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.zoo import VGG16
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = VGG16(input_shape=(VGG_HW, VGG_HW, 3)).conf()
+    if compute_dtype is not None:
+        conf = dataclasses.replace(conf, compute_dtype=compute_dtype)
+    net = MultiLayerNetwork(conf).init()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.rand(VGG_BATCH, VGG_HW, VGG_HW, 3, generator=g, device="cuda")
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, 1000, (VGG_BATCH,), generator=g, device="cuda"),
+        1000).float()
+    ds = DataSet(x, y)
+    losses, step_ms, host_ms = timed_fit_steps(net, ds, 3, 10)
+    peak = torch.cuda.max_memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    launches = launch_profile(
+        lambda: [float(net._train_step(ds, gen)) for _ in range(2)], 2)
+    phased, _ = phased_profile(net, lambda live: net._score_fn(
+        live, net.state, net._stage_x(ds.features), net._as_labels(ds.labels),
+        None, None, True, gen))
+    row = step_rate_row("zoo_vgg16_timed", compute_dtype, VGG_BATCH,
+                        forward_gflop_per_image(conf), step_ms, host_ms, peak)
+    row.update({"params": net.num_params(), "image": [VGG_HW, VGG_HW, 3],
+                "classes": 1000, "updater": "Nesterovs(1e-2, 0.9)",
+                "host_launch_calls_per_step":
+                    launches.get("host_launch_calls_per_step"),
+                "device_busy_ms_per_step":
+                    launches.get("device_busy_ms_per_step", "not measured"),
+                "idle_share": launches.get("idle_share", "not measured"),
+                "by_category": phased, "losses": losses})
+    emit(row)
+    # Nesterovs(1e-2, 0.9) with no batch norm, on one repeated batch,
+    # may diverge within the 13 steps: only the first loss is held
+    if not np.isfinite(losses[0]):
+        raise AssertionError(f"VGG16 {compute_dtype}: losses {losses}")
+    del net, ds, x, y
+    torch.cuda.empty_cache()
+    return row
+
+
+def zoo_others():
+    """Phase 9e: every other new zoo model at its default input shape,
+    batch ZOO_BATCH: one fit step on the card with a finite score, a
+    second timed by CUDA events, and output() of the shape the
+    configuration's output type gives."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    rows = {}
+    rs = np.random.RandomState(37)
+    for name in ZOO_OTHERS:
+        model = model_by_name(name, **ZOO_INPUT.get(name, {}))
+        net = model.init()
+        h, w, _ = model.input_shape
+        x = rs.rand(ZOO_BATCH, h, w, 3).astype("float32")
+        if name == "TinyYOLO":
+            y = yolo_labels(rs, ZOO_BATCH, h // 32, model.num_classes)
+        elif name == "UNet":
+            y = (rs.rand(ZOO_BATCH, h, w, model.num_classes) > 0.5).astype(
+                "float32")
+        else:
+            y = np.eye(model.num_classes, dtype="float32")[
+                rs.randint(0, model.num_classes, ZOO_BATCH)]
+        graph = isinstance(net, ComputationGraph)
+        batch = MultiDataSet((x,), (y,)) if graph else DataSet(x, y)
+        want = (net._vertex_types[net.conf.network_outputs[0]] if graph
+                else net._output_type).shape
+        step_ms = []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            net.fit(batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        out = net.output(x)
+        rows[name] = {"input": [h, w, 3], "params": net.num_params(),
+                      "forward_gflop_per_image":
+                          forward_gflop_per_image(net.conf),
+                      "first_step_ms": step_ms[0], "step_ms": step_ms[1],
+                      "score": net.score(), "output_shape": list(out.shape),
+                      "ok": bool(np.isfinite(net.score())
+                                 and tuple(out.shape[1:]) == tuple(want)
+                                 and torch.isfinite(out).all())}
+        del net, out
+        torch.cuda.empty_cache()
+    row = {"phase": "zoo_models", "batch": ZOO_BATCH, "models": rows,
+           "ok": all(r["ok"] for r in rows.values())}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"zoo models: {row}")
+    return row
+
+
+def lenet_mnist(tmp):
+    """Phase 9f: BASELINE's "LeNet MNIST": the zoo's LeNet saved with
+    save_model and trained by train.cli.main(--dataset mnist
+    --synthetic-data --mode single --batch-size MNIST_BATCH) on the card
+    (an empty dataset cache: the fetcher's seeded substitute, 2048
+    images); then an AutoEncoder -> VAE -> OutputLayer network on the
+    flattened synthetic MNIST runs fit_pretrain, then fit. The VAE's
+    negative ELBO on one batch with one fixed noise, on the features the
+    pretrained AutoEncoder gives, must be lower with the pretrained VAE
+    than with its initial parameters."""
+    import contextlib
+    import os
+    from deeplearning4j_tpu_torch.data.fetchers import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo import LeNet
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        AutoEncoder, OutputLayer, VariationalAutoencoder,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam, tree_map
+    from deeplearning4j_tpu_torch.train import cli as train_cli
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    cache = os.path.join(tmp, "datasets")
+    os.makedirs(cache)
+    saved_env = os.environ.get("DL4J_CUDA_DATA_DIR")
+    os.environ["DL4J_CUDA_DATA_DIR"] = cache
+    try:
+        src, out = os.path.join(tmp, "lenet.zip"), os.path.join(tmp, "l.zip")
+        save_model(LeNet().init(), src)
+        stdout = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            code = train_cli.main(["--model", src, "--output", out,
+                                   "--dataset", "mnist", "--synthetic-data",
+                                   "--mode", "single", "--batch-size",
+                                   str(MNIST_BATCH), "--score-every", "8"])
+        wall_s = time.perf_counter() - t0
+        result = json.loads(stdout.getvalue().strip().splitlines()[-1])
+        it = MnistDataSetIterator(batch_size=128, synthetic=True,
+                                  flatten=True)
+    finally:
+        if saved_env is None:
+            del os.environ["DL4J_CUDA_DATA_DIR"]
+        else:
+            os.environ["DL4J_CUDA_DATA_DIR"] = saved_env
+    steps = 2048 // MNIST_BATCH
+    cli_ok = (code == 0 and result["iterations"] == steps
+              and np.isfinite(result["final_score"])
+              and load_model(out).iteration_count == steps)
+    conf = (NeuralNetConfiguration.Builder().seed(12).updater(Adam(1e-3))
+            .list()
+            .layer(AutoEncoder(n_out=256, corruption_level=0.3))
+            .layer(VariationalAutoencoder(
+                n_out=32, encoder_layer_sizes=(128,),
+                decoder_layer_sizes=(128,),
+                reconstruction_distribution="bernoulli"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.feed_forward(784)).build())
+    net = MultiLayerNetwork(conf).init()
+    vae_init = tree_map(torch.clone, net.params["1"])
+    t0 = time.perf_counter()
+    net.fit_pretrain(it, epochs=2)
+    pretrain_s = time.perf_counter() - t0
+    pretrain_score = net.score()
+    first = next(iter(it))
+    it.reset()
+    with torch.no_grad():
+        feats, _, _ = net._forward(net.params, net.state,
+                                   net._as_input(first.features), False,
+                                   upto=1)
+        eps = [torch.randn(feats.shape[0], 32, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(41))]
+        vae = net.layers[1]
+        elbo = [float(vae.pretrain_score(p, feats, eps=eps))
+                for p in (vae_init, net.params["1"])]
+    net.fit(it, epochs=1)
+    fine_score = net.score()
+    accuracy = net.evaluate(it).accuracy()
+    ok = bool(cli_ok and elbo[1] < elbo[0] and np.isfinite(pretrain_score)
+              and np.isfinite(fine_score))
+    row = {"phase": "zoo_lenet_mnist", "cli_result": result,
+           "cli_wall_s": wall_s, "cli_steps": steps,
+           "pretrain_s": pretrain_s, "pretrain_last_score": pretrain_score,
+           "vae_neg_elbo_init_vs_pretrained": elbo,
+           "fine_tune_score": fine_score, "accuracy_after_one_epoch":
+               accuracy, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"LeNet MNIST / fit_pretrain: {row}")
+    return row
+
+
+def zoo(fa, tmp):
+    """Phase 9: detection, the VAE and the rest of the zoo, counted from
+    zero: card against CPU, YOLO2 through the train CLI, YOLO2 timed
+    (f32, bf16, the replayed graph) with its loss falling, VGG16 timed,
+    the other new models one step each, LeNet MNIST and layerwise
+    pretraining. No flash kernel may launch: the wrappers' counts and the
+    profiled windows' kernel events must read 0 of each."""
+    t0 = time.perf_counter()
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    parity = zoo_parity(tmp)
+    cli_row = yolo_cli(tmp)
+    timed = {"float32": yolo_timed(None), "bfloat16": yolo_timed("bfloat16")}
+    graph = yolo_graph()
+    falling = yolo_loss_fall()
+    vgg = {"float32": vgg16_timed(None), "bfloat16": vgg16_timed("bfloat16")}
+    others = zoo_others()
+    mnist = lenet_mnist(tmp)
+    profiled = [graph["per_call"], graph["graph"]]
+    launches = {k: fa.KERNEL_LAUNCHES[k] + round(sum(
+        p.get("flash_kernels_per_step", {}).get(k, 0) * p.get("steps", 0)
+        for p in profiled)) for k in KERNELS}
+    summary = {"phase": "zoo", "gpu": gpu_line(),
+               "seconds": time.perf_counter() - t0,
+               "flash_launches": launches, "card_vs_cpu_ok": parity["ok"],
+               "yolo_cli_iterations": cli_row["result"]["iterations"],
+               "yolo_boxes_after_nms": cli_row["boxes_after_nms"],
+               "yolo_first_loss_f32": falling[0],
+               "yolo_last_loss_f32": falling[-1],
+               "yolo_losses_f32_deterministic": falling,
+               **{f"yolo2_{d}_{k}": timed[d][k] for d in timed
+                  for k in ("step_ms_p50", "imgs_per_s",
+                            "tflops_at_3x_forward", "idle_share",
+                            "peak_memory_bytes")},
+               "yolo2_bf16_graph_step_ms": graph["graph"]["step_ms"],
+               "yolo2_bf16_per_call_fit_step_ms":
+                   graph["per_call"]["step_ms"],
+               "yolo2_graph_bitwise_per_call":
+                   graph["graph_bitwise_per_call"],
+               **{f"vgg16_{d}_{k}": vgg[d][k] for d in vgg
+                  for k in ("step_ms_p50", "imgs_per_s",
+                            "tflops_at_3x_forward", "peak_memory_bytes")},
+               "other_models_step_ms": {n: r["step_ms"] for n, r in
+                                        others["models"].items()},
+               "lenet_mnist_cli": mnist["cli_result"],
+               "vae_neg_elbo_init_vs_pretrained":
+                   mnist["vae_neg_elbo_init_vs_pretrained"]}
+    emit(summary)
+    if any(launches.values()):
+        raise AssertionError(f"flash kernels on the zoo path: {launches}")
+    return {"flash_launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2493,6 +3299,8 @@ def main(argv=None) -> int:
         graph_run = fit_graph(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         rnn_run = rnn(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo_run = zoo(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -2505,7 +3313,8 @@ def main(argv=None) -> int:
                              "resnet": resnet_run["launches"]["flash_fwd"],
                              "train_graph":
                                  graph_run["train_graph"]["flash_fwd"],
-                             "rnn": rnn_run["flash_launches"]["flash_fwd"]},
+                             "rnn": rnn_run["flash_launches"]["flash_fwd"],
+                             "zoo": zoo_run["flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2524,7 +3333,8 @@ def main(argv=None) -> int:
                                  "train": trained["launches"][name],
                                  "resnet": resnet_run["launches"][name],
                                  "train_graph": graph_run["train_graph"][name],
-                                 "rnn": rnn_run["flash_launches"][name]},
+                                 "rnn": rnn_run["flash_launches"][name],
+                                 "zoo": zoo_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

@@ -19,12 +19,16 @@ from deeplearning4j_tpu_torch.nn.layers.feedforward import (
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNormalization, LocalResponseNormalization,
 )
+from deeplearning4j_tpu_torch.nn.layers.objdetect import Yolo2OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     GRU, LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
     LastTimeStep, MaskZeroLayer, RnnLossLayer, RnnOutputLayer, SimpleRnn,
 )
 from deeplearning4j_tpu_torch.nn.layers.samediff import (
     FrozenLayerWrapper, SameDiffLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.variational import (
+    VariationalAutoencoder,
 )
 
 __all__ = [
@@ -43,6 +47,6 @@ __all__ = [
     "SameDiffLayer", "SeparableConvolution2D", "SimpleRnn",
     "SpaceToBatchLayer", "SpaceToDepthLayer", "Subsampling1DLayer",
     "SubsamplingLayer", "TransformerBlock", "Upsampling1D", "Upsampling2D",
-    "ZeroPadding1DLayer", "ZeroPaddingLayer", "dot_product_attention",
-    "rope",
+    "VariationalAutoencoder", "Yolo2OutputLayer", "ZeroPadding1DLayer",
+    "ZeroPaddingLayer", "dot_product_attention", "rope",
 ]

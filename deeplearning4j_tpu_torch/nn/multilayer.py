@@ -380,12 +380,13 @@ class TrainableNet:
         self._commit_state(new_state)
         return loss, new_carries
 
-    def _gradients(self, score):
+    def _gradients(self, score, params=None):
         """(loss, grads, aux) of `score(live_params)` -> (loss, aux),
-        gradients with respect to the parameters as stored, `aux` (the new
-        layer state and carries) detached."""
+        gradients with respect to the parameters as stored (`params`, by
+        default the network's), `aux` (the new layer state and carries)
+        detached."""
         live = tree_map(lambda t: t.detach().requires_grad_(
-            t.is_floating_point()), self.params)
+            t.is_floating_point()), self.params if params is None else params)
         leaves = [t for t in tree_leaves(live) if t.requires_grad]
         with torch.enable_grad():
             loss, aux = score(live)
@@ -771,6 +772,53 @@ class MultiLayerNetwork(TrainableNet):
                     iterator.reset()
             finally:
                 self._input_affine = None
+        return self
+
+    def fit_pretrain(self, data, epochs: int = 1, batch_size: int = 32):
+        """Greedy layerwise unsupervised pretraining (the `pretrain` branch
+        of DL4J MultiLayerNetwork.fit). For each layer with a
+        `pretrain_score` (AutoEncoder, VariationalAutoencoder), in order:
+        its features come from the layers below in inference mode, and
+        only its parameters move, on its unsupervised objective, with an
+        optimizer built from its own updater (else the network's) and the
+        network's clipping. The noise comes from one generator on the
+        network's device seeded with ``conf.seed + 52711`` (the
+        reference's seed; the streams differ). Supervised layers are
+        skipped; `fit()` then fine-tunes with a fresh optimizer state."""
+        if self.params is None:
+            self.init()
+        iterator = self._as_iterator(data, batch_size)
+        generator = torch.Generator(device=self.device).manual_seed(
+            self.conf.seed + 52711)
+        for i, layer in enumerate(self.layers):
+            if not hasattr(layer, "pretrain_score"):
+                continue
+            tx = build_optimizer(layer.updater or self.conf.updater,
+                                 self.conf.grad_clip_norm,
+                                 self.conf.grad_clip_value)
+            lp = self.params[str(i)]
+            opt_state = tx.init(lp)
+            loss = None
+            for _ in range(epochs):
+                for ds in iterator:
+                    with torch.no_grad():
+                        feats, _, _ = self._forward(
+                            self.params, self.state,
+                            self._as_input(ds.features), False, upto=i)
+                    # the reference's promotion: f32 parameters lift
+                    # 16-bit features
+                    feats = feats.to(torch.promote_types(feats.dtype,
+                                                         self._param_dtype))
+                    loss, grads, _ = self._gradients(
+                        lambda live: (layer.pretrain_score(
+                            live, feats, generator), ()), lp)
+                    with torch.no_grad():
+                        updates, opt_state = tx.update(grads, opt_state, lp)
+                        apply_updates(lp, updates)
+                iterator.reset()
+            if loss is not None:
+                self._score = float(loss)
+        self._build_optimizer()     # a fresh optimizer state for fit()
         return self
 
     def _as_iterator(self, data, batch_size) -> DataSetIterator:

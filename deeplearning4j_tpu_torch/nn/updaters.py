@@ -173,10 +173,18 @@ def _safe_increment(count):
 
 
 def _bias_correction(moment, decay, count):
-    """moment / (1 - decay^count), with decay^count in f32 as optax's
-    jnp power of a weak float and an int32 count gives it."""
-    corr = 1 - decay ** count.float()
-    return tree_map(lambda t: t / corr.to(t.dtype), moment)
+    """moment / (1 - decay^count). decay^count is taken in f32 for f32 and
+    narrower moments, as optax's jnp power of a weak float and an int32
+    count gives it, and in f64 for f64 moments: the reference trains in
+    f64 only under JAX's x64 mode, where that power is f64."""
+    corr = {}
+
+    def scale(t):
+        wide = torch.promote_types(torch.float32, t.dtype)
+        if wide not in corr:
+            corr[wide] = 1 - decay ** count.to(wide)
+        return t / corr[wide].to(t.dtype)
+    return tree_map(scale, moment)
 
 
 def _moment(updates, moments, decay, order):

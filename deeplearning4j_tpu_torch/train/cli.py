@@ -21,9 +21,14 @@ defaults, as the reference's CLI does: prefetch on (DL4J_CUDA_FIT_PREFETCH,
 DL4J_CUDA_PREFETCH_DEPTH) and DL4J_CUDA_SCAN_STEPS steps a chunk (default
 1, per-call). Every flag of a part not yet
 ported (more than one worker, `averaging`, checkpoints and resume, the
-dashboard, telemetry, the serve handoff, sharding plans, the fetchers
-that need a download) stops the run with "not yet ported"; none is
-ignored.
+dashboard, telemetry, the serve handoff, sharding plans) stops the run
+with "not yet ported"; none is ignored.
+
+`--dataset` takes `mnist`, `emnist` and `cifar10` (read from the
+fetchers' cache, `data/fetchers.py`; a missing cache fails the run
+unless `--synthetic-data` asks for the reference's seeded substitute),
+`iris`, or an .npz of `features` and `labels` (images NHWC; a YOLO2
+set is (N, 608, 608, 3) images and (N, 19, 19, 4 + classes) labels).
 """
 from __future__ import annotations
 
@@ -45,8 +50,6 @@ _UNPORTED_FLAGS = (
     ("mesh", "--mesh", "parallel"),
 )
 
-_DOWNLOADED = ("mnist", "emnist", "cifar10")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -58,9 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", required=True,
                    help="where to write the trained model zip")
     p.add_argument("--dataset", required=True,
-                   help="iris | path to .npz with 'features' and 'labels' "
-                        "arrays (mnist | emnist | cifar10 are not yet "
-                        "ported)")
+                   help="mnist | emnist | cifar10 | iris | path to .npz "
+                        "with 'features' and 'labels' arrays")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--mode", choices=["sync", "averaging", "single"],
@@ -76,8 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--score-every", type=int, default=10,
                    help="ScoreIterationListener frequency")
     p.add_argument("--synthetic-data", action="store_true",
-                   help="synthetic data for a missing download cache (the "
-                        "fetchers that need one are not yet ported)")
+                   help="substitute deterministic synthetic data when the "
+                        "dataset cache is missing (pipeline testing only); "
+                        "without this flag a missing cache is an error")
     p.add_argument("--checkpoint-dir", default=None,
                    help="fault-tolerant training (not yet ported)")
     p.add_argument("--resume", action="store_true",
@@ -113,10 +116,6 @@ def _refuse_unported(args):
     if args.mode == "averaging":
         raise SystemExit("--mode averaging: not yet ported to the PyTorch "
                          "port (comes with the parallel slice)")
-    if args.dataset.lower() in _DOWNLOADED:
-        raise SystemExit(f"--dataset {args.dataset}: not yet ported to the "
-                         "PyTorch port (its fetcher reads a download cache; "
-                         "comes with the data slice); pass an .npz")
 
 
 def _workers(device) -> int:
@@ -124,11 +123,23 @@ def _workers(device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def _load_data(name: str, batch_size: int):
-    from deeplearning4j_tpu_torch.data.fetchers import IrisDataSetIterator
+def _load_data(name: str, batch_size: int, allow_synthetic: bool = False):
+    from deeplearning4j_tpu_torch.data import fetchers
     from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
-    if name.lower() == "iris":
-        return IrisDataSetIterator(batch_size=batch_size)
+    # a training CLI must not train on synthetic noise unasked: the
+    # fetchers' lenient default becomes a loud failure without the flag
+    syn = None if allow_synthetic else False
+    builtin = {
+        "mnist": lambda: fetchers.MnistDataSetIterator(
+            batch_size=batch_size, synthetic=syn),
+        "emnist": lambda: fetchers.EmnistDataSetIterator(
+            batch_size=batch_size, synthetic=syn),
+        "cifar10": lambda: fetchers.Cifar10DataSetIterator(
+            batch_size=batch_size, synthetic=syn),
+        "iris": lambda: fetchers.IrisDataSetIterator(batch_size=batch_size),
+    }
+    if name.lower() in builtin:
+        return builtin[name.lower()]()
     with np.load(name) as data:
         if "features" not in data or "labels" not in data:
             raise SystemExit(f"{name}: npz must contain 'features' and "
@@ -160,7 +171,8 @@ def main(argv=None) -> int:
             "ported to the PyTorch port (comes with the parallel slice); "
             "use --mode single or make one device visible")
     net = load_model(args.model, device=device)
-    iterator = _load_data(args.dataset, args.batch_size)
+    iterator = _load_data(args.dataset, args.batch_size,
+                          allow_synthetic=args.synthetic_data)
     net.set_listeners(ScoreIterationListener(args.score_every),
                       PerformanceListener(args.score_every))
     net.fit(iterator, epochs=args.epochs)

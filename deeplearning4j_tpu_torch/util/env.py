@@ -17,7 +17,10 @@ The port's knobs, each read where it acts:
   ``DL4J_TPU_SCAN_STEPS``;
 - ``DL4J_CUDA_FIT_PREFETCH`` (kill switch) and ``DL4J_CUDA_PREFETCH_DEPTH``
   (value, default 2; ``0`` disables the thread): fit's prefetch
-  (`data/async_iterator.py`).
+  (`data/async_iterator.py`);
+- ``DL4J_CUDA_DATA_DIR`` (value, default the reference's
+  ``~/.deeplearning4j_tpu/datasets``): the fetchers' dataset cache
+  (`data/fetchers.data_dir`), the counterpart of ``DL4J_TPU_DATA_DIR``.
 """
 from __future__ import annotations
 

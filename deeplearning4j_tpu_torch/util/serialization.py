@@ -155,6 +155,9 @@ def params_from_numpy(tree, device: DeviceLike = None,
     `np.asarray` leaves, or an npz read back) -> the port's tree of
     tensors on `device`, floats cast to `dtype` when given.
 
+    A list in `tree` (the reference keeps a VAE's MLP as one) becomes a
+    dict keyed by the index, the port's layout of it.
+
     With `template` (an initialized network's params), the result has the
     template's structure: subtrees missing from `tree` (parameter-free
     layers, which npz drops) stay as they are, and a shape or key that
@@ -169,6 +172,8 @@ def params_from_numpy(tree, device: DeviceLike = None,
         return t.to(dev)
 
     def walk(node, tmpl, path):
+        if isinstance(node, (list, tuple)):     # a VAE's MLP stack
+            node = {str(i): v for i, v in enumerate(node)}
         if tmpl is None:
             if isinstance(node, dict):
                 return {k: walk(v, None, path + (k,)) for k, v in node.items()}

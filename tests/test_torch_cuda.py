@@ -10,7 +10,12 @@ graphs against the big-batch step (rtol 1e-5). Recurrent nets: tbptt and
 standard LSTM steps card against CPU in f64 (each leaf within 1e-10 of
 its largest update), an LSTM net's captured steps bitwise equal to its
 per-call steps, and rnn_time_step equal to output() on the card (f32,
-atol 1e-5).
+atol 1e-5). Detection and the VAE: TinyYOLO card against CPU (f32
+output atol 1e-4 and score rtol 1e-4; f64 score and gradients within
+1e-10, one Adam step within 1e-6 of each leaf's largest update), the
+VAE's ELBO with fixed noise and its gradients in f64 within 1e-10,
+f64 gradient checks on the card of a YOLO head and a VAE, and TinyYOLO's
+captured steps bitwise equal to its per-call steps (f32 and bf16).
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -798,3 +803,186 @@ def test_rnn_time_step_on_the_card_equals_output(cuda):
     rest = gpu.rnn_time_step(x[:, 7:])
     torch.testing.assert_close(torch.cat([first, rest], 1), full, atol=1e-5,
                                rtol=0)
+
+
+# ------------------------------------------------- detection and the VAE
+def _tinyyolo(device, dtype="float32"):
+    import dataclasses
+    from deeplearning4j_tpu_torch.models.zoo import TinyYOLO
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = TinyYOLO(num_classes=3, input_shape=(64, 64, 3)).conf()
+    return ComputationGraph(dataclasses.replace(conf, dtype=dtype),
+                            device=device).init()
+
+
+def _yolo_batch(n=4, grid=2, classes=3, seed=5, dtype=np.float32):
+    """Images and labels with 1-2 boxes an image, in grid units."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, 32 * grid, 32 * grid, 3).astype(dtype)
+    y = np.zeros((n, grid, grid, 4 + classes), dtype)
+    for i in range(n):
+        for _ in range(1 + i % 2):
+            cx, cy = rs.uniform(0.2, grid - 0.2, 2)
+            w, h = rs.uniform(0.3, 1.5, 2)
+            y[i, int(cy), int(cx), :4] = [cx - w / 2, cy - h / 2,
+                                         cx + w / 2, cy + h / 2]
+            y[i, int(cy), int(cx), 4 + rs.randint(classes)] = 1
+    return x, y
+
+
+def _worst_rel(a_tree, b_tree, before=None):
+    """max over leaves of |a - b| (b on the CPU) over b's largest value,
+    or with `before`, over the leaf's largest update."""
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    b_leaves = dict(iter_leaves(b_tree))
+    worst = 0.0
+    for path, a in iter_leaves(a_tree):
+        b = b_leaves[path]
+        scale = b.abs().max().item() if before is None else \
+            (b - before[path]).abs().max().item()
+        worst = max(worst, (a.detach().cpu() - b).abs().max().item()
+                    / max(scale, 1e-300))
+    return worst
+
+
+def test_tinyyolo_on_the_card_matches_the_cpu(cuda):
+    """TinyYOLO (3 classes, 64²), card against CPU from one init: f32
+    output within 1e-4 and score rtol 1e-4 (TF32 off); in f64 the
+    training score and gradients within 1e-10 (of each leaf's largest
+    gradient), one Adam step within 1e-6 of each leaf's largest update
+    (Adam's first step g / (|g| + 1e-8) multiplies the error of entries
+    with |g| near 1e-8), the batch norm state within 1e-10."""
+    from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    x, y = _yolo_batch()
+    gpu, cpu = _tinyyolo(cuda), _tinyyolo("cpu")
+    torch.testing.assert_close(gpu.output(x).cpu(), cpu.output(x),
+                               atol=1e-4, rtol=0)
+    mds = MultiDataSet((x,), (y,))
+    np.testing.assert_allclose(gpu.score(mds), cpu.score(mds), rtol=1e-4)
+    x, y = _yolo_batch(dtype=np.float64)
+    mds = MultiDataSet((x,), (y,))
+    gpu, cpu = _tinyyolo(cuda, "float64"), _tinyyolo("cpu", "float64")
+    g_loss, g_grads, _ = gpu.compute_gradient_and_score(mds)
+    c_loss, c_grads, _ = cpu.compute_gradient_and_score(mds)
+    assert abs(float(g_loss) - float(c_loss)) <= 1e-10 * abs(float(c_loss))
+    assert _worst_rel(g_grads, c_grads) <= 1e-10
+    before = {p: t.clone() for p, t in iter_leaves(cpu.params)}
+    for net in (gpu, cpu):
+        net.fit(mds)
+    assert _worst_rel(gpu.params, cpu.params, before) <= 1e-6
+    assert _worst_rel(gpu.state, cpu.state) <= 1e-10
+
+
+def _vae_net(device):
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        OutputLayer, VariationalAutoencoder,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(4).updater(Adam(1e-3))
+            .dtype("float64").list()
+            .layer(VariationalAutoencoder(n_out=4, encoder_layer_sizes=(16,),
+                                          decoder_layer_sizes=(16,),
+                                          num_samples=2))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(10)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def test_vae_pretrain_score_on_the_card_matches_the_cpu(cuda):
+    """The VAE's negative ELBO with one fixed noise, and its gradients,
+    card against CPU in f64 within 1e-10."""
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves, tree_map
+    rs = np.random.RandomState(6)
+    x = rs.randn(8, 10)
+    eps = [rs.randn(8, 4) for _ in range(2)]
+    out = []
+    for device in (cuda, "cpu"):
+        net = _vae_net(device)
+        live = tree_map(lambda t: t.clone().requires_grad_(True),
+                        net.params["0"])
+        score = net.layers[0].pretrain_score(
+            live, torch.from_numpy(x).to(device),
+            eps=[torch.from_numpy(e) for e in eps])
+        grads = torch.autograd.grad(score, tree_leaves(live))
+        out.append((score.detach().cpu(), [g.cpu() for g in grads]))
+    (gs, gg), (cs, cg) = out
+    assert abs(float(gs) - float(cs)) <= 1e-10 * abs(float(cs))
+    for a, b in zip(gg, cg):
+        assert (a - b).abs().max().item() <= 1e-10 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("case", ["yolo_head", "vae"])
+def test_gradient_checks_pass_on_the_card(cuda, case):
+    """check_gradients in f64 on the card: a conv + Yolo2OutputLayer net
+    and a VAE under a softmax head."""
+    from deeplearning4j_tpu_torch import gradientcheck as pgc
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer, Yolo2OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    rs = np.random.RandomState(7)
+    if case == "vae":
+        net = _vae_net(cuda)
+        x = rs.randn(6, 10)
+        y = np.eye(3)[rs.randint(0, 3, 6)]
+    else:
+        conf = (NeuralNetConfiguration.Builder().seed(0).updater(Sgd(1e-2))
+                .list()
+                .layer(ConvolutionLayer(n_out=14, kernel=(3, 3),
+                                        stride=(2, 2),
+                                        convolution_mode="same"))
+                .layer(Yolo2OutputLayer(anchors=((1.0, 1.0), (0.5, 0.5)),
+                                        n_classes=2))
+                .set_input_type(InputType.convolutional(4, 4, 3)).build())
+        net = MultiLayerNetwork(conf, device=cuda).init()
+        x = rs.rand(2, 4, 4, 3)
+        y = np.zeros((2, 2, 2, 6))
+        y[0, 0, 0] = [0.1, 0.1, 0.9, 0.9, 1, 0]
+        y[1, 1, 1] = [1.2, 1.2, 1.9, 1.8, 0, 1]
+    res = pgc.check_gradients(net, x, y, max_per_param=8,
+                              max_rel_error=2e-3)
+    assert res.passed, (res.worst_param, res.max_rel_error, res.failures)
+    assert res.n_params_checked >= 16
+
+
+def test_tinyyolo_graph_fit_is_bitwise_the_per_call_fit(cuda):
+    """The YOLO loss captures: TinyYOLO's fit(scan_steps=3) replays equal
+    its per-call steps bitwise, from one init (cuDNN deterministic), in
+    f32 and under bf16 compute."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo import TinyYOLO
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    batches = [DataSet(*_yolo_batch(seed=s)) for s in range(6)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for compute in (None, "bfloat16"):
+            conf = dataclasses.replace(
+                TinyYOLO(num_classes=3, input_shape=(64, 64, 3)).conf(),
+                compute_dtype=compute)
+            nets = []
+            for scan in (1, 3):
+                net = ComputationGraph(conf, device=cuda).init()
+                net.fit(ExistingDataSetIterator(batches), scan_steps=scan)
+                nets.append(net)
+            assert nets[0].iteration_count == nets[1].iteration_count == 6
+            for tree in ("params", "state"):
+                for a, b in zip(tree_leaves(getattr(nets[0], tree)),
+                                tree_leaves(getattr(nets[1], tree))):
+                    assert torch.equal(a, b)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic

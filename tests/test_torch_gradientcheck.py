@@ -8,8 +8,11 @@ same number of entries checked, both worst relative errors under the
 threshold when passing; and where a layer's backward is wrong on purpose
 (a tanh whose gradient is doubled, in each framework), both fail on the
 same entries. The cases are the recurrent ones of
-tests/test_gradientcheck.py:207-249,478 and the graph's per-input masks
-(tests/test_graph_rnn.py:119).
+tests/test_gradientcheck.py:207-249,478, the graph's per-input masks
+(tests/test_graph_rnn.py:119), and the VAE and YOLO ones of
+tests/test_gradientcheck.py:302- (a VAE under a softmax head, a conv
+backbone under the YOLOv2 loss, and the ELBO itself by central
+differences with its noise fixed).
 """
 import jax
 import jax.numpy as jnp
@@ -240,3 +243,96 @@ def test_graph_per_input_masks(tmp_path):
     jres, pres = _verdicts(jnet, pnet, (xa, xb), (ya, yb), (ma, mb), None)
     assert jres.passed and pres.passed, pres.failures[:3]
     assert pres.n_params_checked == jres.n_params_checked
+
+
+# ----------------------------------------------------------- VAE and YOLO
+def _ff_net(layers, input_type):
+    lb = JNNC.Builder().seed(0).updater(JSgd(1e-2)).list()
+    for layer in layers:
+        lb = lb.layer(layer)
+    return JMLN(lb.set_input_type(input_type).build()).init()
+
+
+def _vae_supervised():
+    rs = np.random.RandomState(5)
+    X = rs.randn(6, 5).astype("float32")
+    Y = np.eye(3, dtype="float32")[rs.randint(0, 3, 6)]
+    return _ff_net([jl.VariationalAutoencoder(n_out=3,
+                                              encoder_layer_sizes=(6,),
+                                              decoder_layer_sizes=(6,)),
+                    jl.OutputLayer(n_out=3, activation="softmax",
+                                   loss="mcxent")],
+                   JIT.feed_forward(5)), X, Y, 1e-3
+
+
+def _yolo_loss():
+    """tests/test_gradientcheck.py's test_gc_yolo_loss: a conv backbone
+    and the YOLOv2 loss head, 2 anchors, 2 classes, two labelled boxes."""
+    rs = np.random.RandomState(6)
+    X = rs.rand(2, 4, 4, 3).astype("float32")
+    Y = np.zeros((2, 2, 2, 6), "float32")
+    Y[0, 0, 0] = [0.1, 0.1, 0.9, 0.9, 1, 0]
+    Y[1, 1, 1] = [1.2, 1.2, 1.9, 1.8, 0, 1]
+    return _ff_net([jl.ConvolutionLayer(n_out=2 * 7, kernel=(3, 3),
+                                        stride=(2, 2),
+                                        convolution_mode="same",
+                                        activation="identity"),
+                    jl.Yolo2OutputLayer(anchors=((1.0, 1.0), (0.5, 0.5)),
+                                        n_classes=2)],
+                   JIT.convolutional(4, 4, 3)), X, Y, 2e-3
+
+
+@pytest.mark.parametrize("case", [_vae_supervised, _yolo_loss],
+                         ids=["vae_supervised", "yolo_loss"])
+def test_vae_and_yolo_verdicts_agree_with_the_reference(tmp_path, case):
+    """The reference's VAE and YOLO cases (tests/test_gradientcheck.py:302-)
+    through both packages' checks, from one zip."""
+    jnet, X, Y, tol = case()
+    path = str(tmp_path / "gc.zip")
+    jax_save(jnet, path)
+    pnet = load_model(path, device="cpu")
+    jres, pres = _verdicts(jnet, pnet, X, Y, None, None, max_rel_error=tol)
+    assert jres.passed and pres.passed, (pres.worst_param,
+                                         pres.max_rel_error, pres.failures)
+    assert pres.n_params_checked == jres.n_params_checked
+    jres, pres = _verdicts(jnet, pnet, X, Y, None, None, max_rel_error=1e-14,
+                           min_abs_error=0.0)
+    assert not jres.passed and not pres.passed
+
+
+def test_vae_pretrain_elbo_central_differences():
+    """The reparameterized ELBO itself (the reference's
+    test_gc_vae_pretrain_elbo, VaeGradientCheckTests): with the noise
+    fixed the loss is deterministic, and autograd's gradient of every
+    parameter leaf agrees with central differences in f64 (4 seeded
+    entries a leaf, relative error under 1e-3)."""
+    from deeplearning4j_tpu_torch.nn.layers import VariationalAutoencoder
+    from deeplearning4j_tpu_torch.nn.updaters import tree_map
+    layer = VariationalAutoencoder(n_out=3, encoder_layer_sizes=(6,),
+                                   decoder_layer_sizes=(6,), num_samples=2)
+    params, _ = layer.init(torch.Generator().manual_seed(0),
+                           InputType.feed_forward(5), torch.float64)
+    rs = np.random.RandomState(7)
+    x = torch.from_numpy(rs.rand(4, 5))
+    eps = [torch.from_numpy(rs.randn(4, 3)) for _ in range(2)]
+
+    def loss(p):
+        return layer.pretrain_score(p, x, eps=eps)
+
+    live = tree_map(lambda t: t.clone().requires_grad_(True), params)
+    grads = torch.autograd.grad(loss(live), tree_leaves(live))
+    checked = 0
+    for (path, leaf), g in zip(pgc._leaves_with_path(params), grads):
+        for flat_i in rs.choice(leaf.numel(), min(4, leaf.numel()),
+                                replace=False):
+            def at(delta):
+                bumped = leaf.clone()
+                bumped.view(-1)[flat_i] += delta
+                return float(loss(pgc._set_leaf(params, path, bumped)))
+            num = (at(1e-6) - at(-1e-6)) / 2e-6
+            ana = float(g.reshape(-1)[flat_i])
+            denom = abs(num) + abs(ana)
+            assert denom < 1e-8 or abs(num - ana) / denom < 1e-3, \
+                ("/".join(path), flat_i, ana, num)
+            checked += 1
+    assert checked == 4 * 8

@@ -9,7 +9,8 @@
   on the same batches; per-step losses and the parameters after.
 - `updaterState.bin` both ways, with one more step on each side.
 - The train CLI against the JAX CLI's `--mode single`, and the flags of
-  parts not yet ported.
+  parts not yet ported (and `--dataset mnist`, now ported, failing on a
+  missing cache without `--synthetic-data`).
 
 Tolerances: gradients f32 atol 1e-5, rtol 1e-4 (the same f32 math summed
 in other orders); fit losses rtol 1e-4 and parameters atol 1e-5 (ten
@@ -540,11 +541,21 @@ def test_cli_dataset_loader_iris_and_npz(tmp_path):
     ["--metrics"], ["--trace-out", "t.json"], ["--perf-ledger", "l.json"],
     ["--serve-port", "8080"], ["--mesh", "data=1"],
     ["--mode", "averaging"], ["--dataset", "mnist"]])
-def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path):
+def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path, monkeypatch):
     args = ["--model", "m.zip", "--dataset", "d.npz", "--output", "o.zip",
             "--device", "cpu"]
     if extra[0] == "--dataset":
-        args = args[:2] + args[4:]
+        # the MNIST fetcher is ported: without --synthetic-data a missing
+        # cache stops the run, as in the reference
+        monkeypatch.setenv("DL4J_CUDA_DATA_DIR", str(tmp_path))
+        model = str(tmp_path / "m.zip")
+        save_model(model_by_name("LeNet").init(device="cpu"), model)
+        args = ["--model", model, "--output", str(tmp_path / "o.zip"),
+                "--device", "cpu"]
+        with pytest.raises(FileNotFoundError, match="MNIST not cached"):
+            cli.main(args + extra)
+        assert not (tmp_path / "o.zip").exists()
+        return
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(args + extra)
 

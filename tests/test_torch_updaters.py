@@ -62,14 +62,16 @@ def _assert_trees_close(port, ref, path=""):
 
 
 def _run_both(updater, clip_norm=None, clip_value=None, steps=5,
-              grad_scale=1.0):
+              grad_scale=1.0, dtype="float32"):
+    def cast(tree):
+        return jax.tree_util.tree_map(lambda a: a.astype(dtype), tree)
     jtx = JU.build_optimizer(updater[0], clip_norm, clip_value)
     ptx = PU.build_optimizer(updater[1], clip_norm, clip_value)
-    jp = jax.tree_util.tree_map(jnp.asarray, _params())
-    pp = _torch_tree(_params())
+    jp = jax.tree_util.tree_map(jnp.asarray, cast(_params()))
+    pp = _torch_tree(cast(_params()))
     js, ps = jtx.init(jp), ptx.init(pp)
     for step in range(steps):
-        g = _grads(step, grad_scale)
+        g = cast(_grads(step, grad_scale))
         ju, js = jtx.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
         jp = optax.apply_updates(jp, ju)
         pu, ps = ptx.update(_torch_tree(g), ps, pp)
@@ -101,6 +103,28 @@ def test_updater_in_clipped_chain_matches_optax(name, clip_norm, clip_value):
     (pp, ps), (jp, js) = _run_both(_pair(name), clip_norm, clip_value)
     _assert_trees_close(pp, jp)
     _assert_trees_close(ps, js)
+
+
+@pytest.fixture
+def x64():
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+@pytest.mark.parametrize("name", UPDATER_NAMES)
+def test_float64_updater_matches_optax_in_x64(name, x64):
+    """f64 parameters and gradients, as the f64 networks of gradient
+    checking and the f64 parity tests train: the reference runs them under
+    JAX's x64 mode, where optax takes Adam's bias correction in f64."""
+    (pp, ps), (jp, js) = _run_both(_pair(name), dtype="float64")
+    for port, ref in ((pp, jp), (ps, js)):
+        for a, b in zip(PU.tree_leaves(port), jax.tree_util.tree_leaves(ref)):
+            b = np.asarray(b)
+            assert a.numpy().dtype == b.dtype
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-12, atol=1e-15)
 
 
 SCHEDULES = [
