@@ -186,6 +186,40 @@ result line:
              negative ELBO on one batch with one fixed noise must be
              lower after pretraining. `launches_by_path` gains "zoo",
              which must read 0 for every flash kernel.
+10. lm_ops — the rest of the LM serving runtime, through
+             serving.cli.build() over the socket: the full-width LM as
+             the predict servable `lm`, the LM servable `gen` and
+             `spec=<LM>@spec:draft=int8,k=4`. (a) With 4 greedy streams
+             of 64 tokens in flight, POST /v1/models/gen/swap to a zip
+             of the same architecture from another seed: every answer
+             200, each stream's tokens the argmax of the version that
+             admitted it, the next request on version 2, a rollback
+             serving version 1's tokens again, a swap to a vocab-512 LM
+             refused with a 4xx while gen answers; the same swap and
+             rollback on `lm`, whose answers follow the network, with
+             n_layers flash-forward launches a batcher dispatch (warms
+             included) and no backward launch; swap seconds and peak
+             memory with two versions resident. (b) The port's
+             CheckpointManager writes two checkpoints of a small LM, the
+             newest is corrupted, and the registry serves the older.
+             (c) Greedy prompts of 17, 100 and 700 tokens (64 new) on
+             `spec` bitwise equal to `gen`'s; a sampled stream (T = 1,
+             top-k 5) inside the target's top 5; one k-drafted verify
+             bitwise equal to k+1 sequential steps at engine level; the
+             acceptance rate, rounds, host syncs a round (at most 1),
+             launches a round and, on four concurrent streams, ITL and
+             tokens/s beside `gen`; no program first run on the request
+             path. (d) A pool of 129 pages and a 128-page host tier: a
+             1024-token prompt's pages demote under a 2032-token prompt
+             and promote back on its repeat (>= 1008 cached tokens), the
+             tokens `gen`'s; ms a page demoted and promoted. (e) Two
+             servers, --kv-role prefill and decode: the 1024-token prefix
+             exported from one and imported into the other, whose
+             generate reports 1024 cached tokens and the first server's
+             tokens; a corrupted blob answers 400 and the server still
+             serves; bytes and ms of each. `launches_by_path` gains
+             "lm_ops": flash forward > 0 (the predict servable), dQ and
+             dK/dV 0.
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The second-to-last line is the kernel table
@@ -204,6 +238,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import warnings
 
@@ -3251,6 +3286,527 @@ def zoo(fa, tmp):
     return {"flash_launches": launches}
 
 
+# ---------------------------------------------------------------- lm_ops
+LMOPS_STREAMS, LMOPS_NEW = 4, 64          # (a) greedy streams during a swap
+SPEC_LENGTHS = (17, 100, 700)             # (c) greedy prompts, 64 new tokens
+SPILL_POOL_PAGES, SPILL_PAGES = 129, 128  # (d) one max-context sequence
+SPILL_FILL = 2032                         # (d) 127 pages: evicts the prefix
+PREFIX_TOKENS = 1024                      # (d)/(e) the shared prefix
+
+
+def post_json(url, payload, timeout=600):
+    """POST a JSON body; (status, parsed JSON answer) — a non-2xx answer
+    is returned too, with its error document."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def post_bytes(url, body, ctype, timeout=600):
+    """POST raw bytes; (status, answer bytes, ms)."""
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, out = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, out = e.code, e.read()
+    return status, out, (time.perf_counter() - t0) * 1e3
+
+
+def itl_ms(results):
+    return [1e3 * (b - a) for o in results
+            for a, b in zip(o["times"], o["times"][1:])]
+
+
+def concurrent_streams(url, name, specs):
+    """Run `specs` ([(prompt, max_tokens, extra payload)]) as concurrent
+    SSE streams; returns (results in order, wall seconds)."""
+    out, errors = [None] * len(specs), []
+
+    def one(j, prompt, n, extra):
+        try:
+            payload = dict(prompt=prompt, max_tokens=n, stream=True, **extra)
+            res = post_generate(url, name, payload)
+            check_generation(res, payload, name)
+            out[j] = res
+        except Exception as e:      # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(j,) + tuple(spec))
+               for j, spec in enumerate(specs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    if errors or any(o is None for o in out):
+        raise AssertionError(f"{name}: concurrent streams failed: {errors}")
+    return out, time.perf_counter() - t0
+
+
+def lmops_swap(fa, url, registry, tmp, rs):
+    """(a) Rolling swap under traffic on `gen`, then rollback, a refused
+    vocab-512 swap, and the predict servable `lm`'s swap and rollback."""
+    from deeplearning4j_tpu_torch.serving.registry import load_servable
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    gen, lm = registry.get("gen"), registry.get("lm")
+    v1_net = gen.model
+    zip2 = f"{tmp}/lm_seed99.zip"
+    save_model(load_servable(LM_SOURCE + "&seed=99"), zip2)
+    prompts = [rs.randint(0, VOCAB, n).tolist() for n in (17, 60, 100, 33)]
+    box = {}
+
+    def streams():
+        box["streams"] = concurrent_streams(
+            url, "gen", [(p, LMOPS_NEW, {}) for p in prompts])
+
+    torch.cuda.reset_peak_memory_stats()
+    steps0 = gen.scheduler.admitting_engine().steps
+    th = threading.Thread(target=streams)
+    th.start()
+    deadline = time.monotonic() + 300
+    while gen.scheduler.admitting_engine().steps < steps0 + 2 \
+            and time.monotonic() < deadline:
+        time.sleep(0.001)
+    t_swap = time.perf_counter()
+    status, doc = post_json(f"{url}/v1/models/gen/swap", {"source": zip2})
+    t_swap_end = time.perf_counter()
+    th.join(timeout=900)
+    if status != 200 or doc["active"]["version"] != 2:
+        raise AssertionError(f"gen swap answered {status}: {doc}")
+    gen_swap_s = doc["seconds"]
+    peak_two_versions = torch.cuda.max_memory_allocated()
+    results, _ = box["streams"]
+    v2_net = gen.model
+    checked = near = 0
+    versions = []
+    for prompt, res in zip(prompts, results):
+        versions.append(res["version"])
+        net = v1_net if res["version"] == 1 else v2_net
+        c, t = oracle_check(net, prompt, res["tokens"])
+        checked, near = checked + c, near + t
+    during = [1e3 * (b - a) for o in results
+              for a, b in zip(o["times"], o["times"][1:])
+              if t_swap <= a and b <= t_swap_end]
+    after = post_generate(url, "gen", {"prompt": prompts[0],
+                                       "max_tokens": 16, "stream": False})
+    if after["version"] != 2:
+        raise AssertionError(f"after the swap: version {after['version']}")
+    c, t = oracle_check(v2_net, prompts[0], after["tokens"])
+    checked, near = checked + c, near + t
+    status, doc = post_json(f"{url}/v1/models/gen/rollback", {})
+    if status != 200 or doc["active"]["version"] != 1:
+        raise AssertionError(f"gen rollback answered {status}: {doc}")
+    rollback_s = doc["seconds"]
+    back = post_generate(url, "gen", {"prompt": prompts[0],
+                                      "max_tokens": 16, "stream": False})
+    if back["version"] != 1:
+        raise AssertionError(f"after rollback: version {back['version']}")
+    c, t = oracle_check(v1_net, prompts[0], back["tokens"])
+    checked, near = checked + c, near + t
+    # another vocabulary: refused with a 4xx, gen keeps answering
+    vocab_status, doc = post_json(f"{url}/v1/models/gen/swap", {
+        "source": LM_SOURCE.replace(f"vocab_size={VOCAB}",
+                                    "vocab_size=512")})
+    if not 400 <= vocab_status < 500:
+        raise AssertionError(f"vocab-512 swap answered {vocab_status}")
+    still = post_generate(url, "gen", {"prompt": prompts[1],
+                                       "max_tokens": 8, "stream": False})
+    if still["version"] != 1 or len(still["tokens"]) != 8:
+        raise AssertionError("gen stopped answering after a refused swap")
+    # the predict servable: swap and rollback, answers follow the network
+    x = rs.randint(0, VOCAB, (1, SEQ, 1)).astype("float32")
+    purl = f"{url}/v1/models/lm/predict"
+    l0, d0 = fa.KERNEL_LAUNCHES["flash_fwd"], lm.batcher.dispatches
+    b0 = fa.KERNEL_LAUNCHES["flash_bwd_dq"] + \
+        fa.KERNEL_LAUNCHES["flash_bwd_dkv"]
+    status, y1, _ = post_npy(purl, x)
+    check_answer(status, y1, 1)
+    status, doc = post_json(f"{url}/v1/models/lm/swap", {"source": zip2})
+    if status != 200 or doc["active"]["version"] != 2:
+        raise AssertionError(f"lm swap answered {status}: {doc}")
+    predict_swap_s = doc["seconds"]
+    status, y2, _ = post_npy(purl, x)
+    check_answer(status, y2, 1)
+    status, doc = post_json(f"{url}/v1/models/lm/rollback", {})
+    if status != 200 or doc["active"]["version"] != 1:
+        raise AssertionError(f"lm rollback answered {status}: {doc}")
+    status, y3, _ = post_npy(purl, x)
+    check_answer(status, y3, 1)
+    launches = fa.KERNEL_LAUNCHES["flash_fwd"] - l0
+    dispatches = lm.batcher.dispatches - d0
+    if launches != N_LAYERS * dispatches or dispatches < 3 + 2 * 2:
+        raise AssertionError(f"predict swap: {launches} flash launches for "
+                             f"{dispatches} dispatches")
+    if fa.KERNEL_LAUNCHES["flash_bwd_dq"] + \
+            fa.KERNEL_LAUNCHES["flash_bwd_dkv"] != b0:
+        raise AssertionError("the swap path launched a backward kernel")
+    ref2 = load_servable(zip2).output(x).float().cpu().numpy()
+    err2 = float(np.abs(y2 - ref2).max())
+    if not (err2 <= 1e-5 and np.array_equal(y3, y1)
+            and float(np.abs(y2 - y1).max()) > 1e-3):
+        raise AssertionError(f"predict answers do not follow the swaps "
+                             f"(v2 err {err2})")
+    return {"gen_swap_s": gen_swap_s,
+            "gen_swap_post_s": t_swap_end - t_swap,
+            "gen_rollback_s": rollback_s,
+            "stream_versions": versions, "all_200": True,
+            "oracle_tokens": checked, "oracle_near_ties": near,
+            "itl_ms_p50_during_swap": statistics.median(during)
+            if during else None,
+            "itl_ms_max_during_swap": max(during) if during else None,
+            "itl_ms_p50_streams": statistics.median(itl_ms(results)),
+            "peak_memory_bytes_two_versions": peak_two_versions,
+            "vocab512_swap_status": vocab_status,
+            "predict_swap_s": predict_swap_s,
+            "predict_flash_launches": launches,
+            "predict_dispatches": dispatches,
+            "predict_v2_max_abs_err": err2}
+
+
+def lmops_manifest(tmp):
+    """(b) The port's CheckpointManager writes two checkpoints of a small
+    LM; the newest is corrupted; the registry serves the older one."""
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.train.resilience import CheckpointManager
+    kw = dict(vocab_size=64, seq_length=64, n_layers=2, n_embd=64,
+              n_heads=2, attention_impl="flash")
+    nets = [model_by_name("TransformerLM", seed=s, **kw).init()
+            for s in (1, 2)]
+    ckdir = f"{tmp}/ckpts"
+    mgr = CheckpointManager(ckdir)
+    paths = [mgr.save(n, {"step_in_epoch": i}) for i, n in enumerate(nets)]
+    with open(paths[1], "r+b") as f:
+        f.seek(20)
+        f.write(b"\xde\xad\xbe\xef")
+    registry = ModelRegistry()
+    try:
+        served = registry.deploy("ck", ckdir, buckets=(1,))
+        x = np.random.RandomState(8).randint(0, 64, (1, 64, 1)) \
+            .astype("float32")
+        y = served.predict(x)
+        errs = [float(np.abs(y - n.output(x).float().cpu().numpy()).max())
+                for n in nets]
+    finally:
+        registry.shutdown(drain=False)
+    if not (errs[0] <= 1e-5 and errs[1] > 1e-3):
+        raise AssertionError(f"manifest directory served the wrong entry: "
+                             f"{errs}")
+    return {"served_entry": mgr.latest_valid()["file"],
+            "max_abs_err_vs_older": errs[0],
+            "max_abs_err_vs_corrupt_newest": errs[1]}
+
+
+def verify_bitwise_on_card(net, k=4):
+    """Engine level: one k-drafted verify against k+1 sequential steps of
+    an identical engine state, four live slots, bitwise."""
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeConfig, DecodeEngine,
+    )
+    cfg = DecodeConfig(slots=4, page_size=16)
+    a, b = (DecodeEngine(net, cfg, name=n) for n in ("seq", "verify"))
+    rs = np.random.RandomState(17)
+    try:
+        slots = []
+        for n in SPEC_LENGTHS + (31,):
+            p = rs.randint(0, VOCAB, n)
+            sa, sb = a.cache.admit(n), b.cache.admit(n)
+            if sa != sb or a.prefill(sa, p, 0.0, 0)[0] \
+                    != b.prefill(sb, p, 0.0, 0)[0]:
+                raise AssertionError("verify check: prefills differ")
+            slots.append(sa)
+        seq, toks = [], []
+        for _ in range(k + 1):
+            tk, _, lg = a.step()
+            seq.append(lg.clone())
+            toks.append(tk.copy())
+        act = np.zeros((4,), bool)
+        drafted = np.zeros((4, k), np.int64)
+        for s in slots:
+            if not b.cache.ensure_capacity(s, k + 1):
+                raise AssertionError("verify check: no pages")
+            act[s] = True
+            drafted[s] = [toks[i][s] for i in range(k)]
+        with torch.no_grad():
+            vlog = b._verify(b._last_tokens, act,
+                             torch.from_numpy(drafted).cuda(),
+                             np.arange(4, dtype=np.int64))
+        same = all(torch.equal(vlog[s, i], seq[i][s])
+                   for s in slots for i in range(k + 1))
+    finally:
+        a.close()
+        b.close()
+    if not same:
+        raise AssertionError("verify logits are not bitwise the sequential "
+                             "steps")
+    return {"slots": len(slots), "positions": k + 1, "bitwise": True}
+
+
+def profile_spec_rounds(engine, rounds=3):
+    """torch.profiler over `rounds` speculative rounds with live slots:
+    kernel launches per round and device busy ms, and the rounds' host
+    syncs by CUDA's sync debug mode."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            engine.spec_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if "memcpy" in e.name.lower()
+              or "memset" in e.name.lower()]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    syncs = count_syncs(engine.spec_step)
+    return {"rounds": rounds, "round_ms": wall_ms / rounds,
+            "kernel_launches_per_round": (len(events) - len(copies))
+            / rounds if events else "not measured",
+            "device_busy_ms_per_round": busy / rounds if events
+            else "not measured",
+            "host_syncs_one_round": syncs}
+
+
+def lmops_spec(url, registry, rs):
+    """(c) Greedy speculative streams bitwise gen's, one sampled stream in
+    the target's top 5, the verify bitwise on the card, and the rates
+    beside plain decode in the same run."""
+    gen, spec = registry.get("gen"), registry.get("spec")
+    eng = spec.scheduler.admitting_engine()
+    prompts = [rs.randint(0, VOCAB, n).tolist() for n in SPEC_LENGTHS]
+    mismatched = []
+    for p in prompts:
+        a = post_generate(url, "gen", {"prompt": p, "max_tokens": LMOPS_NEW,
+                                       "stream": False})
+        b = post_generate(url, "spec", {"prompt": p, "max_tokens": LMOPS_NEW,
+                                        "stream": False})
+        if a["tokens"] != b["tokens"]:
+            mismatched.append(len(p))
+    if mismatched:
+        raise AssertionError(f"speculative greedy tokens differ from gen's "
+                             f"at prompt lengths {mismatched}")
+    sp = prompts[0]
+    sampled = post_generate(url, "spec", {"prompt": sp, "max_tokens": 32,
+                                          "temperature": 1.0, "top_k": 5,
+                                          "stream": False})
+    topk_checked, topk_near = oracle_check(spec.model, sp,
+                                           sampled["tokens"], top=5)
+    # rates: the same four concurrent greedy streams on each servable
+    conc = [(p, LMOPS_NEW, {}) for p in
+            [rs.randint(0, VOCAB, n).tolist() for n in (17, 100, 40, 60)]]
+    rates = {}
+    stats0 = dict(eng.spec_stats)
+    for name in ("gen", "spec"):
+        res, wall = concurrent_streams(url, name, conc)
+        rates[name] = {"tokens_per_s": sum(len(o["tokens"]) for o in res)
+                       / wall,
+                       "itl_ms_p50": statistics.median(itl_ms(res)),
+                       "itl_ms_max": max(itl_ms(res)), "wall_s": wall}
+        if name == "spec":
+            rates[name]["spec_proposed"] = sum(o["spec_proposed"]
+                                               for o in res)
+            rates[name]["spec_accepted"] = sum(o["spec_accepted"]
+                                               for o in res)
+            rates[name]["spec_rounds_per_stream"] = [o["spec_rounds"]
+                                                     for o in res]
+    if rates["spec"]["spec_proposed"] == 0:
+        raise AssertionError("no speculative round ran")
+    st = eng.spec_stats
+    syncs_per_round = (st["host_syncs"] - stats0["host_syncs"]) \
+        / max(1, st["rounds"] - stats0["rounds"])
+    # a profiled window of rounds with four live slots (engine level)
+    slots = []
+    try:
+        for n in SPEC_LENGTHS + (31,):
+            p = rs.randint(0, VOCAB, n)
+            info = eng.admit_prompt(p)
+            slots.append(info.slot)
+            eng.prefill(info.slot, p, 0.0, 0)
+            ds = eng._draft_slots[info.slot]
+            eng.draft.prefill(ds, p, 0.0, 0)
+        prof = profile_spec_rounds(eng)
+    finally:
+        for s in slots:
+            eng.release_slot(s)
+    if prof["host_syncs_one_round"] > 1 or syncs_per_round > 1:
+        raise AssertionError(f"host syncs per speculative round: "
+                             f"{prof['host_syncs_one_round']}")
+    first_runs = {"gen": gen.scheduler.admitting_engine()
+                  .request_path_first_runs,
+                  "spec": eng.request_path_first_runs,
+                  "spec.draft": eng.draft.request_path_first_runs}
+    if any(first_runs.values()):
+        raise AssertionError(f"programs first ran on the request path: "
+                             f"{first_runs}")
+    return {"greedy_bitwise_gen_prompt_lens": list(SPEC_LENGTHS),
+            "sampled_topk_tokens": topk_checked,
+            "sampled_topk_near_ties": topk_near,
+            "verify_bitwise": verify_bitwise_on_card(gen.model),
+            "acceptance_rate": st["accepted"] / max(1, st["proposed"]),
+            "rounds": st["rounds"], "proposed": st["proposed"],
+            "accepted": st["accepted"], "fallbacks": st["fallbacks"],
+            "host_syncs_per_round": syncs_per_round,
+            "round_profile": prof, "rates": rates,
+            "request_path_first_runs": first_runs}
+
+
+def lmops_spill(gen_url, tmp, rs):
+    """(d) A pool of one max-context sequence (128 pages) and a 128-page
+    host tier: a 1024-token prompt's 64 pages demote when a 2032-token
+    prompt (127 pages + its new tokens) needs the pool, and promote back
+    on its repeat, with gen's tokens."""
+    from deeplearning4j_tpu_torch.serving import cli
+    args = cli.build_parser().parse_args(
+        ["--lm", f"spill={LM_SOURCE}", "--decode-slots", "4",
+         "--decode-page-size", "16", "--decode-pool-pages",
+         str(SPILL_POOL_PAGES), "--kv-spill-pages", str(SPILL_PAGES),
+         "--port", "0"])
+    registry, server = cli.build(args)
+    try:
+        eng = registry.get("spill").scheduler.admitting_engine()
+        a = rs.randint(0, VOCAB, PREFIX_TOKENS).tolist()
+        fills = [rs.randint(0, VOCAB, SPILL_FILL).tolist()]
+        first = post_generate(server.url, "spill", {
+            "prompt": a, "max_tokens": 16, "stream": False})
+        for f in fills:
+            post_generate(server.url, "spill", {"prompt": f, "max_tokens": 16,
+                                                "stream": False})
+        demoted = eng.fabric["demoted"]
+        if demoted == 0:
+            raise AssertionError("no page demoted to the spill tier")
+        prom0 = eng.cache.spill_stats["promotions"]
+        again = post_generate(server.url, "spill", {
+            "prompt": a, "max_tokens": 16, "stream": False})
+        promoted = eng.cache.spill_stats["promotions"] - prom0
+        if promoted == 0 or again["cached_tokens"] < PREFIX_TOKENS - 16:
+            raise AssertionError(f"repeat: {promoted} promotions, "
+                                 f"{again['cached_tokens']} cached tokens")
+        plain = post_generate(gen_url, "gen", {"prompt": a, "max_tokens": 16,
+                                               "stream": False})
+        if not (again["tokens"] == first["tokens"] == plain["tokens"]):
+            raise AssertionError("spilled prefix changed the tokens")
+        fab = dict(eng.fabric)
+        return {"pool_pages": SPILL_POOL_PAGES, "spill_pages": SPILL_PAGES,
+                "demoted": fab["demoted"], "promoted_on_repeat": promoted,
+                "cached_tokens_on_repeat": again["cached_tokens"],
+                "ms_per_page_demoted": 1e3 * fab["demote_s"]
+                / max(1, fab["demoted"]),
+                "ms_per_page_promoted_host": 1e3 * fab["land_s"]
+                / max(1, fab["landed"]),
+                "frame_bytes": eng.spill.frame_bytes,
+                "slab_bytes": eng.spill.pages * eng.spill.slot_bytes,
+                "spill": eng.cache.describe()["spill"],
+                "tokens_equal_no_spill": True}
+    finally:
+        server.drain(timeout=30)
+
+
+def lmops_disagg(rs):
+    """(e) A prefill server and a decode server from cli.build(): the
+    1024-token prefix exported from one and imported into the other."""
+    from deeplearning4j_tpu_torch.serving import cli
+    servers = []
+    try:
+        for role in ("prefill", "decode"):
+            args = cli.build_parser().parse_args(
+                ["--lm", f"gen={LM_SOURCE}", "--decode-slots", "4",
+                 "--decode-page-size", "16", "--kv-role", role,
+                 "--port", "0"])
+            servers.append(cli.build(args))
+        (_, pre), (_, dec) = servers
+        head = rs.randint(0, VOCAB, PREFIX_TOKENS).tolist()
+        prompt = head + rs.randint(0, VOCAB, 40).tolist()
+        status, blob, export_ms = post_bytes(
+            f"{pre.url}/v1/models/gen/kv/export",
+            json.dumps({"prompt": head}).encode(), "application/json")
+        if status != 200:
+            raise AssertionError(f"kv/export answered {status}")
+        status, body, import_ms = post_bytes(
+            f"{dec.url}/v1/models/gen/kv/import", blob,
+            "application/octet-stream")
+        info = json.loads(body)
+        if status != 200 or info["adopted"] != PREFIX_TOKENS // 16:
+            raise AssertionError(f"kv/import answered {status}: {info}")
+        there = post_generate(dec.url, "gen", {"prompt": prompt,
+                                               "max_tokens": 24,
+                                               "stream": False})
+        here = post_generate(pre.url, "gen", {"prompt": prompt,
+                                              "max_tokens": 24,
+                                              "stream": False})
+        if there["cached_tokens"] != PREFIX_TOKENS or \
+                there["tokens"] != here["tokens"]:
+            raise AssertionError(f"imported prefix: {there['cached_tokens']}"
+                                 " cached, tokens equal "
+                                 f"{there['tokens'] == here['tokens']}")
+        bad = bytearray(blob)
+        bad[len(bad) // 2] ^= 0xFF
+        status, _, _ = post_bytes(f"{dec.url}/v1/models/gen/kv/import",
+                                  bytes(bad), "application/octet-stream")
+        if status != 400:
+            raise AssertionError(f"a corrupt blob answered {status}")
+        alive = post_generate(dec.url, "gen", {"prompt": head[:50],
+                                               "max_tokens": 4,
+                                               "stream": False})
+        ready = json.loads(urllib.request.urlopen(f"{dec.url}/readyz",
+                                                  timeout=60).read())
+        return {"export_bytes": len(blob), "export_ms": export_ms,
+                "import_ms": import_ms, "pages": info["pages"],
+                "cached_tokens": there["cached_tokens"],
+                "tokens_equal": True, "corrupt_blob_status": status,
+                "decode_server_alive": len(alive["tokens"]) == 4,
+                "kv_roles": [pre.kv_role, ready["kv_role"]]}
+    finally:
+        for _, srv in servers:
+            srv.drain(timeout=30)
+
+
+def lm_ops(fa, tmp):
+    """Phase 10: the rest of the LM serving runtime, counted from zero:
+    (a) rolling swap under traffic, rollback and refusals, (b) a manifest
+    directory, (c) speculative decoding at full width, (d) the host spill
+    tier, (e) disaggregated prefill between two servers."""
+    from deeplearning4j_tpu_torch.serving import cli
+    t0 = time.perf_counter()
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    rs = np.random.RandomState(2718)
+    args = cli.build_parser().parse_args(
+        ["--model", f"lm={LM_SOURCE}", "--buckets", "1,4",
+         "--lm", f"gen={LM_SOURCE}",
+         "--lm", f"spec={LM_SOURCE}@spec:draft=int8,k=4",
+         "--decode-slots", "4", "--decode-page-size", "16", "--port", "0"])
+    registry, server = cli.build(args)
+    build_s = time.perf_counter() - t0
+    try:
+        spec = lmops_spec(server.url, registry, rs)
+        swap = lmops_swap(fa, server.url, registry, tmp, rs)
+        manifest = lmops_manifest(tmp)
+        spill = lmops_spill(server.url, tmp, rs)
+    finally:
+        server.drain(timeout=30)
+    disagg = lmops_disagg(rs)
+    launches = dict(fa.KERNEL_LAUNCHES)
+    row = {"phase": "lm_ops", "gpu": gpu_line(), "source": LM_SOURCE,
+           "seconds": time.perf_counter() - t0, "build_and_warm_s": build_s,
+           "flash_launches": launches, "swap": swap, "manifest": manifest,
+           "spec": spec, "spill": spill, "disagg": disagg}
+    emit(row)
+    if launches["flash_fwd"] == 0 or launches["flash_bwd_dq"] \
+            or launches["flash_bwd_dkv"]:
+        raise AssertionError(f"lm_ops flash launches: {launches}")
+    return {"flash_launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3301,6 +3857,8 @@ def main(argv=None) -> int:
         rnn_run = rnn(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         zoo_run = zoo(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_ops_run = lm_ops(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -3314,7 +3872,9 @@ def main(argv=None) -> int:
                              "train_graph":
                                  graph_run["train_graph"]["flash_fwd"],
                              "rnn": rnn_run["flash_launches"]["flash_fwd"],
-                             "zoo": zoo_run["flash_launches"]["flash_fwd"]},
+                             "zoo": zoo_run["flash_launches"]["flash_fwd"],
+                             "lm_ops":
+                                 lm_ops_run["flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3334,7 +3894,9 @@ def main(argv=None) -> int:
                                  "resnet": resnet_run["launches"][name],
                                  "train_graph": graph_run["train_graph"][name],
                                  "rnn": rnn_run["flash_launches"][name],
-                                 "zoo": zoo_run["flash_launches"][name]},
+                                 "zoo": zoo_run["flash_launches"][name],
+                                 "lm_ops":
+                                     lm_ops_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

@@ -1,0 +1,208 @@
+"""ParallelInference — thread-safe inference with dynamic batching.
+
+Counterpart of the JAX package's `parallel/inference.py` (DL4J's
+`ParallelInference.java` and `BatchedInferenceObservable.java`), on one
+device:
+
+- SEQUENTIAL mode: each caller's batch runs as it comes.
+- BATCHED mode: concurrent requests are coalesced into one device batch
+  (up to `max_batch_size`), run once, and the results scattered back.
+
+The reference shards the batch over a device mesh's data axis; the port
+runs on the network's own device. A mesh of more than one device is
+ROADMAP A.15 (`parallel/*`) and raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import enum
+import queue
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.util.platform import resolve_device
+
+
+class InferenceMode(str, enum.Enum):
+    """DL4J InferenceMode (SEQUENTIAL | BATCHED)."""
+    SEQUENTIAL = "sequential"
+    BATCHED = "batched"
+
+
+class _Request:
+    __slots__ = ("x", "event", "result", "error")
+
+    def __init__(self, x):
+        self.x = x
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+
+
+def _mesh_devices(mesh, model) -> torch.device:
+    """The one device inference runs on. `mesh` is None (the network's
+    own device), a device, or a sequence of devices; more than one
+    device is not ported, and a device other than the network's raises
+    rather than moving it."""
+    if mesh is None:
+        return torch.device(model.device)
+    devices = [mesh] if isinstance(mesh, (str, torch.device)) \
+        else list(mesh)
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"ParallelInference over {len(devices)} devices is ROADMAP "
+            "A.15 (parallel/*), not yet ported; pass one device")
+    dev = resolve_device(devices[0])
+    own = torch.device(model.device)
+    if dev.type != own.type or (dev.index is not None
+                                and own.index is not None
+                                and dev.index != own.index):
+        raise ValueError(f"the network lives on {own}, the mesh names "
+                         f"{dev}; load it there first")
+    return own
+
+
+class ParallelInference:
+    """Thread-safe batched inference over one device.
+
+        pi = ParallelInference(net, mode=InferenceMode.BATCHED,
+                               max_batch_size=64)
+        y = pi.output(x)          # safe from many threads, numpy out
+        pi.shutdown()
+    """
+
+    def __init__(self, model, mesh=None,
+                 mode: InferenceMode = InferenceMode.BATCHED,
+                 max_batch_size: int = 64, queue_limit: int = 64,
+                 plan=None):
+        if model.params is None:
+            raise RuntimeError("model must be initialized before serving")
+        if plan is not None:
+            raise NotImplementedError(
+                "tensor-parallel servables (a sharding plan) are ROADMAP "
+                "A.15 (parallel/*), not yet ported")
+        self.device = _mesh_devices(mesh, model)
+        self.model = model
+        self.mode = InferenceMode(mode)
+        self.max_batch_size = int(max_batch_size)
+        self._queue: "queue.Queue[_Request]" = queue.Queue(maxsize=queue_limit)
+        self._stop = threading.Event()
+        self._swap_lock = threading.Lock()
+        self._worker = None
+        if self.mode == InferenceMode.BATCHED:
+            self._worker = threading.Thread(target=self._serve_loop,
+                                            daemon=True,
+                                            name="ParallelInference")
+            self._worker.start()
+
+    # ---------------------------------------------------------------- device
+    @staticmethod
+    def _run_with(model, x) -> np.ndarray:
+        """One forward of `model` on its device -> numpy (the copy back
+        synchronizes). A graph answers its first network output."""
+        y = model.output(x)
+        if isinstance(y, (tuple, list)):
+            y = y[0]
+        return y.float().cpu().numpy()
+
+    def _run_batch(self, x):
+        with self._swap_lock:   # the model is read atomically vs a swap
+            model = self.model
+        return self._run_with(model, x)
+
+    # ------------------------------------------------------------------ API
+    def output(self, x, timeout: Optional[float] = 60.0):
+        """Synchronous inference; thread-safe. In BATCHED mode the call
+        may be coalesced with concurrent callers."""
+        x = np.asarray(x)
+        if self.mode == InferenceMode.SEQUENTIAL or self._worker is None:
+            return self._run_batch(x)
+        if self._stop.is_set() or not self._worker.is_alive():
+            raise RuntimeError("ParallelInference has been shut down")
+        req = _Request(x)
+        self._queue.put(req, timeout=timeout)
+        if not req.event.wait(timeout):
+            raise TimeoutError("inference request timed out")
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def _serve_loop(self):
+        pending = None      # request popped but deferred to the next batch
+        while not self._stop.is_set():
+            if pending is not None:
+                first, pending = pending, None
+            else:
+                try:
+                    first = self._queue.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+            reqs = [first]
+            total = first.x.shape[0]
+            # coalesce whatever is queued right now, up to max_batch_size
+            # (a request that would overflow the cap waits for the next
+            # device batch)
+            while total < self.max_batch_size:
+                try:
+                    nxt = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if total + nxt.x.shape[0] > self.max_batch_size:
+                    pending = nxt
+                    break
+                reqs.append(nxt)
+                total += nxt.x.shape[0]
+            try:
+                batch = np.concatenate([r.x for r in reqs], axis=0)
+                out = self._run_batch(batch)
+                ofs = 0
+                for r in reqs:
+                    r.result = out[ofs:ofs + r.x.shape[0]]
+                    ofs += r.x.shape[0]
+            except Exception as e:      # noqa: BLE001 — surfaced to waiters
+                for r in reqs:
+                    r.error = e
+            finally:
+                for r in reqs:
+                    r.event.set()
+        # drain: fail any stranded waiters instead of leaving them blocked
+        leftovers = [] if pending is None else [pending]
+        while True:
+            try:
+                leftovers.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        for r in leftovers:
+            r.error = RuntimeError("ParallelInference has been shut down")
+            r.event.set()
+
+    def update_model(self, model, warmup=None):
+        """Hot-swap the served network (DL4J ParallelInference.
+        updateModel). `warmup`, when given, is called with a
+        ``run(x) -> np.ndarray`` closure over the NEW network BEFORE the
+        swap: live traffic keeps hitting the old network while the
+        replacement pays its first-use costs. The swap itself is atomic
+        with respect to any batch in flight; batches already running
+        finish on the old network."""
+        if model.params is None:
+            raise RuntimeError("replacement model must be initialized")
+        if torch.device(model.device) != self.device:
+            raise ValueError(f"replacement lives on {model.device}, this "
+                             f"ParallelInference serves on {self.device}")
+        if warmup is not None:
+            warmup(lambda x: self._run_with(model, x))
+        with self._swap_lock:
+            self.model = model
+
+    def shutdown(self):
+        self._stop.set()
+        if self._worker is not None:
+            self._worker.join(timeout=5)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()

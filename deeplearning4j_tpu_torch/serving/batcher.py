@@ -107,9 +107,11 @@ class ShapeBucketedBatcher:
         pad = np.zeros((b - x.shape[0],) + x.shape[1:], x.dtype)
         return np.concatenate([x, pad], axis=0)
 
-    def _run_bucketed(self, x: np.ndarray) -> np.ndarray:
+    def _run_bucketed(self, x: np.ndarray,
+                      runner: Optional[Callable] = None) -> np.ndarray:
         """Pad/chunk to ladder shapes, run, unpad: the ONLY call site of
-        the runner."""
+        the runner (`runner` overrides the live one: a swap's warm)."""
+        runner = self.runner if runner is None else runner
         n = x.shape[0]
         outs, ofs = [], 0
         while ofs < n:
@@ -118,15 +120,18 @@ class ShapeBucketedBatcher:
                               self.bucket_for(take))
             with self._count_lock:
                 self.dispatches += 1
-            outs.append(self.runner(chunk)[:take])
+            outs.append(runner(chunk)[:take])
             ofs += take
         return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
 
-    def warm(self) -> float:
-        """Run a zeros batch of every bucket; returns the seconds taken."""
+    def warm(self, run: Optional[Callable] = None) -> float:
+        """Run a zeros batch of every bucket; returns the seconds taken.
+        `run` overrides the live runner — a swap passes the replacement
+        network's, so its first-use costs are paid before it goes live."""
         t0 = time.perf_counter()
         for b in self.buckets:
-            self._run_bucketed(np.zeros((b,) + self.input_shape, self.dtype))
+            self._run_bucketed(np.zeros((b,) + self.input_shape, self.dtype),
+                               run)
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------------ API

@@ -3,7 +3,11 @@
 Counterpart of the JAX package's `serving/cli.py`, single-replica mode:
 stands up a ModelServer over predict servables (``--model``) and LM
 decode servables (``--lm``) side by side and runs until SIGTERM/SIGINT,
-then drains (stop admitting, flush in-flight, exit 0).
+then drains (stop admitting, flush in-flight, exit 0). The LM servables
+take speculative decoding (``--spec-*``, or ``@spec`` per servable), the
+host-RAM KV spill tier (``--kv-spill-pages``) and a disaggregation role
+(``--kv-role``). The fleet mode's flags (``--kv-roles``, ``--disagg-*``)
+are ROADMAP A.14 and exit.
 
 Usage:
     python -m deeplearning4j_tpu_torch.serving \
@@ -73,20 +77,48 @@ def build_parser() -> argparse.ArgumentParser:
     dec.add_argument("--no-prefix-cache", action="store_true",
                      help="disable copy-on-write KV prefix sharing across "
                           "requests with a common prompt prefix")
-    # the reference's speculative-decoding and KV-fabric flags: accepted
-    # so a reference command line parses, refused at build()
-    for flag, kw in (("--spec-draft", {}), ("--spec-k", {"type": int}),
-                     ("--spec-accept-floor", {"type": float}),
-                     ("--spec-window", {"type": int}),
-                     ("--spec-draft-pool-pages", {"type": int})):
-        dec.add_argument(flag, default=None,
-                         help="speculative decoding: not yet ported", **kw)
+    dec.add_argument("--spec-draft", default=None, metavar="SRC",
+                     help="turn on speculative decoding for every --lm "
+                          "servable: 'int8'/'bf16' self-draft the target "
+                          "through a quantized variant of its own "
+                          "params; any other value loads a servable "
+                          "source with the SAME vocab (a mismatch is a "
+                          "deploy-time error). Per-servable override: "
+                          "the @spec source suffix")
+    dec.add_argument("--spec-k", type=int, default=4,
+                     help="draft tokens proposed per verify round")
+    dec.add_argument("--spec-accept-floor", type=float, default=0.4,
+                     help="rolling acceptance-rate floor below which a "
+                          "stream stops speculating (plain decode)")
+    dec.add_argument("--spec-window", type=int, default=8,
+                     help="rounds in the per-stream acceptance window")
+    dec.add_argument("--spec-draft-pool-pages", type=int, default=None,
+                     help="KV pages in the draft engine's own pool "
+                          "(default: sized like the target's)")
     dec.add_argument("--kv-spill-pages", type=int, default=0,
-                     help="host-RAM KV spill tier: not yet ported (only 0)")
+                     help="host-RAM KV spill-tier capacity in pages (0 "
+                          "disables): zero-ref retained prefix pages "
+                          "demote into host memory instead of being "
+                          "dropped, and promote back on a prefix hit")
     dec.add_argument("--kv-role", choices=("prefill", "decode", "mixed"),
                      default="mixed",
-                     help="disaggregation role: not yet ported (only "
-                          "'mixed')")
+                     help="disaggregation role this server advertises on "
+                          "/readyz: 'prefill' computes KV and ships pages "
+                          "(POST .../kv/export), 'decode' lands them (POST "
+                          ".../kv/import) and streams tokens, 'mixed' does "
+                          "both")
+    # the reference's fleet-mode KV flags: accepted so a reference command
+    # line parses, refused at build()
+    fleet = p.add_argument_group("fleet mode (not yet ported)")
+    fleet.add_argument("--kv-roles", default=None, metavar="R0,R1,...",
+                       help="per-replica disaggregation roles: ROADMAP "
+                            "A.14, not yet ported")
+    fleet.add_argument("--disagg-min-tokens", type=int, default=None,
+                       help="router-side disaggregation threshold: ROADMAP "
+                            "A.14, not yet ported")
+    fleet.add_argument("--disagg-timeout-s", type=float, default=None,
+                       help="router-side transfer timeout: ROADMAP A.14, "
+                            "not yet ported")
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (0.0.0.0 behind a load balancer)")
     p.add_argument("--port", type=int, default=8500)
@@ -118,20 +150,17 @@ def _parse_specs(values, flag="--model"):
 
 def _decode_config(args):
     """CLI decode knobs -> DecodeConfig (shared by all --lm servables).
-    The flags of parts not yet ported exit here."""
+    The fleet flags, not yet ported, exit here."""
     from deeplearning4j_tpu_torch.serving.decode import DecodeConfig
-    spec = [f for f in ("spec_draft", "spec_k", "spec_accept_floor",
-                        "spec_window", "spec_draft_pool_pages")
-            if getattr(args, f) is not None]
-    if spec:
-        raise SystemExit(f"--{spec[0].replace('_', '-')}: speculative "
-                         "decoding is not yet ported to the PyTorch package")
-    if args.kv_spill_pages:
-        raise SystemExit("--kv-spill-pages: the host-RAM KV spill tier is "
-                         "not yet ported to the PyTorch package")
-    if args.kv_role != "mixed":
-        raise SystemExit("--kv-role: disaggregated prefill/decode is not "
-                         "yet ported to the PyTorch package")
+    fleet = [f for f in ("kv_roles", "disagg_min_tokens", "disagg_timeout_s")
+             if getattr(args, f) is not None]
+    if fleet:
+        raise SystemExit(f"--{fleet[0].replace('_', '-')}: the serving "
+                         "fleet (router, replicas, disaggregated routing) "
+                         "is ROADMAP A.14, not yet ported to the PyTorch "
+                         "package")
+    if args.kv_spill_pages < 0:
+        raise SystemExit("--kv-spill-pages must be >= 0")
     prefill = None
     if args.prefill_buckets:
         try:
@@ -147,7 +176,13 @@ def _decode_config(args):
                         prefill_buckets=prefill,
                         queue_limit=args.decode_queue_limit,
                         prefix_cache=not args.no_prefix_cache,
-                        prefill_chunk_tokens=args.prefill_chunk_tokens)
+                        prefill_chunk_tokens=args.prefill_chunk_tokens,
+                        spec_draft=args.spec_draft,
+                        spec_k=args.spec_k,
+                        spec_accept_floor=args.spec_accept_floor,
+                        spec_window=args.spec_window,
+                        spec_draft_pool_pages=args.spec_draft_pool_pages,
+                        spill_pages=args.kv_spill_pages or None)
 
 
 def build(args):
@@ -200,7 +235,8 @@ def build(args):
                           "warmup_s": served.warmup_seconds}),
               file=sys.stderr)
     server = ModelServer(registry, host=args.host, port=args.port,
-                         default_deadline_s=args.deadline_s)
+                         default_deadline_s=args.deadline_s,
+                         kv_role=args.kv_role)
     print(json.dumps({"serving": server.url, "models": registry.names(),
                       "endpoints": ENDPOINTS}))
     sys.stdout.flush()

@@ -20,18 +20,32 @@ scheduling (Orca/vLLM) over a paged KV cache (`serving/kvcache.py`).
   logits where they were computed (Gumbel-max, one argmax), so the host
   sees one integer per slot per step: one device-to-host copy, the
   step's only synchronisation.
+- **Speculative decoding.** A draft engine (the target's own weights
+  through ``int8``/``bf16``, or any same-vocabulary model) proposes k
+  tokens per stream; the target scores all k+1 positions as k+1 unrolled
+  calls of the one-token step body (so its logits are bitwise those of
+  k+1 plain steps); the host accepts by exact argmax prefix match or
+  rejection sampling. One device-to-host copy per round.
+- **Tiered KV fabric.** Pages extract to and land from sealed frames
+  (`kvfabric.py`): the host spill tier demotes evicted prefix pages and
+  promotes them back, and `export_prefix`/`import_prefix` move a prefix's
+  pages between servers (disaggregated prefill).
+- **Rolling hot swap.** A swap builds and warms a complete replacement
+  engine off the request path; new admissions go to it while in-flight
+  streams finish on the old one (their pages are only meaningful under
+  the weights that wrote them). Up to `keep_versions` engines stay
+  resident, so a rollback re-admits on a warm engine.
 
 Every attention here is the dense `dot_product_attention` after a page
 gather, as in the reference (`decode.py:512,550,585` there): the decode
 path launches no hand-written kernel.
 
-Not ported yet: speculative decoding (the draft engine, verify and
-propose programs, ``@spec``), the host spill tier and KV page
-export/import, rolling swap and rollback, and the metrics, flight and
-goodput hooks.
+Not ported yet: the metrics, flight and goodput hooks (the counters are
+plain `stats` dicts and `request_path_first_runs`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import queue
@@ -50,14 +64,17 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     _merge_heads, _split_heads, dot_product_attention, rope,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
-from deeplearning4j_tpu_torch.serving import kvcache
+from deeplearning4j_tpu_torch.serving import kvcache, kvfabric
 from deeplearning4j_tpu_torch.serving.batcher import (
     DeadlineExceededError, ServerDrainingError, ServerOverloadedError,
 )
 from deeplearning4j_tpu_torch.serving.quantize import (
-    QUANT_MODES, is_spec_variant, qdot, qtake, quantize_params,
+    QUANT_MODES, is_spec_variant, parse_variant, qdot, qtake,
+    quantize_params,
 )
-from deeplearning4j_tpu_torch.serving.registry import ModelLoadError
+from deeplearning4j_tpu_torch.serving.registry import (
+    ModelLoadError, ServableVersion, load_servable,
+)
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -65,6 +82,15 @@ _LN = LayerNormLayer()          # the block-internal LN (default epsilon)
 
 #: static ceiling for the top-k gate (per-request k is clipped)
 TOP_K_MAX = 64
+
+
+def _device_scope(device: torch.device):
+    """Make `device` the current CUDA device for the calls inside (a no-op
+    on the CPU): the HTTP thread that warms a swap and the scheduler
+    thread that steps must both launch on the servable's card."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,21 +112,64 @@ class DecodeConfig:
     #: split into chunks of at most this many tokens, run BETWEEN decode
     #: steps. None = auto (4 pages); 0 = off (whole suffix in one call)
     prefill_chunk_tokens: Optional[int] = None
+    #: speculative decoding (draft-verify): None = off. "int8"/"bf16"
+    #: self-draft the target through a quantized variant of its own
+    #: params; any other string is loaded as a servable source (it must
+    #: serve the SAME vocab — a mismatch is a loud ModelLoadError). The
+    #: ``@spec[:draft=...,k=...]`` source suffix sets these per servable.
+    spec_draft: Optional[str] = None
+    spec_k: int = 4                      # draft tokens per verify round
+    #: rolling acceptance-rate floor: over the last `spec_window` rounds
+    #: of a stream, accepted/proposed below this turns speculation OFF
+    #: for that stream (it plain-decodes to completion)
+    spec_accept_floor: float = 0.4
+    spec_window: int = 8                 # rounds in the acceptance window
+    #: draft engine's page pool (its own second pool); None = derived
+    #: like the target's (no oversubscription)
+    spec_draft_pool_pages: Optional[int] = None
+    #: host-RAM spill tier size in pages: zero-ref retained prefix pages
+    #: demote here under device pool pressure and promote back on a hit.
+    #: None/0 = off. Only the TARGET engine spills (the draft's cache is
+    #: derivative)
+    spill_pages: Optional[int] = None
 
 
 def apply_variant(cfg: DecodeConfig, variant: Optional[str]) -> DecodeConfig:
-    """Apply a parsed ``@<variant>`` source suffix: ``int8``/``bf16``
-    select quantized weights; ``@spec`` is not ported yet."""
+    """Apply a parsed ``@<variant>`` source suffix to a DecodeConfig:
+    ``int8``/``bf16`` select quantized weights, ``spec[:k=...,draft=...,
+    floor=...,window=...,pool_pages=...]`` turns on speculative decoding
+    (unset options keep the config's defaults)."""
     if variant is None:
         return cfg
     if variant in QUANT_MODES:
         return dataclasses.replace(cfg, quantize=variant)
     if is_spec_variant(variant):
-        raise ModelLoadError(
-            f"@{variant}: speculative decoding is not yet ported to the "
-            "PyTorch package")
+        updates = {"spec_draft": cfg.spec_draft or "int8"}
+        if variant.startswith("spec:"):
+            for item in variant[len("spec:"):].split(","):
+                if not item:
+                    continue
+                key, sep, val = item.partition("=")
+                if not sep:
+                    raise ValueError(
+                        f"@spec option {item!r} is not key=value")
+                if key == "draft":
+                    updates["spec_draft"] = val
+                elif key == "k":
+                    updates["spec_k"] = int(val)
+                elif key == "floor":
+                    updates["spec_accept_floor"] = float(val)
+                elif key == "window":
+                    updates["spec_window"] = int(val)
+                elif key == "pool_pages":
+                    updates["spec_draft_pool_pages"] = int(val)
+                else:
+                    raise ValueError(
+                        f"unknown @spec option {key!r}; known: draft, k, "
+                        "floor, window, pool_pages")
+        return dataclasses.replace(cfg, **updates)
     raise ValueError(f"unknown servable variant {variant!r}; known: "
-                     f"{QUANT_MODES}")
+                     f"{QUANT_MODES} or spec[:...]")
 
 
 class GenerateRequest:
@@ -129,6 +198,12 @@ class GenerateRequest:
         #: suffix (set when prefill completes)
         self.cached_tokens = 0
         self.prefill_chunks = 0
+        #: speculative-decoding accounting for THIS stream: draft tokens
+        #: proposed to / accepted by the verifier, and verify rounds run
+        #: (0/0/0 on plain decode)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rounds = 0
         self.cancelled = threading.Event()
         self.done = threading.Event()
 
@@ -144,15 +219,15 @@ class GenerateRequest:
             return
         self.finish_reason = reason
         self.done.set()
-        # the spec_* fields keep the reference's wire format; speculative
-        # decoding is not ported, so they are 0
         self.events.put(("done", {
             "finish_reason": reason,
             "tokens": self.n_emitted,
             "version": self.version,
             "cached_tokens": self.cached_tokens,
             "prefill_chunks": self.prefill_chunks,
-            "spec_proposed": 0, "spec_accepted": 0, "spec_rounds": 0,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_rounds": self.spec_rounds,
         }))
 
     def fail(self, exc: Exception):
@@ -296,6 +371,90 @@ class DecodeEngine:
         self.request_path_first_runs = 0
         self.warmup_runs = 0
         self.steps = 0
+        self._closed = False
+        #: set by the servable while this engine is one of its resident
+        #: versions: the scheduler then leaves it open after draining, so
+        #: a rollback re-admits on it warm
+        self.resident = False
+        # ---------------------------------------------- tiered KV fabric
+        #: pinned host staging for page lands (CUDA only): a ring of
+        #: buffers, each reused only after the event of its last copy
+        self._stage: List[Tuple[torch.Tensor, Optional[object]]] = []
+        self._stage_next = 0
+        self.fabric = {"demoted": 0, "demote_s": 0.0, "landed": 0,
+                       "land_s": 0.0, "exported": 0, "imported": 0}
+        self.spill: Optional[kvfabric.HostPageStore] = None
+        if cfg.spill_pages and int(cfg.spill_pages) > 0 \
+                and cfg.prefix_cache:
+            self.spill = kvfabric.HostPageStore(
+                int(cfg.spill_pages),
+                kvfabric.frame_capacity(self.n_layers, cfg.page_size,
+                                        self.n_heads, self.head_dim,
+                                        self._dtype),
+                name=name)
+            self.cache.attach_spill(self.spill, self._demote_page,
+                                    self._land_frame)
+        # ---------------------------------------- speculative decoding
+        # the draft is a full second engine (own params, own page pool,
+        # own programs under "<name>.draft"); the target keeps per-slot
+        # speculation state and the slot mapping
+        self.draft: Optional["DecodeEngine"] = None
+        self._draft_slots: Dict[int, Optional[int]] = {}
+        self._draft_origin: Dict[int, int] = {}
+        self._spec_on = np.ones((cfg.slots,), bool)
+        self._spec_hist = [deque(maxlen=max(1, int(cfg.spec_window)))
+                           for _ in range(cfg.slots)]
+        # host-side rejection/residual sampling stream (the draft's
+        # device sampler provides q; acceptance runs on the host), the
+        # reference's stream exactly
+        self._spec_rng = np.random.RandomState((cfg.seed ^ 0x5EC5) &
+                                               0x7FFFFFFF)
+        #: per-round accounting: rounds, proposed/accepted draft tokens,
+        #: host synchronisations (one copy back a round)
+        self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0,
+                           "host_syncs": 0, "fallbacks": {}}
+        if cfg.spec_draft is not None:
+            try:
+                self._build_draft(model)
+            except Exception:
+                self.close()
+                raise
+
+    def _build_draft(self, model):
+        """Construct the speculative draft engine. ``spec_draft`` is a
+        quantize mode (self-draft: the target's own params, int8/bf16) or
+        any servable source with the SAME vocabulary — a mismatched draft
+        would run every acceptance test over a different symbol set, so
+        it is rejected loudly here, at deploy/swap time."""
+        cfg = self.cfg
+        k = int(cfg.spec_k)
+        if k < 1:
+            raise ModelLoadError(
+                f"decode[{self.name}]: spec_k must be >= 1 (got {k})")
+        src = str(cfg.spec_draft)
+        if src in QUANT_MODES:
+            draft_model, dquant, dsrc = model, src, f"self@{src}"
+        else:
+            base, dquant = parse_variant(src)
+            draft_model, dsrc = load_servable(base, device=self.device), src
+        dcfg = dataclasses.replace(
+            cfg, quantize=dquant, max_context=self.max_context,
+            pool_pages=cfg.spec_draft_pool_pages, spec_draft=None,
+            spill_pages=None, seed=cfg.seed + 1)
+        draft = DecodeEngine(draft_model, dcfg, name=f"{self.name}.draft")
+        if draft.vocab != self.vocab:
+            dvocab = draft.vocab
+            draft.close()
+            raise ModelLoadError(
+                f"decode[{self.name}]: speculative draft {dsrc!r} has "
+                f"vocab {dvocab}, target serves {self.vocab} — rejection "
+                "sampling needs one symbol set (deploy a matching-vocab "
+                "draft, or fix the tokenizer mismatch upstream)")
+        self.draft = draft
+
+    @property
+    def spec_enabled(self) -> bool:
+        return self.draft is not None
 
     # ------------------------------------------------------------ transfers
     def _to_device(self, ints: Sequence[np.ndarray],
@@ -576,10 +735,194 @@ class DecodeEngine:
                             counter)
         return toks, logits
 
+    def _verify_fn(self, page_table, seq_lens, tokens, drafted, active):
+        """The speculative verify: score k+1 positions per slot —
+        position 0 consumes the stream's last sampled token, positions
+        1..k the draft's proposals (device tensors, never fetched first)
+        — writing each position's K/V as it goes (rejected-tail rows land
+        past the post-acceptance seq_len; the validity mask hides them
+        until the next round overwrites). k+1 unrolled `_step_body`
+        calls, NOT one chunk over (S, k+1): other shapes would let cuBLAS
+        pick other algorithms, and per-position logits must be bitwise
+        those of k+1 sequential decode steps. Returns logits
+        (S, k+1, V)."""
+        k = drafted.shape[1]
+        outs = []
+        tok = tokens
+        for i in range(k + 1):
+            outs.append(self._step_body(page_table, seq_lens + i, tok,
+                                        active))
+            if i < k:
+                tok = drafted[:, i]
+        return torch.stack(outs, dim=1)
+
+    def _spec_propose_fn(self, k: int, page_table, seq_lens, tokens, active,
+                         temps, topks, counter: int):
+        """The draft's propose program: k autoregressive tokens per slot
+        (sampled on the device, each fed to the next position; position i
+        draws its noise from counter + i), plus one extra body that
+        consumes the k-th sample so the draft cache covers every token
+        the target may accept — the next round then always resumes from
+        exactly one new token wherever acceptance stopped. temps None
+        means every slot is greedy. Returns (drafted (S, k), draft logits
+        (S, k, V)); the logits give the host's rejection sampler its q
+        distribution."""
+        drafted, qlogits = [], []
+        tok = tokens
+        for i in range(k):
+            logits = self._step_body(page_table, seq_lens + i, tok, active)
+            tok = self._sample(logits, temps, topks, counter + i)
+            drafted.append(tok)
+            qlogits.append(logits)
+        self._step_body(page_table, seq_lens + k, tok, active)
+        return torch.stack(drafted, dim=1), torch.stack(qlogits, dim=1)
+
+    def _propose(self, k: int, tokens: np.ndarray, active: np.ndarray,
+                 temps: np.ndarray, topks: np.ndarray, counter: int,
+                 sampling: bool):
+        """Host operands -> `_spec_propose_fn` over this (draft) engine's
+        page table and lengths; returns its device outputs."""
+        table = self.cache.page_table
+        ops = self._to_device([table, self.cache.seq_lens, tokens, active,
+                               topks], [temps] if sampling else [])
+        return self._spec_propose_fn(
+            k, ops[0].reshape(table.shape), ops[1], ops[2], ops[3].bool(),
+            ops[5] if sampling else None, ops[4], counter)
+
+    def _verify(self, tokens: np.ndarray, active: np.ndarray,
+                drafted: torch.Tensor, rows: Optional[np.ndarray] = None):
+        """Host operands -> `_verify_fn`. `drafted` is the draft's
+        (S_draft, k) device output; target slot s verifies its row
+        `rows[s]` (gathered on the device: the proposals never visit the
+        host before the verify)."""
+        table = self.cache.page_table
+        s = self.cfg.slots
+        rows = np.zeros((s,), np.int64) if rows is None else rows
+        ops = self._to_device([table, self.cache.seq_lens, tokens, active,
+                               rows])
+        return self._verify_fn(ops[0].reshape(table.shape), ops[1], ops[2],
+                               drafted[ops[4]], ops[3].bool())
+
     def _logits_fn(self, tokens):
         """(B, T) -> (B, T, V) full-sequence pre-softmax logits (parity /
         quality scoring; never on the request path)."""
         return self._forward_tokens(self._params, tokens, None)[0]
+
+    # ------------------------------------------------- tiered KV fabric
+    def _extract_fn(self, page: int):
+        """Read one physical page across every layer -> (K, V) each
+        shaped (L, page_size, H, D), still on the device."""
+        return self._kpool[:, page], self._vpool[:, page]
+
+    def _staging(self, k: torch.Tensor, v: torch.Tensor):
+        """Host (K, V) of one page -> tensors the land copies from: on
+        CUDA a pinned buffer of the staging ring, written only once the
+        event of its previous copy has completed (a buffer reused while
+        its copy is in flight would land the wrong page, silently)."""
+        if self.device.type != "cuda":
+            return k, v, None
+        if not self._stage:
+            shape = (2,) + tuple(self._kpool.shape[:1]) \
+                + tuple(self._kpool.shape[2:])
+            self._stage = [(torch.empty(shape, dtype=self._dtype,
+                                        pin_memory=True), None)
+                           for _ in range(4)]
+        i = self._stage_next
+        self._stage_next = (i + 1) % len(self._stage)
+        buf, event = self._stage[i]
+        if event is not None:
+            event.synchronize()
+        buf[0].copy_(k)
+        buf[1].copy_(v)
+        return buf[0], buf[1], i
+
+    def _land_fn(self, page: int, k: torch.Tensor, v: torch.Tensor):
+        """Write one (L, page_size, H, D) K/V pair into physical page
+        `page`, in place; from pinned staging on CUDA, the copy
+        asynchronous."""
+        k, v, slot = self._staging(k, v)
+        self._kpool[:, page].copy_(k, non_blocking=True)
+        self._vpool[:, page].copy_(v, non_blocking=True)
+        if slot is not None:
+            event = torch.cuda.Event()
+            event.record()
+            self._stage[slot] = (self._stage[slot][0], event)
+
+    @torch.no_grad()
+    def _demote_page(self, page: int, digest: bytes) -> bytes:
+        """Spill-extract callback: one device page -> a packed, sealed
+        frame. SCHEDULER THREAD ONLY (the thread that drives the
+        pools)."""
+        self._meter_program("kv_extract", warmup=False)
+        t0 = time.perf_counter()
+        k, v = self._extract_fn(page)
+        frame = kvfabric.pack_page(k, v, digest)     # the copy back syncs
+        self.fabric["demoted"] += 1
+        self.fabric["demote_s"] += time.perf_counter() - t0
+        return frame
+
+    @torch.no_grad()
+    def _land_frame(self, page: int, payload: bytes, digest: bytes):
+        """Spill-land callback: verify + write one frame into physical
+        page `page`. Raises kvfabric.FrameError on corruption or a
+        geometry that does not fit this pool — a clean rejection the
+        caller degrades from. SCHEDULER THREAD ONLY."""
+        t0 = time.perf_counter()
+        k, v, _ = kvfabric.unpack_page(payload, expect_digest=digest)
+        shape = (self.n_layers, self.cfg.page_size, self.n_heads,
+                 self.head_dim)
+        if tuple(k.shape) != shape or tuple(v.shape) != shape \
+                or k.dtype != self._dtype or v.dtype != self._dtype:
+            raise kvfabric.FrameError(
+                f"frame geometry {tuple(k.shape)}/{k.dtype} does not fit "
+                f"pool {shape}/{self._dtype} (mismatched model or "
+                "quantize mode)")
+        self._meter_program("kv_land", warmup=False)
+        self._land_fn(page, k, v)
+        self.fabric["landed"] += 1
+        self.fabric["land_s"] += time.perf_counter() - t0
+
+    @torch.no_grad()
+    def export_pages(self, tokens) -> List[bytes]:
+        """Serialize the cached pages covering `tokens`' full blocks
+        (which must all be radix-indexed — the caller prefills first)
+        into sealed frames for a disaggregated transfer. SCHEDULER
+        THREAD ONLY (runs as a fabric job)."""
+        _, keys = self.cache._blocks(tokens)
+        with self.cache._lock:
+            _, pages = self.cache._walk_locked(keys)
+            if len(pages) < len(keys):
+                raise RuntimeError(
+                    f"decode[{self.name}]: prefix fell out of the cache "
+                    f"mid-export ({len(pages)}/{len(keys)} blocks "
+                    "indexed); retry after re-prefilling")
+            digests = kvfabric.chain_digests(keys)
+        self._meter_program("kv_extract", warmup=False)
+        frames = []
+        for page, dig in zip(pages, digests):
+            k, v = self._extract_fn(page)
+            frames.append(kvfabric.pack_page(k, v, dig))
+        self.fabric["exported"] += len(frames)
+        return frames
+
+    def import_pages(self, tokens, frames: List[bytes]) -> int:
+        """Adopt a shipment of sealed frames as this cache's retained
+        prefix pages (the disaggregated-prefill landing). Frame i lands
+        for block i through the verified land; corruption raises
+        kvfabric.FrameError cleanly. SCHEDULER THREAD ONLY."""
+        _, keys = self.cache._blocks(tokens)
+        if len(frames) != len(keys):
+            raise kvfabric.FrameError(
+                f"shipment has {len(frames)} frames for {len(keys)} "
+                "full token blocks")
+        digests = kvfabric.chain_digests(keys)
+
+        def land(i: int, page: int):
+            self._land_frame(page, frames[i], digests[i])
+
+        adopted = self.cache.adopt_pages(tokens, land)
+        self.fabric["imported"] += adopted
+        return adopted
 
     # ------------------------------------------------------ program ledger
     def _meter_program(self, program: str, warmup: bool):
@@ -597,9 +940,15 @@ class DecodeEngine:
 
     @torch.no_grad()
     def warm(self) -> float:
-        """Run every prefill bucket, every chunk bucket, the COW copy and
-        the decode step (greedy and sampling) once, so no live stream
-        pays a first use. Returns the seconds it took."""
+        """Run every prefill bucket, every chunk bucket, the COW copy, the
+        KV-fabric page extract and land, the decode step (greedy and
+        sampling) and, with speculation on, the draft's own programs and
+        the propose (greedy and sampling) and verify programs once, so no
+        live stream pays a first use. Returns the seconds it took."""
+        with _device_scope(self.device):
+            return self._warm()
+
+    def _warm(self) -> float:
         t0 = time.perf_counter()
         dump_row = np.full((self.cache.pages_per_slot,), kvcache.DUMP_PAGE,
                            np.int64)
@@ -619,16 +968,44 @@ class DecodeEngine:
         self._meter_program("cow_copy", warmup=True)
         kvcache.copy_page(self._kpool, self._vpool, kvcache.DUMP_PAGE,
                           kvcache.DUMP_PAGE)
+        # the KV-fabric page programs (spill demote/promote and the
+        # disaggregated transfer): extract reads the dump page, land
+        # writes it straight back through the staging ring
+        self._meter_program("kv_extract", warmup=True)
+        kx, vx = (t.cpu() for t in self._extract_fn(kvcache.DUMP_PAGE))
+        self._meter_program("kv_land", warmup=True)
+        self._land_fn(kvcache.DUMP_PAGE, kx, vx)
         s = self.cfg.slots
+        zeros_i, no_slot = np.zeros((s,), np.int32), np.zeros((s,), bool)
         for sampling in (False, True):
             self._meter_program("decode_sampling" if sampling else "decode",
                                 warmup=True)
             toks, _ = self._decode_fn(
-                self.cache.page_table, np.zeros((s,), np.int32),
-                np.zeros((s,), np.int32), np.zeros((s,), bool),
+                self.cache.page_table, zeros_i, zeros_i, no_slot,
                 np.ones((s,), np.float32), np.full((s,), 5, np.int32), 0,
                 sampling)
             toks.cpu()
+        if self.draft is not None:
+            # the draft warms its own programs, then the two speculative
+            # ones: the k-token propose (draft's) and the k+1-position
+            # verify (target's)
+            d = self.draft
+            d._warm()
+            k = int(self.cfg.spec_k)
+            ds = d.cfg.slots
+            for sampling in (False, True):
+                d._meter_program(f"draft_{k}_sampling" if sampling
+                                 else f"draft_{k}", warmup=True)
+                drafted, _ = d._propose(
+                    k, np.zeros((ds,), np.int32), np.zeros((ds,), bool),
+                    np.ones((ds,), np.float32), np.full((ds,), 5, np.int32),
+                    0, sampling)
+                drafted.cpu()
+            self._meter_program(f"verify_{k + 1}", warmup=True)
+            vlog = self._verify(np.zeros((s,), np.int32), no_slot,
+                                torch.zeros((s, k), dtype=torch.int64,
+                                            device=self.device))
+            vlog.cpu()
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------ host API
@@ -659,12 +1036,81 @@ class DecodeEngine:
                 self.cache.unref_page(info.cow_src)
                 raise
             self.cache.unref_page(info.cow_src)
+        if self.draft is not None:
+            self._admit_draft(info.slot, prompt)
         return info
 
+    def _admit_draft(self, slot: int, prompt: np.ndarray):
+        """Mirror a successful target admission into the draft's own
+        pool. A dry draft pool never blocks the stream — it just decodes
+        plain (speculation off, counted as a fallback)."""
+        self._spec_on[slot] = True
+        self._spec_hist[slot].clear()
+        dinfo = None
+        try:
+            dinfo = self.draft.admit_prompt(np.asarray(prompt, np.int32))
+        except Exception:   # noqa: BLE001 — draft trouble must never
+            # take down an admission the target already accepted
+            log.exception("decode[%s]: draft admission failed; stream "
+                          "decodes plain", self.name)
+        if dinfo is None:
+            self.spec_disable(slot, "draft_admit")
+        else:
+            self._draft_slots[slot] = int(dinfo.slot)
+            self._draft_origin[slot] = int(dinfo.cached_len)
+
+    def spec_disable(self, slot: int, reason: str):
+        """Turn speculation off for ONE stream (it plain-decodes to
+        completion) and free its draft pages for the streams still
+        speculating. Counted per reason: draft_admit / draft_prefill /
+        draft_pages / acceptance_floor."""
+        self._spec_on[slot] = False
+        ds = self._draft_slots.get(slot)
+        self._draft_slots[slot] = None
+        if ds is not None and self.draft is not None:
+            self.draft.cache.release(ds)
+        fb = self.spec_stats["fallbacks"]
+        fb[reason] = fb.get(reason, 0) + 1
+
     def release_slot(self, slot: int):
-        """Release a finished stream's slot (the scheduler's call sites
-        use this, never cache.release directly)."""
+        """Release a finished stream's target slot AND its draft mirror
+        (the scheduler's call sites use this, never cache.release
+        directly)."""
         self.cache.release(slot)
+        if self.draft is not None:
+            ds = self._draft_slots.pop(slot, None)
+            self._draft_origin.pop(slot, None)
+            if ds is not None:
+                self.draft.cache.release(ds)
+            self._spec_on[slot] = True
+            self._spec_hist[slot].clear()
+
+    def draft_prefill_origin(self, slot: int) -> Optional[int]:
+        """Where the draft's prefill starts for this stream (its own
+        cached-prefix length), or None when the stream speculates not."""
+        if self.draft is None or self._draft_slots.get(slot) is None:
+            return None
+        return self._draft_origin.get(slot, 0)
+
+    def draft_prefill(self, slot: int, prompt: np.ndarray, start: int,
+                      n: int, temperature: float, top_k: int):
+        """Advance the draft's prefill for `slot` by prompt positions
+        [start, start+n) — the same dense-vs-chunk split as the target's
+        path; the sampled token is discarded (the stream's first token
+        comes from the TARGET's prefill)."""
+        ds = self._draft_slots[slot]
+        if start == 0 and n == len(prompt):
+            self.draft.prefill(ds, prompt, temperature, top_k)
+        else:
+            self.draft.prefill_chunk(ds, prompt, start, n, temperature,
+                                     top_k)
+
+    def draft_prefill_done(self, slot: int, prompt: np.ndarray):
+        """Draft prefill complete: index the draft's prompt pages so the
+        NEXT admission of this prefix is a draft-side cache hit too."""
+        ds = self._draft_slots.get(slot)
+        if ds is not None:
+            self.draft.cache.register_prefix(ds, prompt)
 
     @torch.no_grad()
     def prefill_chunk(self, slot: int, prompt: np.ndarray, start: int,
@@ -739,6 +1185,153 @@ class DecodeEngine:
         self.steps += 1
         return toks_np, act, logits
 
+    # ------------------------------------------------- speculative decoding
+    def _spec_dist(self, logits, temp: float, topk: int) -> np.ndarray:
+        """The sampling distribution `_sample` draws from, recomputed on
+        the host (float64): top-k filtering with the SAME clip against
+        TOP_K_MAX, then temperature softmax. Rejection sampling is only
+        exact when this q/p matches the device sampler's distribution
+        term for term."""
+        lg = np.asarray(logits, np.float64)
+        v = lg.shape[-1]
+        if topk > 0:
+            kk = min(max(int(topk), 1), min(TOP_K_MAX, v))
+            kth = np.sort(lg)[-kk]
+            lg = np.where(lg >= kth, lg, -np.inf)
+        z = lg / max(float(temp), 1e-30)
+        z = z - z.max()
+        p = np.exp(z)
+        return p / p.sum()
+
+    def _spec_accept(self, drafted, vlog, qlog, temp: float, topk: int
+                     ) -> Tuple[int, int]:
+        """Accept/reject one stream's k draft proposals against the
+        target's k+1 verify logits. Returns (accepted count a, the one
+        extra token): greedy is exact prefix match on argmax with the
+        target's own argmax at the first mismatch (bitwise the plain
+        stream); temperature is true rejection sampling — accept d_i with
+        prob min(1, p(d_i)/q(d_i)), resample the first rejection from the
+        residual max(p - q, 0), and on full acceptance sample the bonus
+        token from the target's (k+1)-th distribution."""
+        k = len(drafted)
+        if temp <= 0:
+            a = 0
+            for i in range(k):
+                if int(np.argmax(vlog[i])) == int(drafted[i]):
+                    a += 1
+                else:
+                    break
+            return a, int(np.argmax(vlog[a]))
+        for i in range(k):
+            d = int(drafted[i])
+            p = self._spec_dist(vlog[i], temp, topk)
+            q = self._spec_dist(qlog[i], temp, topk)
+            if q[d] > 0.0 and self._spec_rng.random_sample() \
+                    < min(1.0, float(p[d]) / float(q[d])):
+                continue
+            res = np.maximum(p - q, 0.0)
+            tot = float(res.sum())
+            if tot <= 0.0:
+                res, tot = p, float(p.sum())    # p == q: any sample of
+                # p is already correctly distributed
+            return i, int(self._spec_rng.choice(len(res), p=res / tot))
+        p = self._spec_dist(vlog[k], temp, topk)
+        return k, int(self._spec_rng.choice(len(p), p=p / p.sum()))
+
+    @torch.no_grad()
+    def spec_step(self, exclude=()) -> Dict[int, dict]:
+        """One speculative round over every eligible stream: the draft
+        proposes k tokens for all of them, the target scores all k+1
+        positions from the proposals on the device, and ONE copy brings
+        drafted tokens, draft logits and verify logits to the host, which
+        accepts per slot. Both caches advance by accepted+1 (the draft's
+        propose already consumed its own k-th sample, so whatever prefix
+        survives, the next round resumes from exactly one new token).
+
+        Returns {slot: {"tokens": [...], "proposed": k, "accepted": a}}
+        for every slot handled this round — the scheduler emits those
+        bursts and excludes the slots from the plain step. Slots under
+        page/context pressure are left for the plain path this round; a
+        dry DRAFT pool or a collapsed acceptance window turns speculation
+        off for that stream (`spec_disable`)."""
+        if self.draft is None:
+            return {}
+        k = int(self.cfg.spec_k)
+        excl = frozenset(int(s) for s in exclude)
+        pairs = []
+        for s in self.cache.active_slots():
+            if s in excl or not self._spec_on[s]:
+                continue
+            ds = self._draft_slots.get(s)
+            if ds is None:
+                continue
+            if not self.cache.ensure_capacity(s, k + 1):
+                # target page stall or context cap: the plain step's
+                # per-token path copes (and finishes length_cap streams)
+                continue
+            if not self.draft.cache.ensure_capacity(ds, k + 1):
+                self.spec_disable(s, "draft_pages")
+                continue
+            pairs.append((s, ds))
+        if not pairs:
+            return {}
+        d = self.draft
+        dact = np.zeros((d.cfg.slots,), bool)
+        dtok = d._last_tokens.copy()
+        tact = np.zeros((self.cfg.slots,), bool)
+        rows = np.zeros((self.cfg.slots,), np.int64)
+        for s, ds in pairs:
+            dact[ds] = tact[s] = True
+            rows[s] = ds
+            # the draft extends the TARGET's stream: it consumes the
+            # target's last sampled token, not its own prefill sample
+            dtok[ds] = self._last_tokens[s]
+        d._counter += k
+        sampling = bool((d._temps[dact] > 0).any())
+        d._meter_program(f"draft_{k}_sampling" if sampling
+                         else f"draft_{k}", warmup=False)
+        drafted, qlog = d._propose(k, dtok, dact, d._temps, d._topks,
+                                   d._counter - k + 1, sampling)
+        self._meter_program(f"verify_{k + 1}", warmup=False)
+        vlog = self._verify(self._last_tokens, tact, drafted, rows)
+        # the round's one synchronisation: drafted tokens (exact in f32
+        # below 2^24), draft logits and verify logits in one copy back
+        sd, v = d.cfg.slots, vlog.shape[-1]
+        host = torch.cat([drafted.to(torch.float32).reshape(-1),
+                          qlog.to(torch.float32).reshape(-1),
+                          vlog.to(torch.float32).reshape(-1)]).cpu().numpy()
+        self.spec_stats["host_syncs"] += 1
+        n_d, n_q = sd * k, sd * k * v
+        drafted = host[:n_d].reshape(sd, k).astype(np.int64)
+        qlog = host[n_d:n_d + n_q].reshape(sd, k, v)
+        vlog = host[n_d + n_q:].reshape(self.cfg.slots, k + 1, v)
+        out: Dict[int, dict] = {}
+        floor = float(self.cfg.spec_accept_floor)
+        for s, ds in pairs:
+            a, extra = self._spec_accept(
+                drafted[ds], vlog[s], qlog[ds], float(self._temps[s]),
+                int(self._topks[s]))
+            for _ in range(a + 1):
+                self.cache.advance(s)
+                d.cache.advance(ds)
+            self._last_tokens[s] = extra
+            d._last_tokens[ds] = extra
+            self.spec_stats["proposed"] += k
+            self.spec_stats["accepted"] += a
+            out[s] = {"tokens": [int(t) for t in drafted[ds][:a]]
+                      + [int(extra)],
+                      "proposed": k, "accepted": a}
+            hist = self._spec_hist[s]
+            hist.append((k, a))
+            if len(hist) == hist.maxlen:
+                pw = sum(p for p, _ in hist)
+                aw = sum(acc for _, acc in hist)
+                if pw > 0 and aw / pw < floor:
+                    self.spec_disable(s, "acceptance_floor")
+                    out[s]["fallback"] = "acceptance_floor"
+        self.spec_stats["rounds"] += 1
+        return out
+
     @torch.no_grad()
     def logits_full(self, tokens) -> np.ndarray:
         """(B, T) -> (B, T, V) float32 logits by full-sequence recompute
@@ -749,9 +1342,16 @@ class DecodeEngine:
         return out.to(torch.float32).cpu().numpy()
 
     def close(self):
-        """Release the page pools (the engine is retired)."""
+        """Release the page pools, the spill slab and the draft (the
+        engine is retired)."""
+        self._closed = True
         self._kpool = self._vpool = None
         self._params = None
+        self._stage = []
+        if self.spill is not None:
+            self.spill.close()
+        if self.draft is not None:
+            self.draft.close()
 
     def describe(self) -> dict:
         d = self.cache.describe()
@@ -762,7 +1362,17 @@ class DecodeEngine:
                   "prefill_chunk_tokens": self.prefill_chunk_tokens,
                   "device": str(self.device),
                   "steps": self.steps,
-                  "request_path_first_runs": self.request_path_first_runs})
+                  "request_path_first_runs": self.request_path_first_runs,
+                  "fabric": dict(self.fabric)})
+        if self.draft is not None:
+            d["spec"] = {"draft": self.cfg.spec_draft,
+                         "k": int(self.cfg.spec_k),
+                         "accept_floor": float(self.cfg.spec_accept_floor),
+                         "window": int(self.cfg.spec_window),
+                         "stats": {k: (dict(v) if isinstance(v, dict)
+                                       else v)
+                                   for k, v in self.spec_stats.items()},
+                         "draft_pool": self.draft.cache.describe()}
         return d
 
 
@@ -774,12 +1384,19 @@ class _PrefillJob:
     [pos, len(prompt)) still to prefill, run in budgeted chunks between
     decode steps."""
 
-    __slots__ = ("req", "pos", "chunks", "tok")
+    __slots__ = ("req", "pos", "chunks", "dpos", "tok")
 
-    def __init__(self, req: GenerateRequest, pos: int):
+    def __init__(self, req: GenerateRequest, pos: int,
+                 dpos: Optional[int] = None):
         self.req = req
         self.pos = pos
         self.chunks = 0
+        #: the speculative draft mirror's prefill cursor (None: the stream
+        #: has no draft slot); the job completes only when BOTH caches
+        #: cover the prompt
+        self.dpos = dpos
+        #: the target's sampled first token, held until the draft mirror
+        #: catches up
         self.tok: Optional[int] = None
 
 
@@ -816,6 +1433,10 @@ class DecodeScheduler:
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._draining = False
+        #: KV-fabric jobs (page export/import) marshalled onto the
+        #: scheduler thread — the ONLY thread that drives the device
+        #: pools. Guarded by _plock; (fn, done, box)
+        self._fabric: deque = deque()
         self.stats = {"preempted_joins": 0, "rejected_queue_full": 0,
                       "rejected_deadline": 0}
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -825,11 +1446,21 @@ class DecodeScheduler:
     # -------------------------------------------------------------- control
     def install(self, engine: DecodeEngine, version: int):
         """Make `engine` the admitting engine; older runs stop admitting
-        and retire once their in-flight sequences finish."""
+        and retire once their in-flight sequences finish. An engine that
+        is still draining here (a rollback to a resident version) admits
+        again in its own run: one run per engine, so no slot is stepped
+        twice."""
         with self._rlock:
             for run in self._runs:
                 run.admitting = False
-            self._runs.append(_EngineRun(engine, version))
+            run = next((r for r in self._runs if r.engine is engine), None)
+            if run is None:
+                run = _EngineRun(engine, version)
+            else:
+                self._runs.remove(run)
+                run.version = version
+                run.admitting = True
+            self._runs.append(run)
         if not self._started:
             self._started = True
             self._thread.start()
@@ -848,6 +1479,78 @@ class DecodeScheduler:
             self._pending.append(req)
         self._wake.set()
 
+    def run_fabric(self, fn, timeout: float = 30.0):
+        """Run ``fn(engine)`` on the scheduler thread against the
+        admitting engine and return its result. Any HTTP-thread work that
+        reads or writes the device pools (page export for a
+        disaggregated transfer, shipment import) marshals through here:
+        the job runs between ticks, never concurrently with a step.
+        Raises the job's own exception, or DeadlineExceededError if the
+        loop never got to it within `timeout`."""
+        if self._stop.is_set() or self._draining:
+            raise ServerDrainingError(
+                f"decode[{self.name}] is shutting down")
+        box: dict = {}
+        done = threading.Event()
+        with self._plock:
+            self._fabric.append((fn, done, box))
+        self._wake.set()
+        if not done.wait(timeout):
+            raise DeadlineExceededError(
+                f"decode[{self.name}]: fabric job did not run within "
+                f"{timeout}s (scheduler saturated or stopped)")
+        if "exc" in box:
+            raise box["exc"]
+        return box.get("res")
+
+    def _fabric_tick(self) -> bool:
+        """Drain queued fabric jobs on the scheduler thread. A job's
+        failure belongs to its submitting thread (delivered through the
+        box), never to the loop."""
+        if not self._fabric:
+            # unlocked empty check on the common path: deque reads are
+            # atomic under the GIL, and a racing submit sets _wake — the
+            # NEXT pass drains it
+            return False
+        worked = False
+        while True:
+            with self._plock:
+                if not self._fabric:
+                    return worked
+                fn, done, box = self._fabric.popleft()
+            with self._rlock:
+                engine = self._runs[-1].engine \
+                    if self._runs and self._runs[-1].admitting else None
+            try:
+                if engine is None:
+                    raise ServerDrainingError(
+                        f"decode[{self.name}]: no admitting engine for "
+                        "fabric job")
+                box["res"] = fn(engine)
+            except Exception as e:  # noqa: BLE001 — surfaced to the
+                # submitting thread via the box; the scheduler loop must
+                # outlive any single job's corrupt shipment
+                box["exc"] = e
+            done.set()
+            worked = True
+
+    def _fail_fabric(self, exc: Exception):
+        while True:
+            with self._plock:
+                if not self._fabric:
+                    return
+                _fn, done, box = self._fabric.popleft()
+            box["exc"] = exc
+            done.set()
+
+    def release_engine(self, engine: DecodeEngine):
+        """The servable no longer keeps `engine` resident: close it now
+        if no run drives it, else let `_retire` close it once drained."""
+        with self._rlock:
+            engine.resident = False
+            if not any(r.engine is engine for r in self._runs):
+                engine.close()
+
     def queue_state(self) -> Tuple[int, int]:
         with self._plock:
             return len(self._pending), self.queue_limit
@@ -865,10 +1568,17 @@ class DecodeScheduler:
 
     # --------------------------------------------------------------- loop
     def _loop(self):
+        with self._rlock:
+            device = self._runs[-1].engine.device
+        with _device_scope(device):
+            self._loop_on_device()
+
+    def _loop_on_device(self):
         crash: Optional[Exception] = None
         while not self._stop.is_set():
             try:
                 worked = self._admit()
+                worked = self._fabric_tick() or worked
                 worked = self._prefill_tick() or worked
                 worked = self._step_all() or worked
                 self._retire()
@@ -902,6 +1612,7 @@ class DecodeScheduler:
         self._fail_pending(crash if crash is not None
                            else ServerDrainingError(
                                f"decode[{self.name}] shut down"))
+        self._fail_fabric(exc)
 
     def _fail_pending(self, exc: Exception):
         while True:
@@ -961,7 +1672,9 @@ class DecodeScheduler:
             with self._rlock:
                 joined_running = any(r.slot_req for r in self._runs)
             req.version = run.version
-            run.prefill[info.slot] = _PrefillJob(req, int(info.cached_len))
+            run.prefill[info.slot] = _PrefillJob(
+                req, int(info.cached_len),
+                run.engine.draft_prefill_origin(info.slot))
             if joined_running:
                 self.stats["preempted_joins"] += 1
             worked = True
@@ -1029,12 +1742,34 @@ class DecodeScheduler:
                     log.exception("decode[%s]: prefill failed", self.name)
                     req.fail(e)
                     continue
-                if job.pos >= total:
+                # the speculative draft mirror prefills under the same
+                # per-tick budget; its failure never fails the stream —
+                # speculation just turns off and the stream decodes plain
+                try:
+                    while job.dpos is not None and job.dpos < total:
+                        if budget > 0 and spent >= budget:
+                            break
+                        n = total - job.dpos if budget <= 0 \
+                            else min(total - job.dpos, budget - spent)
+                        run.engine.draft_prefill(
+                            slot, req.prompt, job.dpos, n,
+                            req.temperature, req.top_k)
+                        job.dpos += n
+                        spent += n
+                        worked = True
+                except Exception:  # noqa: BLE001 — the draft is optional
+                    log.exception("decode[%s]: draft prefill failed; "
+                                  "stream decodes plain", self.name)
+                    run.engine.spec_disable(slot, "draft_prefill")
+                    job.dpos = None
+                if job.pos >= total and (job.dpos is None
+                                         or job.dpos >= total):
                     run.prefill.pop(slot, None)
                     req.prefill_chunks = job.chunks
                     # prefill complete: every mapped prompt page holds
                     # final K/V — only now may the prefix index share it
                     run.engine.cache.register_prefix(slot, req.prompt)
+                    run.engine.draft_prefill_done(slot, req.prompt)
                     run.slot_req[slot] = req
                     self._emit(run, slot, req, job.tok)
         return worked
@@ -1067,8 +1802,33 @@ class DecodeScheduler:
             runs = [r for r in self._runs if r.slot_req]
         worked = False
         for run in runs:
-            toks, act, _ = run.engine.step(exclude=set(run.prefill.keys()))
+            # speculation first: eligible streams get an accepted burst
+            # (draft propose + target verify for up to k+1 tokens each);
+            # everything speculation did not handle falls through to the
+            # plain one-token step below
+            spec = run.engine.spec_step(exclude=run.prefill.keys()) \
+                if run.engine.spec_enabled else {}
+            for slot, res in spec.items():
+                req = run.slot_req.get(slot)
+                if req is None:
+                    continue
+                req.spec_rounds += 1
+                req.spec_proposed += res["proposed"]
+                req.spec_accepted += res["accepted"]
+                for tok in res["tokens"]:
+                    self._emit(run, slot, req, tok)
+                    if req.done.is_set():
+                        break
+            if spec:
+                worked = True
+            handled = set(spec)
+            if not any(s not in handled for s in run.slot_req):
+                continue
+            toks, act, _ = run.engine.step(
+                exclude=set(run.prefill.keys()) | handled)
             for slot, req in list(run.slot_req.items()):
+                if slot in handled:
+                    continue
                 if act[slot]:
                     self._emit(run, slot, req, int(toks[slot]))
                 elif int(run.engine.cache.seq_lens[slot]) \
@@ -1093,7 +1853,8 @@ class DecodeScheduler:
             for run in self._runs:
                 if not run.admitting and not run.slot_req \
                         and not run.prefill:
-                    run.engine.close()
+                    if not run.engine.resident:
+                        run.engine.close()
                     log.info("decode[%s]: retired engine v%d (drained)",
                              self.name, run.version)
                 else:
@@ -1120,14 +1881,16 @@ class DecodeScheduler:
 
 
 # ==========================================================================
-# The servable: engine + scheduler behind the registry surface
+# The servable: versions + engine lifecycle behind the registry surface
 # ==========================================================================
 class ServedLM:
-    """One named decode servable: a warmed engine and its scheduler.
+    """One named decode servable: version history, engines and their
+    scheduler.
 
-    The LM sibling of registry.ServedModel (status / describe / shutdown),
-    so the registry and the HTTP server drive both kinds alike. Version
-    swaps and rollback are not ported yet."""
+    The LM sibling of registry.ServedModel (status / describe / swap /
+    rollback / shutdown), so the registry and the HTTP server drive both
+    kinds alike. Every engine runs on the device of the network it was
+    built from."""
 
     kind = "lm"
 
@@ -1136,26 +1899,35 @@ class ServedLM:
         self.name = name
         self.cfg = decode if decode is not None else DecodeConfig()
         self.status = "loading"
-        self.model = model
-        self.source = str(source)
-        self.version = 1
-        self.loaded_at = time.time()
+        # _swap_lock serializes whole swap/rollback operations (the warm
+        # included); _state_lock guards only brief mutations of versions/
+        # active, so describe() never blocks behind a warming swap
+        self._swap_lock = threading.Lock()
+        self._state_lock = threading.Lock()
         engine = DecodeEngine(model, self.cfg, name=name)
         self.warmup_seconds = engine.warm()
         self.vocab = engine.vocab
         self.max_context = engine.max_context
         self.scheduler = DecodeScheduler(name,
                                          queue_limit=self.cfg.queue_limit)
-        self.scheduler.install(engine, version=self.version)
+        engine.resident = True
+        self.scheduler.install(engine, version=1)
+        self.versions: List[ServableVersion] = [
+            ServableVersion(1, str(source), model)]
+        self.active = 0
         #: request-path snapshot of the active version's metadata
-        self.active_info = self._version_info()
+        self.active_info = self.versions[0].describe()
+        #: version -> its engine, kept resident (open) while the version
+        #: is in `versions`
+        self._engines: Dict[int, DecodeEngine] = {1: engine}
+        #: seconds of the last swap/rollback (build + warm + install)
+        self.last_swap_seconds: Optional[float] = None
         self.status = "ready"
 
-    def _version_info(self) -> dict:
-        return {"version": self.version, "source": self.source,
-                "loaded_at": self.loaded_at,
-                "model_class": type(self.model).__name__,
-                "device": str(self.model.device)}
+    @property
+    def model(self):
+        """The active version's network."""
+        return self.versions[self.active].model
 
     # ---------------------------------------------------------- generation
     def generate(self, prompt, max_new_tokens: int = 32,
@@ -1192,16 +1964,171 @@ class ServedLM:
         self.scheduler.submit(req)
         return req
 
+    # ------------------------------------------------------------ kv fabric
+    def export_prefix(self, prompt, timeout: float = 30.0) -> bytes:
+        """Serialize the KV pages covering `prompt`'s full blocks into a
+        framed transfer blob (the prefill half of disaggregation). If the
+        prefix isn't cached yet, a one-token greedy generation prefills
+        and retains it first; the page reads run on the scheduler thread
+        via run_fabric."""
+        if self.status == "stopping":
+            raise ServerDrainingError(f"decode[{self.name}] is draining")
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        engine = self.scheduler.admitting_engine()
+        if engine is None:
+            raise ServerDrainingError(
+                f"decode[{self.name}]: no admitting engine")
+        if not engine.cfg.prefix_cache:
+            raise ValueError(
+                f"decode[{self.name}]: prefix cache disabled; nothing "
+                "to export")
+        ps = engine.cfg.page_size
+        full = (int(prompt.size) // ps) * ps
+        if full < ps:
+            raise ValueError(
+                f"prompt too short to export: {prompt.size} tokens "
+                f"< one {ps}-token page")
+        head = prompt[:full]
+        if engine.cache.cached_prefix_len(head) < full:
+            req = self.generate(head, max_new_tokens=1, temperature=0.0,
+                                deadline=timeout)
+            while True:
+                kind, payload = req.events.get(timeout=timeout)
+                if kind == "done":
+                    break
+                if kind == "error":
+                    raise payload
+        frames = self.scheduler.run_fabric(
+            lambda eng: eng.export_pages(head), timeout=timeout)
+        return kvfabric.pack_transfer(np.asarray(head, np.int32), frames,
+                                      ps)
+
+    def import_prefix(self, payload: bytes, timeout: float = 30.0) -> dict:
+        """Land a framed page transfer (produced by a prefill server's
+        export_prefix) into this servable's prefix cache. Frame integrity
+        and geometry are verified before any pool write; a bad shipment
+        raises kvfabric.FrameError and leaves the cache untouched."""
+        if self.status == "stopping":
+            raise ServerDrainingError(f"decode[{self.name}] is draining")
+        tokens, frames, hdr = kvfabric.unpack_transfer(payload)
+        engine = self.scheduler.admitting_engine()
+        if engine is None:
+            raise ServerDrainingError(
+                f"decode[{self.name}]: no admitting engine")
+        try:
+            page_size = int(hdr["page_size"])
+        except (KeyError, TypeError, ValueError):
+            raise kvfabric.FrameError(
+                "transfer header carries no page_size") from None
+        if page_size != int(engine.cfg.page_size):
+            raise kvfabric.FrameError(
+                f"transfer page_size {page_size} != "
+                f"{engine.cfg.page_size} on decode[{self.name}]")
+        if not engine.cfg.prefix_cache:
+            raise ValueError(
+                f"decode[{self.name}]: prefix cache disabled; cannot "
+                "adopt pages")
+        if tokens.size and (tokens.min() < 0 or tokens.max() >= self.vocab):
+            raise kvfabric.FrameError(
+                f"transfer tokens outside [0, {self.vocab})")
+        adopted = self.scheduler.run_fabric(
+            lambda eng: eng.import_pages(tokens, frames), timeout=timeout)
+        return {"adopted": int(adopted), "pages": len(frames),
+                "tokens": int(np.asarray(tokens).size)}
+
     # ------------------------------------------------------------ lifecycle
+    def _activate(self, sv: ServableVersion, variant: Optional[str]):
+        """Roll admissions onto version `sv`: its resident engine when it
+        still has one (a warm rollback), else a full replacement engine
+        built and warmed off the request path. In-flight sequences finish
+        on their own engine (KV pages are only meaningful under the
+        weights that wrote them). `variant` is the source's parsed ``@``
+        suffix; None keeps the servable's config as deployed."""
+        t0 = time.perf_counter()
+        engine = self._engines.get(sv.version)
+        if engine is None or engine._closed:
+            cfg = apply_variant(self.cfg, variant) \
+                if variant is not None else self.cfg
+            engine = DecodeEngine(sv.model, cfg, name=self.name)
+            if engine.vocab != self.vocab:
+                engine.close()
+                raise ModelLoadError(
+                    f"swap rejected: {sv.source!r} has vocab "
+                    f"{engine.vocab}, live servable {self.name!r} serves "
+                    f"{self.vocab} (deploy under a new name)")
+            try:
+                self.warmup_seconds = engine.warm()
+            except Exception:
+                engine.close()
+                raise
+            engine.resident = True
+            self._engines[sv.version] = engine
+        self.scheduler.install(engine, version=sv.version)
+        if engine.max_context != self.max_context:
+            # a swap may change KV capacity (cfg.max_context None derives
+            # it from the model); generate() validates against the LIVE
+            # admitting engine, and the scheduler re-checks at admission
+            # for requests that raced this update
+            log.warning("decode[%s]: max_context %d -> %d across swap",
+                        self.name, self.max_context, engine.max_context)
+            self.max_context = engine.max_context
+        self.last_swap_seconds = time.perf_counter() - t0
+
     def swap(self, source, keep_versions: int = 3) -> dict:
-        raise NotImplementedError(
-            f"decode[{self.name}]: version swaps of LM servables are not "
-            "yet ported to the PyTorch package")
+        """Load `source`, warm a replacement engine off the request path,
+        and make it the admitting version; streams already running finish
+        on their own engine."""
+        base, variant = (source, None) if not isinstance(source, str) \
+            else parse_variant(source)
+        with self._swap_lock:
+            if self.status == "stopping":
+                raise ServerDrainingError(
+                    f"decode[{self.name}] is draining; swap rejected")
+            model = load_servable(base, device=self.model.device)
+            with self._state_lock:
+                next_version = self.versions[-1].version + 1
+            sv = ServableVersion(next_version, str(source), model)
+            self._activate(sv, variant)
+            with self._state_lock:
+                self.versions.append(sv)
+                self.active = len(self.versions) - 1
+                dropped = []
+                while len(self.versions) > keep_versions:
+                    dropped.append(self.versions.pop(0))
+                    self.active -= 1
+                self.active_info = sv.describe()
+            for old in dropped:
+                engine = self._engines.pop(old.version, None)
+                if engine is not None:
+                    self.scheduler.release_engine(engine)
+                log.info("decode[%s]: retired v%d (%s) from memory",
+                         self.name, old.version, old.source)
+        log.info("decode[%s]: now admitting on v%d (%s); older versions "
+                 "drain in place", self.name, sv.version, sv.source)
+        return sv.describe()
 
     def rollback(self) -> dict:
-        raise NotImplementedError(
-            f"decode[{self.name}]: rollback of LM servables is not yet "
-            "ported to the PyTorch package")
+        """One-step rollback: admissions go back to the version before
+        the active one, on its resident (warm) engine."""
+        with self._swap_lock:
+            if self.status == "stopping":
+                raise ServerDrainingError(
+                    f"decode[{self.name}] is draining; rollback rejected")
+            with self._state_lock:
+                if self.active == 0:
+                    raise ModelLoadError(
+                        f"decode[{self.name}]: no previous version in "
+                        "memory to roll back to")
+                sv = self.versions[self.active - 1]
+            variant = parse_variant(sv.source)[1] \
+                if isinstance(sv.source, str) else None
+            self._activate(sv, variant)
+            with self._state_lock:
+                self.active -= 1
+                self.active_info = sv.describe()
+        log.warning("decode[%s]: rolled back to v%d (%s)", self.name,
+                    sv.version, sv.source)
+        return sv.describe()
 
     # --------------------------------------------------------------- admin
     def queue_state(self) -> Tuple[int, int]:
@@ -1209,22 +2136,26 @@ class ServedLM:
         return self.scheduler.queue_state()
 
     def describe(self) -> dict:
-        newest = self.scheduler.admitting_engine()
-        d = {
-            "name": self.name,
-            "kind": self.kind,
-            "status": self.status,
-            "vocab_size": self.vocab,
-            "max_context": self.max_context,
-            "active_version": self.version,
-            "versions": [self._version_info()],
-            "pending": self.scheduler.queue_state()[0],
-            "inflight": self.scheduler.inflight(),
-        }
-        if newest is not None:
-            d["decode"] = newest.describe()
-        return d
+        with self._state_lock:
+            newest = self.scheduler.admitting_engine()
+            d = {
+                "name": self.name,
+                "kind": self.kind,
+                "status": self.status,
+                "vocab_size": self.vocab,
+                "max_context": self.max_context,
+                "active_version": self.versions[self.active].version,
+                "versions": [v.describe() for v in self.versions],
+                "resident_engines": sorted(self._engines),
+                "pending": self.scheduler.queue_state()[0],
+                "inflight": self.scheduler.inflight(),
+            }
+            if newest is not None:
+                d["decode"] = newest.describe()
+            return d
 
     def shutdown(self, drain: bool = True, timeout: float = 30.0):
         self.status = "stopping"
         self.scheduler.drain(timeout=timeout if drain else 0.1)
+        for engine in list(self._engines.values()):
+            self.scheduler.release_engine(engine)

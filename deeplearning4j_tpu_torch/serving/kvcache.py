@@ -40,18 +40,27 @@ crosses to the device as a small int32 operand each call. The device side
 is the gather/scatter helpers the engine calls, which update the pools in
 place (the reference donates its pools to every compiled call).
 
-The host-RAM spill tier and page export/import (the reference's
-`kvfabric.py`) are not ported yet: `attach_spill` and `adopt_pages`
-raise NotImplementedError, and radix nodes carry no chained digest.
+Tiered KV fabric (`kvfabric.py`): every radix node carries the chained
+digest of its prefix path. With a host spill tier attached
+(`attach_spill`), an evicted retained page demotes to host RAM before it
+is unindexed, and an admission whose device walk stops short promotes
+the following blocks back (`_promote_locked`). `adopt_pages` lands
+shipped pages (a disaggregated prefill) as retained prefix pages.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import logging
 import threading
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from deeplearning4j_tpu_torch.serving import kvfabric
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
 
 #: physical page 0 — the write sink for inactive slots / padded positions.
 DUMP_PAGE = 0
@@ -81,14 +90,17 @@ class _RadixNode:
     """One full token block in the context of its ancestors -> the
     canonical physical page holding its K/V."""
 
-    __slots__ = ("key", "parent", "children", "page")
+    __slots__ = ("key", "parent", "children", "page", "digest")
 
     def __init__(self, key: Optional[bytes], parent: "Optional[_RadixNode]",
-                 page: int = DUMP_PAGE):
+                 page: int = DUMP_PAGE, digest: bytes = b""):
         self.key = key
         self.parent = parent
         self.children: Dict[bytes, "_RadixNode"] = {}
         self.page = page
+        #: chained prefix-path digest (kvfabric.chain_digests semantics):
+        #: the page's identity in the spill tier and on the wire
+        self.digest = digest
 
 
 class KVCacheState:
@@ -100,7 +112,8 @@ class KVCacheState:
     Thread-safe, but the expected caller is one scheduler loop.
 
     `stats` counts prefix-cache hits and misses, evicted cache entries and
-    page stalls."""
+    page stalls; `spill_stats` the spill tier's admission hits, misses
+    and promoted pages."""
 
     def __init__(self, slots: int, page_size: int, max_context: int,
                  pool_pages: Optional[int] = None, name: str = "lm",
@@ -140,20 +153,86 @@ class KVCacheState:
         self._pages_per_slot_live = [0] * self.slots
         #: slot-mapping count per physical page (the dump page stays 0)
         self._ref = np.zeros((self.pool_pages,), np.int64)
-        self._root = _RadixNode(None, None)
+        self._root = _RadixNode(None, None, digest=kvfabric.DIGEST_SEED)
         self._by_page: Dict[int, _RadixNode] = {}
+        #: host-RAM spill tier (attached by the engine when configured):
+        #: the store plus the device extract/land callbacks — every call
+        #: happens on the scheduler thread, the one that drives the pools
+        self._spill: "Optional[kvfabric.HostPageStore]" = None
+        self._spill_extract: Optional[Callable[[int, bytes], bytes]] = None
+        self._spill_land: Optional[Callable[[int, bytes, bytes],
+                                            None]] = None
+        #: leading-block digests resident ONLY in the spill tier (their
+        #: device copy was evicted) — still advertised for affinity routing
+        self._spill_leading: set = set()
         #: indexed pages with refcount 0, insertion order == LRU order
         self._retained: "OrderedDict[int, None]" = OrderedDict()
         #: pages with refcount >= 2, maintained on ref transitions
         self._shared_count = 0
         self.stats = {"hits": 0, "misses": 0, "evictions": 0,
                       "page_stalls": 0}
+        self.spill_stats = {"hits": 0, "misses": 0, "promotions": 0}
 
     # ------------------------------------------------------ spill tier
     def attach_spill(self, store, extract_fn, land_fn):
-        raise NotImplementedError(
-            "the host-RAM KV spill tier is not yet ported to the PyTorch "
-            "package")
+        """Wire the host-RAM spill tier in: `store` holds demoted
+        frames, `extract_fn(page, digest) -> bytes` packs one device
+        page, `land_fn(page, payload, digest)` writes one frame back.
+        Both callbacks touch the device pools, so every spill path
+        (eviction inside an admission / ensure_page, promotion inside
+        admit_prompt) must run on the scheduler thread — the same
+        one-thread contract the rest of this cache assumes."""
+        self._spill = store
+        self._spill_extract = extract_fn
+        self._spill_land = land_fn
+
+    def _promote_locked(self, node: _RadixNode, rest_keys: List[bytes],
+                        pins: List[int]) -> List[int]:
+        """Promote-on-hit: extend a device radix match block by block
+        from the host spill tier. Each promoted page is landed, indexed,
+        and ref-pinned (appended to `pins`; the caller unrefs after
+        mapping or rollback) so the allocation of a later block can never
+        evict an earlier one mid-promotion. Stops at the first absent
+        digest, dry pool, or land failure — partial promotion is just a
+        shorter cached prefix."""
+        pages: List[int] = []
+        dig = node.digest
+        for key in rest_keys:
+            dig = hashlib.sha256(dig + key).digest()
+            if not self._spill.contains(dig):
+                break
+            page = self._take_page_locked()
+            if page is None:
+                break
+            payload = self._spill.get(dig)
+            ok = payload is not None
+            if ok:
+                try:
+                    self._spill_land(page, payload, dig)
+                except Exception:   # noqa: BLE001 — a corrupt/mis-
+                    # shaped host frame must degrade to a cache miss
+                    # (the suffix prefills normally), never fail the
+                    # admission that probed it
+                    log.exception(
+                        "kvcache[%s]: spill promotion failed; dropping "
+                        "host frame", self.name)
+                    self._spill.drop(dig)
+                    ok = False
+            if not ok:
+                self._ref[page] = 0
+                self._free_pages.append(page)
+                break
+            child = _RadixNode(key, node, page, digest=dig)
+            node.children[key] = child
+            self._by_page[page] = child
+            self._ref[page] = 1         # pinned until the admission
+            pins.append(page)           # maps it (or rolls back)
+            if node is self._root:
+                self._spill_leading.discard(dig)
+            self.spill_stats["promotions"] += 1
+            node = child
+            pages.append(page)
+        return pages
 
     # ------------------------------------------------- page accounting
     def _unref_locked(self, page: int):
@@ -179,10 +258,33 @@ class KVCacheState:
             self._shared_count += 1
         self._retained.pop(page, None)
 
+    def _demote_locked(self, node: _RadixNode):
+        """Spill one about-to-be-freed retained page to the host tier.
+
+        ORDER IS THE CONTRACT: the host copy must be durable (put()
+        returned) BEFORE the caller unindexes/frees the device copy —
+        otherwise there is a window where the index still answers a hit
+        that resolves to a freed (reusable, soon-garbage) page. A
+        demotion failure only loses cache, never data."""
+        if self._spill is None or not node.digest:
+            return
+        try:
+            payload = self._spill_extract(node.page, node.digest)
+            if self._spill.put(node.digest, payload) \
+                    and node.parent is self._root:
+                self._spill_leading.add(node.digest)
+        except Exception:   # noqa: BLE001 — a failed demotion must
+            # degrade to a plain eviction (cache loss), never crash the
+            # allocation path that triggered it
+            log.exception("kvcache[%s]: spill demotion failed; page %d "
+                          "evicts without a host copy", self.name,
+                          node.page)
+
     def _drop_subtree_locked(self, node: _RadixNode) -> int:
-        """Unindex `node` and every descendant; retained pages free,
-        in-use pages merely lose future shareability. Returns the number
-        of cache entries evicted."""
+        """Unindex `node` and every descendant; retained pages demote to
+        the spill tier (host copy durable first) then free, in-use pages
+        merely lose future shareability. Returns the number of cache
+        entries evicted."""
         if node.parent is not None:
             node.parent.children.pop(node.key, None)
         stack, evicted = [node], 0
@@ -191,10 +293,14 @@ class KVCacheState:
             stack.extend(n.children.values())
             n.children = {}
             if self._by_page.get(n.page) is n:
-                del self._by_page[n.page]
                 if n.page in self._retained:
+                    # durable host copy FIRST — only then unindex + free
+                    self._demote_locked(n)
+                    del self._by_page[n.page]
                     del self._retained[n.page]
                     self._free_pages.append(n.page)
+                else:
+                    del self._by_page[n.page]
                 evicted += 1
         return evicted
 
@@ -290,8 +396,25 @@ class KVCacheState:
         self._check_capacity(prompt_len)
         need = self.pages_for(prompt_len)
         with self._lock:
-            matched = self._walk_locked(keys)[1] if self.prefix_cache \
-                else []
+            pins: List[int] = []
+            if self.prefix_cache:
+                deepest, matched = self._walk_locked(keys)
+                if self._spill is not None and len(matched) < len(keys):
+                    # the device walk stopped short: probe the host tier.
+                    # Matched pages get ref-pinned first — promotion
+                    # allocates pages, allocation can evict, and an
+                    # eviction must never reach a page this admission
+                    # is about to map read-shared
+                    for p in matched:
+                        self._ref_locked(p)
+                        pins.append(p)
+                    promoted = self._promote_locked(
+                        deepest, keys[len(matched):], pins)
+                    self.spill_stats["hits" if promoted
+                                     else "misses"] += 1
+                    matched = matched + promoted
+            else:
+                matched = []
             cached_len = len(matched) * self.page_size
             cow_src = None
             if cached_len and cached_len >= prompt_len:
@@ -303,6 +426,8 @@ class KVCacheState:
             else:
                 shared = matched
             slot = self._admit_locked(prompt_len, shared, need, pin=cow_src)
+            for p in pins:
+                self._unref_locked(p)
             if slot is None:
                 return None
             cow_dst = None if cow_src is None \
@@ -369,15 +494,77 @@ class KVCacheState:
                     page = int(self.page_table[slot, i])
                     if page == DUMP_PAGE or page in self._by_page:
                         return          # defensive: never index the dump
-                    child = _RadixNode(key, node, page)
+                    child = _RadixNode(
+                        key, node, page,
+                        digest=hashlib.sha256(node.digest + key).digest())
                     node.children[key] = child
                     self._by_page[page] = child
                 node = child
 
     def adopt_pages(self, tokens, land_fn) -> int:
-        raise NotImplementedError(
-            "landing shipped KV pages (the KV fabric and its spill tier) "
-            "is not yet ported to the PyTorch package")
+        """Land externally computed KV pages (a disaggregated-prefill
+        shipment) straight into the radix index as zero-ref retained
+        pages: `land_fn(i, page)` writes block i's frame into physical
+        page `page` (raising on corruption — the page is freed and the
+        error surfaces cleanly). Blocks already indexed are skipped, so
+        a duplicate shipment is idempotent. The NEXT `admit_prompt` of
+        this prefix then hits exactly like a locally prefilled one.
+        Returns the number of pages adopted."""
+        if not self.prefix_cache:
+            return 0
+        tokens, keys = self._blocks(tokens)
+        if not keys:
+            return 0
+        adopted = 0
+        pins: List[int] = []
+        with self._lock:
+            node = self._root
+            try:
+                for i, key in enumerate(keys):
+                    child = node.children.get(key)
+                    if child is not None:
+                        # pin the existing chain so a later block's
+                        # allocation cannot evict it mid-adoption
+                        self._ref_locked(child.page)
+                        pins.append(child.page)
+                        node = child
+                        continue
+                    page = self._take_page_locked()
+                    if page is None:
+                        break           # pool dry: partial adoption is
+                        # just a shorter cached prefix
+                    try:
+                        land_fn(i, page)
+                    except Exception:
+                        self._ref[page] = 0
+                        self._free_pages.append(page)
+                        raise
+                    child = _RadixNode(
+                        key, node, page,
+                        digest=hashlib.sha256(node.digest + key).digest())
+                    node.children[key] = child
+                    self._by_page[page] = child
+                    self._ref[page] = 1
+                    pins.append(page)
+                    adopted += 1
+                    node = child
+            finally:
+                for p in pins:
+                    self._unref_locked(p)
+        return adopted
+
+    def ownership_digests(self, limit: int = 64) -> List[str]:
+        """Leading-block (depth-1) prefix digests this cache can serve
+        hot — device-indexed roots plus host-spilled ones — as short hex
+        handles (the health document's prefix-affinity advertisement)."""
+        with self._lock:
+            out = [c.digest.hex()[:16]
+                   for c in self._root.children.values() if c.digest]
+            for d in self._spill_leading:
+                h = d.hex()[:16]
+                if h not in out:
+                    out.append(h)
+            return out[:max(0, int(limit))]
 
     def ensure_page(self, slot: int) -> bool:
         """Guarantee a physical page exists for this slot's NEXT position
@@ -478,6 +665,8 @@ class KVCacheState:
                 "prefix_cache": self.prefix_cache,
                 "retained_pages": len(self._retained),
                 "shared_pages": self._shared_count,
+                "spill": None if self._spill is None
+                else dict(self._spill.describe(), **self.spill_stats),
                 "stats": dict(self.stats),
             }
 

@@ -15,20 +15,32 @@ and generate surfaces:
                                       chunked text/event-stream, one
                                       event per token and a done event,
                                       or one JSON document
+    POST /v1/models/{name}/swap       {"source": <zip|dir|zoo:Arch>}: a
+                                      warmed version swap (rolling for
+                                      an LM servable)
+    POST /v1/models/{name}/rollback   back to the previous version
+    POST /v1/models/{name}/kv/export  JSON {"prompt": [ids...]} on an LM
+                                      servable; answers the framed KV
+                                      page transfer (octet-stream)
+    POST /v1/models/{name}/kv/import  a blob from kv/export, landed into
+                                      this server's prefix cache
     GET  /v1/models                   all servables
     GET  /v1/models/{name}            one servable
     GET  /healthz                     process liveness (always 200)
-    GET  /readyz                      200 only when warmed and not draining
+    GET  /readyz                      200 only when warmed and not draining;
+                                      carries the server's kv_role and
+                                      each LM's prefix-ownership digests
 
-Status contract: 404 unknown model, 400 bad payload, 429 with
+Status contract: 404 unknown model, 400 bad payload (a corrupt KV
+blob, a swap source that cannot load or does not fit), 429 with
 Retry-After when the batcher's or the join queue is full, 504 when a
-request's deadline expires, 503 with Retry-After while draining, 499
-(logged, nothing sent) when a streaming client went away, and anything
-unexpected a JSON 500 with the error class only — a traceback never
-crosses the wire.
+request's deadline expires, 503 with Retry-After while draining (a swap
+racing a drain included), 499 (logged, nothing sent) when a streaming
+client went away, and anything unexpected a JSON 500 with the error
+class only — a traceback never crosses the wire.
 
-`/metrics`, swap, flight, SLO, fault and KV endpoints come with later
-slices.
+`/metrics`, flight, SLO and fault endpoints come with ROADMAP A.13, and
+`/v1/rollout/role` with A.14.
 """
 from __future__ import annotations
 
@@ -48,14 +60,20 @@ import numpy as np
 from deeplearning4j_tpu_torch.serving.batcher import (
     DeadlineExceededError, ServerDrainingError, ServerOverloadedError,
 )
-from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+from deeplearning4j_tpu_torch.serving.registry import (
+    ModelLoadError, ModelRegistry,
+)
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
 _MAX_BODY = 256 << 20           # admission guard on Content-Length
 
 ENDPOINTS = ["/v1/models", "/v1/models/{name}", "/v1/models/{name}/predict",
-             "/v1/models/{name}/generate", "/healthz", "/readyz"]
+             "/v1/models/{name}/generate", "/v1/models/{name}/swap",
+             "/v1/models/{name}/rollback", "/v1/models/{name}/kv/export",
+             "/v1/models/{name}/kv/import", "/healthz", "/readyz"]
+
+KV_ROLES = ("prefill", "decode", "mixed")
 
 
 def retry_after_seconds(queue_depth: int, queue_limit: int,
@@ -112,8 +130,12 @@ class _Handler(BaseHTTPRequestHandler):
             return
         if url.path == "/readyz":
             if self._srv.ready():
+                # KV-fabric publication: the disaggregation role and each
+                # LM's leading-block ownership digests
                 self._json({"status": "ready",
-                            "models": self._srv.registry.names()})
+                            "models": self._srv.registry.names(),
+                            "kv_role": self._srv.kv_role,
+                            "kv_ownership": self._srv.kv_ownership()})
             else:
                 self._json({"status": "draining"
                             if self._srv.draining else "loading"}, code=503,
@@ -144,7 +166,93 @@ class _Handler(BaseHTTPRequestHandler):
             if parts[3] == "generate":
                 self._generate(parts[2], url)
                 return
+            if parts[3] in ("swap", "rollback"):
+                self._admin(parts[2], parts[3])
+                return
+        if parts[:2] == ["v1", "models"] and len(parts) == 5 \
+                and parts[3] == "kv" and parts[4] in ("export", "import"):
+            self._kv(parts[2], parts[4])
+            return
         self._json({"error": "not found"}, code=404)
+
+    def _served_or_reply(self, name: str):
+        """The servable `name`, or None after answering 503 (the drain
+        emptied the registry) or 404."""
+        served = self._srv.registry.get(name)
+        if served is None:
+            if self._srv.draining:
+                self._json({"error": "server draining"}, code=503,
+                           extra=(("Retry-After", self._srv.retry_after()),))
+            else:
+                self._json({"error": f"unknown model {name!r}"}, code=404)
+        return served
+
+    def _admin(self, name: str, verb: str):
+        """POST /v1/models/{name}/swap {"source": ...} and /rollback."""
+        served = self._served_or_reply(name)
+        if served is None:
+            return
+        try:
+            if verb == "swap":
+                payload = json.loads(self._body() or b"{}")
+                source = payload.get("source") \
+                    if isinstance(payload, dict) else None
+                if not source or not isinstance(source, str):
+                    raise ValueError('body must be {"source": <path>}')
+                info = served.swap(source)
+            else:
+                info = served.rollback()
+            self._json({"model": name, "active": info,
+                        "seconds": served.last_swap_seconds})
+        except ServerDrainingError as e:
+            # swap/rollback racing a drain is an expected shutdown-window
+            # outcome, not a server fault — 503, never a 500
+            self._json({"error": str(e)}, code=503,
+                       extra=(("Retry-After", self._srv.retry_after(served)),))
+        except (ValueError, ModelLoadError) as e:
+            self._json({"error": str(e)}, code=400)
+        except Exception as e:          # noqa: BLE001 — never a traceback
+            log.exception("serving[%s]: %s failed", name, verb)
+            self._json({"error": f"{type(e).__name__}: {e}"}, code=500)
+
+    def _kv(self, name: str, verb: str):
+        """POST /v1/models/{name}/kv/export — JSON {"prompt": [ids...]}
+        answered with the framed page-transfer blob (octet-stream);
+        POST /v1/models/{name}/kv/import — a blob produced by export,
+        landed into this server's prefix cache. A corrupt or truncated
+        blob is a clean 400 (kvfabric verifies before any pool write)."""
+        served = self._served_or_reply(name)
+        if served is None:
+            return
+        try:
+            if not hasattr(served, "export_prefix"):
+                raise ValueError(
+                    f"model {name!r} is a predict servable; the KV "
+                    "fabric needs an LM deployed via --lm / deploy_lm")
+            if verb == "export":
+                payload = json.loads(self._body() or b"{}")
+                if not isinstance(payload, dict) or "prompt" not in payload:
+                    raise ValueError('JSON body must be {"prompt": [ids...]}')
+                blob = served.export_prefix(payload["prompt"])
+                self._reply(200, blob, "application/octet-stream")
+            else:
+                info = served.import_prefix(self._body())
+                self._json(dict(info, model=name))
+        except ServerOverloadedError as e:
+            self._json({"error": str(e)}, code=429,
+                       extra=(("Retry-After", self._srv.retry_after(served)),))
+        except DeadlineExceededError as e:
+            self._json({"error": str(e)}, code=504)
+        except ServerDrainingError as e:
+            self._json({"error": str(e)}, code=503,
+                       extra=(("Retry-After", self._srv.retry_after(served)),))
+        except (ValueError, TypeError) as e:
+            # kvfabric.FrameError subclasses ValueError: a corrupt or
+            # mismatched shipment is the sender's fault, not ours
+            self._json({"error": f"{type(e).__name__}: {e}"}, code=400)
+        except Exception as e:          # noqa: BLE001 — never a traceback
+            log.exception("serving[%s]: kv %s failed", name, verb)
+            self._json({"error": f"{type(e).__name__}: {e}"}, code=500)
 
     def _parse_inputs(self) -> np.ndarray:
         """Request payload -> float array: JSON {"inputs": nested lists}
@@ -388,10 +496,18 @@ class ModelServer:
 
     def __init__(self, registry: Optional[ModelRegistry] = None,
                  host: str = "127.0.0.1", port: int = 0,
-                 default_deadline_s: float = 30.0):
+                 default_deadline_s: float = 30.0, kv_role: str = "mixed"):
         self.registry = registry if registry is not None else ModelRegistry()
         self.default_deadline = float(default_deadline_s)
         self.draining = False
+        # KV-fabric disaggregation role: "prefill" servers compute KV for
+        # long prompts and ship pages, "decode" servers only serve
+        # generation, "mixed" (default) does both — published on /readyz
+        if kv_role not in KV_ROLES:
+            raise ValueError(
+                f'kv_role must be "prefill", "decode" or "mixed", '
+                f"got {kv_role!r}")
+        self.kv_role = kv_role
         self._httpd = ThreadingHTTPServer((host, port), _Handler)
         self._httpd.daemon_threads = True
         self._httpd.model_server = self          # type: ignore[attr-defined]
@@ -408,6 +524,23 @@ class ModelServer:
 
     def ready(self) -> bool:
         return not self.draining and self.registry.all_ready()
+
+    def kv_ownership(self) -> dict:
+        """Per-LM prefix-ownership advertisement for /readyz: the block
+        size plus the leading-block digests this server can serve warm
+        (device-resident or spill tier)."""
+        own = {}
+        for name in self.registry.names():
+            served = self.registry.get(name)
+            sched = getattr(served, "scheduler", None)
+            if sched is None:
+                continue
+            engine = sched.admitting_engine()
+            if engine is None or not engine.cfg.prefix_cache:
+                continue
+            own[name] = {"block": int(engine.cfg.page_size),
+                         "digests": engine.cache.ownership_digests()}
+        return own
 
     def retry_after(self, served=None) -> str:
         """Retry-After value for 429/503 from the implicated (or fullest)

@@ -199,11 +199,14 @@ def params_from_numpy(tree, device: DeviceLike = None,
     return walk(tree, template, ())
 
 
-def save_model(model, path, save_updater: bool = True, atomic: bool = True):
+def save_model(model, path, save_updater: bool = True, atomic: bool = True,
+               extra_entries: Optional[dict] = None):
     """Write a model checkpoint zip (ModelSerializer.writeModel), with
     updaterState.bin when `save_updater` and the model has an optimizer
     state. `atomic`: written to a temp file and renamed, so a kill
-    mid-save never leaves a truncated zip at `path`."""
+    mid-save never leaves a truncated zip at `path`. `extra_entries`
+    ({name: str|bytes}) adds caller entries to the archive (the
+    checkpoint manager's resilience.json)."""
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     if isinstance(model, MultiLayerNetwork):
@@ -227,6 +230,8 @@ def save_model(model, path, save_updater: bool = True, atomic: bool = True):
             if save_updater and model.opt_state is not None:
                 zf.writestr("updaterState.bin",
                             updater_state_to_bytes(model.opt_state))
+            for name, data in (extra_entries or {}).items():
+                zf.writestr(name, data)
         if atomic:
             os.replace(target, path)
     except BaseException:

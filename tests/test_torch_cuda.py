@@ -15,7 +15,11 @@ output atol 1e-4 and score rtol 1e-4; f64 score and gradients within
 1e-10, one Adam step within 1e-6 of each leaf's largest update), the
 VAE's ELBO with fixed noise and its gradients in f64 within 1e-10,
 f64 gradient checks on the card of a YOLO head and a VAE, and TinyYOLO's
-captured steps bitwise equal to its per-call steps (f32 and bf16).
+captured steps bitwise equal to its per-call steps (f32 and bf16). The
+LM serving runtime: a speculative verify bitwise equal to k+1 sequential
+decode steps, a page demoted to the host spill tier and promoted back
+bitwise equal, and an LM swap under a live stream with only 200s and the
+same tokens as runs without a swap.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -986,3 +990,141 @@ def test_tinyyolo_graph_fit_is_bitwise_the_per_call_fit(cuda):
                     assert torch.equal(a, b)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+
+
+# ------------------------------------ serving runtime: spec, spill, swap
+_SERVE_LM = ("zoo:TransformerLM?vocab_size=64&seq_length=64&n_layers=2"
+             "&n_embd=64&n_heads=2&mlp_ratio=2")
+
+
+def test_spec_verify_on_the_card_is_bitwise_sequential_steps(cuda):
+    """On the card, one k-drafted verify gives, position for position,
+    the bitwise logits of k+1 sequential decode steps of the same engine
+    state (k+1 unrolled step bodies: the same cuBLAS shapes)."""
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeConfig, DecodeEngine,
+    )
+    from deeplearning4j_tpu_torch.serving.registry import load_servable
+    net = load_servable(_SERVE_LM, device=cuda)
+    cfg = DecodeConfig(slots=4, page_size=16, prefill_buckets=(16, 64))
+    a, b = (DecodeEngine(net, cfg, name=n) for n in ("seq", "verify"))
+    try:
+        k = 4
+        prompts = [np.arange(1, 14), np.arange(5, 40) % 64]
+        slots = []
+        for p in prompts:
+            sa, sb = a.cache.admit(len(p)), b.cache.admit(len(p))
+            assert sa == sb
+            assert a.prefill(sa, p, 0.0, 0)[0] == b.prefill(sb, p, 0.0, 0)[0]
+            slots.append(sa)
+        seq, toks = [], []
+        for _ in range(k + 1):
+            tk, _, lg = a.step()
+            seq.append(lg.clone())
+            toks.append(tk.copy())
+        act = np.zeros((4,), bool)
+        drafted = np.zeros((4, k), np.int64)
+        for s in slots:
+            assert b.cache.ensure_capacity(s, k + 1)
+            act[s] = True
+            drafted[s] = [toks[i][s] for i in range(k)]
+        with torch.no_grad():
+            vlog = b._verify(b._last_tokens, act,
+                             torch.from_numpy(drafted).to(cuda),
+                             np.arange(4, dtype=np.int64))
+        for s in slots:
+            for i in range(k + 1):
+                assert torch.equal(vlog[s, i], seq[i][s]), (s, i)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_spilled_page_comes_back_bitwise_on_the_card(cuda):
+    """A retained page demoted to the host tier (extract, frame, shared
+    memory) and promoted back (pinned staging, async copy) holds the
+    bitwise K/V it held before, and the prefix decodes the same tokens."""
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeConfig, DecodeEngine,
+    )
+    from deeplearning4j_tpu_torch.serving.registry import load_servable
+    net = load_servable(_SERVE_LM, device=cuda)
+    eng = DecodeEngine(net, DecodeConfig(slots=2, page_size=16,
+                                         prefill_buckets=(16, 64),
+                                         spill_pages=8), name="spill")
+    try:
+        eng.warm()
+        prompt = np.arange(3, 36) % 64                   # 2 pages + 1
+        info = eng.admit_prompt(prompt)
+        tok0, _ = eng.prefill(info.slot, prompt, 0.0, 0)
+        eng.cache.register_prefix(info.slot, prompt)
+        pages = [int(p) for p in eng.cache.page_table[info.slot, :2]]
+        before = [(eng._kpool[:, p].clone(), eng._vpool[:, p].clone())
+                  for p in pages]
+        ref = [tok0] + [int(eng.step()[0][info.slot]) for _ in range(6)]
+        eng.release_slot(info.slot)
+        with eng.cache._lock:
+            while eng.cache._retained:
+                eng.cache._evict_locked()
+        assert eng.fabric["demoted"] == 2 and len(eng.spill) == 2
+        info = eng.admit_prompt(prompt)
+        assert info.cached_len == 32 and eng.fabric["landed"] == 2
+        for i, p in enumerate(eng.cache.page_table[info.slot, :2]):
+            assert torch.equal(eng._kpool[:, int(p)], before[i][0])
+            assert torch.equal(eng._vpool[:, int(p)], before[i][1])
+        tok = eng.prefill_chunk(info.slot, prompt, 32, 1, 0.0, 0)
+        got = [tok] + [int(eng.step()[0][info.slot]) for _ in range(6)]
+        assert got == ref
+        assert eng.request_path_first_runs == 0
+    finally:
+        eng.close()
+
+
+def test_lm_swap_under_a_live_stream_on_the_card(cuda):
+    """POST /swap while a greedy stream runs: every answer is 200, the
+    live stream's tokens are those v1 gives with no swap, and after it
+    the servable answers v2 with v2's tokens."""
+    import json
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.serving.decode import DecodeConfig
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+    registry = ModelRegistry(device=cuda)
+    registry.deploy_lm("g", _SERVE_LM, decode=DecodeConfig(
+        slots=2, page_size=16, prefill_buckets=(16, 64)))
+    server = ModelServer(registry, port=0)
+
+    def post(path, payload):
+        return urllib.request.urlopen(urllib.request.Request(
+            server.url + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"}), timeout=300)
+
+    def tokens(stream=False):
+        with post("/v1/models/g/generate", {"prompt": [1, 2, 3],
+                                            "max_tokens": 40,
+                                            "stream": stream}) as r:
+            assert r.status == 200
+            return json.loads(r.read())
+
+    try:
+        want_v1 = tokens()["tokens"]
+        r1 = post("/v1/models/g/generate", {"prompt": [1, 2, 3],
+                                            "max_tokens": 40})
+        assert r1.status == 200 and r1.headers["X-Model-Version"] == "1"
+        first = json.loads(r1.readline()[6:])
+        with post("/v1/models/g/swap",
+                  {"source": _SERVE_LM + "&seed=99"}) as sw:
+            assert sw.status == 200
+            assert json.loads(sw.read())["active"]["version"] == 2
+        rest = [json.loads(line[6:]) for line in r1
+                if line.startswith(b"data: ")]
+        r1.close()
+        assert rest[-1]["done"] and rest[-1]["version"] == 1
+        got = [first["token"]] + [e["token"] for e in rest if "token" in e]
+        assert got == want_v1
+        v2 = tokens()
+        assert v2["version"] == 2 and v2["tokens"] == tokens()["tokens"]
+        assert v2["tokens"] != want_v1
+    finally:
+        server.drain(timeout=30)

@@ -242,8 +242,10 @@ def test_variants_and_load_errors(nets):
     cfg = DecodeConfig()
     assert apply_variant(cfg, "int8").quantize == "int8"
     assert apply_variant(cfg, None) is cfg
-    with pytest.raises(ModelLoadError, match="not yet ported"):
-        apply_variant(cfg, "spec:k=4")
+    spec = apply_variant(cfg, "spec:k=4")
+    assert spec.spec_draft == "int8" and spec.spec_k == 4
+    with pytest.raises(ValueError, match="key=value"):
+        apply_variant(cfg, "spec:k4")
     with pytest.raises(ValueError):
         apply_variant(cfg, "fp4")
     with pytest.raises(ModelLoadError, match="page_size"):

@@ -157,10 +157,14 @@ def test_invalid_prompts_rejected(served_lm):
         served_lm.generate(list(range(32)), max_new_tokens=2)  # no room
     with pytest.raises(ValueError):
         served_lm.generate([1], max_new_tokens=0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        served_lm.swap(ZOO_SRC)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # a swap to another vocabulary and a rollback with no history are
+    # rejected; the servable keeps serving version 1
+    with pytest.raises(ModelLoadError, match="swap rejected"):
+        served_lm.swap(ZOO_SRC.replace("vocab_size=48", "vocab_size=40"))
+    with pytest.raises(ModelLoadError, match="no previous version"):
         served_lm.rollback()
+    assert served_lm.describe()["active_version"] == 1
+    assert len(served_lm.versions) == 1
 
 
 def test_oversubscribed_pool_stall_releases_on_cancel():
@@ -244,12 +248,12 @@ def test_chunked_prefill_parity_and_chunk_accounting(parity_lms):
 def test_chunked_and_cow_traffic_never_first_runs_on_request_path(
         parity_lms):
     """After hot, COW and chunked traffic, no program ran first for a
-    live request: warm() covered the chunk ladder, the COW copy and both
-    decode step variants."""
+    live request: warm() covered the chunk ladder, the COW copy, the
+    KV-fabric page extract and land, and both decode step variants."""
     for lm in parity_lms.values():
         eng = lm.scheduler.admitting_engine()
         assert eng.request_path_first_runs == 0
-        assert eng.warmup_runs == 2 * len(eng.prefill_buckets) + 3
+        assert eng.warmup_runs == 2 * len(eng.prefill_buckets) + 5
         assert eng.steps > 0
 
 
@@ -310,10 +314,14 @@ def test_deploy_lm_variants_and_kind_collisions():
         assert lm.describe()["decode"]["quantize"] == "int8"
         with pytest.raises(ModelLoadError, match="already deployed"):
             registry.deploy("m", ZOO_SRC, buckets=(1,))
-        with pytest.raises(ModelLoadError, match="not yet ported"):
-            registry.deploy_lm("m", ZOO_SRC)
-        with pytest.raises(ModelLoadError, match="speculative"):
-            registry.deploy_lm("s", ZOO_SRC + "@spec")
+        # redeploying the name is a rolling swap that keeps the config
+        assert registry.deploy_lm("m", ZOO_SRC) is lm
+        assert lm.describe()["active_version"] == 2
+        assert lm.scheduler.admitting_engine().cfg.quantize == "int8"
+        spec = registry.deploy_lm("s", ZOO_SRC + "@spec",
+                                  decode=DecodeConfig(slots=1, page_size=8))
+        assert spec.cfg.spec_draft == "int8"
+        assert spec.describe()["decode"]["spec"]["k"] == 4
         registry.undeploy("m", drain=False)
         registry.deploy("m", ZOO_SRC, buckets=(1,))
         with pytest.raises(ModelLoadError, match="PREDICT"):
@@ -468,14 +476,46 @@ def test_cli_build_serves_lm_beside_a_predict_model(capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--spec-draft", "int8"], "speculative"),
-    (["--spec-k", "2"], "speculative"),
-    (["--kv-spill-pages", "64"], "spill"),
-    (["--kv-role", "prefill"], "disaggregated"),
+    (["--kv-roles", "prefill,decode"], "A.14"),
+    (["--disagg-min-tokens", "64"], "A.14"),
+    (["--disagg-timeout-s", "5"], "A.14"),
+    (["--kv-spill-pages", "-1"], ">= 0"),
     (["--lm", "bad"], "NAME=SOURCE"),
 ])
 def test_cli_refuses_unported_decode_flags(flags, match):
+    """The fleet mode's KV flags (ROADMAP A.14) and malformed values
+    exit; the single-server decode flags build (next test)."""
     args = cli.build_parser().parse_args(
-        ["--lm", f"g={ZOO_SRC}", "--device", "cpu"] + flags)
+        ["--lm", f"g={ZOO_SRC}", "--device", "cpu", "--port", "0"] + flags)
     with pytest.raises(SystemExit, match=match):
         cli.build(args)
+
+
+@pytest.mark.parametrize("flags,check", [
+    (["--spec-draft", "int8"],
+     lambda g, s: g.cfg.spec_draft == "int8"
+     and g.scheduler.admitting_engine().spec_enabled),
+    (["--spec-draft", "bf16", "--spec-k", "2"],
+     lambda g, s: g.scheduler.admitting_engine().describe()["spec"]["k"]
+     == 2),
+    (["--kv-spill-pages", "64"],
+     lambda g, s: g.scheduler.admitting_engine().spill.pages == 64),
+    (["--kv-role", "prefill"], lambda g, s: s.kv_role == "prefill"),
+])
+def test_cli_builds_spec_spill_and_kv_role(flags, check):
+    """--spec-*, --kv-spill-pages and --kv-role build a DecodeConfig and
+    a server instead of exiting, and the servable generates."""
+    args = cli.build_parser().parse_args(
+        ["--lm", f"g={ZOO_SRC}", "--device", "cpu", "--port", "0",
+         "--decode-slots", "2", "--decode-page-size", "8",
+         "--prefill-buckets", "8,32"] + flags)
+    registry, server = cli.build(args)
+    try:
+        g = registry.get("g")
+        assert check(g, server)
+        doc = json.loads(_gen(server.url, {"prompt": [1, 2, 3],
+                                           "max_tokens": 4,
+                                           "stream": False}, "g").read())
+        assert len(doc["tokens"]) == 4
+    finally:
+        server.drain(timeout=10)

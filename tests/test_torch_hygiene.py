@@ -1,14 +1,16 @@
 """Standing guards of the PyTorch/CUDA port.
 
 - No file of `deeplearning4j_tpu_torch/`, nor `chip_smoke.py` or
-  `tests/test_torch_cuda.py`, imports jax, jaxlib, flax, optax, msgpack or
-  the JAX package (AST scan), and importing the serving and training
-  CLIs leaves them out of `sys.modules`.
+  `tests/test_torch_cuda.py`, imports jax, jaxlib, flax, optax, msgpack,
+  ml_dtypes (the card machine has none: bf16 KV frames travel as raw
+  int16 words) or the JAX package (AST scan), and importing the serving
+  and training CLIs leaves them out of `sys.modules`.
 - The package calls no library attention or compiler in place of its own
   kernels: no `scaled_dot_product_attention`, no `torch.compile`.
 - Entry points default to CUDA and raise without it; they never fall
-  back to the CPU (the predict and training paths, and the decode path:
-  `--lm`, `deploy_lm`).
+  back to the CPU (the predict and training paths, the decode path:
+  `--lm`, `deploy_lm`, and the swap path: `POST /swap`, a redeploy of a
+  live name, `ParallelInference` on a named device).
 """
 import ast
 import os
@@ -21,7 +23,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "deeplearning4j_tpu_torch"
-BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "msgpack",
+BANNED_ROOTS = {"jax", "jaxlib", "flax", "optax", "msgpack", "ml_dtypes",
                 "deeplearning4j_tpu"}
 BANNED_TEXT = ("scaled_dot_product_attention", "torch.compile")
 
@@ -84,6 +86,9 @@ def test_importing_the_port_pulls_in_no_jax():
             "import deeplearning4j_tpu_torch.serving.server\n"
             "import deeplearning4j_tpu_torch.serving.decode\n"
             "import deeplearning4j_tpu_torch.serving.kvcache\n"
+            "import deeplearning4j_tpu_torch.serving.kvfabric\n"
+            "import deeplearning4j_tpu_torch.parallel.inference\n"
+            "import deeplearning4j_tpu_torch.train.resilience\n"
             "import deeplearning4j_tpu_torch.serving.quantize\n"
             "import deeplearning4j_tpu_torch.util.serialization\n"
             "import deeplearning4j_tpu_torch.models.transformer\n"
@@ -158,3 +163,49 @@ def test_train_cli_defaults_to_cuda_and_never_falls_back(monkeypatch,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv)
     assert not (tmp_path / "o.zip").exists()
+
+
+def test_swap_entry_points_never_fall_back_to_the_cpu(monkeypatch):
+    """A servable deployed with the default device swaps onto CUDA: with
+    no card, `POST /swap` and a redeploy of the live name raise (the live
+    version keeps serving) — neither loads the replacement onto the CPU.
+    ParallelInference on a named CUDA device raises too."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving.registry import (
+        ModelRegistry, ServedModel,
+    )
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+    src = "zoo:TransformerLM?vocab_size=16&seq_length=8&n_layers=1" \
+          "&n_embd=16&n_heads=2"
+    net = model_by_name("TransformerLM", vocab_size=16, seq_length=8,
+                        n_layers=1, n_embd=16, n_heads=2).init(device="cpu")
+    served = ServedModel("m", net, "live", buckets=(1,))   # device None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    registry = ModelRegistry()
+    registry._models["m"] = served
+    server = ModelServer(registry, port=0)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            registry.deploy("m", src, buckets=(1,))
+        req = urllib.request.Request(
+            f"{server.url}/v1/models/m/swap",
+            data=json.dumps({"source": src}).encode(),
+            headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req, timeout=30)
+        assert e.value.code == 500
+        assert "CUDA is not available" in e.value.read().decode()
+        assert served.describe()["active_version"] == 1
+        assert served.model is net
+        served.predict(np.zeros((1, 8, 1), "float32"))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ParallelInference(net, mesh="cuda")
+    finally:
+        server.stop()
+        served.shutdown(drain=False)

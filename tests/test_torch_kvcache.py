@@ -134,12 +134,47 @@ def test_kvcache_tokenless_admit_keeps_legacy_semantics():
     assert c.free_pages() == c.pool_pages - 1
 
 
-def test_spill_tier_is_not_ported():
-    c = KVCacheState(slots=1, page_size=4, max_context=8)
-    with pytest.raises(NotImplementedError, match="spill tier"):
-        c.attach_spill(None, None, None)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        c.adopt_pages(np.arange(4), None)
+def test_spill_tier_attaches_and_pages_adopt():
+    """attach_spill wires a host tier that an eviction demotes into and
+    an admission promotes from; adopt_pages lands shipped pages as
+    retained prefix pages (idempotent), which the next admission hits."""
+    c = KVCacheState(slots=1, page_size=4, max_context=12, pool_pages=4)
+    store, landed = {}, []
+
+    class Store:
+        contains = store.__contains__
+        get = store.get
+
+        def put(self, key, payload):
+            store[key] = payload
+            return True
+
+        def drop(self, key):
+            store.pop(key, None)
+
+        def describe(self):
+            return {"resident": len(store)}
+
+    c.attach_spill(Store(), lambda page, dig: b"page%d" % page,
+                   lambda page, payload, dig: landed.append(payload))
+    t = np.arange(8)
+    a = c.admit_prompt(t)
+    c.register_prefix(a.slot, t)
+    c.release(a.slot)
+    assert c.retained_pages() == 2
+    s = c.admit(12)                       # evicts both: demoted first
+    assert len(store) == 2 and c.retained_pages() == 0
+    c.release(s)
+    a = c.admit_prompt(t)                 # promoted back from the tier
+    assert a.cached_len == 7 and len(landed) == 2
+    assert c.describe()["spill"]["promotions"] == 2
+    c.release(a.slot)
+    d = KVCacheState(slots=1, page_size=4, max_context=8)
+    lands = []
+    assert d.adopt_pages(t, lambda i, page: lands.append((i, page))) == 2
+    assert d.adopt_pages(t, lambda i, page: lands.append((i, page))) == 0
+    assert [i for i, _ in lands] == [0, 1]
+    assert d.cached_prefix_len(t) == 8 and d.retained_pages() == 2
 
 
 # ------------------------------------ operation by operation, seeded

@@ -199,8 +199,10 @@ def test_cli_build_serves_a_zoo_model(capsys):
         # the served network is the zoo one: same output in-process
         net = registry.get("tiny").model
         np.testing.assert_array_equal(y, net.output(ids).numpy())
-        with pytest.raises(ModelLoadError, match="already deployed"):
-            registry.deploy("tiny", net)
+        # redeploying the name is a version swap onto the same servable
+        served = registry.get("tiny")
+        assert registry.deploy("tiny", net, buckets=(1, 2)) is served
+        assert served.describe()["active_version"] == 2
         registry.undeploy("tiny")
         code, _, _ = _http_error(lambda: _post(
             f"{server.url}/v1/models/tiny/predict", b'{"inputs": [[0]]}'))
