@@ -220,6 +220,47 @@ result line:
              serves; bytes and ms of each. `launches_by_path` gains
              "lm_ops": flash forward > 0 (the predict servable), dQ and
              dK/dV 0.
+11. data_plane — the shard data plane (no hand-written kernel: shards,
+             the ring and the record readers are numpy in worker
+             processes). (a) 2560 seeded uint8 images (224², int labels,
+             1000 classes) written through ShardWriter (bytes and convert
+             seconds; the phase fails naming the bytes if the temporary
+             directory cannot hold them), streamed by
+             MultiProcessDataSetIterator(ShardBatchLoader(dir, 128)) with
+             the default worker count (it fails if that is 0, e.g. under
+             DL4J_CUDA_ETL_WORKERS=0) and ImagePreProcessingScaler on the
+             pipe, into ComputationGraph.fit(scan_steps=10) of the zoo's
+             ResNet50(), f32 then bf16 compute: a warm epoch, then three
+             epochs each from memory (ExistingDataSetIterator over the
+             same batches), from the ring with copy=True and with
+             copy=False, in turns: step ms, imgs/s, the train loop's wait
+             for its batches (the first chunk's apart), the ring's fetch
+             wait, the workers' decode
+             ms, host ms to stage one batch (its pinned copy), the ring's
+             bytes in /dev/shm, device busy ms and idle share (one
+             profiled epoch each from memory and the ring), peak memory,
+             and, for each ring mode, the stage that sets the pace: the
+             device unless its median step trails memory's by more than
+             memory's run-to-run spread, else the fetch wait or the
+             staging, whichever is longer a batch. (b) the train phase's token set (32
+             sequences of 2048, next-token labels one-hot uint8) as
+             shards, through the ring (2 workers) into the full-width
+             LM's fit(scan_steps=8) over 16 steps: the loss falls, the
+             parameters are bitwise those of the same batches from the
+             in-process ShardDataSetIterator, and a profiled second fit
+             runs each flash kernel n_layers times a step. (c) ResNet50
+             at 64², batch 4, cuDNN deterministic, two chunks of 3, from
+             the ring with copy=False, the ring with copy=True and
+             memory: bitwise-equal parameters and BN state for
+             scan_steps=3, accumulate_steps=2 and per-call fits without
+             prefetch. (d) `python -m deeplearning4j_tpu_torch.train
+             --dataset mnist --synthetic-data --serve-port 0` on LeNet in
+             a subprocess: 8 predicts over the socket equal the reloaded
+             output zip's output() on the card (atol 1e-5), then SIGTERM
+             drains it and it exits 0. `launches_by_path` gains
+             "data_plane": (b)'s profiled kernel events, n_layers x 16 of
+             each kernel; (a), (c) and (d) launch none (the wrappers'
+             counts).
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The second-to-last line is the kernel table
@@ -3807,6 +3848,476 @@ def lm_ops(fa, tmp):
     return {"flash_launches": launches}
 
 
+# the data_plane phase: ResNet-50 at the bench shape from uint8 shards
+# (20 batches of RESNET_BATCH), the LM from token shards, equality at the
+# parity shape, the train -> serve handoff
+DATA_IMAGES, DATA_CLASSES, DATA_K, DATA_ROUNDS = 2560, 1000, 10, 3
+DATA_PARITY_IMAGES, DATA_PARITY_BATCH = 24, 4
+HANDOFF_REQUESTS = 8
+
+
+class _EtlWaits:
+    """Listener: the train loop's wait for each chunk's batches (the
+    etl_ms fit hands to iteration_done; nonzero once a chunk)."""
+
+    def __init__(self):
+        self.etl_ms = []
+
+    def on_epoch_start(self, model, epoch):
+        pass
+
+    def on_epoch_end(self, model, epoch):
+        pass
+
+    def iteration_done(self, model, iteration, epoch, score, etl_ms=0.0,
+                       batch_size=0):
+        self.etl_ms.append(float(etl_ms))
+
+
+def _ring_counts(pipe):
+    s = pipe.stats
+    return (sum(s["batches"].values()), sum(s["decode_s"].values()),
+            s["fetch_wait_count"], s["fetch_wait_s"])
+
+
+def write_image_shards(d, n, hw, classes, seed):
+    """n seeded uint8 images (hw, hw, 3) with int class ids through the
+    port's ShardWriter, in batches of RESNET_BATCH; fails naming the
+    bytes when the directory's file system cannot hold them."""
+    import os
+    import shutil
+    from deeplearning4j_tpu_torch.data.shards import ShardWriter
+    need = n * (hw * hw * 3 + 4) + (1 << 20)
+    os.makedirs(d)
+    free = shutil.disk_usage(d).free
+    if free < need:
+        raise AssertionError(
+            f"data_plane: {d} has {free} bytes free; {n} images of "
+            f"{hw}x{hw}x3 need {need} bytes of shards")
+    rs = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+    with ShardWriter(d, shard_records=1024) as w:
+        w.num_classes = classes
+        for i in range(0, n, RESNET_BATCH):
+            m = min(RESNET_BATCH, n - i)
+            w.add_batch(rs.randint(0, 256, (m, hw, hw, 3), dtype=np.uint8),
+                        rs.randint(0, classes, m).astype(np.int32))
+    seconds = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    return size, seconds
+
+
+def data_resnet(tmp):
+    """Phase 11a: ResNet-50 at the bench shape fed from uint8 shards
+    through the multi-process ring (default worker count) into
+    ComputationGraph.fit(scan_steps=DATA_K), beside the same batches from
+    memory, f32 and bf16; the ring's copy=True and copy=False modes."""
+    import dataclasses
+    import os
+    from deeplearning4j_tpu_torch.data.async_iterator import pinned
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.normalization import (
+        ImagePreProcessingScaler,
+    )
+    from deeplearning4j_tpu_torch.data.pipeline import (
+        MultiProcessDataSetIterator, ShardBatchLoader, etl_workers,
+    )
+    from deeplearning4j_tpu_torch.data.shards import ShardDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    if etl_workers(DATA_IMAGES) == 0:
+        raise AssertionError(
+            "data_plane: the ETL ring resolves to 0 workers "
+            "(DL4J_CUDA_ETL_WORKERS=0 or too few cpus); the in-process "
+            "path is not measured under the ring's name")
+    d = os.path.join(tmp, "images")
+    shard_bytes, convert_s = write_image_shards(
+        d, DATA_IMAGES, RESNET_HW, DATA_CLASSES, 4242)
+    steps = DATA_IMAGES // RESNET_BATCH
+    t0 = time.perf_counter()
+    memory = [DataSet(np.array(b.features), np.array(b.labels))
+              for b in ShardDataSetIterator(d, RESNET_BATCH)]
+    load_s = time.perf_counter() - t0
+    mem_it = ExistingDataSetIterator(memory).set_pre_processor(
+        ImagePreProcessingScaler())
+    pin = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        pinned(memory[0].features)
+        pinned(memory[0].labels)
+        pin.append((time.perf_counter() - t0) * 1e3)
+    staging_ms = statistics.median(pin)
+    shm_free = os.statvfs("/dev/shm").f_bavail * os.statvfs(
+        "/dev/shm").f_frsize if os.path.isdir("/dev/shm") else None
+    pipe = MultiProcessDataSetIterator(
+        ShardBatchLoader(d, RESNET_BATCH, num_classes=DATA_CLASSES))
+    pipe.set_pre_processor(ImagePreProcessingScaler())
+    rows = {}
+    try:
+        for compute_dtype in (None, "bfloat16"):
+            conf = ResNet50().conf()
+            if compute_dtype is not None:
+                conf = dataclasses.replace(conf, compute_dtype=compute_dtype)
+            net = ComputationGraph(conf).init()
+            waits = _EtlWaits()
+            net.set_listeners(waits)
+
+            def epoch(it):
+                n0 = len(waits.etl_ms)
+                c0 = _ring_counts(pipe)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net.fit(it, scan_steps=DATA_K)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                c1 = _ring_counts(pipe)
+                chunk_waits = [w for w in waits.etl_ms[n0:] if w > 0]
+                return {"ms": ms, "consumer_wait_ms": sum(waits.etl_ms[n0:]),
+                        "first_chunk_wait_ms": chunk_waits[0]
+                        if chunk_waits else 0.0,
+                        "ring_batches": c1[0] - c0[0],
+                        "worker_decode_s": c1[1] - c0[1],
+                        "ring_fetch_waits": c1[2] - c0[2],
+                        "ring_fetch_wait_s": c1[3] - c0[3]}
+
+            torch.cuda.reset_peak_memory_stats()
+            warm = {"memory": epoch(mem_it), "ring": epoch(pipe)}
+            runs = {"memory": [], "ring_copy": [], "ring_view": []}
+            for _ in range(DATA_ROUNDS):
+                runs["memory"].append(epoch(mem_it))
+                pipe._copy = True
+                runs["ring_copy"].append(epoch(pipe))
+                pipe._copy = False
+                runs["ring_view"].append(epoch(pipe))
+                pipe._copy = True
+            peak = torch.cuda.max_memory_allocated()
+            prof = {"memory": launch_profile(
+                lambda: net.fit(mem_it, scan_steps=DATA_K), steps),
+                "ring_copy": launch_profile(
+                lambda: net.fit(pipe, scan_steps=DATA_K), steps)}
+            if any(r["ring_batches"] != steps for k in ("ring_copy",
+                                                        "ring_view")
+                   for r in runs[k]):
+                raise AssertionError(f"data_plane: ring batches {runs}")
+            step = {k: [r["ms"] / steps for r in v] for k, v in runs.items()}
+            median = {k: statistics.median(v) for k, v in step.items()}
+            # the run-to-run spread of the memory feed; a ring mode is
+            # slower when its median trails memory's by more than that
+            spread = max(step["memory"]) - min(step["memory"])
+            slower = {k: median[k] - median["memory"] > spread
+                      for k in ("ring_copy", "ring_view")}
+            fetch_ms = {k: 1e3 * sum(r["ring_fetch_wait_s"] for r in runs[k])
+                        / (DATA_ROUNDS * steps)
+                        for k in ("ring_copy", "ring_view")}
+            pace = {k: "device" if not slower[k] else "fetch_wait"
+                    if fetch_ms[k] >= staging_ms else "staging"
+                    for k in slower}
+            dtype = compute_dtype or "float32"
+            rows[dtype] = {
+                "step_ms": step, "step_ms_median": median,
+                "memory_spread_ms": spread,
+                "imgs_per_s": {k: RESNET_BATCH / (v / 1e3)
+                               for k, v in median.items()},
+                "ring_over_memory": {k: median[k] / median["memory"]
+                                     for k in slower},
+                "first_chunk_wait_ms": {
+                    k: statistics.median(r["first_chunk_wait_ms"] for r in v)
+                    for k, v in runs.items()},
+                "warm_epoch": warm, "epochs": runs,
+                "consumer_wait_ms_per_step": {
+                    k: statistics.median(r["consumer_wait_ms"] for r in v)
+                    / steps for k, v in runs.items()},
+                "ring_fetch_wait_ms_mean": fetch_ms,
+                "worker_decode_ms_per_batch": 1e3 * sum(
+                    r["worker_decode_s"] for k in fetch_ms for r in runs[k])
+                    / (2 * DATA_ROUNDS * steps),
+                "ring_slower_than_memory": slower, "pace_set_by": pace,
+                "peak_memory_bytes": peak,
+                "profile": {k: {m: v[m] for m in (
+                    "device_busy_ms_per_step", "idle_share",
+                    "host_launch_calls_per_step", "graph_launches_per_step")
+                    if m in v} for k, v in prof.items()},
+                "score": net.score()}
+            if not np.isfinite(net.score()):
+                raise AssertionError(f"data_plane {dtype}: {rows[dtype]}")
+            del net
+            torch.cuda.empty_cache()
+        workers = dict(pipe.stats["batches"])
+        ring_bytes = pipe.ring_bytes
+        n_workers = pipe.num_workers
+    finally:
+        pipe.close()
+    if n_workers < 1 or not workers or "inproc" in workers:
+        raise AssertionError(f"data_plane: ring workers {workers}")
+    return {"images": DATA_IMAGES, "batch": RESNET_BATCH,
+            "image": [RESNET_HW, RESNET_HW, 3], "shard_bytes": shard_bytes,
+            "convert_s": convert_s, "load_to_memory_s": load_s,
+            "workers": n_workers, "batches_by_worker": workers,
+            "ring_slots": pipe._slots_n, "ring_bytes_dev_shm": ring_bytes,
+            "dev_shm_free_bytes": shm_free,
+            "staging_ms_per_batch": staging_ms,
+            "batch_bytes": memory[0].features.nbytes
+            + memory[0].labels.nbytes, **rows}
+
+
+def data_lm(fa, tmp):
+    """Phase 11b: the full-width LM from token shards (the train phase's
+    set: TRAIN_SEQS sequences of SEQ, next-token labels one-hot uint8)
+    through the ring into fit(scan_steps=LM_SCAN_K) over LM_SCAN_STEPS
+    steps: the loss falls, the parameters are bitwise those of the same
+    batches from the in-process ShardDataSetIterator, and a profiled
+    second fit runs each flash kernel n_layers times a step."""
+    import os
+    from deeplearning4j_tpu_torch.data.pipeline import (
+        MultiProcessDataSetIterator, ShardBatchLoader,
+    )
+    from deeplearning4j_tpu_torch.data.shards import (
+        ShardDataSetIterator, ShardWriter,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.registry import parse_zoo_source
+    from deeplearning4j_tpu_torch.train.listeners import (
+        CollectScoresIterationListener,
+    )
+    rs = np.random.RandomState(1234)
+    features, labels = write_tokens(os.path.join(tmp, "tokens.npz"), rs)
+    d = os.path.join(tmp, "tokens")
+    t0 = time.perf_counter()
+    with ShardWriter(d, shard_records=16) as w:
+        w.add_batch(features, labels)
+    convert_s = time.perf_counter() - t0
+    epochs = LM_SCAN_STEPS * TRAIN_BATCH // TRAIN_SEQS
+    name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
+    nets = [model_by_name(name, **kw).init() for _ in range(2)]
+    if not _bitwise(nets[0].params, nets[1].params):
+        raise AssertionError("data_plane: two inits of the LM differ")
+    scores = CollectScoresIterationListener()
+    nets[0].set_listeners(scores)
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    with MultiProcessDataSetIterator(ShardBatchLoader(d, TRAIN_BATCH),
+                                     num_workers=2) as pipe:
+        t0 = time.perf_counter()
+        nets[0].fit(pipe, epochs=epochs, scan_steps=LM_SCAN_K)
+        torch.cuda.synchronize()
+        ring_fit_s = time.perf_counter() - t0
+        wrapper = dict(fa.KERNEL_LAUNCHES)
+        nets[1].fit(ShardDataSetIterator(d, TRAIN_BATCH), epochs=epochs,
+                    scan_steps=LM_SCAN_K)
+        bitwise = _bitwise(nets[0].params, nets[1].params)
+        del nets[1]
+        torch.cuda.empty_cache()
+        prof = launch_profile(lambda: nets[0].fit(
+            pipe, epochs=epochs, scan_steps=LM_SCAN_K), LM_SCAN_STEPS)
+        ring_batches = sum(pipe.stats["batches"].values())
+        workers = sorted(pipe.stats["batches"])
+    flash = prof.get("flash_kernels_per_step", {})
+    launches = {k: int(round(flash.get(k, 0) * LM_SCAN_STEPS))
+                for k in KERNELS}
+    losses = [s for _, s in scores.scores]
+    ok = bool(bitwise and len(losses) == 2 * LM_SCAN_STEPS
+              and losses[LM_SCAN_STEPS - 1] < losses[0]
+              and all(np.isfinite(losses))
+              and all(flash.get(k) == N_LAYERS for k in KERNELS)
+              and all(wrapper[k] > 0 for k in KERNELS)
+              and ring_batches == 2 * LM_SCAN_STEPS and workers == ["0", "1"])
+    row = {"sequences": TRAIN_SEQS, "seq": SEQ, "batch": TRAIN_BATCH,
+           "record_bytes": features[0].nbytes + labels[0].nbytes,
+           "convert_s": convert_s, "steps": LM_SCAN_STEPS,
+           "ring_fit_s": ring_fit_s, "loss_first_last":
+           [losses[0], losses[LM_SCAN_STEPS - 1]] if losses else None,
+           "bitwise_in_process": bitwise, "wrapper_counts_fit": wrapper,
+           "flash_kernels_per_step": flash, "launches": launches,
+           "step_profile": {m: prof[m] for m in (
+               "device_busy_ms_per_step", "idle_share", "wall_ms")
+               if m in prof}, "ok": ok}
+    del nets
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"data_plane LM: {row}")
+    return row
+
+
+def data_equality(tmp):
+    """Phase 11c: ResNet50 at RESNET_PARITY, batch 4, two chunks of 3,
+    cuDNN deterministic, fed from the ring with copy=False, the ring with
+    copy=True and memory: bitwise-equal parameters and BN state for
+    scan_steps=3, accumulate_steps=2 and per-call fits without
+    prefetch."""
+    import os
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.normalization import (
+        ImagePreProcessingScaler,
+    )
+    from deeplearning4j_tpu_torch.data.pipeline import (
+        MultiProcessDataSetIterator, ShardBatchLoader,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    hw = RESNET_PARITY["input_shape"][0]
+    n, b = DATA_PARITY_IMAGES, DATA_PARITY_BATCH
+    d = os.path.join(tmp, "parity")
+    write_image_shards(d, n, hw, RESNET_PARITY["num_classes"], 77)
+    from deeplearning4j_tpu_torch.data.shards import ShardDataSetIterator
+    memory = [DataSet(np.array(x.features), np.array(x.labels))
+              for x in ShardDataSetIterator(d, b)]
+    path = save_model(ComputationGraph(ResNet50(**RESNET_PARITY).conf(),
+                                       device="cpu").init(),
+                      os.path.join(tmp, "parity.zip"))
+    rings = {c: MultiProcessDataSetIterator(ShardBatchLoader(d, b),
+                                            num_workers=2, copy=c)
+             for c in (False, True)}
+    for r in rings.values():
+        r.set_pre_processor(ImagePreProcessingScaler())
+    deterministic = torch.backends.cudnn.deterministic
+    saved_prefetch = os.environ.get("DL4J_CUDA_FIT_PREFETCH")
+    out = {}
+    try:
+        torch.backends.cudnn.deterministic = True
+        for mode, kw in (("scan3", {"scan_steps": 3}),
+                         ("accumulate2", {"accumulate_steps": 2}),
+                         ("per_call_no_prefetch", {})):
+            if mode == "per_call_no_prefetch":
+                os.environ["DL4J_CUDA_FIT_PREFETCH"] = "0"
+            nets = {}
+            for source in ("ring_view", "ring_copy", "memory"):
+                it = rings[source == "ring_copy"] if source != "memory" \
+                    else ExistingDataSetIterator(memory).set_pre_processor(
+                        ImagePreProcessingScaler())
+                net = load_model(path)
+                net.fit(it, **kw)
+                nets[source] = net
+            ref = nets["memory"]
+            out[mode] = {s: bool(_bitwise(n_.params, ref.params)
+                                 and _bitwise(n_.state, ref.state))
+                         for s, n_ in nets.items() if s != "memory"}
+            out[mode]["iterations"] = ref.iteration_count
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if saved_prefetch is None:
+            os.environ.pop("DL4J_CUDA_FIT_PREFETCH", None)
+        else:
+            os.environ["DL4J_CUDA_FIT_PREFETCH"] = saved_prefetch
+        modes = {c: r._copy for c, r in rings.items()}
+        for r in rings.values():
+            r.close()
+    out["ring_modes_restored"] = modes == {False: False, True: True}
+    out["ok"] = bool(out["ring_modes_restored"] and all(
+        v["ring_view"] and v["ring_copy"] for k, v in out.items()
+        if isinstance(v, dict)))
+    if not out["ok"]:
+        raise AssertionError(f"data_plane equality: {out}")
+    return out
+
+
+def data_handoff(tmp):
+    """Phase 11d: `python -m deeplearning4j_tpu_torch.train --dataset
+    mnist --synthetic-data --mode single --serve-port 0` on LeNet in a
+    subprocess; HANDOFF_REQUESTS predicts over the socket equal the
+    reloaded output zip's output() on the card (atol 1e-5: batches padded
+    to the serving buckets), then SIGTERM drains it and it exits 0."""
+    import os
+    import signal
+    from deeplearning4j_tpu_torch.models.zoo import LeNet
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    src, out = os.path.join(tmp, "lenet.zip"), os.path.join(tmp, "served.zip")
+    save_model(LeNet().init(), src)
+    cache = os.path.join(tmp, "handoff-datasets")
+    os.makedirs(cache)
+    env = dict(os.environ, DL4J_CUDA_DATA_DIR=cache)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.train", "--model",
+         src, "--output", out, "--dataset", "mnist", "--synthetic-data",
+         "--mode", "single", "--batch-size", str(MNIST_BATCH),
+         "--serve-port", "0", "--serve-buckets", "1,8"],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    lines, announced = [], threading.Event()
+
+    def read_stderr():
+        for line in proc.stderr:
+            lines.append(line)
+            if line.startswith('{"serving"'):
+                announced.set()
+    threading.Thread(target=read_stderr, daemon=True).start()
+    try:
+        if not announced.wait(300):
+            raise AssertionError("data_plane handoff: no serving line; "
+                                 + "".join(lines[-20:]))
+        serve_after_s = time.perf_counter() - t0
+        info = json.loads(next(x for x in lines
+                               if x.startswith('{"serving"')))
+        url = info["serving"] + info["predict"]
+        net = load_model(out)
+        rs = np.random.RandomState(8)
+        errs, lat = [], []
+        for i in range(HANDOFF_REQUESTS):
+            x = rs.rand(1 + i % 8, 28, 28, 1).astype(np.float32)
+            status, y, ms = post_npy(url, x)
+            lat.append(ms)
+            if status != 200:
+                raise AssertionError(f"data_plane handoff: HTTP {status}")
+            want = net.output(x).float().cpu().numpy()
+            errs.append(float(np.abs(y - want).max()) if y.shape
+                        == want.shape else float("inf"))
+        proc.send_signal(signal.SIGTERM)
+        stdout, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    result = json.loads(stdout.strip().splitlines()[-1])
+    row = {"requests": HANDOFF_REQUESTS, "max_abs_err": max(errs),
+           "predict_ms": lat, "serving_after_s": serve_after_s,
+           "exit_code": proc.returncode, "cli_result": result,
+           "ok": bool(proc.returncode == 0 and max(errs) <= 1e-5
+                      and result["iterations"] == 2048 // MNIST_BATCH)}
+    if not row["ok"]:
+        raise AssertionError(f"data_plane handoff: {row}"
+                             + "".join(lines[-20:]))
+    return row
+
+
+def data_plane(fa, tmp):
+    """Phase 11: the shard data plane, each part's kernel counts from
+    zero: (a) and (c) and (d) launch no flash kernel, (b) each one
+    n_layers times a step."""
+    t0 = time.perf_counter()
+    zero = {k: 0 for k in KERNELS}
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    resnet_rows = data_resnet(tmp)
+    after_a = dict(fa.KERNEL_LAUNCHES)
+    lm = data_lm(fa, tmp)
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    equality = data_equality(tmp)
+    handoff = data_handoff(tmp)
+    after_cd = dict(fa.KERNEL_LAUNCHES)
+    row = {"phase": "data_plane", "gpu": gpu_line(),
+           "seconds": time.perf_counter() - t0, "resnet": resnet_rows,
+           "lm": lm, "equality": equality, "handoff": handoff,
+           "flash_launches_resnet": after_a,
+           "flash_launches_equality_handoff": after_cd,
+           "flash_launches_lm": lm["launches"]}
+    emit(row)
+    if after_a != zero or after_cd != zero:
+        raise AssertionError(f"data_plane: flash launches off the LM path "
+                             f"{after_a} {after_cd}")
+    return {"flash_launches": lm["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3859,6 +4370,8 @@ def main(argv=None) -> int:
         zoo_run = zoo(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         lm_ops_run = lm_ops(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_run = data_plane(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -3874,7 +4387,9 @@ def main(argv=None) -> int:
                              "rnn": rnn_run["flash_launches"]["flash_fwd"],
                              "zoo": zoo_run["flash_launches"]["flash_fwd"],
                              "lm_ops":
-                                 lm_ops_run["flash_launches"]["flash_fwd"]},
+                                 lm_ops_run["flash_launches"]["flash_fwd"],
+                             "data_plane":
+                                 data_run["flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3896,7 +4411,9 @@ def main(argv=None) -> int:
                                  "rnn": rnn_run["flash_launches"][name],
                                  "zoo": zoo_run["flash_launches"][name],
                                  "lm_ops":
-                                     lm_ops_run["flash_launches"][name]},
+                                     lm_ops_run["flash_launches"][name],
+                                 "data_plane":
+                                     data_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

@@ -26,6 +26,7 @@ from typing import Optional
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
 from deeplearning4j_tpu_torch.util.env import env_str
 
@@ -201,6 +202,13 @@ class IrisDataSetIterator(ArrayDataSetIterator):
             idx = np.random.RandomState(shuffle_seed).permutation(len(X))
             X, Y = X[idx], Y[idx]
         super().__init__(X, Y, batch_size=batch_size)
+
+
+def iris_dataset() -> DataSet:
+    """The whole iris set as one DataSet, in the file's order (150 rows,
+    one-hot labels)."""
+    X, Y = _iris_arrays()
+    return DataSet(X.copy(), Y.copy())
 
 
 # ----------------------------------------------------------------------- UCI

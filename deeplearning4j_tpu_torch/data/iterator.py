@@ -1,9 +1,9 @@
 """DataSet iterators.
 
-A copy of the first part of the JAX package's `data/iterator.py` (numpy
-only): DL4J's DataSetIterator contract (reset, iteration with batching)
-as Python iterables with an explicit reset(), and the two in-memory
-iterators. The asynchronous prefetching wrapper is in
+A copy of the JAX package's `data/iterator.py` (numpy only): DL4J's
+DataSetIterator contract (reset, iteration with batching) as Python
+iterables with an explicit reset(), the two in-memory iterators and
+BenchmarkDataSetIterator. The asynchronous prefetching wrapper is in
 `data/async_iterator.py`; `fit` wraps a source in it by default.
 """
 from __future__ import annotations
@@ -101,3 +101,36 @@ class ExistingDataSetIterator(DataSetIterator):
 
     def batch_size(self):
         return self._datasets[0].num_examples() if self._datasets else None
+
+
+class BenchmarkDataSetIterator(DataSetIterator):
+    """Yields the same cached batch N times — measures ETL-free training
+    speed. Both reference constructors (BenchmarkDataSetIterator.java):
+        BenchmarkDataSetIterator(dataset, iterations)
+        BenchmarkDataSetIterator(feature_shape, n_labels=C, n_batches=N)
+    the latter materializes one synthetic batch up front."""
+
+    def __init__(self, dataset=None, iterations: int = 100, *,
+                 feature_shape=None, n_labels: int = 0,
+                 n_batches: Optional[int] = None, seed: int = 0):
+        if dataset is not None and not isinstance(dataset, DataSet):
+            # positional feature-shape form: (shape_tuple, n_labels=, ...)
+            feature_shape, dataset = tuple(dataset), None
+        if dataset is None:
+            if feature_shape is None or n_labels <= 0:
+                raise ValueError(
+                    "provide a DataSet or feature_shape + n_labels")
+            rs = np.random.RandomState(seed)
+            feats = rs.rand(*feature_shape).astype("float32")
+            labels = np.eye(n_labels, dtype="float32")[
+                rs.randint(0, n_labels, feature_shape[0])]
+            dataset = DataSet(feats, labels)
+        self._ds = dataset
+        self._iters = int(n_batches if n_batches is not None else iterations)
+
+    def __iter__(self):
+        for _ in range(self._iters):
+            yield self._pp(self._ds)
+
+    def batch_size(self):
+        return self._ds.num_examples()

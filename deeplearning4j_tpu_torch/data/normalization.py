@@ -75,6 +75,9 @@ def engage_device_affine(iterator):
             if aff is None:
                 return None, None, None
             it.pre_processor = None
+            # marker for the raw-uint8 warning of data/records.py: the
+            # features are still normalized, on the device
+            it._device_affine_active = True
             return it, pp, aff
         it = getattr(it, "_source", None)
     return None, None, None
@@ -102,6 +105,7 @@ def engaged_device_affine(iterator, listeners=()):
         yield aff
     finally:
         owner.pre_processor = pp
+        owner._device_affine_active = False
 
 
 class _Welford:

@@ -40,6 +40,7 @@ from deeplearning4j_tpu_torch.data.async_iterator import (
     fit_prefetch_enabled, prefetch_to_device,
 )
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.data.pipeline import restore_view_batches
 from deeplearning4j_tpu_torch.data.normalization import engaged_device_affine
 from deeplearning4j_tpu_torch.nn.conf.base import (
     InputType, Kind, LayerConf, preprocess_forward, preprocessed_type,
@@ -421,6 +422,9 @@ class ComputationGraph(TrainableNet):
         scan_steps = self._fit_modes(scan_steps, accumulate_steps, plan)
         with engaged_device_affine(data, self.listeners) as aff:
             self._set_input_affine(aff)
+            copy_marked = self._own_held_batches(
+                data, self.device, self._prefetches(data), scan_steps,
+                accumulate_steps)
             try:
                 for _ in range(epochs):
                     for lst in self.listeners:
@@ -434,14 +438,19 @@ class ComputationGraph(TrainableNet):
                         data.reset()
             finally:
                 self._input_affine = None
+                restore_view_batches(copy_marked)
         return self
+
+    @staticmethod
+    def _prefetches(data) -> bool:
+        return fit_prefetch_enabled() \
+            and getattr(data, "async_supported", True) is not False
 
     def _mds_stream(self, data):
         """One epoch's MultiDataSets, staged onto the device by a prefetch
         thread (ids range-checked there first), unless prefetch is off or
         the source is not async_supported."""
-        if not fit_prefetch_enabled() \
-                or getattr(data, "async_supported", True) is False:
+        if not self._prefetches(data):
             return self._iter_data(data)
         return prefetch_to_device(
             self._iter_data(data), self.device,

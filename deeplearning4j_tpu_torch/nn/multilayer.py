@@ -49,6 +49,9 @@ from deeplearning4j_tpu_torch.data.iterator import (
 from deeplearning4j_tpu_torch.data.normalization import (
     apply_device_affine, engaged_device_affine,
 )
+from deeplearning4j_tpu_torch.data.pipeline import (
+    mark_copy_for_stacking, restore_view_batches,
+)
 from deeplearning4j_tpu_torch.nn import step_graph
 from deeplearning4j_tpu_torch.nn.conf.base import (
     InputType, Kind, LayerConf, RandomTape, preprocess_forward,
@@ -62,6 +65,7 @@ from deeplearning4j_tpu_torch.nn.updaters import (
     NoOp, apply_updates, build_optimizer, multi_transform, tree_leaves,
     tree_map,
 )
+from deeplearning4j_tpu_torch.util import params as param_util
 from deeplearning4j_tpu_torch.util.platform import (
     DeviceLike, resolve_device, set_f32_matmul_exact,
 )
@@ -259,6 +263,19 @@ class TrainableNet:
         self._input_affine = None
         self._affine_held = None
         self._dropout_gen = None
+
+    def _own_held_batches(self, source, staging_device, staged: bool,
+                          scan_steps: int, accumulate_steps: int) -> list:
+        """Flip the view-batch sources of `source` (`data/pipeline.py`,
+        copy=False) to copies when this fit holds a batch past its next
+        pull (`step_graph.holds_batches`); returns them for
+        `restore_view_batches`."""
+        chunked = accumulate_steps > 1 or (
+            scan_steps > 1 and self.conf.backprop_type != "tbptt"
+            and not step_graph.scan_incompatible_listeners(self.listeners))
+        if not step_graph.holds_batches(staging_device, staged, chunked):
+            return []
+        return mark_copy_for_stacking(source)
 
     def _drop_graphs(self):
         """Captured steps read the tensors they were captured with: a
@@ -588,13 +605,15 @@ class MultiLayerNetwork(TrainableNet):
         return as_mask(m, self.device)
 
     def _forward(self, params, state, x, train: bool, generator=None,
-                 fmask=None, upto: Optional[int] = None, carries=None):
+                 fmask=None, upto: Optional[int] = None, carries=None,
+                 collect: bool = False):
         """Forward through layers [0, upto) (all by default) with the auto
         preprocessors; RNN-kind layers get the features mask. When `upto`
         stops before the head, the activation is preprocessed into the
         head's kind, ready for head.score(). With `carries` (a dict by
         layer key; {} is the zero state), the recurrent layers run
-        `apply_seq` from their carry. Returns (activation, new state, new
+        `apply_seq` from their carry. Returns (activation, or every
+        layer's activation in order with `collect`, new state, new
         carries)."""
         if self._input_types is None:
             self._input_types = self._resolve_types()
@@ -603,6 +622,7 @@ class MultiLayerNetwork(TrainableNet):
         n = len(self.layers) if upto is None else upto
         new_state = dict(state)
         new_carries = {}
+        acts = []
         for i, layer in enumerate(self.layers[:n]):
             key = str(i)
             need = _required_kind(layer)
@@ -623,11 +643,13 @@ class MultiLayerNetwork(TrainableNet):
                     layer, layer_params, state[key], x, train=train,
                     mask=mask, generator=generator, remat=remat)
             cur_type = layer.output_type(cur_type)
+            if collect:
+                acts.append(x)
         if upto is not None and upto < len(self.layers):
             need = _required_kind(self.layers[upto])
             if need is not None and cur_type.kind != need:
                 x = preprocess_forward(cur_type, need, x)
-        return x, new_state, new_carries
+        return (acts if collect else x), new_state, new_carries
 
     def _score_fn(self, params, state, x, y, fmask, lmask, train: bool,
                   generator=None, carries=None):
@@ -665,6 +687,24 @@ class MultiLayerNetwork(TrainableNet):
             y, _, _ = self._forward(self.params, self.state,
                                     self._as_input(x), False)
         return y
+
+    def feed_forward(self, x, train: bool = False, rng=None):
+        """Every layer's activation, in order (DL4J feedForward()). With
+        train=True the dropout noise comes from `rng`, a torch.Generator
+        on the network's device; without one, each call draws from a
+        fresh generator (seeded from the config's seed and a call
+        counter), so repeated calls do not reuse one mask."""
+        if self.params is None:
+            raise RuntimeError("Network is not initialized — call init() first")
+        if train and rng is None:
+            self._ff_counter = getattr(self, "_ff_counter", 0) + 1
+            rng = torch.Generator(device=self.device).manual_seed(
+                self.conf.seed + 15485863 * self._ff_counter)
+        with torch.no_grad():
+            acts, _, _ = self._forward(self.params, self.state,
+                                       self._as_input(x), train,
+                                       rng if train else None, collect=True)
+        return acts
 
     # ----------------------------------------------------------------- fit
     @staticmethod
@@ -760,6 +800,11 @@ class MultiLayerNetwork(TrainableNet):
                     and getattr(iterator, "async_supported", True):
                 iterator = AsyncDataSetIterator(iterator, device=self.device,
                                                 check=self._check_ids)
+            staged = isinstance(iterator, AsyncDataSetIterator) \
+                and not iterator._passthrough
+            copy_marked = self._own_held_batches(
+                iterator, iterator._device if staged else self.device,
+                staged, scan_steps, accumulate_steps)
             try:
                 for _ in range(epochs):
                     for lst in self.listeners:
@@ -772,6 +817,7 @@ class MultiLayerNetwork(TrainableNet):
                     iterator.reset()
             finally:
                 self._input_affine = None
+                restore_view_batches(copy_marked)
         return self
 
     def fit_pretrain(self, data, epochs: int = 1, batch_size: int = 32):
@@ -872,11 +918,36 @@ class MultiLayerNetwork(TrainableNet):
     def rnn_clear_previous_state(self):
         self._rnn_carries = {}
 
+    def summary(self) -> str:
+        """Layer table: index, type, input and output shapes, parameter
+        count, and the total (MultiLayerNetwork.summary())."""
+        if self.params is None:
+            raise RuntimeError("init() the network before summary()")
+        types = self._input_types or self._resolve_types()
+        rows = [("idx", "type", "in", "out", "params")]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            in_t = types[i]
+            out_t = layer.output_type(in_t)
+            n = param_util.num_params(self.params[str(i)])
+            total += n
+            rows.append((str(i), type(layer).__name__,
+                         "x".join(map(str, in_t.shape)),
+                         "x".join(map(str, out_t.shape)), f"{n:,}"))
+        return param_util.format_param_table(rows, total)
+
     def num_params(self) -> int:
-        def count(t):
-            return sum(count(v) for v in t.values()) if isinstance(t, dict) \
-                else t.numel()
-        return count(self.params or {})
+        return param_util.num_params(self.params or {})
+
+    def params_flat(self) -> torch.Tensor:
+        """Canonical flat parameter vector (DL4J's flattenedParams view),
+        in the reference's leaf order."""
+        return param_util.params_to_flat(self.params)
+
+    def set_params_flat(self, flat):
+        """Load a flat vector in `params_flat`'s order."""
+        self.params = param_util.flat_to_params(flat, self.params)
+        self._drop_graphs()
 
     def copy(self) -> "MultiLayerNetwork":
         """A network of the same configuration on the same device, with

@@ -54,6 +54,19 @@ def default_scan_steps() -> int:
     return env_int("DL4J_CUDA_SCAN_STEPS", 1)
 
 
+def holds_batches(device, prefetch: bool, chunked: bool) -> bool:
+    """Whether a fit holds a source's batch past its next pull, so a ring
+    of view batches (`data/pipeline.py`, copy=False) must yield copies
+    for it (`mark_copy_for_stacking`). On CUDA the prefetch thread makes
+    a pinned host copy of each batch before it pulls the next, and a
+    per-call step is done with its batch before the next pull; the
+    chunked paths without prefetch hold K host batches, and on the CPU
+    the prefetch queue holds host batches themselves."""
+    if prefetch and torch.device(device).type == "cuda":
+        return False
+    return prefetch or chunked
+
+
 def scan_incompatible_listeners(listeners) -> bool:
     """Listeners that read the model or capture gradients need
     iteration_done in lockstep with the params; the chunked fit delivers

@@ -245,3 +245,9 @@ class ShapeBucketedBatcher:
         self._stop.set()
         self._draining.set()
         self._worker.join(timeout=5)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()

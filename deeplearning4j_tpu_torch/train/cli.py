@@ -19,10 +19,13 @@ data parallelism, which over one worker is the same plain fit, so it runs
 that when exactly one worker is visible. The fit takes `fit`'s own
 defaults, as the reference's CLI does: prefetch on (DL4J_CUDA_FIT_PREFETCH,
 DL4J_CUDA_PREFETCH_DEPTH) and DL4J_CUDA_SCAN_STEPS steps a chunk (default
-1, per-call). Every flag of a part not yet
-ported (more than one worker, `averaging`, checkpoints and resume, the
-dashboard, telemetry, the serve handoff, sharding plans) stops the run
-with "not yet ported"; none is ignored.
+1, per-call). `--serve-port` hands the trained network to a
+`ModelServer` on that port (0 picks a free one) with `--serve-buckets`,
+prints ``{"serving": url, "predict": path}`` on stderr after the result
+line, and serves until SIGTERM or SIGINT, which drain it; the run then
+exits 0. Every flag of a part not yet ported (more than one worker,
+`averaging`, checkpoints and resume, the dashboard, telemetry, sharding
+plans) stops the run with "not yet ported"; none is ignored.
 
 `--dataset` takes `mnist`, `emnist` and `cifar10` (read from the
 fetchers' cache, `data/fetchers.py`; a missing cache fails the run
@@ -46,7 +49,6 @@ _UNPORTED_FLAGS = (
     ("metrics", "--metrics", "telemetry"),
     ("trace_out", "--trace-out", "telemetry"),
     ("perf_ledger", "--perf-ledger", "telemetry"),
-    ("serve_port", "--serve-port", "serving handoff"),
     ("mesh", "--mesh", "parallel"),
 )
 
@@ -96,8 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--perf-ledger", default=None, metavar="PATH",
                    help="compiled-program ledger (not yet ported)")
     p.add_argument("--serve-port", type=int, default=None,
-                   help="serve the trained model after the fit (not yet "
-                        "ported)")
+                   help="serve the trained model on this port after the "
+                        "fit (0: a free port) until SIGTERM/SIGINT")
     p.add_argument("--serve-buckets", default="1,8,32,128",
                    help="batch-size bucket ladder for --serve-port")
     p.add_argument("--mesh", default=None, metavar="SPEC",
@@ -116,6 +118,26 @@ def _refuse_unported(args):
     if args.mode == "averaging":
         raise SystemExit("--mode averaging: not yet ported to the PyTorch "
                          "port (comes with the parallel slice)")
+
+
+def _serve_trained(net, args) -> None:
+    """The train -> serve handoff: publish the just-trained network on
+    --serve-port and block until a signal asks for a graceful drain."""
+    import signal
+    import threading
+
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+    registry = ModelRegistry(device=net.device)
+    registry.deploy("model", net, buckets=args.serve_buckets)
+    server = ModelServer(registry, port=args.serve_port)
+    print(json.dumps({"serving": server.url,
+                      "predict": "/v1/models/model/predict"}),
+          file=sys.stderr, flush=True)
+    stop = threading.Event()
+    for s in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(s, lambda *_: stop.set())
+    stop.wait()
+    server.drain()
 
 
 def _workers(device) -> int:
@@ -182,6 +204,8 @@ def main(argv=None) -> int:
                       "iterations": net.iteration_count,
                       "epochs": net.epoch_count}))
     sys.stdout.flush()
+    if args.serve_port is not None:
+        _serve_trained(net, args)
     return 0
 
 

@@ -21,6 +21,14 @@ The port's knobs, each read where it acts:
 - ``DL4J_CUDA_DATA_DIR`` (value, default the reference's
   ``~/.deeplearning4j_tpu/datasets``): the fetchers' dataset cache
   (`data/fetchers.data_dir`), the counterpart of ``DL4J_TPU_DATA_DIR``.
+- ``DL4J_CUDA_ETL_WORKERS`` (value, default ``auto``; ``0`` runs the
+  loader in-process), ``DL4J_CUDA_ETL_MIN_RECORDS`` (value, default
+  512), ``DL4J_CUDA_ETL_RING_SLOTS`` (value, default workers + 2) and
+  ``DL4J_CUDA_ETL_MP_START`` (value, default ``spawn``): the
+  multi-process ring (`data/pipeline.py`);
+- ``DL4J_CUDA_CSV_FAST_MAX_BYTES`` (value, default 1 GiB): the CSV
+  reader's matrix path (`data/records.py`). Each replaces the
+  reference's ``DL4J_TPU_*`` name.
 """
 from __future__ import annotations
 

@@ -19,7 +19,11 @@ captured steps bitwise equal to its per-call steps (f32 and bf16). The
 LM serving runtime: a speculative verify bitwise equal to k+1 sequential
 decode steps, a page demoted to the host spill tier and promoted back
 bitwise equal, and an LM swap under a live stream with only 200s and the
-same tokens as runs without a swap.
+same tokens as runs without a swap. The data plane: ResNet50 at 64² fed
+from the multi-process shard ring (copy=False and copy=True) and from
+memory, bitwise equal parameters for scan_steps=3, accumulate_steps=2 and
+per-call fits without prefetch; and the ring's view batches feeding a
+CUDA fit of a small net, bitwise its in-memory fit.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -1128,3 +1132,87 @@ def test_lm_swap_under_a_live_stream_on_the_card(cuda):
         assert v2["tokens"] != want_v1
     finally:
         server.drain(timeout=30)
+
+
+def _ring(tmp, x, y, batch, workers=2, copy=False):
+    from deeplearning4j_tpu_torch.data.pipeline import (
+        MultiProcessDataSetIterator, ShardBatchLoader,
+    )
+    from deeplearning4j_tpu_torch.data.shards import ShardWriter
+    d = str(tmp / f"shards-{x.shape[1]}")
+    with ShardWriter(d, shard_records=16) as w:
+        w.add_batch(x, y.argmax(1).astype(np.int32))
+        w.num_classes = y.shape[1]
+    return MultiProcessDataSetIterator(ShardBatchLoader(d, batch),
+                                       num_workers=workers, copy=copy)
+
+
+@pytest.mark.parametrize("mode", ["scan3", "accumulate2", "per_call"])
+def test_resnet_from_the_ring_is_bitwise_the_memory_fit(cuda, tmp_path,
+                                                        mode, monkeypatch):
+    """ResNet50 at 64², batch 4, two chunks of 3, cuDNN deterministic:
+    the ring with view batches, the ring with copies and memory give
+    bitwise-equal parameters and batch-norm state."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.normalization import (
+        ImagePreProcessingScaler,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    kw = {"scan3": {"scan_steps": 3}, "accumulate2": {"accumulate_steps": 2},
+          "per_call": {}}[mode]
+    if mode == "per_call":
+        monkeypatch.setenv("DL4J_CUDA_FIT_PREFETCH", "0")
+    rs = np.random.RandomState(7)
+    x8 = rs.randint(0, 256, (24, 64, 64, 3), dtype=np.uint8)
+    y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, 24)]
+    path = save_model(ComputationGraph(
+        ResNet50(num_classes=10, input_shape=(64, 64, 3)).conf(),
+        device="cpu").init(), str(tmp_path / "r.zip"))
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    nets = []
+    for source in ("view", "copy", "memory"):
+        if source == "memory":
+            it = ExistingDataSetIterator([DataSet(x8[i:i + 4], y[i:i + 4])
+                                          for i in range(0, 24, 4)])
+        else:
+            it = _ring(tmp_path, x8, y, 4, copy=source == "copy")
+        it.set_pre_processor(ImagePreProcessingScaler())
+        net = load_model(path)
+        try:
+            net.fit(it, **kw)
+        finally:
+            if source != "memory":
+                assert it._copy is (source == "copy")
+                it.close()
+        nets.append(net)
+    for other in nets[1:]:
+        for a, b in zip(tree_leaves(nets[0].params) + tree_leaves(
+                nets[0].state), tree_leaves(other.params)
+                + tree_leaves(other.state)):
+            assert torch.equal(a, b)
+
+
+def test_ring_views_feed_a_cuda_fit(cuda, tmp_path):
+    """copy=False ring batches through fit's default prefetch (a pinned
+    host copy before the next pull) and through scan_steps=4 without
+    prefetch (the ring flips to copies for the fit): bitwise the fit
+    over the same batches from memory, and the ring keeps its mode."""
+    from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+    rs = np.random.RandomState(5)
+    X = rs.randn(256, 4).astype("float32")
+    Y = np.eye(3, dtype="float32")[rs.randint(0, 3, 256)]
+    for kw in ({}, {"scan_steps": 4, "prefetch": False}):
+        mem = _dropout_mlp(cuda)
+        mem.fit(ArrayDataSetIterator(X, Y, batch_size=32), epochs=2, **kw)
+        net = _dropout_mlp(cuda)
+        with _ring(tmp_path, X, Y, 32) as pipe:
+            net.fit(pipe, epochs=2, **kw)
+            assert pipe._copy is False and pipe.num_workers == 2
+            assert sum(pipe.stats["batches"].values()) == 16
+        assert _same(mem, net), kw

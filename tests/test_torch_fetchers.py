@@ -252,3 +252,16 @@ def test_cli_mnist_synthetic_gives_the_references_result(cache, capsys):
         (ref["iterations"], ref["epochs"]) == (4, 1)
     np.testing.assert_allclose(port["final_score"], ref["final_score"],
                                rtol=1e-4)
+
+
+def test_iris_dataset_is_the_references():
+    """`iris_dataset()`: the whole set in the file's order, one DataSet,
+    bitwise the reference's, and a copy (mutating it leaves the next call
+    untouched)."""
+    mine, ref = pf.iris_dataset(), jf.iris_dataset()
+    assert mine.features.shape == (150, 4) and mine.labels.shape == (150, 3)
+    for a, b in ((mine.features, ref.features), (mine.labels, ref.labels)):
+        assert a.dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a, np.asarray(b))
+    mine.features[0, 0] = -1.0
+    assert pf.iris_dataset().features[0, 0] == np.asarray(ref.features)[0, 0]

@@ -275,3 +275,21 @@ def test_sources_and_errors():
         load_servable("zoo:TransformerLM?bogus=1", device="cpu")
     with pytest.raises(ModelLoadError, match="not found"):
         load_servable("/nonexistent/model.zip", device="cpu")
+
+
+def test_batcher_is_a_context_manager_like_the_reference():
+    """`with ShapeBucketedBatcher(...)` answers inside and stops its
+    worker on exit, in both packages."""
+    from deeplearning4j_tpu.serving.batcher import (
+        ShapeBucketedBatcher as JBatcher,
+    )
+    from deeplearning4j_tpu_torch.serving.batcher import ShapeBucketedBatcher
+    x = np.arange(6, dtype="float32").reshape(2, 3)
+    outs = []
+    for cls in (ShapeBucketedBatcher, JBatcher):
+        with cls(lambda a: a * 2.0, (3,), buckets=(1, 4)) as b:
+            assert b._worker.is_alive()
+            outs.append(np.asarray(b.predict(x)))
+        assert not b._worker.is_alive()
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_array_equal(outs[0], x * 2.0)

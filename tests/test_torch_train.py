@@ -539,11 +539,15 @@ def test_cli_dataset_loader_iris_and_npz(tmp_path):
 @pytest.mark.parametrize("extra", [
     ["--checkpoint-dir", "ckpt"], ["--resume"], ["--ui-port", "9001"],
     ["--metrics"], ["--trace-out", "t.json"], ["--perf-ledger", "l.json"],
-    ["--serve-port", "8080"], ["--mesh", "data=1"],
+    ["--serve-port", "0"], ["--mesh", "data=1"],
     ["--mode", "averaging"], ["--dataset", "mnist"]])
 def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path, monkeypatch):
     args = ["--model", "m.zip", "--dataset", "d.npz", "--output", "o.zip",
             "--device", "cpu"]
+    if extra[0] == "--serve-port":
+        # the serve handoff is ported: it serves the trained network
+        _check_serve_handoff(tmp_path, extra)
+        return
     if extra[0] == "--dataset":
         # the MNIST fetcher is ported: without --synthetic-data a missing
         # cache stops the run, as in the reference
@@ -558,6 +562,66 @@ def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path, monkeypatch):
         return
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(args + extra)
+
+
+def _check_serve_handoff(tmp_path, extra):
+    """`--serve-port` in a subprocess: after the result line the trained
+    network answers predict over HTTP with its own output(), and SIGTERM
+    drains the server and ends the run with 0."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import threading
+    import urllib.request
+    from pathlib import Path
+    from deeplearning4j_tpu_torch.nn.layers import feedforward as pff
+    conf = (NeuralNetConfiguration.Builder().seed(3).updater(Adam(1e-2))
+            .list().layer(pff.DenseLayer(n_out=8, activation="relu"))
+            .layer(pff.OutputLayer(n_out=3, activation="softmax",
+                                   loss="mcxent"))
+            .set_input_type(InputType.feed_forward(4)).build())
+    model = save_model(MultiLayerNetwork(conf, device="cpu").init(),
+                       str(tmp_path / "iris.zip"))
+    out = str(tmp_path / "served.zip")
+    repo = str(Path(__file__).resolve().parent.parent)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.train", "--model",
+         model, "--dataset", "iris", "--output", out, "--mode", "single",
+         "--device", "cpu", "--batch-size", "32", "--serve-buckets", "1,8",
+         *extra], cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines = []
+    announced = threading.Event()
+
+    def read_stderr():
+        for line in proc.stderr:
+            lines.append(line)
+            if line.startswith('{"serving"'):
+                announced.set()
+    reader = threading.Thread(target=read_stderr, daemon=True)
+    reader.start()
+    try:
+        assert announced.wait(120), "".join(lines)
+        info = json.loads(next(x for x in lines if x.startswith('{"serving"')))
+        X = IrisDataSetIterator(batch_size=8).features[:8]
+        req = urllib.request.Request(
+            info["serving"] + info["predict"],
+            data=json.dumps({"inputs": X.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            answer = np.asarray(json.loads(r.read())["outputs"], "float32")
+        want = load_model(out, device="cpu").output(X).numpy()
+        np.testing.assert_allclose(answer, want, rtol=0, atol=1e-6)
+        proc.send_signal(signal.SIGTERM)
+        stdout, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, "".join(lines)
+    result = json.loads(stdout.strip().splitlines()[-1])
+    assert result["output"] == out and result["iterations"] == 4
 
 
 def test_flash_layer_training_launches_no_kernel_on_the_cpu():
