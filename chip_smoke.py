@@ -261,6 +261,43 @@ result line:
              "data_plane": (b)'s profiled kernel events, n_layers x 16 of
              each kernel; (a), (c) and (d) launch none (the wrappers'
              counts).
+12. telemetry — monitor/ on the card. (a) The full-width LM saved as a
+             zip and trained by train.cli.main with `--metrics
+             --trace-out --perf-ledger`, 80 seeded sequences of batch 4
+             = 20 steps, per call and with DL4J_CUDA_SCAN_STEPS=10: every
+             flash kernel launched, the ledger's one program
+             (`mln/train_step`, `mln/scan_step` with K = 10) within 5 %
+             of the analytic FLOPs a step (every matmul, 6 x 13.1 M
+             weights x 8192 tokens, plus the kernels at 18·D a causal
+             pair: 9.54e11), the HBM breakdown, `train_mfu_pct` within
+             1 % of the program's FLOPs over a measured step over 989
+             TFLOP/s (per call the trace's last `train/step`; with the
+             graph a replayed step of the reloaded LM timed by CUDA
+             events), goodput categories summing to the session's wall
+             time, span counts, and tools/trace_report.py and
+             tools/perf_report.py (stdlib only) reading the files with
+             exit 0. (b) ResNet-50 bf16 at the bench shape through
+             fit(scan_steps=10), epochs of 20 steps: 3-epoch fits with
+             telemetry off and with tracing, the ledger and goodput on,
+             in turns: step ms medians and spreads, syncs a step equal
+             off and on (sync_sites), host launch calls a step equal
+             (launch_profile), the ledger within 5 % of the FLOPs counted
+             from the conv shapes (bench.py's 3.149e12 printed beside),
+             `train_mfu_pct`; then f32 once. (c) `serving.cli.build` over
+             the LM as `lm` (predict) and `gen` (4 slots, 16-token
+             pages), first without telemetry (`--no-flight`), then with
+             `--trace-out --postmortem-dir --enable-fault-injection
+             --slo-p99-ms --slo-availability`: 64 predicts and 4 greedy
+             streams of 64 tokens, `/metrics` scraped before and after
+             (the request counters grow by exactly what was sent), each
+             token the oracle's argmax, no program first run on the
+             request path, a `traceparent` request found in
+             `/v1/debug/flight`, `/v1/timeseries` and `/v1/slo`, then
+             `POST /v1/faults` until the availability SLO fires: every
+             5xx counted, `http_5xx` and `slo_availability_burn`
+             postmortems written; tokens/s and ITL p50 on and off.
+             `launches_by_path` gains "telemetry" ((a)'s wrapper
+             counts: replays do not pass the wrapper).
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The second-to-last line is the kernel table
@@ -4318,6 +4355,554 @@ def data_plane(fa, tmp):
     return {"flash_launches": lm["launches"]}
 
 
+# the telemetry phase: the full-width LM through the train CLI with every
+# telemetry flag (per call, then fit(scan_steps=10)), ResNet-50 bf16 at
+# the bench shape with telemetry off and on, and the LM served with
+# /metrics, SLOs, the flight recorder and fault injection
+TELE_SEQS, TELE_K = 80, 10              # 20 steps of batch 4 a run
+TELE_PREDICTS, TELE_STREAMS, TELE_TOKENS = 64, 4, 64
+TELE_RESNET_EPOCHS, TELE_RESNET_ROUNDS = 3, 5
+TELE_TRACEPARENT = ("00-0123456789abcdef0123456789abcdef-"
+                    "fedcba9876543210-01")
+MFU_AGREEMENT = 0.01    # the gauge against the trace's step, relative
+# bench.py:277's 24.6 GFLOP an image counts a 4.1 GMAC ResNet-50; the
+# zoo's ResNet50 strides its blocks' first 1x1 convolutions (3.86 GMAC)
+RESNET_BENCH_FLOPS = RESNET_BATCH * RESNET_FLOP_PER_IMAGE       # 3.149e12
+RESNET_STEM_FLOPS = 2 * 112 * 112 * 7 * 7 * 3 * 64   # 7x7x3 -> 64 at 112²
+
+
+def resnet_train_flops(conf, batch=None):
+    """A ResNet train step from the configuration's convolution and dense
+    shapes: 3x the forward (the forward, the input and the weight
+    gradients) less the stem's input gradient, which no step computes
+    (the pixels need none)."""
+    batch = RESNET_BATCH if batch is None else batch
+    fwd = forward_gflop_per_image(conf) * 1e9
+    return batch * (3 * fwd - RESNET_STEM_FLOPS)
+
+
+def lm_analytic_flops(batch=TRAIN_BATCH):
+    """The full-width LM's train step: 6 x the matmul weights x tokens,
+    plus the three flash kernels (18·D per causally live pair)."""
+    e = HEADS * HEAD_DIM
+    gemm = 6 * (12 * e * e * N_LAYERS + e * VOCAB) * batch * SEQ
+    flash = 18 * HEAD_DIM * live_pairs(SEQ, SEQ, True) * batch * HEADS \
+        * N_LAYERS
+    return gemm + flash
+
+
+def _telemetry_reset():
+    """Every process-global telemetry switch off and every store empty."""
+    from deeplearning4j_tpu_torch import monitor
+    monitor.disable_tracing()
+    monitor.clear_trace()
+    monitor.goodput.disable_goodput()
+    monitor.xla.disable_ledger()
+    monitor.xla.clear_ledger()
+    monitor.flight.disable_flight()
+    monitor.flight.clear()
+    monitor.slo.disable_slo()
+    monitor.timeseries.disable_timeseries()
+    monitor.REGISTRY.reset()
+
+
+def _tool(*argv):
+    """Run one of the repo's stdlib-only tools; (exit code, stdout)."""
+    r = subprocess.run([sys.executable, *argv], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"{argv[0]} exited {r.returncode}: "
+                             f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    return r.stdout
+
+
+def _write_token_set(path, rs, n):
+    start = rs.randint(0, VOCAB, (n, 1))
+    stride = rs.randint(1, 8, (n, 1))
+    seq = (start + stride * np.arange(SEQ + 1)) % VOCAB
+    labels = np.zeros((n, SEQ, VOCAB), np.uint8)
+    np.put_along_axis(labels, seq[:, 1:, None], 1, axis=-1)
+    np.savez(path, features=seq[:, :SEQ, None].astype("float32"),
+             labels=labels)
+
+
+def _timed_chunk(out_zip, tokens):
+    """The trained LM reloaded, its replayed step timed independently of
+    the ledger: two chunks of TELE_K batches already on the card (no
+    staging; their ids range-checked on the host first, as the prefetch
+    thread does, so no dispatch waits on the card), CUDA events around
+    the whole fit, after a capture fit. Seconds a step."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    _telemetry_reset()
+    net = load_model(out_zip)
+    with np.load(tokens) as data:
+        feats, labels = data["features"], data["labels"]
+    batches = []
+    for i in range(0, 2 * TELE_K * TRAIN_BATCH, TRAIN_BATCH):
+        ds = DataSet(feats[i:i + TRAIN_BATCH], labels[i:i + TRAIN_BATCH])
+        net._check_ids(ds)
+        ds = DataSet(torch.from_numpy(ds.features).cuda(),
+                     torch.from_numpy(ds.labels).cuda())
+        ds._host_checked = True
+        batches.append(ds)
+
+    def fit():
+        net.fit(ExistingDataSetIterator(batches), scan_steps=TELE_K,
+                prefetch=False)
+
+    fit()                                   # capture
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fit()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3 / len(batches))
+    del net, batches
+    torch.cuda.empty_cache()
+    return statistics.median(times), times
+
+
+def telemetry_train(fa, tmp):
+    """Phase 12a: the LM through `python -m deeplearning4j_tpu_torch.train
+    --metrics --trace-out --perf-ledger` (train.cli.main in-process), per
+    call and with DL4J_CUDA_SCAN_STEPS=10; the ledger, the MFU gauge, the
+    goodput partition, the trace and the two stdlib-only readers."""
+    import contextlib
+    import os
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.registry import parse_zoo_source
+    from deeplearning4j_tpu_torch.train import cli as train_cli
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
+    lm_zip = os.path.join(tmp, "tele_lm.zip")
+    tokens = os.path.join(tmp, "tele_tokens.npz")
+    save_model(model_by_name(name, **kw).init(), lm_zip)
+    _write_token_set(tokens, np.random.RandomState(12), TELE_SEQS)
+    analytic = lm_analytic_flops()
+    peak = monitor.xla.PEAK_FLOPS_BY_KIND.get(torch.cuda.get_device_name(0))
+    if peak is None:
+        raise AssertionError(f"no tabulated peak for "
+                             f"{torch.cuda.get_device_name(0)!r}")
+    rounds_dir = os.path.join(tmp, "tele_rounds")
+    os.makedirs(rounds_dir, exist_ok=True)
+    # one synthetic round for perf_report (it needs one artifact; a
+    # single round gates nothing), so the repo's banked rounds are not read
+    with open(os.path.join(rounds_dir, "BENCH_r01.json"), "w") as f:
+        json.dump({"parsed": {"metric": "telemetry_smoke", "value": 1.0,
+                              "unit": "runs", "vs_baseline": None,
+                              "tpu_unavailable": True, "sweep": []}}, f)
+    runs = {}
+    for mode, scan in (("per_call", 1), ("scan", TELE_K)):
+        _telemetry_reset()
+        trace = os.path.join(tmp, f"tele_{mode}_trace.json")
+        ledger = os.path.join(tmp, f"tele_{mode}_ledger.json")
+        os.environ["DL4J_CUDA_SCAN_STEPS"] = str(scan)
+        for k in KERNELS:
+            fa.KERNEL_LAUNCHES[k] = 0
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                code = train_cli.main([
+                    "--model", lm_zip, "--output",
+                    os.path.join(tmp, f"tele_{mode}.zip"), "--dataset",
+                    tokens, "--mode", "single", "--batch-size",
+                    str(TRAIN_BATCH), "--score-every", "5", "--metrics",
+                    "--trace-out", trace, "--perf-ledger", ledger])
+        finally:
+            del os.environ["DL4J_CUDA_SCAN_STEPS"]
+        wall_s = time.perf_counter() - t0
+        launches = dict(fa.KERNEL_LAUNCHES)
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
+        steps = TELE_SEQS // TRAIN_BATCH
+        if code != 0 or result["iterations"] != steps:
+            raise AssertionError(f"telemetry train {mode}: {code} {result}")
+        if any(launches[k] == 0 for k in KERNELS):
+            raise AssertionError(f"telemetry train {mode}: {launches}")
+        (metrics_line,) = [ln for ln in err.getvalue().splitlines()
+                           if ln.startswith('{"metrics"')]
+        summary = json.loads(metrics_line)["metrics"]
+        doc = json.load(open(ledger))
+        (prog,) = doc["programs"]
+        want_name = "mln/train_step" if scan == 1 else "mln/scan_step"
+        gap = prog["flops"] / analytic - 1.0
+        if prog["name"] != want_name or prog["steps_per_call"] != scan \
+                or abs(gap) > 0.05:
+            raise AssertionError(f"ledger {mode}: {prog} against "
+                                 f"{analytic:.4g}")
+        if doc["peak_flops"] != peak or doc["device_kind"] \
+                != torch.cuda.get_device_name(0):
+            raise AssertionError(f"ledger device {doc['device_kind']} "
+                                 f"{doc['peak_flops']}")
+        events = json.load(open(trace))["traceEvents"]
+        spans = [e for e in events if e.get("ph") == "X"]
+        counts = {}
+        for e in spans:
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+        # the MFU gauge beside the program's FLOPs over a measured step:
+        # per call, the trace's last `train/step` (the step the gauge was
+        # fed); with the graph, a replayed step timed by CUDA events on
+        # the reloaded network, independently of the ledger's own clock
+        gauge = summary.get("train_mfu_pct")
+        gp = monitor.goodput.last_session()
+        step_s = [e["dur"] / 1e6 for e in spans if e["name"] == "train/step"]
+        if scan == 1:
+            measured_s, med_s = step_s[-1], statistics.median(step_s[1:])
+            times = step_s
+        else:
+            measured_s, times = _timed_chunk(
+                os.path.join(tmp, f"tele_{mode}.zip"), tokens)
+            med_s = measured_s
+        measured = 100.0 * prog["flops"] / measured_s / peak
+        from_median = 100.0 * prog["flops"] / med_s / peak
+        if gauge is None or abs(gauge / measured - 1.0) > MFU_AGREEMENT:
+            raise AssertionError(f"train_mfu_pct {gauge} against "
+                                 f"{measured} measured ({mode})")
+        cat_sum = sum(gp["categories"].values())
+        if abs(cat_sum - gp["wall_s"]) > 1e-4 * max(1.0, gp["wall_s"]):
+            raise AssertionError(f"goodput {mode}: {gp}")
+        tr = _tool("tools/trace_report.py", trace, "--out",
+                   os.path.join(tmp, f"tele_{mode}_merged.json"))
+        pr = json.loads(_tool("tools/perf_report.py", "--dir", rounds_dir,
+                              "--ledger", ledger, "--json"))
+        if not pr["roofline"] or pr["roofline"][0]["name"] != want_name:
+            raise AssertionError(f"perf_report roofline {pr['roofline']}")
+        runs[mode] = {
+            "cli_wall_s": wall_s, "steps": steps, "launches": launches,
+            "ledger": {"name": prog["name"], "fingerprint":
+                       prog["fingerprint"], "flops_per_step": prog["flops"],
+                       "analytic_flops_per_step": analytic,
+                       "gap": gap, "steps_per_call": prog["steps_per_call"],
+                       "total_flops_per_call": prog["total_flops_per_call"],
+                       "bytes_accessed": prog["bytes_accessed"],
+                       "arithmetic_intensity":
+                           prog["arithmetic_intensity"],
+                       "hbm": prog["hbm"],
+                       "compile_seconds": prog["compile_seconds"]},
+            "train_mfu_pct": gauge, "mfu_measured_pct": measured,
+            "mfu_from_median_step_pct": from_median,
+            "measured_step_s": measured_s, "step_s_median": med_s,
+            "step_s": times,
+            "goodput": gp, "goodput_category_sum_s": cat_sum,
+            "span_counts": counts,
+            "trace_report": tr.strip().splitlines()[-3:],
+            "perf_report_roofline": pr["roofline"],
+            "metrics_summary": summary}
+    _telemetry_reset()
+    return runs
+
+
+def _resnet_tele_net(compute_dtype):
+    import dataclasses
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = ResNet50().conf()
+    if compute_dtype is not None:
+        conf = dataclasses.replace(conf, compute_dtype=compute_dtype)
+    return ComputationGraph(conf).init()
+
+
+def _telemetry_on():
+    from deeplearning4j_tpu_torch import monitor
+    monitor.enable_tracing()
+    monitor.xla.enable_ledger()
+    monitor.goodput.enable_goodput()
+
+
+def _telemetry_switch(mode):
+    """"off": every switch off and every store empty; "on": tracing, the
+    ledger and goodput (the metrics record either way)."""
+    _telemetry_reset()
+    if mode == "on":
+        _telemetry_on()
+
+
+def telemetry_resnet():
+    """Phase 12b: ResNet-50 at the bench shape through
+    fit(scan_steps=10): telemetry off and everything on (tracing, the
+    ledger, goodput, metrics), interleaved; syncs and launch calls a step
+    off and on; the ledger's FLOPs; bf16, then f32 once."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.data.normalization import (
+        ImagePreProcessingScaler,
+    )
+    rs = np.random.RandomState(2024)
+    x8 = rs.randint(0, 256, (RESNET_BATCH, RESNET_HW, RESNET_HW, 3),
+                    dtype=np.uint8)
+    y = np.eye(1000, dtype=np.float32)[rs.randint(0, 1000, RESNET_BATCH)]
+    batches = [DataSet(x8, y)] * (2 * FIT_K)
+    peak = monitor.xla.PEAK_FLOPS_BY_KIND[torch.cuda.get_device_name(0)]
+
+    def make_it():
+        return ExistingDataSetIterator(batches).set_pre_processor(
+            ImagePreProcessingScaler())
+
+    out = {}
+    for dtype in ("bfloat16", None):
+        _telemetry_reset()
+        net = _resnet_tele_net(dtype)
+        analytic = resnet_train_flops(net.conf)
+        _telemetry_on()                 # the first fit captures and counts
+        net.fit(make_it(), scan_steps=FIT_K)
+        (rec,) = monitor.xla.records()
+        gap = rec.flops / analytic - 1.0
+        if rec.name != "graph/scan_step" or abs(gap) > 0.05:
+            raise AssertionError(f"resnet ledger {rec.brief()}: "
+                                 f"{rec.flops} against {analytic}")
+        steps = TELE_RESNET_EPOCHS * 2 * FIT_K
+
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit(make_it(), epochs=TELE_RESNET_EPOCHS, scan_steps=FIT_K)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / steps
+
+        row = {"compute_dtype": dtype or "float32",
+               "ledger": rec.brief(), "flops_per_step": rec.flops,
+               "analytic_flops_per_step": analytic, "gap": gap,
+               "bench_py_flops_per_step": RESNET_BENCH_FLOPS,
+               "gap_to_bench_py": rec.flops / RESNET_BENCH_FLOPS - 1.0}
+        if dtype is None:
+            row["step_ms"] = timed()
+            row["train_mfu_pct"] = monitor.xla.last_mfu("train")
+            row["goodput"] = monitor.goodput.last_session()
+            out["f32"] = row
+            break
+        ms = {"off": [], "on": []}
+        for _ in range(TELE_RESNET_ROUNDS):
+            for mode in ("off", "on"):
+                # the net keeps its ledger record: switching the ledger
+                # back on counts nothing again
+                _telemetry_switch(mode)
+                ms[mode].append(timed())
+        mfu = monitor.xla.last_mfu("train")
+        gp = monitor.goodput.last_session()
+        # syncs in two fits per mode, in turns (a pinned-memory block
+        # the host allocator happens to grow can add one to a fit), and
+        # one profiled fit per mode
+        syncs = {"off": [], "on": []}
+        launches = {}
+        for mode in ("off", "on", "off", "on"):
+            _telemetry_switch(mode)
+            net.fit(make_it(), scan_steps=FIT_K)          # warm
+            sites, where = sync_sites(lambda: net.fit(make_it(),
+                                                      scan_steps=FIT_K))
+            syncs[mode].append({"per_step": sum(sites.values())
+                                / (2 * FIT_K), "sites": sites,
+                                "where": where})
+            if mode not in launches:
+                launches[mode] = launch_profile(
+                    lambda: net.fit(make_it(), scan_steps=FIT_K), 2 * FIT_K)
+        _telemetry_reset()
+        min_syncs = {m: min(r["per_step"] for r in v)
+                     for m, v in syncs.items()}
+        med = {m: statistics.median(v) for m, v in ms.items()}
+        spread = {m: max(v) - min(v) for m, v in ms.items()}
+        row.update({
+            "step_ms": ms, "step_ms_median": med,
+            "step_ms_spread": spread,
+            "on_minus_off_ms": med["on"] - med["off"],
+            "within_off_spread": abs(med["on"] - med["off"])
+            <= spread["off"],
+            "train_mfu_pct": mfu,
+            "mfu_from_median_on_pct":
+                100.0 * rec.flops / (med["on"] / 1e3) / peak,
+            "goodput": gp, "syncs": syncs, "syncs_per_step": min_syncs,
+            "launch_profile": launches})
+        out["bf16"] = row
+        if min_syncs["off"] != min_syncs["on"]:
+            raise AssertionError(f"syncs off/on: {syncs}")
+        if launches["off"].get("host_launch_calls_per_step") != \
+                launches["on"].get("host_launch_calls_per_step"):
+            raise AssertionError(
+                f"launch calls off/on: {launches['off']} {launches['on']}")
+        if not mfu or mfu <= 0:
+            raise AssertionError(f"bf16 train_mfu_pct {mfu}")
+        del net
+        torch.cuda.empty_cache()
+    _telemetry_reset()
+    return out
+
+
+def _scrape(url):
+    with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+        text = r.read().decode()
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith("serving_requests_total{"):
+            labels = dict(kv.split("=") for kv in
+                          ln[ln.index("{") + 1:ln.index("}")].split(","))
+            key = (labels["model"].strip('"'), labels["code"].strip('"'))
+            out[key] = float(ln.split()[-1])
+    return out, text
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def _stream_round(url, rs):
+    """TELE_STREAMS concurrent greedy streams of TELE_TOKENS tokens on
+    `gen`: (results, prompts, tokens/s, ITL p50 ms)."""
+    prompts = [rs.randint(0, VOCAB, 32 + 16 * j).tolist()
+               for j in range(TELE_STREAMS)]
+    results, wall = concurrent_streams(
+        url, "gen", [(p, TELE_TOKENS, {}) for p in prompts])
+    itl = itl_ms(results)
+    return results, prompts, TELE_STREAMS * TELE_TOKENS / wall, \
+        statistics.median(itl)
+
+
+def telemetry_serve(fa, tmp):
+    """Phase 12c: the LM served with telemetry on (trace, SLOs, the
+    flight recorder, postmortems, fault injection) beside a server
+    without it."""
+    import os
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.serving import cli
+    rs = np.random.RandomState(1212)
+    base = ["--model", f"lm={LM_SOURCE}", "--buckets", "1,4",
+            "--lm", f"gen={LM_SOURCE}", "--decode-slots", "4",
+            "--decode-page-size", "16", "--port", "0"]
+    # the server without telemetry first: its tokens/s and ITL
+    _telemetry_reset()
+    registry, server = cli.build(cli.build_parser().parse_args(
+        base + ["--no-flight"]))
+    try:
+        _, _, off_tps, off_itl = _stream_round(server.url, rs)
+    finally:
+        server.drain(timeout=30)
+    _telemetry_reset()
+    pm_dir = os.path.join(tmp, "postmortems")
+    trace = os.path.join(tmp, "serve_trace.json")
+    registry, server = cli.build(cli.build_parser().parse_args(
+        base + ["--trace-out", trace, "--postmortem-dir", pm_dir,
+                "--enable-fault-injection", "--slo-p99-ms", "5000",
+                "--slo-availability", "0.999",
+                "--slo-sample-interval-s", "0.25",
+                "--slo-windows", "4,1,8,2"]))
+    url = server.url
+    try:
+        before, _ = _scrape(url)
+        for k in KERNELS:
+            fa.KERNEL_LAUNCHES[k] = 0
+        for i in range(TELE_PREDICTS):
+            x = rs.randint(0, VOCAB, (1, SEQ, 1)).astype(np.float32)
+            status, y, _ = post_npy(f"{url}/v1/models/lm/predict", x)
+            check_answer(status, y, 1)
+        predict_launches = dict(fa.KERNEL_LAUNCHES)
+        results, prompts, on_tps, on_itl = _stream_round(url, rs)
+        net = registry.get("gen").model
+        checked = near = 0
+        for res, prompt in zip(results, prompts):
+            c, n = oracle_check(net, prompt, res["tokens"])
+            checked, near = checked + c, near + n
+        engine = registry.get("gen").scheduler.admitting_engine()
+        if engine.request_path_first_runs:
+            raise AssertionError("a decode program first ran on the "
+                                 "request path")
+        after, text = _scrape(url)
+        grew = {k: after.get(k, 0) - before.get(k, 0)
+                for k in set(after) | set(before)}
+        if grew.get(("lm", "200")) != TELE_PREDICTS or \
+                grew.get(("gen", "200")) != TELE_STREAMS:
+            raise AssertionError(f"request counters grew {grew}")
+        # a traced request: its trace id in the flight recorder
+        req = urllib.request.Request(
+            f"{url}/v1/models/lm/predict",
+            data=json.dumps({"inputs": np.zeros((1, SEQ, 1)).tolist()})
+            .encode(), headers={"Content-Type": "application/json",
+                                "traceparent": TELE_TRACEPARENT})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            echoed = r.headers.get("X-Trace-Id")
+        # the handler closes its record just after the answer is sent:
+        # it is in the ring, or still open
+        _, flight = _get_json(f"{url}/v1/debug/flight")
+        traced = [rec for rec in flight["records"] + flight["live"]
+                  if rec["trace_id"] == TELE_TRACEPARENT.split("-")[1]]
+        if echoed != TELE_TRACEPARENT.split("-")[1] or not traced:
+            raise AssertionError(f"trace id not in flight: {echoed}")
+        ts_status, ts_doc = _get_json(f"{url}/v1/timeseries?series="
+                                      "serving_requests_total&window=60")
+        slo_status, slo_before = _get_json(f"{url}/v1/slo")
+        if ts_status != 200 or not ts_doc["enabled"] or slo_status != 200:
+            raise AssertionError(f"timeseries/slo: {ts_doc} {slo_before}")
+        # an injected serving fault: counted 5xx, the SLO burns and trips
+        status, doc = post_json(f"{url}/v1/faults", {"predict_error": True})
+        if status != 200 or not doc["predict_error"]:
+            raise AssertionError(f"/v1/faults: {status} {doc}")
+        fives0 = _scrape(url)[0].get(("lm", "500"), 0)
+        n_fault = 0
+        t_fault = time.perf_counter()
+        state = None
+        while time.perf_counter() - t_fault < 30:
+            status, _ = post_json(f"{url}/v1/models/lm/predict",
+                                  {"inputs": np.zeros((1, SEQ, 1)).tolist()})
+            if status != 500:
+                raise AssertionError(f"injected fault answered {status}")
+            n_fault += 1
+            time.sleep(0.05)
+            _, verdict = _get_json(f"{url}/v1/slo")
+            state = verdict["state"]
+            if state == "firing" and n_fault >= 8:
+                break
+        fives = _scrape(url)[0].get(("lm", "500"), 0) - fives0
+        post_json(f"{url}/v1/faults", {"predict_error": False})
+        pms = sorted(os.listdir(pm_dir)) if os.path.isdir(pm_dir) else []
+        if fives != n_fault or state != "firing" or not any(
+                "slo_availability_burn" in p for p in pms):
+            raise AssertionError(f"fault: {fives} 5xx of {n_fault}, slo "
+                                 f"{state}, postmortems {pms}")
+    finally:
+        server.drain(timeout=30)
+    n = monitor.save_trace(trace)
+    _telemetry_reset()
+    return {"predicts": TELE_PREDICTS, "streams": TELE_STREAMS,
+            "tokens_per_stream": TELE_TOKENS,
+            "request_counter_growth": {f"{m}/{c}": v
+                                       for (m, c), v in grew.items()},
+            "predict_flash_launches": predict_launches,
+            "oracle_positions": checked, "oracle_near_ties": near,
+            "request_path_first_runs": engine.request_path_first_runs,
+            "trace_id_in_flight": True, "faulted_requests": n_fault,
+            "counted_5xx": fives, "slo_state": state, "postmortems": pms,
+            "trace_events": n,
+            "tokens_per_s": {"off": off_tps, "on": on_tps},
+            "itl_p50_ms": {"off": off_itl, "on": on_itl},
+            "metrics_families": len([ln for ln in text.splitlines()
+                                     if ln.startswith("# TYPE")])}
+
+
+def telemetry(fa, tmp):
+    """Phase 12: telemetry on the card (see the module docstring)."""
+    t0 = time.perf_counter()
+    gpu = gpu_line()
+    train_runs = telemetry_train(fa, tmp)
+    emit({"phase": "telemetry_train", "gpu": gpu, **train_runs})
+    resnet_runs = telemetry_resnet()
+    emit({"phase": "telemetry_resnet", "gpu": gpu, **resnet_runs})
+    served = telemetry_serve(fa, tmp)
+    emit({"phase": "telemetry_serve", "gpu": gpu, **served})
+    launches = {k: train_runs["per_call"]["launches"][k]
+                + train_runs["scan"]["launches"][k] for k in KERNELS}
+    row = {"phase": "telemetry", "gpu": gpu,
+           "seconds": time.perf_counter() - t0, "flash_launches": launches}
+    emit(row)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4372,6 +4957,8 @@ def main(argv=None) -> int:
         lm_ops_run = lm_ops(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         data_run = data_plane(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        tele_run = telemetry(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -4389,7 +4976,9 @@ def main(argv=None) -> int:
                              "lm_ops":
                                  lm_ops_run["flash_launches"]["flash_fwd"],
                              "data_plane":
-                                 data_run["flash_launches"]["flash_fwd"]},
+                                 data_run["flash_launches"]["flash_fwd"],
+                             "telemetry":
+                                 tele_run["flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4413,7 +5002,9 @@ def main(argv=None) -> int:
                                  "lm_ops":
                                      lm_ops_run["flash_launches"][name],
                                  "data_plane":
-                                     data_run["flash_launches"][name]},
+                                     data_run["flash_launches"][name],
+                                 "telemetry":
+                                     tele_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

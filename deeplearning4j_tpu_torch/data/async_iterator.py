@@ -21,16 +21,24 @@ Environment knobs, each under the ``=="0"``-disables contract of
   `prefetch_iterable` (default 2); ``0`` stages each batch synchronously
   on the consumer's thread.
 - ``DL4J_CUDA_FIT_PREFETCH``: ``0`` skips fit's wrap altogether.
+
+Telemetry (monitor/), the reference's families: `etl_queue_depth` tracks
+the prefetch buffer fill, `etl_fetch_wait_seconds` how long the consumer
+(the train loop) blocked on it, `etl_batches_prefetched_total` and
+`etl_stage_seconds` the worker's batches and staging time, which also
+shows as `etl/stage` spans on the prefetch thread's trace track.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterator import DataSetIterator
 from deeplearning4j_tpu_torch.util.env import env_flag, env_int
@@ -66,11 +74,21 @@ def prefetch_iterable(source, transform: Optional[Callable] = None,
 def _prefetch_pump(source, transform, queue_size: int):
     q: "queue.Queue" = queue.Queue(maxsize=queue_size)
     stop = threading.Event()
+    m_depth = monitor.gauge("etl_queue_depth",
+                            "Prefetch queue fill (async ETL)")
+    m_wait = monitor.histogram("etl_fetch_wait_seconds",
+                               "Consumer wait on the prefetch queue")
+    m_batches = monitor.counter("etl_batches_prefetched_total",
+                                "Batches staged by prefetch workers")
+    m_stage = monitor.histogram("etl_stage_seconds",
+                                "Worker-side batch staging (cast + "
+                                "device_put + callback)")
 
     def put(item) -> bool:
         while not stop.is_set():
             try:
                 q.put(item, timeout=0.1)
+                m_depth.set(q.qsize())
                 return True
             except queue.Full:
                 continue
@@ -82,7 +100,11 @@ def _prefetch_pump(source, transform, queue_size: int):
                 if stop.is_set():
                     return
                 if transform is not None:
-                    item = transform(item)
+                    t0 = time.perf_counter()
+                    with monitor.span("etl/stage"):
+                        item = transform(item)
+                    m_stage.observe(time.perf_counter() - t0)
+                m_batches.inc()
                 if not put(item):
                     return
         except BaseException as e:   # handed to the consumer, which raises
@@ -94,7 +116,10 @@ def _prefetch_pump(source, transform, queue_size: int):
     t.start()
     try:
         while True:
+            t0 = time.perf_counter()
             item = q.get()
+            m_wait.observe(time.perf_counter() - t0)
+            m_depth.set(q.qsize())
             if item is _SENTINEL:
                 break
             if isinstance(item, BaseException):

@@ -43,7 +43,10 @@ Counters: ``stats`` holds the batches and decode seconds by worker
 (``"inproc"`` in the 0-worker mode) and the consumer's fetch waits (how
 many, and their seconds): the time the consumer spent blocked on the
 ring for its next batch. A fit is ETL-bound when the fetch wait is large
-while the workers' decode seconds stay busy.
+while the workers' decode seconds stay busy. The same counts feed the
+reference's families: ``etl_worker_batches_total{worker}``,
+``etl_worker_decode_seconds{worker}``, ``etl_ring_ready_depth`` and
+``etl_ring_inflight`` (`monitor/`, torch-free like this module).
 
 Env knobs (`util/env.py`, ``=="0"``-disables):
 
@@ -69,6 +72,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterator import DataSetIterator
 from deeplearning4j_tpu_torch.data.shards import (
@@ -329,10 +333,20 @@ class MultiProcessDataSetIterator(EpochPositionMixin, DataSetIterator):
         return self._slots_n * total
 
     def _count(self, wid, dt: float):
+        """Count one delivered batch in `stats` and in the reference's
+        `etl_worker_*` families (worker id, or "inproc")."""
         key = str(wid)
         self.stats["batches"][key] = self.stats["batches"].get(key, 0) + 1
         self.stats["decode_s"][key] = \
             self.stats["decode_s"].get(key, 0.0) + dt
+        monitor.counter(
+            "etl_worker_batches_total",
+            "Batches decoded by multi-process ETL workers",
+            ("worker",)).inc(worker=key)
+        monitor.histogram(
+            "etl_worker_decode_seconds",
+            "Worker-side batch decode/fill time",
+            ("worker",)).observe(dt, worker=key)
 
     # ------------------------------------------------------------ lifecycle
     def _ensure_started(self):
@@ -567,6 +581,11 @@ class MultiProcessDataSetIterator(EpochPositionMixin, DataSetIterator):
         pending = {}
         prev_slot = None
         stats = self.stats
+        m_ready = monitor.gauge(
+            "etl_ring_ready_depth",
+            "Completed ring slots waiting for the consumer")
+        m_inflight = monitor.gauge(
+            "etl_ring_inflight", "Submitted ETL tasks not yet consumed")
         try:
             for want in range(self._pos, len(tasks)):
                 # the consumer re-entered the generator: the previous
@@ -592,6 +611,7 @@ class MultiProcessDataSetIterator(EpochPositionMixin, DataSetIterator):
                                 else np.array(labels[:n], copy=True))
                         self._free_q.put(slot)
                         pending[seq] = ("copy", arrs, wid, dt, n)
+                    m_ready.set(len(pending))
                 stats["fetch_wait_count"] += 1
                 stats["fetch_wait_s"] += time.perf_counter() - t_wait
                 kind, payload, wid, dt, n = pending.pop(want)
@@ -600,6 +620,8 @@ class MultiProcessDataSetIterator(EpochPositionMixin, DataSetIterator):
                     self._inflight += 1
                     submitted += 1
                 self._count(wid, dt)
+                m_ready.set(len(pending))
+                m_inflight.set(self._inflight - 1)
                 if kind == "slot":
                     feats, labels = self._views[payload]
                     ds = DataSet(

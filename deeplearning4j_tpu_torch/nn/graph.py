@@ -65,6 +65,8 @@ from deeplearning4j_tpu_torch.util.platform import (
 
 
 class ComputationGraph(TrainableNet):
+    _LEDGER_PREFIX = "graph"
+
     def __init__(self, conf: ComputationGraphConfiguration,
                  device: DeviceLike = None):
         self.conf = conf
@@ -426,16 +428,10 @@ class ComputationGraph(TrainableNet):
                 data, self.device, self._prefetches(data), scan_steps,
                 accumulate_steps)
             try:
-                for _ in range(epochs):
-                    for lst in self.listeners:
-                        lst.on_epoch_start(self, self.epoch_count)
-                    self._run_epoch(self._mds_stream(data), scan_steps,
-                                    accumulate_steps, 331)
-                    for lst in self.listeners:
-                        lst.on_epoch_end(self, self.epoch_count)
-                    self.epoch_count += 1
-                    if hasattr(data, "reset"):
-                        data.reset()
+                self._run_epochs(
+                    epochs, lambda: self._mds_stream(data), scan_steps,
+                    accumulate_steps, 331,
+                    getattr(data, "reset", lambda: None))
             finally:
                 self._input_affine = None
                 restore_view_batches(copy_marked)

@@ -27,7 +27,10 @@ prefetch (`data/async_iterator.py`) with device-side normalization
 (`backprop_type="tbptt"`: chunks of `tbptt_fwd_length` along time, the
 recurrent layers' state carried across chunks and detached at each
 boundary, one optimizer step a chunk, run per call as the reference
-does). `rnn_time_step` streams through the recurrent layers with their
+does). Every fit path records the reference's telemetry
+(`step_graph.record_iteration`, the `train/*` spans, the goodput session
+and the program ledger, `monitor/`): host scalars only, outside any
+captured graph. `rnn_time_step` streams through the recurrent layers with their
 state kept between calls. Sharding plans raise NotImplementedError
 naming ROADMAP A.15.
 """
@@ -42,6 +45,7 @@ import torch
 from deeplearning4j_tpu_torch.data.async_iterator import (
     AsyncDataSetIterator, pinned, fit_prefetch_enabled,
 )
+from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterator import (
     ArrayDataSetIterator, DataSetIterator, ExistingDataSetIterator,
@@ -52,6 +56,8 @@ from deeplearning4j_tpu_torch.data.normalization import (
 from deeplearning4j_tpu_torch.data.pipeline import (
     mark_copy_for_stacking, restore_view_batches,
 )
+from deeplearning4j_tpu_torch.monitor import goodput
+from deeplearning4j_tpu_torch.monitor import xla as xla_ledger
 from deeplearning4j_tpu_torch.nn import step_graph
 from deeplearning4j_tpu_torch.nn.conf.base import (
     InputType, Kind, LayerConf, RandomTape, preprocess_forward,
@@ -255,7 +261,11 @@ class TrainableNet:
     the in-place step helpers `nn/step_graph.ChunkedFit` drives, and the
     evaluation entry points."""
 
+    #: program-name prefix in the ledger ("mln/train_step", "graph/...")
+    _LEDGER_PREFIX = "mln"
+
     def _reset_fit_state(self):
+        self._ledger_cache = {}         # monitor.xla programs by step key
         self._tx = None
         self.opt_state = None
         self._step_graphs = {}
@@ -425,6 +435,26 @@ class TrainableNet:
             else:
                 step_graph.check_host_ids(host_array(a), n, message)
 
+    def _run_epochs(self, epochs, batches_of, scan_steps, accumulate_steps,
+                    stride, reset):
+        """fit()'s epoch loop, shared by both containers: the listeners'
+        epoch calls, a `train/epoch` span per epoch, and one goodput
+        session over the whole loop (closed even when the fit raises)."""
+        gp_session = goodput.fit_begin(f"{self._LEDGER_PREFIX}/fit")
+        try:
+            for _ in range(epochs):
+                for lst in self.listeners:
+                    lst.on_epoch_start(self, self.epoch_count)
+                with monitor.span("train/epoch", epoch=self.epoch_count):
+                    self._run_epoch(batches_of(), scan_steps,
+                                    accumulate_steps, stride)
+                for lst in self.listeners:
+                    lst.on_epoch_end(self, self.epoch_count)
+                self.epoch_count += 1
+                reset()
+        finally:
+            goodput.fit_end(gp_session)
+
     def _run_epoch(self, batches, scan_steps, accumulate_steps, stride):
         generator = self._epoch_generator(stride)
         lockstep = step_graph.scan_incompatible_listeners(self.listeners)
@@ -443,19 +473,73 @@ class TrainableNet:
 
     def _fit_epoch(self, batches, generator):
         """The per-call path: each step ends in its loss fetch, then the
-        listeners."""
+        listeners. With the program ledger on, a signature's first step is
+        the counted one (`monitor/xla.py`) and later steps feed the MFU
+        accountant."""
         etl_start = time.perf_counter()
         for b in batches:
-            etl_ms = (time.perf_counter() - etl_start) * 1e3
+            step_start = time.perf_counter()
+            etl_ms = (step_start - etl_start) * 1e3
+            monitor.add_span("train/etl", etl_start, step_start,
+                             iteration=self.iteration_count)
             struct = self._batch_struct(b)
-            loss = self._step_struct(struct, generator)
-            self._score = float(loss)          # the step's one loss fetch
             bs = int(np.shape(step_graph.flatten(struct)[0])[0])
+            rec, fresh = None, False
+            if xla_ledger.enabled():
+                key = ("train_step", step_graph.signature(struct),
+                       self._affine_key())
+                fresh = key not in self._ledger_cache
+                if fresh:
+                    loss, rec = self._counted(
+                        key, "train_step", struct, bs, 1,
+                        lambda: self._step_struct(struct, generator))
+                else:
+                    rec = self._ledger_cache[key]
+                    loss = self._step_struct(struct, generator)
+            else:
+                loss = self._step_struct(struct, generator)
+            sync_start = time.perf_counter()
+            # wait for the device FIRST (goodput: step_compute), so the
+            # host_sync span below covers only the narrow D2H fetch
+            goodput.device_wait(loss)
+            fetch_start = time.perf_counter()
+            monitor.add_span("train/device_wait", sync_start, fetch_start)
+            self._score = float(loss)          # the step's one loss fetch
+            step_end = time.perf_counter()
+            monitor.add_span("train/host_sync", fetch_start, step_end)
+            monitor.add_span("train/step", step_start, step_end,
+                             iteration=self.iteration_count,
+                             score=self._score, batch_size=bs)
+            if rec is not None and not fresh:
+                # the counted step ran under the counters: only later
+                # steps feed the MFU gauge
+                xla_ledger.observe_step(rec, step_end - step_start)
+            step_graph.record_iteration(self._score, bs,
+                                        step_seconds=step_end - step_start,
+                                        sync_seconds=step_end - fetch_start)
             for lst in self.listeners:
                 lst.iteration_done(self, self.iteration_count,
                                    self.epoch_count, self._score, etl_ms, bs)
             self.iteration_count += 1
             etl_start = time.perf_counter()
+
+    def _counted(self, key, program: str, struct, examples: int, steps: int,
+                 run, finish=None):
+        """Run one step as the ledger's counted step (`monitor/xla.py`)
+        and book its record under `key`: (run()'s output, the record).
+        `finish`, if given, runs after the counters close and before the
+        record is booked (a graph capture, whose time is booked too)."""
+        cap = xla_ledger.begin_capture(
+            f"{self._LEDGER_PREFIX}/{program}",
+            (self.params, self.opt_state, self.state, struct),
+            examples_per_call=examples, steps_per_call=steps,
+            variant=f"compute={self._compute_dtype}")
+        with cap:
+            out = cap.output = run()
+        if finish is not None:
+            finish()
+        rec = self._ledger_cache[key] = cap.finish()
+        return out, rec
 
     def _fit_epoch_tbptt(self, batches, generator):
         """Truncated BPTT (doTruncatedBPTT): each batch's time axis in
@@ -465,13 +549,17 @@ class TrainableNet:
         iteration, one loss fetch and one `iteration_done`."""
         etl_start = time.perf_counter()
         for b in batches:
-            etl_ms = (time.perf_counter() - etl_start) * 1e3
+            step_start = time.perf_counter()
+            etl_ms = (step_start - etl_start) * 1e3
+            monitor.add_span("train/etl", etl_start, step_start,
+                             iteration=self.iteration_count)
             struct = self._batch_struct(b)
             bs = int(np.shape(step_graph.flatten(struct)[0])[0])
             carries = {}
             for chunk in self._tbptt_chunks(struct):
                 loss, carries = self._carry_step(chunk, generator, carries)
                 self._score = float(loss)      # the chunk's one loss fetch
+                step_graph.record_iteration(self._score, bs)
                 for lst in self.listeners:
                     lst.iteration_done(self, self.iteration_count,
                                        self.epoch_count, self._score,
@@ -806,15 +894,8 @@ class MultiLayerNetwork(TrainableNet):
                 iterator, iterator._device if staged else self.device,
                 staged, scan_steps, accumulate_steps)
             try:
-                for _ in range(epochs):
-                    for lst in self.listeners:
-                        lst.on_epoch_start(self, self.epoch_count)
-                    self._run_epoch(iterator, scan_steps, accumulate_steps,
-                                    7919)
-                    for lst in self.listeners:
-                        lst.on_epoch_end(self, self.epoch_count)
-                    self.epoch_count += 1
-                    iterator.reset()
+                self._run_epochs(epochs, lambda: iterator, scan_steps,
+                                 accumulate_steps, 7919, iterator.reset)
             finally:
                 self._input_affine = None
                 restore_view_batches(copy_marked)

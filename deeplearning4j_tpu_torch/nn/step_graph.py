@@ -28,6 +28,12 @@ overlap between host and device changes.
   add into a static gradient sum, batch-norm state per micro-batch) and
   one update graph (the 1/len mean, the updater, the update).
 
+Telemetry (`monitor/`) stays on the host side of every replay: the
+reference's `train/etl`, `train/dispatch` and `train/chunk_sync` spans
+around a chunk, `record_iteration` per loss of the chunk's one fetch,
+and, with the program ledger on, the counted step (`monitor/xla.py`) is
+the eager warm-up before a capture, never the captured or replayed one.
+
 On the CPU, which the caller asked for, the same chunked loop runs eager
 steps. On CUDA the graph is always used: a failure to capture or replay
 raises, and nothing falls back to eager steps.
@@ -42,7 +48,9 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.data.async_iterator import dtype_of, pinned
+from deeplearning4j_tpu_torch.monitor import xla as xla_ledger
 from deeplearning4j_tpu_torch.util.env import env_int
 
 _CAPTURE = threading.local()
@@ -85,12 +93,19 @@ def run_scan_pipeline(batches, sig_of, dispatch, process, K, defer=True):
 
     def flush():
         nonlocal pending, group, etl_start
-        fresh = dispatch(group, (time.perf_counter() - etl_start) * 1e3)
+        etl_end = time.perf_counter()
+        monitor.add_span("train/etl", etl_start, etl_end, batches=len(group))
+        monitor.counter("train_chunks_dispatched_total",
+                        "Scan/accum chunks dispatched to the device").inc()
+        with monitor.span("train/dispatch", batches=len(group)):
+            fresh = dispatch(group, (etl_end - etl_start) * 1e3)
         if not defer:
-            process(fresh)
+            with monitor.span("train/chunk_sync"):
+                process(fresh)
         else:
             if pending is not None:
-                process(pending)
+                with monitor.span("train/chunk_sync"):
+                    process(pending)
             pending = fresh
         group, etl_start = [], time.perf_counter()
 
@@ -103,7 +118,8 @@ def run_scan_pipeline(batches, sig_of, dispatch, process, K, defer=True):
     if group:
         flush()
     if pending is not None:
-        process(pending)
+        with monitor.span("train/chunk_sync"):
+            process(pending)
 
 
 # --------------------------------------------------------------- structures
@@ -247,6 +263,28 @@ class StepGraph:
         return self.out
 
 
+def record_iteration(score: float, batch_size: int,
+                      step_seconds: Optional[float] = None,
+                      sync_seconds: Optional[float] = None):
+    """One optimizer step's worth of telemetry (monitor/metrics.py) —
+    shared by every fit path of both containers, so `train_*` series mean
+    the same thing everywhere. Only host scalars are touched: `score` is
+    the loss the fit already fetched, so no device sync is introduced."""
+    monitor.counter("train_iterations_total",
+                    "Optimizer steps applied").inc()
+    monitor.counter("train_examples_total",
+                    "Training examples consumed").inc(batch_size)
+    monitor.gauge("train_score", "Last training loss/score").set(score)
+    if step_seconds is not None:
+        monitor.histogram("train_step_seconds",
+                          "Train step wall time (dispatch + host sync)"
+                          ).observe(step_seconds)
+    if sync_seconds is not None:
+        monitor.histogram("train_host_sync_seconds",
+                          "Blocking device->host loss fetch per step"
+                          ).observe(sync_seconds)
+
+
 class ChunkedFit:
     """One epoch of the chunked fit for a container. The container gives:
 
@@ -267,6 +305,7 @@ class ChunkedFit:
         self.net = net
         self.gen = generator
         self.cuda = net.device.type == "cuda"
+        self._last_mark = None      # the previous chunk's end (MFU clock)
 
     # ------------------------------------------------------------ helpers
     def _check_group(self, group):
@@ -286,34 +325,95 @@ class ChunkedFit:
             g = graphs[key] = StepGraph(struct, self.net.device)
         return g
 
-    def _run_step(self, key, struct, fn, extra=()):
+    def _run_step(self, key, struct, fn, extra=(), program=None):
         """fn(struct_on_device) -> output, through the graph of `key` on
         CUDA (warm-up, capture or replay), eagerly on the CPU. `extra`:
-        tensors besides the network's that fn reads and writes."""
+        tensors besides the network's that fn reads and writes.
+        `program` (name, examples, K): with the ledger on, the key's first
+        step is its counted step (the warm-up on CUDA; the graph capture
+        after it joins the record's capture time; an eager step where the
+        graph was captured before the ledger was on)."""
+        net = self.net
+        count = program is not None and xla_ledger.enabled() \
+            and key not in net._ledger_cache
         if not self.cuda:
+            if count:
+                return net._counted(key, program[0], struct, program[1],
+                                    program[2], lambda: fn(struct))[0]
             return fn(struct)
         g = self._graph(key, struct, extra)
         g.load(struct)
         if g.graph is not None:
+            if count:
+                # captured before the ledger was on: this step runs once
+                # eagerly as the counted one (the same update a replay
+                # makes), and replays follow
+                return net._counted(key, program[0], struct, program[1],
+                                    program[2], lambda: fn(g.inputs()))[0]
             return g.replay()
+
+        def capture():
+            # the warm-up may rebind widened state (see `commit`): the
+            # graph reads what the network holds now
+            checked = [layer for _, layer, _ in net._id_inputs()]
+            g.capture(lambda: fn(g.inputs()),
+                      net._bound_tensors() + list(extra), self.gen, checked)
+
+        if count:
+            return net._counted(key, program[0], struct, program[1],
+                                program[2],
+                                lambda: g.warm_up(lambda: fn(g.inputs())),
+                                finish=capture)[0]
         out = g.warm_up(lambda: fn(g.inputs()))
-        # the warm-up may rebind widened state (see `commit`): the graph
-        # reads what the network holds now
-        checked = [layer for _, layer, _ in self.net._id_inputs()]
-        g.capture(lambda: fn(g.inputs()),
-                  self.net._bound_tensors() + list(extra), self.gen, checked)
+        capture()
         return out
 
+    def _mark(self):
+        """The MFU clock's mark at a chunk's end, taken only while the
+        ledger is on: a timing event recorded behind the chunk's last
+        step on CUDA (no launch, no sync), the host clock on the CPU."""
+        if not xla_ledger.enabled():
+            return None
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
     def _process(self, pending):
-        losses, bs, etl_ms = pending
+        losses, bs, etl_ms, key, fresh, mark = pending
         net = self.net
         for loss in losses.tolist():        # the chunk's one host sync
             net._score = float(loss)
+            record_iteration(net._score, bs)
             for lst in net.listeners:
                 lst.iteration_done(net, net.iteration_count, net.epoch_count,
                                    net._score, etl_ms, bs)
             net.iteration_count += 1
             etl_ms = 0.0
+        if mark is None:
+            return
+        # a chunk's wall time = the spacing of two consecutive chunks'
+        # end marks. On CUDA the marks are events on the device timeline:
+        # the fetch above is stream-ordered, so it waits for every chunk
+        # already queued, and host stamps around it could not tell two
+        # chunks apart. The first chunk and the counted one are skipped;
+        # the mark advances on EVERY chunk, a ragged tail's included.
+        prev, self._last_mark = self._last_mark, mark
+        rec = net._ledger_cache.get(key)
+        if rec is None or fresh or prev is None:
+            return
+        seconds = prev.elapsed_time(mark) / 1e3 if self.cuda \
+            else mark - prev
+        xla_ledger.observe_step(rec, seconds)
+
+    def _fresh(self, key) -> bool:
+        """Whether `key`'s step is still to be counted (the chunk that
+        counts it must not feed the MFU clock)."""
+        fresh = xla_ledger.enabled() and key not in self.net._ledger_cache
+        if fresh:
+            self._last_mark = None
+        return fresh
 
     def _sig(self, batch):
         return signature(self.net._batch_struct(batch))
@@ -329,18 +429,22 @@ class ChunkedFit:
                 # a ragged tail or a shape change: per-call steps, as the
                 # reference runs its compiled per-call step there
                 losses = [net._step_struct(s, self.gen) for s in structs]
-                return torch.stack(losses), bs, etl_ms
+                return torch.stack(losses), bs, etl_ms, None, False, \
+                    self._mark()
             key = ("scan", signature(structs[0]), net._affine_key())
+            fresh = self._fresh(key)
+            program = ("scan_step", bs * K, K)
             self._check_group(group)
             buf = None
             for i, s in enumerate(structs):
                 loss = self._run_step(
-                    key, s, lambda st: net._step_struct(st, self.gen))
+                    key, s, lambda st: net._step_struct(st, self.gen),
+                    program=program)
                 if buf is None:
                     buf = torch.empty(len(group), dtype=loss.dtype,
                                       device=loss.device)
                 buf[i].copy_(loss)
-            return buf, bs, etl_ms
+            return buf, bs, etl_ms, key, fresh, self._mark()
 
         run_scan_pipeline(batches, self._sig, dispatch, self._process, K)
 
@@ -381,13 +485,20 @@ class ChunkedFit:
         def dispatch(group, etl_ms):
             structs = [net._batch_struct(b) for b in group]
             self._check_group(group)
+            key = ("micro", signature(structs[0]), net._affine_key())
+            fresh = self._fresh(key)
+            bs = int(np.shape(flatten(structs[0])[0])[0]) * len(group)
+            # the ledger counts one micro-step (the update is not counted)
+            # and scales it by the group's length, as the reference's
+            # accumulation program does
+            program = ("accum_step", bs, len(group))
             for s in structs:
                 self._run_step(("micro", signature(s), net._affine_key()),
-                               s, micro, extra)
+                               s, micro, extra, program=program)
             acc["n"].fill_(float(len(group)))
             loss = self._run_step(("update",), (), lambda _: update(), extra)
-            bs = int(np.shape(flatten(structs[0])[0])[0]) * len(group)
-            return loss.reshape(1).clone(), bs, etl_ms
+            return loss.reshape(1).clone(), bs, etl_ms, key, fresh, \
+                self._mark()
 
         run_scan_pipeline(batches, self._sig, dispatch, self._process, K,
                           defer=defer)

@@ -11,6 +11,8 @@ as it is. Only sources in the repository are built; nothing is fetched.
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
 `build_all` starts one nvcc per source, all at once, and waits for them.
+Each build emits an ``xla/compile`` span (program ``nvcc/<name>``), so
+the goodput ledger books a first use's build as ``compile``.
 """
 from __future__ import annotations
 
@@ -108,6 +110,9 @@ def _finish(name, target, tmp, proc, t0) -> BuiltLibrary:
         raise KernelBuildError(f"nvcc failed building {name} "
                                f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, target)     # atomic: a reader never sees half a library
+    from deeplearning4j_tpu_torch.monitor import trace
+    trace.add_span("xla/compile", t0, t0 + seconds, program=f"nvcc/{name}",
+                   domain="kernel")
     return BuiltLibrary(name, target, seconds, out)
 
 

@@ -20,6 +20,13 @@ Dispatch: a CPU tensor goes to the plain versions (`flash_attention_plain`,
 (dQ, then dK/dV) backward. Whatever goes wrong (the build, a refused
 launch, a dtype or head dim the kernels do not take) raises; there is no
 fallback. `KERNEL_LAUNCHES` counts the launches by kernel.
+
+While the program ledger counts a step (`monitor/xla.py`), `_Flash`
+adds each kernel's work by its formula (`kernel_work`: per live (q, k)
+pair 4·D forward, 6·D dQ, 8·D dK/dV; its operands' and results' bytes)
+and runs its own ops hidden from the ledger's counters, on the CPU route
+as on the card, where the counters cannot see a ctypes launch at all.
+Outside a counted step this is one bool read.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.monitor import xla as _ledger
 from deeplearning4j_tpu_torch.util.env import env_int
 
 NEG = -1e30
@@ -306,6 +314,34 @@ def flash_attention_bwd_cuda(q, k, v, mask, out, lse, g_out, g_lse,
     return dq, dk, dv
 
 
+def live_pairs(tq: int, tk: int, causal: bool) -> int:
+    """(query, key) pairs per (batch, head) that causality keeps."""
+    if not causal:
+        return tq * tk
+    n = min(tq, tk)
+    return n * (n + 1) // 2 + max(tq - tk, 0) * tk
+
+
+def kernel_work(name: str, q, k, causal: bool):
+    """(flops, bytes) of one kernel call: flops per live pair of every
+    (batch, head) — 4·D forward (Q·K and P·V), 6·D dQ, 8·D dK/dV — and
+    the bytes of the operands it reads and the results it writes once
+    (Q, K, V, O, LSE forward; Q, K, V, dO, LSE, delta and dQ, or dK and
+    dV, backward)."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    per_d = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}[name]
+    flops = per_d * d * live_pairs(tq, tk, causal) * b * h
+    es = q.element_size()
+    qkv = (q.numel() + 2 * k.numel()) * es
+    rows = b * h * tq * 4                   # one f32 per query row
+    nbytes = {"flash_fwd": qkv + q.numel() * es + rows,
+              "flash_bwd_dq": qkv + 2 * q.numel() * es + 2 * rows,
+              "flash_bwd_dkv": qkv + q.numel() * es + 2 * rows
+              + 2 * k.numel() * es}[name]
+    return flops, nbytes
+
+
 class _Flash(torch.autograd.Function):
     """(out, lse) with the flash backward: the counterpart of the
     reference's `_flash` custom_vjp. The mask gets no gradient."""
@@ -313,7 +349,13 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, causal):
         run = flash_attention_cuda if q.is_cuda else flash_attention_plain
-        out, lse = run(q, k, v, mask, causal)
+        if _ledger.counting():
+            with _ledger.uncounted():
+                out, lse = run(q, k, v, mask, causal)
+            _ledger.add_kernel_work("flash_fwd",
+                                    *kernel_work("flash_fwd", q, k, causal))
+        else:
+            out, lse = run(q, k, v, mask, causal)
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.causal = causal
         return out, lse
@@ -323,7 +365,16 @@ class _Flash(torch.autograd.Function):
         q, k, v, mask, out, lse = ctx.saved_tensors
         run = flash_attention_bwd_cuda if q.is_cuda \
             else flash_attention_bwd_plain
-        dq, dk, dv = run(q, k, v, mask, out, lse, g_out, g_lse, ctx.causal)
+        if _ledger.counting():
+            with _ledger.uncounted():
+                dq, dk, dv = run(q, k, v, mask, out, lse, g_out, g_lse,
+                                 ctx.causal)
+            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                _ledger.add_kernel_work(
+                    name, *kernel_work(name, q, k, ctx.causal))
+        else:
+            dq, dk, dv = run(q, k, v, mask, out, lse, g_out, g_lse,
+                             ctx.causal)
         return dq, dk, dv, None, None
 
 

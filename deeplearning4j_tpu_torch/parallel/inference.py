@@ -17,11 +17,15 @@ from __future__ import annotations
 import enum
 import queue
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import monitor
+from deeplearning4j_tpu_torch.monitor import xla as xla_ledger
+from deeplearning4j_tpu_torch.util.locks import DiagnosedLock
 from deeplearning4j_tpu_torch.util.platform import resolve_device
 
 
@@ -89,7 +93,10 @@ class ParallelInference:
         self.max_batch_size = int(max_batch_size)
         self._queue: "queue.Queue[_Request]" = queue.Queue(maxsize=queue_limit)
         self._stop = threading.Event()
-        self._swap_lock = threading.Lock()
+        self._swap_lock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.parallel.inference.ParallelInference."
+            "_swap_lock")
+        self._ledger_cache: dict = {}    # monitor.xla programs per shape
         self._worker = None
         if self.mode == InferenceMode.BATCHED:
             self._worker = threading.Thread(target=self._serve_loop,
@@ -99,13 +106,40 @@ class ParallelInference:
 
     # ---------------------------------------------------------------- device
     @staticmethod
-    def _run_with(model, x) -> np.ndarray:
+    def _forward(model, x) -> np.ndarray:
         """One forward of `model` on its device -> numpy (the copy back
         synchronizes). A graph answers its first network output."""
         y = model.output(x)
         if isinstance(y, (tuple, list)):
             y = y[0]
         return y.float().cpu().numpy()
+
+    def _run_with(self, model, x) -> np.ndarray:
+        """`_forward`, and with the program ledger on the serving forward
+        as program ``inference/forward`` (domain "serving"): the first
+        forward of a (network, input shape) is the counted one — the
+        batcher's warmups flow through here, so every ladder bucket is
+        counted before a live request — and later ones feed
+        `serving_mfu_pct` (their fetch synchronizes, so the wall time is
+        the forward's)."""
+        if not xla_ledger.enabled():
+            return self._forward(model, x)
+        key = (id(model), tuple(np.shape(x)), str(np.asarray(x).dtype))
+        if key not in self._ledger_cache:
+            cap = xla_ledger.begin_capture(
+                "inference/forward",
+                (model.params, getattr(model, "state", None), x),
+                domain="serving", examples_per_call=int(np.shape(x)[0]),
+                variant=f"compute={getattr(model, '_compute_dtype', '')}")
+            with cap:
+                out = cap.output = self._forward(model, x)
+            self._ledger_cache[key] = cap.finish()
+            return out
+        t0 = time.perf_counter()
+        out = self._forward(model, x)
+        xla_ledger.observe_step(self._ledger_cache[key],
+                                time.perf_counter() - t0, domain="serving")
+        return out
 
     def _run_batch(self, x):
         with self._swap_lock:   # the model is read atomically vs a swap
@@ -117,17 +151,35 @@ class ParallelInference:
         """Synchronous inference; thread-safe. In BATCHED mode the call
         may be coalesced with concurrent callers."""
         x = np.asarray(x)
-        if self.mode == InferenceMode.SEQUENTIAL or self._worker is None:
-            return self._run_batch(x)
-        if self._stop.is_set() or not self._worker.is_alive():
-            raise RuntimeError("ParallelInference has been shut down")
-        req = _Request(x)
-        self._queue.put(req, timeout=timeout)
-        if not req.event.wait(timeout):
-            raise TimeoutError("inference request timed out")
-        if req.error is not None:
-            raise req.error
-        return req.result
+        t0 = time.perf_counter()
+        monitor.counter("inference_requests_total",
+                        "ParallelInference.output() calls").inc()
+        try:
+            with monitor.span("inference/request", n=int(x.shape[0])):
+                if self.mode == InferenceMode.SEQUENTIAL \
+                        or self._worker is None:
+                    return self._run_batch(x)
+                if self._stop.is_set() or not self._worker.is_alive():
+                    raise RuntimeError(
+                        "ParallelInference has been shut down")
+                req = _Request(x)
+                self._queue.put(req, timeout=timeout)
+                monitor.gauge("inference_queue_depth",
+                              "Pending inference requests").set(
+                    self._queue.qsize())
+                if not req.event.wait(timeout):
+                    monitor.counter("inference_timeouts_total",
+                                    "Requests that hit their deadline"
+                                    ).inc()
+                    raise TimeoutError("inference request timed out")
+                if req.error is not None:
+                    raise req.error
+                return req.result
+        finally:
+            monitor.histogram("inference_request_seconds",
+                              "End-to-end request latency (queueing + "
+                              "batching + device run)").observe(
+                time.perf_counter() - t0)
 
     def _serve_loop(self):
         pending = None      # request popped but deferred to the next batch
@@ -156,7 +208,18 @@ class ParallelInference:
                 total += nxt.x.shape[0]
             try:
                 batch = np.concatenate([r.x for r in reqs], axis=0)
-                out = self._run_batch(batch)
+                monitor.histogram(
+                    "inference_batch_size",
+                    "Coalesced device-batch sizes (examples)",
+                    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+                ).observe(batch.shape[0])
+                monitor.gauge("inference_queue_depth",
+                              "Pending inference requests").set(
+                    self._queue.qsize())
+                with monitor.span("inference/batch",
+                                  n=int(batch.shape[0]),
+                                  requests=len(reqs)):
+                    out = self._run_batch(batch)
                 ofs = 0
                 for r in reqs:
                     r.result = out[ofs:ofs + r.x.shape[0]]

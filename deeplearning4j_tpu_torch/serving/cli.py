@@ -9,6 +9,17 @@ host-RAM KV spill tier (``--kv-spill-pages``) and a disaggregation role
 (``--kv-role``). The fleet mode's flags (``--kv-roles``, ``--disagg-*``)
 are ROADMAP A.14 and exit.
 
+Observability, as in the reference: the flight recorder is on for a
+served process (``--no-flight`` turns it off, ``--flight-records`` sizes
+its ring, ``--postmortem-dir`` receives its automatic postmortems),
+``--trace-out`` records spans and writes the trace on drain, any
+``--slo-*`` objective (``--slo-p99-ms``, ``--slo-availability``) starts
+the time-series ring (``--slo-sample-interval-s``) and the burn-rate
+engine (``--slo-windows``) behind ``GET /v1/slo`` and
+``/v1/timeseries``, and ``--enable-fault-injection`` exposes
+``/v1/faults`` and honours ``$DL4J_CUDA_SERVING_FAULTS``. ``GET
+/metrics`` is always served.
+
 Usage:
     python -m deeplearning4j_tpu_torch.serving \
         --model 'lm=zoo:TransformerLM?seq_length=2048&n_embd=512&attention_impl=flash' \
@@ -132,6 +143,43 @@ def build_parser() -> argparse.ArgumentParser:
                    help="default per-request deadline (expired -> 504)")
     p.add_argument("--drain-timeout-s", type=float, default=30.0,
                    help="max time to flush in-flight work on SIGTERM")
+    p.add_argument("--enable-fault-injection", action="store_true",
+                   help="expose POST /v1/faults (chaos testing; wedge "
+                        "probes / predicts of THIS process) and honor "
+                        "$DL4J_CUDA_SERVING_FAULTS. Never on by default.")
+    obs = p.add_argument_group("observability")
+    obs.add_argument("--trace-out", default=None, metavar="PATH",
+                     help="enable span tracing and save the Chrome/"
+                          "Perfetto trace here on drain")
+    obs.add_argument("--postmortem-dir", default=None, metavar="DIR",
+                     help="flight-recorder SLO postmortems (5xx, wedge, "
+                          "p99 breach, burn-rate alerts) are auto-dumped "
+                          "here as JSON")
+    obs.add_argument("--flight-records", type=int, default=512,
+                     help="per-request flight-recorder ring capacity")
+    obs.add_argument("--no-flight", action="store_true",
+                     help="disable the flight recorder (on by default "
+                          "for served processes; the ring is bounded "
+                          "host memory, never on the device path)")
+    obs.add_argument("--slo-p99-ms", type=float, default=None,
+                     help="latency SLO: 99%% of requests must finish "
+                          "under this; breaches fire the SLO engine's "
+                          "burn-rate alert (reason p99_breach) and an "
+                          "automatic postmortem")
+    obs.add_argument("--slo-availability", type=float, default=None,
+                     metavar="TARGET",
+                     help="availability SLO target (e.g. 0.999). Any "
+                          "--slo-* flag enables the in-process time-"
+                          "series ring + multi-window burn-rate "
+                          "alerting; verdicts on GET /v1/slo, firings "
+                          "trip flight postmortems")
+    obs.add_argument("--slo-sample-interval-s", type=float, default=5.0,
+                     help="time-series sampling interval while an "
+                          "--slo-* objective is active")
+    obs.add_argument("--slo-windows", default=None, metavar="FL,FS,SL,SS",
+                     help="override the burn-rate windows (seconds): "
+                          "fast-long,fast-short,slow-long,slow-short "
+                          "(default 3600,300,21600,1800)")
     p.add_argument("--device", default="cuda",
                    help="torch device the networks run on (default cuda; "
                         "'cpu' must be asked for)")
@@ -185,14 +233,51 @@ def _decode_config(args):
                         spill_pages=args.kv_spill_pages or None)
 
 
+def _slo_setup(args, objectives):
+    """Enable the time-series ring + SLO engine from --slo-* flags.
+    Returns the engine (None when no --slo-* flag was given)."""
+    if not objectives:
+        return None
+    from deeplearning4j_tpu_torch.monitor import slo, timeseries
+    rules = slo.DEFAULT_RULES
+    if args.slo_windows:
+        try:
+            fl, fs, sl, ss = (float(x)
+                              for x in args.slo_windows.split(","))
+        except ValueError:
+            raise SystemExit("--slo-windows expects 4 comma-separated "
+                             f"seconds, got {args.slo_windows!r}") from None
+        # keep the workbook burn thresholds, scale the flap-suppression
+        # hold with the short windows
+        rules = (slo.BurnRule("page", fl, fs, 14.4,
+                              keep_firing_s=max(2.0, fs / 2)),
+                 slo.BurnRule("ticket", sl, ss, 6.0,
+                              keep_firing_s=max(2.0, ss / 2)))
+    timeseries.enable_timeseries(interval_s=args.slo_sample_interval_s)
+    return slo.enable_slo(objectives, rules=rules)
+
+
 def build(args):
     """Deploy every --model and --lm and start the listener:
-    (registry, server)."""
+    (registry, server). Turns on what the observability flags ask for
+    (process-wide: the flight recorder, tracing, the SLO engine)."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.monitor import flight as flight_recorder
+    from deeplearning4j_tpu_torch.monitor import slo as slo_mod
     from deeplearning4j_tpu_torch.serving.registry import (
         ModelLoadError, ModelRegistry,
     )
     from deeplearning4j_tpu_torch.serving.server import ENDPOINTS, ModelServer
     from deeplearning4j_tpu_torch.util.platform import resolve_device
+
+    # observability defaults for served processes: the flight recorder is
+    # ON (bounded host-side ring; the zero-cost contract only governs the
+    # library default), span tracing only when --trace-out asks for it
+    if not args.no_flight:
+        flight_recorder.enable_flight(capacity=args.flight_records,
+                                      dump_dir=args.postmortem_dir)
+    if args.trace_out:
+        monitor.enable_tracing()
 
     try:
         buckets = tuple(int(b) for b in args.buckets.split(",") if b)
@@ -234,11 +319,20 @@ def build(args):
                           "device": str(served.model.device),
                           "warmup_s": served.warmup_seconds}),
               file=sys.stderr)
+    slo_engine = _slo_setup(args, slo_mod.server_objectives(
+        slo_p99_ms=args.slo_p99_ms,
+        availability_target=args.slo_availability))
     server = ModelServer(registry, host=args.host, port=args.port,
                          default_deadline_s=args.deadline_s,
-                         kv_role=args.kv_role)
+                         kv_role=args.kv_role,
+                         enable_faults=args.enable_fault_injection,
+                         slo_engine=slo_engine)
+    endpoints = [e for e in ENDPOINTS
+                 if (e != "/v1/faults" or args.enable_fault_injection)
+                 and (e not in ("/v1/slo", "/v1/timeseries")
+                      or slo_engine is not None)]
     print(json.dumps({"serving": server.url, "models": registry.names(),
-                      "endpoints": ENDPOINTS}))
+                      "endpoints": endpoints}))
     sys.stdout.flush()
     return registry, server
 
@@ -257,6 +351,11 @@ def main(argv=None) -> int:
         signal.signal(s, _on_signal)
     stop.wait()
     server.drain(timeout=args.drain_timeout_s)
+    if args.trace_out:
+        from deeplearning4j_tpu_torch import monitor
+        n = monitor.save_trace(args.trace_out)
+        print(json.dumps({"trace_out": args.trace_out, "events": n}),
+              file=sys.stderr)
     return 0
 
 

@@ -57,6 +57,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import monitor
+from deeplearning4j_tpu_torch.monitor import flight
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     EmbeddingSequenceLayer, LayerNormLayer, MoEFeedForward,
@@ -75,8 +77,12 @@ from deeplearning4j_tpu_torch.serving.quantize import (
 from deeplearning4j_tpu_torch.serving.registry import (
     ModelLoadError, ServableVersion, load_servable,
 )
+from deeplearning4j_tpu_torch.util.locks import DiagnosedLock
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
+
+_TTFT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10)
+_ITL_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1)
 
 _LN = LayerNormLayer()          # the block-internal LN (default epsilon)
 
@@ -190,6 +196,7 @@ class GenerateRequest:
         self.events: "queue.Queue" = queue.Queue()
         self.enqueued = time.monotonic()
         self.first_token_at: Optional[float] = None
+        self.last_emit_at: Optional[float] = None
         self.n_emitted = 0
         self.version: Optional[int] = None
         self.finish_reason: Optional[str] = None
@@ -206,12 +213,21 @@ class GenerateRequest:
         self.spec_rounds = 0
         self.cancelled = threading.Event()
         self.done = threading.Event()
+        # the submitting thread's trace context (the HTTP handler binds
+        # the request's ctx around generate()); the scheduler thread
+        # records this stream's spans under it
+        self.ctx = monitor.current_context()
+        self.t0_pc = time.perf_counter()
+        self._last_pc: Optional[float] = None
 
     # ------------------------------------------------------------- events
     def emit(self, token: int):
         self.n_emitted += 1
+        now = time.monotonic()
         if self.first_token_at is None:
-            self.first_token_at = time.monotonic()
+            self.first_token_at = now
+        self.last_emit_at = now
+        self._last_pc = time.perf_counter()
         self.events.put(("token", int(token)))
 
     def finish(self, reason: str):
@@ -855,8 +871,9 @@ class DecodeEngine:
         pools)."""
         self._meter_program("kv_extract", warmup=False)
         t0 = time.perf_counter()
-        k, v = self._extract_fn(page)
-        frame = kvfabric.pack_page(k, v, digest)     # the copy back syncs
+        with monitor.span("serving/kv_extract", model=self.name):
+            k, v = self._extract_fn(page)
+            frame = kvfabric.pack_page(k, v, digest)  # the copy back syncs
         self.fabric["demoted"] += 1
         self.fabric["demote_s"] += time.perf_counter() - t0
         return frame
@@ -878,7 +895,8 @@ class DecodeEngine:
                 f"pool {shape}/{self._dtype} (mismatched model or "
                 "quantize mode)")
         self._meter_program("kv_land", warmup=False)
-        self._land_fn(page, k, v)
+        with monitor.span("serving/kv_land", model=self.name):
+            self._land_fn(page, k, v)
         self.fabric["landed"] += 1
         self.fabric["land_s"] += time.perf_counter() - t0
 
@@ -900,8 +918,9 @@ class DecodeEngine:
         self._meter_program("kv_extract", warmup=False)
         frames = []
         for page, dig in zip(pages, digests):
-            k, v = self._extract_fn(page)
-            frames.append(kvfabric.pack_page(k, v, dig))
+            with monitor.span("serving/kv_extract", model=self.name):
+                k, v = self._extract_fn(page)
+                frames.append(kvfabric.pack_page(k, v, dig))
         self.fabric["exported"] += len(frames)
         return frames
 
@@ -929,8 +948,20 @@ class DecodeEngine:
         if program in self._programs:
             return
         self._programs.add(program)
+        # a "compile" here is a program's first run (the first use of
+        # its kernels and allocations), counted under the reference's name
+        monitor.counter(
+            "serving_decode_compiles_total",
+            "First executions of a decode-runtime program per engine "
+            "generation (each implies one XLA compile)",
+            labels=("model", "program")).inc(model=self.name,
+                                             program=program)
         if warmup:
             self.warmup_runs += 1
+            monitor.counter(
+                "serving_decode_warmup_runs_total",
+                "AOT decode-runtime warmup executions (one per program per "
+                "engine generation)", labels=("model",)).inc(model=self.name)
             return
         self.request_path_first_runs += 1
         log.warning(
@@ -1006,7 +1037,14 @@ class DecodeEngine:
                                 torch.zeros((s, k), dtype=torch.int64,
                                             device=self.device))
             vlog.cpu()
-        return time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        monitor.histogram(
+            "serving_decode_warmup_seconds",
+            "Full decode-runtime warmup duration (buckets + step)",
+            labels=("model",),
+            buckets=(0.1, 0.5, 1, 2.5, 5, 10, 30, 60, 120)).observe(
+            seconds, model=self.name)
+        return seconds
 
     # ------------------------------------------------------------ host API
     def bucket_for(self, n: int) -> int:
@@ -1027,8 +1065,9 @@ class DecodeEngine:
         if info.cow_src is not None:
             try:
                 self._meter_program("cow_copy", warmup=False)
-                kvcache.copy_page(self._kpool, self._vpool, info.cow_src,
-                                  info.cow_dst)
+                with monitor.span("serving/kv_cow", model=self.name):
+                    kvcache.copy_page(self._kpool, self._vpool,
+                                      info.cow_src, info.cow_dst)
             except Exception:
                 # a failed copy must not leak the slot or the pinned
                 # source page — undo the admission before surfacing
@@ -1071,6 +1110,12 @@ class DecodeEngine:
             self.draft.cache.release(ds)
         fb = self.spec_stats["fallbacks"]
         fb[reason] = fb.get(reason, 0) + 1
+        monitor.counter(
+            "serving_decode_spec_fallbacks_total",
+            "Streams whose speculation turned off (draft pool dry, "
+            "draft prefill failure, or rolling acceptance under the "
+            "floor)", labels=("model", "reason")).inc(
+            model=self.name, reason=reason)
 
     def release_slot(self, slot: int):
         """Release a finished stream's target slot AND its draft mirror
@@ -1127,9 +1172,16 @@ class DecodeEngine:
         self._topks[slot] = top_k
         self._counter += 1
         self._meter_program(f"chunk_{tb}", warmup=False)
-        tok, _ = self._chunk_fn(toks, start, start + n,
-                                self.cache.page_table[slot], temperature,
-                                top_k, self._counter)
+        with monitor.span("serving/prefill_chunk", model=self.name,
+                          bucket=tb, tokens=n):
+            tok, _ = self._chunk_fn(toks, start, start + n,
+                                    self.cache.page_table[slot], temperature,
+                                    top_k, self._counter)
+        monitor.counter("serving_decode_prefills_total",
+                        "Prefill program executions by bucket size "
+                        "(chunk_* buckets are suffix/chunked prefills)",
+                        labels=("model", "bucket")).inc(
+            model=self.name, bucket=f"chunk_{tb}")
         tok = int(tok)
         self._last_tokens[slot] = tok
         return tok
@@ -1149,8 +1201,15 @@ class DecodeEngine:
         self._topks[slot] = top_k
         self._counter += 1
         self._meter_program(f"prefill_{tb}", warmup=False)
-        tok, logits = self._prefill_fn(toks, n, self.cache.page_table[slot],
-                                       temperature, top_k, self._counter)
+        with monitor.span("serving/prefill", model=self.name, bucket=tb):
+            tok, logits = self._prefill_fn(toks, n,
+                                           self.cache.page_table[slot],
+                                           temperature, top_k, self._counter)
+        monitor.counter("serving_decode_prefills_total",
+                        "Prefill program executions by bucket size "
+                        "(chunk_* buckets are suffix/chunked prefills)",
+                        labels=("model", "bucket")).inc(
+            model=self.name, bucket=str(tb))
         tok = int(tok)
         self._last_tokens[slot] = tok
         return tok, logits
@@ -1175,14 +1234,20 @@ class DecodeEngine:
         sampling = bool((self._temps[act] > 0).any())
         self._meter_program("decode_sampling" if sampling else "decode",
                             warmup=False)
-        toks, logits = self._decode_fn(
-            self.cache.page_table, self.cache.seq_lens, self._last_tokens,
-            act, self._temps, self._topks, self._counter, sampling)
-        toks_np = toks.cpu().numpy().astype(np.int32)
+        with monitor.span("serving/decode_step", model=self.name,
+                          active=int(act.sum())):
+            toks, logits = self._decode_fn(
+                self.cache.page_table, self.cache.seq_lens,
+                self._last_tokens, act, self._temps, self._topks,
+                self._counter, sampling)
+            toks_np = toks.cpu().numpy().astype(np.int32)
         for s in np.nonzero(act)[0]:
             self.cache.advance(int(s))
             self._last_tokens[s] = toks_np[s]
         self.steps += 1
+        monitor.counter("serving_decode_steps_total",
+                        "Compiled decode iterations executed",
+                        labels=("model",)).inc(model=self.name)
         return toks_np, act, logits
 
     # ------------------------------------------------- speculative decoding
@@ -1290,10 +1355,14 @@ class DecodeEngine:
         sampling = bool((d._temps[dact] > 0).any())
         d._meter_program(f"draft_{k}_sampling" if sampling
                          else f"draft_{k}", warmup=False)
-        drafted, qlog = d._propose(k, dtok, dact, d._temps, d._topks,
-                                   d._counter - k + 1, sampling)
+        with monitor.span("serving/spec_draft", model=self.name,
+                          active=len(pairs), k=k):
+            drafted, qlog = d._propose(k, dtok, dact, d._temps, d._topks,
+                                       d._counter - k + 1, sampling)
         self._meter_program(f"verify_{k + 1}", warmup=False)
-        vlog = self._verify(self._last_tokens, tact, drafted, rows)
+        with monitor.span("serving/spec_verify", model=self.name,
+                          active=len(pairs)):
+            vlog = self._verify(self._last_tokens, tact, drafted, rows)
         # the round's one synchronisation: drafted tokens (exact in f32
         # below 2^24), draft logits and verify logits in one copy back
         sd, v = d.cfg.slots, vlog.shape[-1]
@@ -1306,11 +1375,21 @@ class DecodeEngine:
         qlog = host[n_d:n_d + n_q].reshape(sd, k, v)
         vlog = host[n_d + n_q:].reshape(self.cfg.slots, k + 1, v)
         out: Dict[int, dict] = {}
+        n_prop = n_acc = 0
+        ratio = monitor.histogram(
+            "serving_decode_spec_acceptance_ratio",
+            "Per-stream-per-round fraction of draft proposals the "
+            "verifier accepted (accepted / k)", labels=("model",),
+            buckets=(0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875,
+                     1.0))
         floor = float(self.cfg.spec_accept_floor)
         for s, ds in pairs:
             a, extra = self._spec_accept(
                 drafted[ds], vlog[s], qlog[ds], float(self._temps[s]),
                 int(self._topks[s]))
+            n_prop += k
+            n_acc += a
+            ratio.observe(a / k, model=self.name)
             for _ in range(a + 1):
                 self.cache.advance(s)
                 d.cache.advance(ds)
@@ -1330,6 +1409,20 @@ class DecodeEngine:
                     self.spec_disable(s, "acceptance_floor")
                     out[s]["fallback"] = "acceptance_floor"
         self.spec_stats["rounds"] += 1
+        monitor.counter(
+            "serving_decode_spec_proposed_total",
+            "Draft tokens proposed to the verifier",
+            labels=("model",)).inc(n_prop, model=self.name)
+        monitor.counter(
+            "serving_decode_spec_accepted_total",
+            "Draft tokens the verifier accepted (the speedup is "
+            "accepted + rounds extra tokens for 2 dispatches per round)",
+            labels=("model",)).inc(n_acc, model=self.name)
+        monitor.counter(
+            "serving_decode_spec_rounds_total",
+            "Speculative draft+verify rounds executed (2 dispatches "
+            "each, emitting accepted+1 tokens per handled stream)",
+            labels=("model",)).inc(model=self.name)
         return out
 
     @torch.no_grad()
@@ -1427,9 +1520,11 @@ class DecodeScheduler:
         self.name = name
         self.queue_limit = int(queue_limit)
         self._pending: deque = deque()
-        self._plock = threading.Lock()
+        self._plock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.decode.DecodeScheduler._plock")
         self._runs: List[_EngineRun] = []
-        self._rlock = threading.Lock()
+        self._rlock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.decode.DecodeScheduler._rlock")
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._draining = False
@@ -1439,6 +1534,11 @@ class DecodeScheduler:
         self._fabric: deque = deque()
         self.stats = {"preempted_joins": 0, "rejected_queue_full": 0,
                       "rejected_deadline": 0}
+        # goodput accounting: page-stall slot-seconds apportioned out of
+        # the step window by _step_all (stalled/considered share of each
+        # step's wall) — read by the loop, only meaningful under the
+        # ledger
+        self._stall_s = 0.0
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=f"DecodeScheduler-{name}")
         self._started = False
@@ -1473,10 +1573,20 @@ class DecodeScheduler:
         with self._plock:
             if len(self._pending) >= self.queue_limit:
                 self.stats["rejected_queue_full"] += 1
+                monitor.counter("serving_decode_rejected_total",
+                                "Generation requests rejected by "
+                                "admission control",
+                                labels=("model", "reason")).inc(
+                    model=self.name, reason="queue_full")
                 raise ServerOverloadedError(
                     f"decode[{self.name}]: join queue full "
                     f"({self.queue_limit} pending)")
             self._pending.append(req)
+            depth = len(self._pending)
+        monitor.gauge("serving_decode_queue_depth",
+                      "Generation requests waiting for a decode slot",
+                      labels=("model",)).set(depth, model=self.name)
+        flight.note(req.ctx, "queued", depth=depth, model=self.name)
         self._wake.set()
 
     def run_fabric(self, fn, timeout: float = 30.0):
@@ -1574,11 +1684,20 @@ class DecodeScheduler:
             self._loop_on_device()
 
     def _loop_on_device(self):
+        from deeplearning4j_tpu_torch.monitor import goodput
         crash: Optional[Exception] = None
         while not self._stop.is_set():
+            # goodput split of the scheduler pass: admission vs the
+            # compute window (prefill + step + retire) with the step's
+            # page-stall share apportioned out, vs idle wait below.
+            # Zero-cost while the ledger is off: one flag check per pass
+            gp = goodput.goodput_enabled()
+            t_pass = time.perf_counter() if gp else 0.0
             try:
                 worked = self._admit()
                 worked = self._fabric_tick() or worked
+                t_admitted = time.perf_counter() if gp else 0.0
+                stall0 = self._stall_s
                 worked = self._prefill_tick() or worked
                 worked = self._step_all() or worked
                 self._retire()
@@ -1592,9 +1711,22 @@ class DecodeScheduler:
                               "all streams", self.name)
                 self._stop.set()
                 break
+            if gp:
+                t_end = time.perf_counter()
+                stall = max(self._stall_s - stall0, 0.0)
+                goodput.decode_note(self.name, "admission",
+                                    t_admitted - t_pass)
+                goodput.decode_note(self.name, "page_stall", stall)
+                goodput.decode_note(
+                    self.name, "step_compute",
+                    max(t_end - t_admitted - stall, 0.0))
             if not worked:
+                idle0 = time.perf_counter() if gp else 0.0
                 self._wake.wait(0.005)
                 self._wake.clear()
+                if gp:
+                    goodput.decode_note(self.name, "idle",
+                                        time.perf_counter() - idle0)
         # teardown: everything still live gets a terminal error
         exc = crash if crash is not None else ServerDrainingError(
             f"decode[{self.name}] shut down mid-stream")
@@ -1642,6 +1774,11 @@ class DecodeScheduler:
                     and time.monotonic() > req.deadline:
                 self._pop(req)
                 self.stats["rejected_deadline"] += 1
+                monitor.counter("serving_decode_rejected_total",
+                                "Generation requests rejected by "
+                                "admission control",
+                                labels=("model", "reason")).inc(
+                    model=self.name, reason="deadline")
                 req.fail(DeadlineExceededError(
                     f"decode[{self.name}]: deadline expired after "
                     f"{time.monotonic() - req.enqueued:.3f}s in queue"))
@@ -1671,13 +1808,36 @@ class DecodeScheduler:
             # "joined a RUNNING batch" counts decoding streams only
             with self._rlock:
                 joined_running = any(r.slot_req for r in self._runs)
+            if flight.enabled():
+                # admission wait + the engine generation whose params
+                # will write this stream's KV + how much prefill the
+                # prefix cache just made free
+                flight.note(req.ctx, "admitted", slot=info.slot,
+                            engine_version=run.version,
+                            wait_ms=round(
+                                (time.monotonic() - req.enqueued) * 1e3,
+                                3),
+                            joined_running=joined_running,
+                            cached_tokens=int(info.cached_len),
+                            cow=info.cow_src is not None,
+                            model=self.name)
             req.version = run.version
             run.prefill[info.slot] = _PrefillJob(
                 req, int(info.cached_len),
                 run.engine.draft_prefill_origin(info.slot))
             if joined_running:
                 self.stats["preempted_joins"] += 1
+                monitor.counter(
+                    "serving_decode_preempted_joins_total",
+                    "Requests admitted into an already-running batch "
+                    "between token steps (continuous batching)",
+                    labels=("model",)).inc(model=self.name)
             worked = True
+        with self._plock:
+            depth = len(self._pending)
+        monitor.gauge("serving_decode_queue_depth",
+                      "Generation requests waiting for a decode slot",
+                      labels=("model",)).set(depth, model=self.name)
         return worked
 
     def _pop(self, req: GenerateRequest):
@@ -1715,27 +1875,28 @@ class DecodeScheduler:
                     continue
                 total = len(req.prompt)
                 try:
-                    while job.pos < total:
-                        if budget > 0 and spent >= budget:
-                            break
-                        n = total - job.pos if budget <= 0 \
-                            else min(total - job.pos, budget - spent)
-                        if job.pos == 0 and n == total:
-                            # cold, whole prompt within budget: the dense
-                            # program (also what cache-off runs)
-                            tok, _ = run.engine.prefill(
-                                slot, req.prompt, req.temperature,
-                                req.top_k)
-                        else:
-                            tok = run.engine.prefill_chunk(
-                                slot, req.prompt, job.pos, n,
-                                req.temperature, req.top_k)
-                        job.pos += n
-                        job.chunks += 1
-                        spent += n
-                        worked = True
-                        if job.pos >= total:
-                            job.tok = tok
+                    with monitor.bind_context(req.ctx):
+                        while job.pos < total:
+                            if budget > 0 and spent >= budget:
+                                break
+                            n = total - job.pos if budget <= 0 \
+                                else min(total - job.pos, budget - spent)
+                            if job.pos == 0 and n == total:
+                                # cold, whole prompt within budget: the
+                                # dense program (also what cache-off runs)
+                                tok, _ = run.engine.prefill(
+                                    slot, req.prompt, req.temperature,
+                                    req.top_k)
+                            else:
+                                tok = run.engine.prefill_chunk(
+                                    slot, req.prompt, job.pos, n,
+                                    req.temperature, req.top_k)
+                            job.pos += n
+                            job.chunks += 1
+                            spent += n
+                            worked = True
+                            if job.pos >= total:
+                                job.tok = tok
                 except Exception as e:  # noqa: BLE001 — surfaced to req
                     run.prefill.pop(slot, None)
                     run.engine.release_slot(slot)
@@ -1771,6 +1932,18 @@ class DecodeScheduler:
                     run.engine.cache.register_prefix(slot, req.prompt)
                     run.engine.draft_prefill_done(slot, req.prompt)
                     run.slot_req[slot] = req
+                    monitor.histogram(
+                        "serving_decode_prefill_chunks",
+                        "Prefill program executions per admission "
+                        "(1 = unchunked; higher = budgeted chunking "
+                        "interleaved with decode steps)",
+                        labels=("model",),
+                        buckets=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+                    ).observe(job.chunks, model=self.name)
+                    flight.note(req.ctx, "prefill_done",
+                                chunks=job.chunks,
+                                cached_tokens=req.cached_tokens,
+                                model=self.name)
                     self._emit(run, slot, req, job.tok)
         return worked
 
@@ -1787,7 +1960,31 @@ class DecodeScheduler:
         if req.eos_id is not None and tok == req.eos_id:
             self._finish(run, slot, req, "eos")
             return
+        exemplar = None if req.ctx is None else req.ctx.trace_id
+        if req.last_emit_at is not None:
+            if monitor.tracing_enabled() and req._last_pc is not None:
+                # the gap as a span on the scheduler track, under the
+                # stream's trace_id
+                monitor.add_span("decode/itl_gap", req._last_pc,
+                                 time.perf_counter(), ctx=req.ctx,
+                                 model=self.name, index=req.n_emitted)
+            monitor.histogram(
+                "serving_decode_inter_token_seconds",
+                "Gap between consecutive streamed tokens of one request",
+                labels=("model",), buckets=_ITL_BUCKETS).observe(
+                time.monotonic() - req.last_emit_at, model=self.name,
+                exemplar=exemplar)
+        elif req.n_emitted == 0:
+            monitor.histogram(
+                "serving_decode_ttft_seconds",
+                "Time from request arrival to its first generated token",
+                labels=("model",), buckets=_TTFT_BUCKETS).observe(
+                time.monotonic() - req.enqueued, model=self.name,
+                exemplar=exemplar)
         req.emit(tok)
+        monitor.counter("serving_decode_tokens_total",
+                        "Generated tokens streamed to clients",
+                        labels=("model",)).inc(model=self.name)
         if req.n_emitted >= req.max_new_tokens:
             self._finish(run, slot, req, "length")
 
@@ -1796,8 +1993,26 @@ class DecodeScheduler:
         run.engine.release_slot(slot)
         run.slot_req.pop(slot, None)
         req.finish(reason)
+        if monitor.tracing_enabled():
+            # the whole stream as one span under its trace_id — queue
+            # wait + prefill + every token
+            monitor.add_span("serving/stream", req.t0_pc,
+                             time.perf_counter(), ctx=req.ctx,
+                             model=self.name, reason=reason,
+                             tokens=req.n_emitted,
+                             engine_version=run.version)
+        flight.note(req.ctx, "finish", reason=reason,
+                    tokens=req.n_emitted,
+                    spec_proposed=req.spec_proposed,
+                    spec_accepted=req.spec_accepted, model=self.name)
+        monitor.counter("serving_decode_finished_total",
+                        "Finished generations by reason",
+                        labels=("model", "reason")).inc(
+            model=self.name, reason=reason)
 
     def _step_all(self) -> bool:
+        from deeplearning4j_tpu_torch.monitor import goodput
+        gp = goodput.goodput_enabled()
         with self._rlock:
             runs = [r for r in self._runs if r.slot_req]
         worked = False
@@ -1815,6 +2030,12 @@ class DecodeScheduler:
                 req.spec_rounds += 1
                 req.spec_proposed += res["proposed"]
                 req.spec_accepted += res["accepted"]
+                if res.get("fallback") and flight.enabled():
+                    flight.note(req.ctx, "spec_fallback",
+                                reason=res["fallback"], slot=slot,
+                                proposed=req.spec_proposed,
+                                accepted=req.spec_accepted,
+                                model=self.name)
                 for tok in res["tokens"]:
                     self._emit(run, slot, req, tok)
                     if req.done.is_set():
@@ -1824,11 +2045,14 @@ class DecodeScheduler:
             handled = set(spec)
             if not any(s not in handled for s in run.slot_req):
                 continue
+            step_t0 = time.perf_counter() if gp else 0.0
             toks, act, _ = run.engine.step(
                 exclude=set(run.prefill.keys()) | handled)
+            considered = stalled = 0
             for slot, req in list(run.slot_req.items()):
                 if slot in handled:
                     continue
+                considered += 1
                 if act[slot]:
                     self._emit(run, slot, req, int(toks[slot]))
                 elif int(run.engine.cache.seq_lens[slot]) \
@@ -1843,7 +2067,17 @@ class DecodeScheduler:
                 elif req.deadline is not None \
                         and time.monotonic() > req.deadline:
                     self._finish(run, slot, req, "deadline")
-                # else: page-stalled this step (counted by the cache)
+                else:
+                    # page-stalled this step (counted by the cache)
+                    stalled += 1
+                    if flight.enabled():
+                        flight.note(req.ctx, "page_stall", slot=slot,
+                                    seq_len=int(
+                                        run.engine.cache.seq_lens[slot]),
+                                    model=self.name)
+            if gp and considered:
+                self._stall_s += (time.perf_counter() - step_t0) \
+                    * (stalled / considered)
             worked = True
         return worked
 
@@ -1902,8 +2136,10 @@ class ServedLM:
         # _swap_lock serializes whole swap/rollback operations (the warm
         # included); _state_lock guards only brief mutations of versions/
         # active, so describe() never blocks behind a warming swap
-        self._swap_lock = threading.Lock()
-        self._state_lock = threading.Lock()
+        self._swap_lock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.decode.ServedLM._swap_lock")
+        self._state_lock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.decode.ServedLM._state_lock")
         engine = DecodeEngine(model, self.cfg, name=name)
         self.warmup_seconds = engine.warm()
         self.vocab = engine.vocab
@@ -1923,6 +2159,9 @@ class ServedLM:
         #: seconds of the last swap/rollback (build + warm + install)
         self.last_swap_seconds: Optional[float] = None
         self.status = "ready"
+        monitor.gauge("serving_model_ready",
+                      "1 while the servable is warmed and live",
+                      labels=("model",)).set(1, model=name)
 
     @property
     def model(self):
@@ -2057,7 +2296,9 @@ class ServedLM:
                     f"{engine.vocab}, live servable {self.name!r} serves "
                     f"{self.vocab} (deploy under a new name)")
             try:
-                self.warmup_seconds = engine.warm()
+                with monitor.span("serving/swap", model=self.name,
+                                  version=sv.version):
+                    self.warmup_seconds = engine.warm()
             except Exception:
                 engine.close()
                 raise
@@ -2073,6 +2314,11 @@ class ServedLM:
                         self.name, self.max_context, engine.max_context)
             self.max_context = engine.max_context
         self.last_swap_seconds = time.perf_counter() - t0
+        monitor.histogram("serving_swap_seconds",
+                          "Load+warm+swap duration (off the request path)",
+                          labels=("model",),
+                          buckets=(0.1, 0.5, 1, 2.5, 5, 10, 30, 60, 120)
+                          ).observe(self.last_swap_seconds, model=self.name)
 
     def swap(self, source, keep_versions: int = 3) -> dict:
         """Load `source`, warm a replacement engine off the request path,
@@ -2103,6 +2349,9 @@ class ServedLM:
                     self.scheduler.release_engine(engine)
                 log.info("decode[%s]: retired v%d (%s) from memory",
                          self.name, old.version, old.source)
+            monitor.counter("serving_swaps_total",
+                            "Zero-downtime model hot-swaps",
+                            labels=("model",)).inc(model=self.name)
         log.info("decode[%s]: now admitting on v%d (%s); older versions "
                  "drain in place", self.name, sv.version, sv.source)
         return sv.describe()
@@ -2126,6 +2375,9 @@ class ServedLM:
             with self._state_lock:
                 self.active -= 1
                 self.active_info = sv.describe()
+            monitor.counter("serving_rollbacks_total",
+                            "One-step version rollbacks",
+                            labels=("model",)).inc(model=self.name)
         log.warning("decode[%s]: rolled back to v%d (%s)", self.name,
                     sv.version, sv.source)
         return sv.describe()
@@ -2156,6 +2408,9 @@ class ServedLM:
 
     def shutdown(self, drain: bool = True, timeout: float = 30.0):
         self.status = "stopping"
+        monitor.gauge("serving_model_ready",
+                      "1 while the servable is warmed and live",
+                      labels=("model",)).set(0, model=self.name)
         self.scheduler.drain(timeout=timeout if drain else 0.1)
         for engine in list(self._engines.values()):
             self.scheduler.release_engine(engine)

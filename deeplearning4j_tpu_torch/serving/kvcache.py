@@ -52,13 +52,14 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import logging
-import threading
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.serving import kvfabric
+from deeplearning4j_tpu_torch.util.locks import DiagnosedLock
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -103,6 +104,33 @@ class _RadixNode:
         self.digest = digest
 
 
+#: stats key -> the reference's counter family (name, help)
+_CACHE_FAMILIES = {
+    "hits": ("serving_decode_kv_cache_hits_total",
+             "Admissions that reused a cached prompt prefix "
+             "(>= one full page of KV skipped prefill)"),
+    "misses": ("serving_decode_kv_cache_misses_total",
+               "Admissions with no cached prefix (full prefill)"),
+    "evictions": ("serving_decode_kv_cache_evictions_total",
+                  "Prefix-cache entries evicted under pool pressure (LRU "
+                  "over the retained set; a subtree goes with its root)"),
+    "page_stalls": ("serving_decode_page_stalls_total",
+                    "Decode steps a slot sat out waiting for a free "
+                    "KV page (pool oversubscribed)"),
+}
+_SPILL_FAMILIES = {
+    "hits": ("serving_kv_spill_hits_total",
+             "Admissions whose HBM-missed prefix blocks were "
+             "served (>= one page) from the host spill tier"),
+    "misses": ("serving_kv_spill_misses_total",
+               "Admissions that probed the host spill tier for "
+               "their uncached blocks and found none"),
+    "promotions": ("serving_kv_spill_promotions_total",
+                   "KV pages promoted from the host spill tier back into "
+                   "the HBM pool on an admission hit"),
+}
+
+
 class KVCacheState:
     """Host-side bookkeeping for one engine's paged KV cache.
 
@@ -141,7 +169,8 @@ class KVCacheState:
                 f"max-context sequence ({1 + self.pages_per_slot} needed)")
         self.name = name
         self.prefix_cache = bool(prefix_cache)
-        self._lock = threading.Lock()
+        self._lock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.kvcache.KVCacheState._lock")
         #: logical->physical page map per slot; unallocated entries point
         #: at the dump page so fixed-shape gathers/scatters stay safe
         self.page_table = np.full((self.slots, self.pages_per_slot),
@@ -172,6 +201,42 @@ class KVCacheState:
         self.stats = {"hits": 0, "misses": 0, "evictions": 0,
                       "page_stalls": 0}
         self.spill_stats = {"hits": 0, "misses": 0, "promotions": 0}
+        self._gauges()
+
+    # ------------------------------------------------------------- metrics
+    def _count(self, table: dict, key: str, n: int = 1):
+        """Count `n` in `stats` or `spill_stats` and in the reference's
+        counter family for it."""
+        table[key] += n
+        name, help_ = (_SPILL_FAMILIES if table is self.spill_stats
+                       else _CACHE_FAMILIES)[key]
+        monitor.counter(name, help_, labels=("model",)).inc(
+            n, model=self.name)
+
+    def _gauges(self):
+        used = self.pool_pages - 1 - len(self._free_pages) \
+            - len(self._retained)
+        monitor.gauge("serving_decode_page_pool_used",
+                      "KV-cache pages referenced by live slots",
+                      labels=("model",)).set(used, model=self.name)
+        monitor.gauge("serving_decode_page_pool_pages",
+                      "Total allocatable KV-cache pages in the pool",
+                      labels=("model",)).set(self.pool_pages - 1,
+                                             model=self.name)
+        monitor.gauge("serving_decode_slot_occupancy",
+                      "Active decode slots (in-flight sequences)",
+                      labels=("model",)).set(int(self.active.sum()),
+                                             model=self.name)
+        monitor.gauge("serving_decode_kv_shared_pages",
+                      "KV pages currently mapped by more than one slot "
+                      "(prefix sharing engaged)",
+                      labels=("model",)).set(self._shared_count,
+                                             model=self.name)
+        monitor.gauge("serving_decode_kv_retained_pages",
+                      "Released prefix pages held in the LRU retained "
+                      "set for future reuse (reclaimed under pressure)",
+                      labels=("model",)).set(len(self._retained),
+                                             model=self.name)
 
     # ------------------------------------------------------ spill tier
     def attach_spill(self, store, extract_fn, land_fn):
@@ -229,7 +294,7 @@ class KVCacheState:
             pins.append(page)           # maps it (or rolls back)
             if node is self._root:
                 self._spill_leading.discard(dig)
-            self.spill_stats["promotions"] += 1
+            self._count(self.spill_stats, "promotions")
             node = child
             pages.append(page)
         return pages
@@ -321,8 +386,8 @@ class KVCacheState:
             victim = next(iter(self._retained), None)   # has in-use kids
         if victim is None:
             return False
-        self.stats["evictions"] += self._drop_subtree_locked(
-            self._by_page[victim])
+        self._count(self.stats, "evictions",
+                    self._drop_subtree_locked(self._by_page[victim]))
         return True
 
     def _take_page_locked(self) -> Optional[int]:
@@ -410,8 +475,10 @@ class KVCacheState:
                         pins.append(p)
                     promoted = self._promote_locked(
                         deepest, keys[len(matched):], pins)
-                    self.spill_stats["hits" if promoted
-                                     else "misses"] += 1
+                    self._count(self.spill_stats, "hits",
+                                int(bool(promoted)))
+                    self._count(self.spill_stats, "misses",
+                                int(not promoted))
                     matched = matched + promoted
             else:
                 matched = []
@@ -433,7 +500,10 @@ class KVCacheState:
             cow_dst = None if cow_src is None \
                 else int(self.page_table[slot, len(shared)])
             if self.prefix_cache:
-                self.stats["hits" if cached_len > 0 else "misses"] += 1
+                hit = cached_len > 0
+                self._count(self.stats, "hits", int(hit))
+                self._count(self.stats, "misses", int(not hit))
+            self._gauges()
             return AdmitInfo(slot, cached_len, cow_src, cow_dst)
 
     def _admit_locked(self, prompt_len: int, shared: Sequence[int],
@@ -579,11 +649,12 @@ class KVCacheState:
                 return True
             page = self._take_page_locked()
             if page is None:
-                self.stats["page_stalls"] += 1
+                self._count(self.stats, "page_stalls")
                 return False
             self._ref[page] = 1
             self.page_table[slot, idx] = page
             self._pages_per_slot_live[slot] = idx + 1
+            self._gauges()
             return True
 
     def ensure_capacity(self, slot: int, n: int) -> bool:
@@ -597,15 +668,21 @@ class KVCacheState:
             if n < 1:
                 return True
             need_idx = (pos + n - 1) // self.page_size
+            allocated = False
             while self._pages_per_slot_live[slot] <= need_idx:
                 page = self._take_page_locked()
                 if page is None:
-                    self.stats["page_stalls"] += 1
+                    self._count(self.stats, "page_stalls")
+                    if allocated:
+                        self._gauges()
                     return False
                 idx = self._pages_per_slot_live[slot]
                 self._ref[page] = 1
                 self.page_table[slot, idx] = page
                 self._pages_per_slot_live[slot] = idx + 1
+                allocated = True
+            if allocated:
+                self._gauges()
             return True
 
     def advance(self, slot: int):
@@ -626,10 +703,17 @@ class KVCacheState:
             self.seq_lens[slot] = 0
             self.active[slot] = False
             self._free_slots.append(slot)
+            self._gauges()
 
     # -------------------------------------------------------------- status
     def active_slots(self) -> List[int]:
         return [i for i in range(self.slots) if self.active[i]]
+
+    def utilization(self) -> float:
+        """Share of the allocatable pool held by live slots (retained
+        prefix pages count as free: they are reclaimable cache)."""
+        total = self.pool_pages - 1
+        return (total - self.free_pages()) / max(1, total)
 
     def free_pages(self) -> int:
         """Allocatable pages: truly free + retained (the retained set is

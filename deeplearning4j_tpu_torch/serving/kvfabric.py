@@ -30,7 +30,6 @@ import hashlib
 import json
 import os
 import struct
-import threading
 import weakref
 from collections import OrderedDict
 from multiprocessing import shared_memory
@@ -38,6 +37,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch import monitor
+from deeplearning4j_tpu_torch.util.locks import DiagnosedLock
 
 #: chained-digest seed — part of the wire format; bump with VERSION
 DIGEST_SEED = b"tpu-dl4j/kvfabric/v1"
@@ -378,7 +380,8 @@ class HostPageStore:
         self.name = name
         self._time = time_fn                # test seam (fake clocks)
         self._shm = _create_slab(max(1, self.pages * self.slot_bytes))
-        self._lock = threading.Lock()
+        self._lock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.kvfabric.HostPageStore._lock")
         #: digest -> slot index; insertion order == LRU order
         self._index: "OrderedDict[bytes, int]" = OrderedDict()
         self._free: List[int] = list(range(self.pages))
@@ -387,6 +390,18 @@ class HostPageStore:
         self._closed = False
         self.stats = {"demotions": 0, "evictions": 0, "rejects": 0}
         self._finalizer = weakref.finalize(self, _release_slab, self._shm)
+        self._gauges()
+
+    # ------------------------------------------------------------- metrics
+    def _gauges(self):
+        monitor.gauge(
+            "serving_kv_spill_pages",
+            "KV pages resident in the host-RAM spill tier",
+            labels=("model",)).set(len(self._index), model=self.name)
+        monitor.gauge(
+            "serving_kv_spill_bytes",
+            "Payload bytes resident in the host-RAM spill tier",
+            labels=("model",)).set(self._bytes_used, model=self.name)
 
     # ------------------------------------------------------------- access
     def put(self, key: bytes, payload: bytes) -> bool:
@@ -397,6 +412,11 @@ class HostPageStore:
         if len(payload) > self.frame_bytes:
             with self._lock:
                 self.stats["rejects"] += 1
+            monitor.counter(
+                "serving_kv_spill_rejects_total",
+                "Demotions rejected by the spill tier (frame larger "
+                "than the configured slot)",
+                labels=("model",)).inc(model=self.name)
             return False
         with self._lock:
             if self._closed:
@@ -410,6 +430,11 @@ class HostPageStore:
                     self._bytes_used -= old_len
                     self._last_put_at.pop(old_key, None)
                     self.stats["evictions"] += 1
+                    monitor.counter(
+                        "serving_kv_spill_evictions_total",
+                        "Spill-tier frames evicted LRU to make room for "
+                        "a newer demotion",
+                        labels=("model",)).inc(model=self.name)
                 else:
                     slot = self._free.pop()
             else:
@@ -426,6 +451,11 @@ class HostPageStore:
             if self._time is not None:
                 self._last_put_at[key] = self._time()
             self.stats["demotions"] += 1
+            monitor.counter(
+                "serving_kv_spill_demotions_total",
+                "KV pages demoted from the HBM pool into the host-RAM "
+                "spill tier", labels=("model",)).inc(model=self.name)
+            self._gauges()
             return True
 
     def get(self, key: bytes) -> Optional[bytes]:
@@ -454,6 +484,7 @@ class HostPageStore:
             self._bytes_used -= n
             self._free.append(slot)
             self._last_put_at.pop(key, None)
+            self._gauges()
 
     def keys(self, limit: int = 64) -> List[bytes]:
         """MRU-first resident keys (ownership advertisement input)."""

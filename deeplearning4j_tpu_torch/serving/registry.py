@@ -29,13 +29,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.serving.batcher import (
     DEFAULT_BUCKETS, ServerDrainingError, ShapeBucketedBatcher,
 )
+from deeplearning4j_tpu_torch.util.locks import DiagnosedLock
 from deeplearning4j_tpu_torch.util.platform import DeviceLike
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
@@ -172,8 +173,12 @@ class ServedModel:
         # included); _state_lock guards only brief mutations of
         # versions/active, so describe() and the predict path never block
         # behind a warming swap
-        self._swap_lock = threading.Lock()
-        self._state_lock = threading.Lock()
+        self._swap_lock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.registry.ServedModel."
+            "_swap_lock")
+        self._state_lock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.registry.ServedModel."
+            "_state_lock")
         self.versions: List[ServableVersion] = [
             ServableVersion(1, str(source), model)]
         self.active = 0                     # index into versions
@@ -190,6 +195,9 @@ class ServedModel:
         #: seconds of the last swap/rollback's warm + switch
         self.last_swap_seconds: Optional[float] = None
         self.status = "ready"
+        monitor.gauge("serving_model_ready",
+                      "1 while the servable is warmed and live",
+                      labels=("model",)).set(1, model=name)
 
     @property
     def model(self):
@@ -207,9 +215,16 @@ class ServedModel:
                 f"{tuple(new_it.shape)}, live servable {self.name!r} "
                 f"serves {self.input_shape} (deploy under a new name)")
         t0 = time.perf_counter()
-        self.pi.update_model(sv.model,
-                             warmup=lambda run: self.batcher.warm(run))
+        with monitor.span("serving/swap", model=self.name,
+                          version=sv.version):
+            self.pi.update_model(sv.model,
+                                 warmup=lambda run: self.batcher.warm(run))
         self.last_swap_seconds = time.perf_counter() - t0
+        monitor.histogram("serving_swap_seconds",
+                          "Load+warm+swap duration (off the request path)",
+                          labels=("model",),
+                          buckets=(0.1, 0.5, 1, 2.5, 5, 10, 30, 60, 120)
+                          ).observe(self.last_swap_seconds, model=self.name)
 
     def swap(self, source, keep_versions: int = 3) -> dict:
         """Load `source`, warm it off-path, make it the active version."""
@@ -235,6 +250,9 @@ class ServedModel:
                     log.info("serving[%s]: retired v%d (%s) from memory",
                              self.name, dropped.version, dropped.source)
                 self.active_info = sv.describe()
+            monitor.counter("serving_swaps_total",
+                            "Zero-downtime model hot-swaps",
+                            labels=("model",)).inc(model=self.name)
         log.info("serving[%s]: now serving v%d (%s)", self.name,
                  sv.version, sv.source)
         return sv.describe()
@@ -256,6 +274,9 @@ class ServedModel:
             with self._state_lock:
                 self.active -= 1
                 self.active_info = sv.describe()
+            monitor.counter("serving_rollbacks_total",
+                            "One-step version rollbacks",
+                            labels=("model",)).inc(model=self.name)
         log.warning("serving[%s]: rolled back to v%d (%s)", self.name,
                     sv.version, sv.source)
         return sv.describe()
@@ -277,6 +298,9 @@ class ServedModel:
 
     def shutdown(self, drain: bool = True, timeout: float = 30.0):
         self.status = "stopping"
+        monitor.gauge("serving_model_ready",
+                      "1 while the servable is warmed and live",
+                      labels=("model",)).set(0, model=self.name)
         if drain:
             self.batcher.drain(timeout=timeout)
         else:
@@ -290,8 +314,14 @@ class ModelRegistry:
 
     def __init__(self, device: DeviceLike = None):
         self.device = device
-        self._lock = threading.Lock()
-        self._deploy_lock = threading.Lock()
+        self._lock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.registry.ModelRegistry._lock")
+        # deploys are rare admin ops: serializing them end-to-end (incl.
+        # load+warm) closes the check-then-act race where two concurrent
+        # deploys of one name would both build servables and leak one
+        self._deploy_lock = DiagnosedLock(
+            "deeplearning4j_tpu_torch.serving.registry.ModelRegistry."
+            "_deploy_lock")
         self._models: Dict[str, ServedModel] = {}
 
     def deploy(self, name: str, source,

@@ -24,8 +24,18 @@ DL4J_CUDA_PREFETCH_DEPTH) and DL4J_CUDA_SCAN_STEPS steps a chunk (default
 prints ``{"serving": url, "predict": path}`` on stderr after the result
 line, and serves until SIGTERM or SIGINT, which drain it; the run then
 exits 0. Every flag of a part not yet ported (more than one worker,
-`averaging`, checkpoints and resume, the dashboard, telemetry, sharding
-plans) stops the run with "not yet ported"; none is ignored.
+`averaging`, checkpoints and resume, the dashboard, sharding plans)
+stops the run with "not yet ported"; none is ignored.
+
+Telemetry, as in the reference: `--metrics` prints the final
+``{"metrics": monitor.summary()}`` on stderr, `--trace-out PATH` records
+spans and writes a Chrome trace there, `--perf-ledger PATH` turns the
+program ledger on (`monitor/xla.py`: FLOPs, bytes and HBM per step
+program, live ``train_mfu_pct``) and writes its JSON there; it defaults
+to ``DL4J_CUDA_PERF_LEDGER``, else to ``perf_ledger.json`` beside
+`--trace-out`. With any of the three, the goodput ledger attributes the
+fit's wall time (`monitor/goodput.py`). They are written in a `finally`
+that never masks the fit's own exception.
 
 `--dataset` takes `mnist`, `emnist` and `cifar10` (read from the
 fetchers' cache, `data/fetchers.py`; a missing cache fails the run
@@ -46,9 +56,6 @@ _UNPORTED_FLAGS = (
     ("checkpoint_dir", "--checkpoint-dir", "resilience (ResilientTrainer)"),
     ("resume", "--resume", "resilience (ResilientTrainer)"),
     ("ui_port", "--ui-port", "UI"),
-    ("metrics", "--metrics", "telemetry"),
-    ("trace_out", "--trace-out", "telemetry"),
-    ("perf_ledger", "--perf-ledger", "telemetry"),
     ("mesh", "--mesh", "parallel"),
 )
 
@@ -92,11 +99,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keep-last", type=int, default=3,
                    help="checkpoints retained by manifest pruning")
     p.add_argument("--metrics", action="store_true",
-                   help="telemetry summary (not yet ported)")
+                   help="print the final telemetry summary "
+                        "(monitor.summary()) as JSON to stderr")
     p.add_argument("--trace-out", default=None, metavar="PATH",
-                   help="Chrome trace of telemetry spans (not yet ported)")
+                   help="record telemetry spans and write a Chrome "
+                        "trace-event JSON to PATH on exit (load in "
+                        "Perfetto / chrome://tracing)")
     p.add_argument("--perf-ledger", default=None, metavar="PATH",
-                   help="compiled-program ledger (not yet ported)")
+                   help="enable the program ledger (monitor.xla: per-"
+                        "program fingerprint, capture time, flops, bytes "
+                        "accessed, HBM peak; live train_mfu_pct) and write "
+                        "the ledger JSON to PATH on exit; defaults to "
+                        "$DL4J_CUDA_PERF_LEDGER, else perf_ledger.json "
+                        "alongside --trace-out when tracing is on")
     p.add_argument("--serve-port", type=int, default=None,
                    help="serve the trained model on this port after the "
                         "fit (0: a free port) until SIGTERM/SIGINT")
@@ -170,6 +185,57 @@ def _load_data(name: str, batch_size: int, allow_synthetic: bool = False):
                                     batch_size=batch_size)
 
 
+def _enable_telemetry(args):
+    """Turn on what the telemetry flags ask for; returns the emitter the
+    caller runs in its `finally`."""
+    import os
+
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.util.env import env_str
+    if args.trace_out:
+        monitor.enable_tracing()
+    if args.perf_ledger is None:
+        args.perf_ledger = env_str("DL4J_CUDA_PERF_LEDGER")
+    if args.perf_ledger is None and args.trace_out:
+        # "alongside --trace-out": tracing runs double as perf-ledger runs
+        # unless the user points the ledger elsewhere
+        args.perf_ledger = os.path.join(
+            os.path.dirname(os.path.abspath(args.trace_out)),
+            "perf_ledger.json")
+    if args.perf_ledger:
+        monitor.xla.enable_ledger(args.perf_ledger)
+    if (args.metrics or args.trace_out or args.perf_ledger) \
+            and not monitor.goodput.goodput_enabled():
+        monitor.goodput.enable_goodput()
+
+    def emit_telemetry():
+        # runs in a finally: a bad --trace-out path (unwritable dir, full
+        # disk) must not fail an otherwise-successful run or mask the
+        # fit's real exception
+        if args.trace_out:
+            try:
+                n = monitor.save_trace(args.trace_out)
+                print(f"trace: {args.trace_out} ({n} events)",
+                      file=sys.stderr)
+            except OSError as e:
+                print(f"trace not written to {args.trace_out}: {e}",
+                      file=sys.stderr)
+        if args.perf_ledger:
+            try:
+                n = monitor.xla.save_ledger(args.perf_ledger)
+                print(f"perf ledger: {args.perf_ledger} ({n} programs)",
+                      file=sys.stderr)
+            except OSError as e:
+                print(f"perf ledger not written to {args.perf_ledger}: {e}",
+                      file=sys.stderr)
+        if args.metrics:
+            print(json.dumps({"metrics": monitor.summary()}),
+                  file=sys.stderr)
+        sys.stderr.flush()
+
+    return emit_telemetry
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
@@ -192,21 +258,27 @@ def main(argv=None) -> int:
             f"--mode sync over {_workers(device)} CUDA devices: not yet "
             "ported to the PyTorch port (comes with the parallel slice); "
             "use --mode single or make one device visible")
-    net = load_model(args.model, device=device)
-    iterator = _load_data(args.dataset, args.batch_size,
-                          allow_synthetic=args.synthetic_data)
-    net.set_listeners(ScoreIterationListener(args.score_every),
-                      PerformanceListener(args.score_every))
-    net.fit(iterator, epochs=args.epochs)
-    save_model(net, args.output)
-    print(json.dumps({"output": args.output,
-                      "final_score": net.score(),
-                      "iterations": net.iteration_count,
-                      "epochs": net.epoch_count}))
-    sys.stdout.flush()
-    if args.serve_port is not None:
-        _serve_trained(net, args)
-    return 0
+    emit_telemetry = _enable_telemetry(args)
+    # telemetry emits in a finally: a fit that dies mid-run still leaves
+    # the trace/metrics record — the crash case is when it is most needed
+    try:
+        net = load_model(args.model, device=device)
+        iterator = _load_data(args.dataset, args.batch_size,
+                              allow_synthetic=args.synthetic_data)
+        net.set_listeners(ScoreIterationListener(args.score_every),
+                          PerformanceListener(args.score_every))
+        net.fit(iterator, epochs=args.epochs)
+        save_model(net, args.output)
+        print(json.dumps({"output": args.output,
+                          "final_score": net.score(),
+                          "iterations": net.iteration_count,
+                          "epochs": net.epoch_count}))
+        sys.stdout.flush()
+        if args.serve_port is not None:
+            _serve_trained(net, args)
+        return 0
+    finally:
+        emit_telemetry()
 
 
 if __name__ == "__main__":

@@ -27,8 +27,19 @@ The port's knobs, each read where it acts:
   ``DL4J_CUDA_ETL_MP_START`` (value, default ``spawn``): the
   multi-process ring (`data/pipeline.py`);
 - ``DL4J_CUDA_CSV_FAST_MAX_BYTES`` (value, default 1 GiB): the CSV
-  reader's matrix path (`data/records.py`). Each replaces the
-  reference's ``DL4J_TPU_*`` name.
+  reader's matrix path (`data/records.py`);
+- ``DL4J_CUDA_PEAK_FLOPS`` and ``DL4J_CUDA_HBM_BYTES_PER_SEC`` (values):
+  the MFU accountant's device peaks (`monitor/xla.py`);
+  ``DL4J_CUDA_PERF_LEDGER`` (value): the train CLI's default
+  `--perf-ledger` path (`train/cli.py`);
+- ``DL4J_CUDA_FAULTS`` and ``DL4J_CUDA_SERVING_FAULTS`` (values): the
+  fault schedules (`util/faults.py`);
+- ``DL4J_CUDA_LOCK_DIAG`` (opt-in): lock-order recording
+  (`util/locks.py`); ``DL4J_CUDA_DEADLOCK_SENTINEL`` (kill switch) and
+  ``DL4J_CUDA_SENTINEL_TIMEOUT`` (value, default 300 s): the pytest
+  deadlock sentinel (`util/sentinel.py`).
+
+Each replaces the reference's ``DL4J_TPU_*`` name.
 """
 from __future__ import annotations
 

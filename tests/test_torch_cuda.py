@@ -23,7 +23,11 @@ same tokens as runs without a swap. The data plane: ResNet50 at 64² fed
 from the multi-process shard ring (copy=False and copy=True) and from
 memory, bitwise equal parameters for scan_steps=3, accumulate_steps=2 and
 per-call fits without prefetch; and the ring's view batches feeding a
-CUDA fit of a small net, bitwise its in-memory fit.
+CUDA fit of a small net, bitwise its in-memory fit. Telemetry: the
+program ledger's FLOPs of a small flash LM on the card equal the
+analytic count (the kernels added by formula), `train_mfu_pct` is set
+by a scan fit, and tracing, the ledger and goodput on add no host sync
+to a replayed step.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -1216,3 +1220,113 @@ def test_ring_views_feed_a_cuda_fit(cuda, tmp_path):
             assert pipe._copy is False and pipe.num_workers == 2
             assert sum(pipe.stats["batches"].values()) == 16
         assert _same(mem, net), kw
+
+
+# --------------------------------------------------------------- telemetry
+def _telemetry_off():
+    from deeplearning4j_tpu_torch import monitor
+    monitor.REGISTRY.reset()
+    monitor.disable_tracing()
+    monitor.clear_trace()
+    monitor.goodput.disable_goodput()
+    monitor.xla.disable_ledger()
+    monitor.xla.clear_ledger()
+
+
+@pytest.fixture
+def telemetry():
+    from deeplearning4j_tpu_torch import monitor
+    _telemetry_off()
+    yield monitor
+    _telemetry_off()
+
+
+def _token_batches(vocab, b, t, n, seed=0):
+    from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, vocab, (b * n, t, 1)).astype("float32")
+    labels = np.eye(vocab, dtype="float32")[rs.randint(0, vocab, (b * n, t))]
+    return ArrayDataSetIterator(ids, labels, batch_size=b)
+
+
+def test_ledger_counts_a_flash_lms_flops_on_the_card(cuda, telemetry):
+    """The flash kernels are ctypes launches the FLOP counter cannot see:
+    the ledger adds them by formula, so the card's count equals the
+    analytic one (every matmul, 18·D per causal live pair) as on the
+    CPU; the allocator peak fills the HBM breakdown."""
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    b, t, layers, e, heads, vocab = 2, 128, 2, 64, 2, 64
+    telemetry.xla.enable_ledger()
+    lm = model_by_name("TransformerLM", vocab_size=vocab, seq_length=t,
+                       n_layers=layers, n_embd=e, n_heads=heads,
+                       attention_impl="flash").init(device=cuda)
+    before = dict(KERNEL_LAUNCHES)
+    lm.fit(_token_batches(vocab, b, t, 2), scan_steps=1)
+    assert all(KERNEL_LAUNCHES[k] > before[k] for k in before)
+    (rec,) = telemetry.xla.records()
+    d = e // heads
+    analytic = 6 * (12 * e * e * layers + e * vocab) * b * t \
+        + 18 * d * fa.live_pairs(t, t, True) * b * heads * layers
+    assert rec.flops == analytic
+    assert rec.hbm["temp_bytes"] > 0 and rec.hbm["argument_bytes"] > 0
+    assert rec.arg_shardings and set(rec.arg_shardings) <= {"single",
+                                                            "host"}
+
+
+def test_train_mfu_pct_is_set_on_the_card(cuda, telemetry, monkeypatch):
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    if torch.cuda.get_device_name(0) \
+            not in telemetry.xla.PEAK_FLOPS_BY_KIND:
+        monkeypatch.setenv("DL4J_CUDA_PEAK_FLOPS", "989e12")
+    telemetry.xla.enable_ledger()
+    lm = model_by_name("TransformerLM", vocab_size=64, seq_length=128,
+                       n_layers=2, n_embd=64, n_heads=2,
+                       attention_impl="flash").init(device=cuda)
+    lm.fit(_token_batches(64, 2, 128, 12), scan_steps=4)
+    (rec,) = telemetry.xla.records()
+    assert rec.name == "mln/scan_step" and rec.steps_per_call == 4
+    mfu = telemetry.REGISTRY.collect("train_mfu_pct").value()
+    assert mfu > 0 and mfu == telemetry.xla.last_mfu("train")
+
+
+def _syncs(fn):
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def test_telemetry_on_adds_no_sync_to_a_replayed_step(cuda, telemetry):
+    """Tracing, the ledger and goodput on: the same host syncs per fit as
+    with everything off, once the step is captured."""
+    from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+    rs = np.random.RandomState(3)
+    X = rs.randn(256, 4).astype("float32")
+    Y = np.eye(3, dtype="float32")[rs.randint(0, 3, 256)]
+    net = _dropout_mlp(cuda)
+
+    def fit():
+        net.fit(ArrayDataSetIterator(X, Y, batch_size=32), scan_steps=4)
+
+    fit()                                   # capture, telemetry off
+    off = [_syncs(fit), _syncs(fit)]
+    telemetry.enable_tracing()
+    telemetry.xla.enable_ledger()
+    telemetry.goodput.enable_goodput()
+    fit()                                   # one eager counted step
+    (rec,) = telemetry.xla.records()
+    assert rec.name == "mln/scan_step" and rec.flops > 0
+    on = [_syncs(fit), _syncs(fit)]         # replays only
+    # a pinned block the host allocator happens to grow can add one sync
+    # to a fit, on or off: compare the fewest
+    assert min(on) == min(off) == 2         # one loss fetch a chunk
+    cats = telemetry.goodput.last_session()["categories"]
+    assert cats["step_compute"] > 0
+    assert telemetry.summary()["train_iterations_total"] == 6 * 8

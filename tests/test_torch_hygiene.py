@@ -307,3 +307,31 @@ def test_importing_the_package_imports_no_layer():
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_monitor_exports_the_references_names():
+    from deeplearning4j_tpu import monitor as jmonitor
+    from deeplearning4j_tpu_torch import monitor
+    assert monitor.__all__ == jmonitor.__all__
+    for name in monitor.__all__:
+        assert hasattr(monitor, name), name
+
+
+def test_monitor_locks_and_faults_import_no_torch():
+    """Spawned ETL workers reach these modules through data/pipeline.py:
+    importing them (and the pipeline) must leave torch out."""
+    code = ("import sys\n"
+            "import deeplearning4j_tpu_torch.monitor\n"
+            "import deeplearning4j_tpu_torch.monitor.xla\n"
+            "import deeplearning4j_tpu_torch.monitor.goodput\n"
+            "import deeplearning4j_tpu_torch.util.locks\n"
+            "import deeplearning4j_tpu_torch.util.faults\n"
+            "import deeplearning4j_tpu_torch.data.pipeline\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'deeplearning4j_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
