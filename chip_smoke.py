@@ -272,8 +272,9 @@ result line:
              pair: 9.54e11), the HBM breakdown, `train_mfu_pct` within
              1 % of the program's FLOPs over a measured step over 989
              TFLOP/s (per call the trace's last `train/step`; with the
-             graph a replayed step of the reloaded LM timed by CUDA
-             events), goodput categories summing to the session's wall
+             graph the gauge of a replayed fit of the reloaded LM, the
+             ledger on, against that same fit timed by CUDA events, the
+             median of three such fits), goodput categories summing to the session's wall
              time, span counts, and tools/trace_report.py and
              tools/perf_report.py (stdlib only) reading the files with
              exit 0. (b) ResNet-50 bf16 at the bench shape through
@@ -298,6 +299,46 @@ result line:
              postmortems written; tokens/s and ITL p50 on and off.
              `launches_by_path` gains "telemetry" ((a)'s wrapper
              counts: replays do not pass the wrapper).
+13. resilience — fault-tolerant training on the card. (a) The
+             full-width LM with residual dropout 0.1 (attention dropout
+             0, so the flash kernels run) saved as a zip, 40 seeded
+             sequences = 2 epochs of 10 steps at batch 4, through the
+             train CLI with `--checkpoint-dir --save-every-iterations 5`:
+             (i) uninterrupted; (ii) DL4J_CUDA_FAULTS=preempt_at=7
+             exiting 3 with no output zip, then `--resume`; (iii) in a
+             subprocess, a real SIGTERM once two checkpoints are on disk
+             (exit 3), then `--resume` in another. (ii) and (iii) end
+             with output zips and last checkpoints' resilience.json
+             bitwise (i)'s; each run launches each flash kernel n_layers
+             times a step it trained; checkpoint save and restore seconds
+             by the phase's stopwatch against the
+             `resilience_checkpoint_{save,restore}_seconds` histograms
+             (within 5 %), zip bytes. (b) ResilientTrainer on the LM
+             under DL4J_CUDA_FAULTS=transient_at=4;nan_at=6: one retry,
+             one skip, the retried step bitwise the unfaulted run's, the
+             skip leaving the parameters bitwise as before it; a run of
+             NaN steps past max_consecutive_skips rolls back to the
+             newest checkpoint, the model bitwise that zip. (c) ms a
+             step (CUDA events) and syncs a step of the per-call fit, a
+             guarded and an unguarded resilient step, in turns; the
+             device snapshot's bytes and ms beside its bound, and its
+             copies grouped by dtype against one mixed-dtype foreach.
+             (d) An
+             async CheckpointListener's zip bitwise a synchronous one's
+             at the same iteration, syncs a step of each;
+             EarlyStoppingTrainer with InMemoryModelSaver giving back the
+             best epoch's parameters, not the last; a ProfilerListener
+             window of 3 LM steps (after a warm-up step) whose trace
+             names each flash kernel n_layers x 3 times. (e) memory_report of the LM (batch 4),
+             ResNet-50 bf16 (batch 128, 224²) and LeNet (batch 16):
+             analytic total against the measured peak, within the
+             reference's 2x bound for LeNet (the case the reference
+             holds to it; the others are reported), and the network
+             bitwise unchanged. (f) LBFGS,
+             CG and steepest descent on an f64 logistic regression, card
+             against CPU within 1e-9 of each score, LBFGS in fewer
+             iterations. `launches_by_path` gains "resilience" ((a)'s
+             five CLI runs, the subprocesses' counts printed by them).
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The second-to-last line is the kernel table
@@ -4431,11 +4472,18 @@ def _timed_chunk(out_zip, tokens):
     the ledger: two chunks of TELE_K batches already on the card (no
     staging; their ids range-checked on the host first, as the prefetch
     thread does, so no dispatch waits on the card), CUDA events around
-    the whole fit, after a capture fit. Seconds a step."""
+    the whole fit, after a capture fit. The ledger is on, so each timed
+    fit also sets the MFU gauge from its own chunk marks: the gauge and
+    the events read the same execution, and a clock change between the
+    CLI's run and this replay cannot part them. Per fit: (seconds a step
+    by the events, the gauge after the fit, the program's FLOPs a step
+    from the replay's own record)."""
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
     from deeplearning4j_tpu_torch.util.serialization import load_model
+    from deeplearning4j_tpu_torch import monitor
     _telemetry_reset()
+    monitor.xla.enable_ledger()
     net = load_model(out_zip)
     with np.load(tokens) as data:
         feats, labels = data["features"], data["labels"]
@@ -4453,7 +4501,7 @@ def _timed_chunk(out_zip, tokens):
                 prefetch=False)
 
     fit()                                   # capture
-    times = []
+    runs = []
     for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -4462,10 +4510,14 @@ def _timed_chunk(out_zip, tokens):
         fit()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 1e3 / len(batches))
+        rec = monitor.xla.latest_record("train")
+        runs.append((start.elapsed_time(end) / 1e3 / len(batches),
+                     monitor.xla.last_mfu("train"),
+                     None if rec is None else rec.flops))
     del net, batches
     torch.cuda.empty_cache()
-    return statistics.median(times), times
+    _telemetry_reset()
+    return runs
 
 
 def telemetry_train(fa, tmp):
@@ -4554,17 +4606,39 @@ def telemetry_train(fa, tmp):
         gauge = summary.get("train_mfu_pct")
         gp = monitor.goodput.last_session()
         step_s = [e["dur"] / 1e6 for e in spans if e["name"] == "train/step"]
+        replay = None
         if scan == 1:
             measured_s, med_s = step_s[-1], statistics.median(step_s[1:])
             times = step_s
+            checked = gauge
         else:
-            measured_s, times = _timed_chunk(
-                os.path.join(tmp, f"tele_{mode}.zip"), tokens)
-            med_s = measured_s
+            # the CLI's gauge must be set; its agreement is held on the
+            # replay, where the gauge and the events time one execution
+            # (the card's clock drifts by ~2 % between two windows)
+            if gauge is None:
+                raise AssertionError(f"train_mfu_pct unset ({mode})")
+            runs_r = _timed_chunk(os.path.join(tmp, f"tele_{mode}.zip"),
+                                  tokens)
+            times = [t for t, _, _ in runs_r]
+            ratios = []
+            for t, g, fl in runs_r:
+                if g is None or fl is None:
+                    raise AssertionError(f"replay gauge unset: {runs_r}")
+                ratios.append(g / (100.0 * fl / t / peak))
+            i = ratios.index(statistics.median(ratios))
+            measured_s, checked = times[i], runs_r[i][1]
+            med_s = statistics.median(times)
+            replay = {"step_s": times,
+                      "train_mfu_pct": [g for _, g, _ in runs_r],
+                      "flops_per_step": [fl for _, _, fl in runs_r],
+                      "gauge_over_measured": ratios}
         measured = 100.0 * prog["flops"] / measured_s / peak
+        if replay is not None:
+            measured = 100.0 * runs_r[i][2] / measured_s / peak
         from_median = 100.0 * prog["flops"] / med_s / peak
-        if gauge is None or abs(gauge / measured - 1.0) > MFU_AGREEMENT:
-            raise AssertionError(f"train_mfu_pct {gauge} against "
+        if checked is None or abs(checked / measured - 1.0) \
+                > MFU_AGREEMENT:
+            raise AssertionError(f"train_mfu_pct {checked} against "
                                  f"{measured} measured ({mode})")
         cat_sum = sum(gp["categories"].values())
         if abs(cat_sum - gp["wall_s"]) > 1e-4 * max(1.0, gp["wall_s"]):
@@ -4587,7 +4661,8 @@ def telemetry_train(fa, tmp):
                            prog["arithmetic_intensity"],
                        "hbm": prog["hbm"],
                        "compile_seconds": prog["compile_seconds"]},
-            "train_mfu_pct": gauge, "mfu_measured_pct": measured,
+            "train_mfu_pct": gauge, "mfu_checked_pct": checked,
+            "mfu_measured_pct": measured, "replay": replay,
             "mfu_from_median_step_pct": from_median,
             "measured_step_s": measured_s, "step_s_median": med_s,
             "step_s": times,
@@ -4903,6 +4978,808 @@ def telemetry(fa, tmp):
     return row
 
 
+# ------------------------------------------------------ phase 13: resilience
+# (a): 40 sequences, batch 4, 2 epochs = 20 steps, a checkpoint every 5
+RES_SEQS, RES_EPOCHS, RES_SAVE_EVERY = 40, 2, 5
+RES_PREEMPT_AT = 7                      # (ii) DL4J_CUDA_FAULTS=preempt_at=7
+RES_FAULTS = "transient_at=4;nan_at=6"  # (b)
+RES_STEPS = 10                          # (b)-(d) steps a run
+RES_RESIDUAL_DROPOUT = 0.1
+RES_MEMORY_RATIO = 2.0    # the reference's analytic-vs-compiled bound
+RES_SOLVER_REL = 1e-9     # f64 solver scores, card against CPU
+RESNET_MEMORY_BATCH = 128
+RES_CLI_DRIVER = (
+    "import json, sys\n"
+    "from deeplearning4j_tpu_torch.ops import flash_attention as fa\n"
+    "from deeplearning4j_tpu_torch.train import cli\n"
+    "try:\n"
+    "    code = cli.main(sys.argv[1:])\n"
+    "finally:\n"
+    "    print(json.dumps({'flash_launches': dict(fa.KERNEL_LAUNCHES)}),\n"
+    "          file=sys.stderr, flush=True)\n"
+    "sys.exit(code)\n")
+
+
+def resilient_lm_conf():
+    """The zoo's full-width LM (LM_SOURCE) with residual dropout and no
+    attention dropout, so the flash kernels run and the dropout
+    generator's state matters."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.registry import parse_zoo_source
+    name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
+    conf = model_by_name(name, **kw, dropout=RES_RESIDUAL_DROPOUT).conf()
+    return dataclasses.replace(conf, layers=[
+        dataclasses.replace(layer, attention_dropout=0.0)
+        if hasattr(layer, "attention_dropout") else layer
+        for layer in conf.layers])
+
+
+def zip_entries(path):
+    """A checkpoint zip's entries: npz members as {key: array} (their
+    members carry write times), the others as bytes."""
+    import zipfile
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            data = zf.read(name)
+            if name.endswith(".npz"):
+                with np.load(io.BytesIO(data)) as z:
+                    out[name] = {k: np.array(z[k]) for k in z.files}
+            else:
+                out[name] = data
+    return out
+
+
+def same_zip(a, b, skip=()):
+    """Whether two checkpoint zips hold the same arrays bitwise (dtypes
+    included) and the same other entries byte for byte."""
+    za, zb = zip_entries(a), zip_entries(b)
+    if sorted(za) != sorted(zb):
+        return False
+    for name in za:
+        if name in skip:
+            continue
+        x, y = za[name], zb[name]
+        if isinstance(x, dict):
+            if sorted(x) != sorted(y) or any(
+                    x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k])
+                    for k in x):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def last_checkpoint_extra(directory):
+    import zipfile
+    from deeplearning4j_tpu_torch.train.resilience import CheckpointManager
+    entry = CheckpointManager(directory).latest_valid()
+    with zipfile.ZipFile(entry["path"]) as zf:
+        extra = json.loads(zf.read("resilience.json"))
+    return entry, extra
+
+
+class _Stopwatch:
+    """Wraps CheckpointManager.save and restore_into with wall-clock
+    stopwatches (seconds per call, zip bytes per save)."""
+
+    def __init__(self):
+        self.save_s, self.save_bytes, self.restore_s = [], [], []
+
+    def __enter__(self):
+        import os
+        from deeplearning4j_tpu_torch.train.resilience import (
+            CheckpointManager,
+        )
+        self._cls = CheckpointManager
+        self._real = (CheckpointManager.save, CheckpointManager.restore_into)
+        real_save, real_restore = self._real
+        watch = self
+
+        def save(mgr, model, extra):
+            t0 = time.perf_counter()
+            path = real_save(mgr, model, extra)
+            watch.save_s.append(time.perf_counter() - t0)
+            watch.save_bytes.append(os.path.getsize(path))
+            return path
+
+        def restore_into(mgr, model, path):
+            t0 = time.perf_counter()
+            out = real_restore(mgr, model, path)
+            watch.restore_s.append(time.perf_counter() - t0)
+            return out
+
+        CheckpointManager.save = save
+        CheckpointManager.restore_into = restore_into
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.save, self._cls.restore_into = self._real
+        return False
+
+
+def _cli_in_process(fa, argv, env=None):
+    """train.cli.main in this process: (exit code, stdout, stderr, flash
+    launches of the run)."""
+    import contextlib
+    import os
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    out, err = io.StringIO(), io.StringIO()
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        from deeplearning4j_tpu_torch.train import cli as train_cli
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            code = train_cli.main(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.cuda.empty_cache()
+    return code, out.getvalue(), err.getvalue(), dict(fa.KERNEL_LAUNCHES)
+
+
+def _cli_subprocess(argv, kill_after_checkpoints=None, timeout=600):
+    """`cli.main` in a fresh interpreter (RES_CLI_DRIVER prints the
+    wrapper's launch counts on stderr at exit). With
+    `kill_after_checkpoints` = (directory, n), a real SIGTERM is sent once
+    the directory's manifest lists n checkpoints. (exit code, stdout,
+    stderr, flash launches, seconds to the signal or None)."""
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    env.pop("DL4J_CUDA_FAULTS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", RES_CLI_DRIVER, *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    signalled = None
+    try:
+        if kill_after_checkpoints is not None:
+            directory, n = kill_after_checkpoints
+            manifest = os.path.join(directory, "manifest.json")
+            while proc.poll() is None:
+                try:
+                    with open(manifest) as f:
+                        count = len(json.load(f)["checkpoints"])
+                except (OSError, ValueError, KeyError):
+                    count = 0
+                if count >= n:
+                    proc.send_signal(signal.SIGTERM)
+                    signalled = time.perf_counter() - t0
+                    break
+                time.sleep(0.02)
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    launches = None
+    for line in reversed(stderr.strip().splitlines()):
+        if line.startswith('{"flash_launches"'):
+            launches = json.loads(line)["flash_launches"]
+            break
+    return proc.returncode, stdout, stderr, launches, signalled
+
+
+def _stderr_record(stderr):
+    for line in reversed(stderr.strip().splitlines()):
+        if line.startswith('{"preempted"'):
+            return json.loads(line)
+    return None
+
+
+def resilience_cli(fa, tmp):
+    """Phase 13a: the LM through the train CLI's resilient path: (i) an
+    uninterrupted run, (ii) preempted by DL4J_CUDA_FAULTS then resumed,
+    (iii) a real SIGTERM once two checkpoints are on disk, in a
+    subprocess, then resumed; final parameters, optimizer state and the
+    last checkpoint's resilience.json bitwise (i)'s."""
+    import os
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    lm_zip, tokens = os.path.join(tmp, "lm.zip"), os.path.join(tmp, "t.npz")
+    save_model(MultiLayerNetwork(resilient_lm_conf()).init(), lm_zip)
+    _write_token_set(tokens, np.random.RandomState(1313), RES_SEQS)
+    steps = RES_SEQS // TRAIN_BATCH * RES_EPOCHS
+    common = ["--model", lm_zip, "--dataset", tokens, "--epochs",
+              str(RES_EPOCHS), "--batch-size", str(TRAIN_BATCH),
+              "--score-every", "1", "--save-every-iterations",
+              str(RES_SAVE_EVERY)]
+
+    def args(run, resume=False):
+        return common + ["--output", os.path.join(tmp, f"out_{run}.zip"),
+                         "--checkpoint-dir", os.path.join(tmp, f"ck_{run}")] \
+            + (["--resume"] if resume else [])
+
+    runs = {}
+    monitor.REGISTRY.reset()
+    with _Stopwatch() as watch:
+        t0 = time.perf_counter()
+        code, out, _, launches = _cli_in_process(fa, args("i"))
+        runs["i"] = {"exit": code, "wall_s": time.perf_counter() - t0,
+                     "launches": launches,
+                     "result": json.loads(out.strip().splitlines()[-1])}
+        saves_i = list(watch.save_s)
+        t0 = time.perf_counter()
+        code, _, err, launches = _cli_in_process(
+            fa, args("ii"),
+            env={"DL4J_CUDA_FAULTS": f"preempt_at={RES_PREEMPT_AT}"})
+        runs["ii_preempted"] = {
+            "exit": code, "wall_s": time.perf_counter() - t0,
+            "launches": launches, "record": _stderr_record(err),
+            "output_zip": os.path.exists(os.path.join(tmp, "out_ii.zip"))}
+        t0 = time.perf_counter()
+        code, out, _, launches = _cli_in_process(fa, args("ii", True))
+        runs["ii_resumed"] = {
+            "exit": code, "wall_s": time.perf_counter() - t0,
+            "launches": launches,
+            "result": json.loads(out.strip().splitlines()[-1])}
+    hist = {k: monitor.REGISTRY.collect(
+        f"resilience_checkpoint_{k}_seconds").snapshot()
+        for k in ("save", "restore")}
+    t0 = time.perf_counter()
+    code, _, err, launches, signalled = _cli_subprocess(
+        args("iii"), kill_after_checkpoints=(os.path.join(tmp, "ck_iii"), 2))
+    runs["iii_sigterm"] = {
+        "exit": code, "wall_s": time.perf_counter() - t0,
+        "signal_at_s": signalled, "launches": launches,
+        "record": _stderr_record(err),
+        "output_zip": os.path.exists(os.path.join(tmp, "out_iii.zip"))}
+    t0 = time.perf_counter()
+    code, out, err, launches, _ = _cli_subprocess(args("iii", True))
+    runs["iii_resumed"] = {
+        "exit": code, "wall_s": time.perf_counter() - t0,
+        "launches": launches, "stderr_tail": err[-400:],
+        "result": json.loads(out.strip().splitlines()[-1])
+        if code == 0 else None}
+
+    for run in ("i", "ii_resumed", "iii_resumed"):
+        r = runs[run]
+        if r["exit"] != 0 or r["result"]["iterations"] != steps \
+                or r["result"]["epochs"] != RES_EPOCHS:
+            raise AssertionError(f"resilient CLI run {run}: {r}")
+    for run, at in (("ii_preempted", RES_PREEMPT_AT), ("iii_sigterm", None)):
+        r = runs[run]
+        rec = r["record"]
+        if r["exit"] != 3 or r["output_zip"] or rec is None \
+                or rec.get("preempted") is not True \
+                or (at is not None and rec["iterations"] != at):
+            raise AssertionError(f"preempted CLI run {run}: {r}")
+    # each run launched each kernel n_layers times a step it trained
+    trained = {"i": steps,
+               "ii_preempted": runs["ii_preempted"]["record"]["iterations"],
+               "iii_sigterm": runs["iii_sigterm"]["record"]["iterations"]}
+    trained["ii_resumed"] = steps - trained["ii_preempted"]
+    trained["iii_resumed"] = steps - trained["iii_sigterm"]
+    for run, n in trained.items():
+        if runs[run]["launches"] != {k: N_LAYERS * n for k in KERNELS}:
+            raise AssertionError(f"{run} trained {n} steps with launches "
+                                 f"{runs[run]['launches']}")
+    if not 0 < trained["iii_sigterm"] < steps:
+        raise AssertionError(f"SIGTERM did not land mid-run: {trained}")
+    bitwise = {}
+    ref_entry, ref_extra = last_checkpoint_extra(os.path.join(tmp, "ck_i"))
+    for run in ("ii", "iii"):
+        entry, extra = last_checkpoint_extra(os.path.join(tmp, f"ck_{run}"))
+        bitwise[run] = {
+            "output_zip": same_zip(os.path.join(tmp, "out_i.zip"),
+                                   os.path.join(tmp, f"out_{run}.zip")),
+            "resilience_json": extra == ref_extra,
+            "manifest_counters": (entry["iteration"], entry["epoch"]) == (
+                ref_entry["iteration"], ref_entry["epoch"])}
+        if not all(bitwise[run].values()):
+            raise AssertionError(f"run {run} is not bitwise run i: "
+                                 f"{bitwise[run]} {extra} {ref_extra}")
+    watch_save, watch_restore = sum(watch.save_s), sum(watch.restore_s)
+    agree = {
+        "save_hist_s": hist["save"]["sum"], "save_watch_s": watch_save,
+        "save_count": [hist["save"]["count"], len(watch.save_s)],
+        "restore_hist_s": hist["restore"]["sum"],
+        "restore_watch_s": watch_restore,
+        "restore_count": [hist["restore"]["count"], len(watch.restore_s)]}
+    if hist["save"]["count"] != len(watch.save_s) \
+            or hist["restore"]["count"] != len(watch.restore_s) \
+            or not abs(hist["save"]["sum"] - watch_save) <= 0.05 * watch_save \
+            or not abs(hist["restore"]["sum"] - watch_restore) \
+            <= 0.05 * watch_restore:
+        raise AssertionError(f"checkpoint histograms vs stopwatch: {agree}")
+    flash = {k: sum(r["launches"][k] for r in runs.values())
+             for k in KERNELS}
+    return {"steps": steps, "save_every": RES_SAVE_EVERY,
+            "residual_dropout": RES_RESIDUAL_DROPOUT, "runs": runs,
+            "trained_steps": trained, "bitwise_vs_uninterrupted": bitwise,
+            "checkpoint_save_s": saves_i,
+            "checkpoint_save_s_p50": statistics.median(saves_i),
+            "checkpoint_zip_bytes": statistics.median(watch.save_bytes),
+            "checkpoint_restore_s": watch.restore_s,
+            "histograms_vs_stopwatch": agree, "flash_launches": flash}
+
+
+class _StepClock:
+    """A listener that stamps a CUDA event at each iteration_done (step
+    ms between consecutive stamps, past `skip` warm steps) and counts the
+    host-device syncs of the iterations after the first
+    (`torch.cuda.set_sync_debug_mode`): each counted window holds one
+    whole step, from the batch's fetch to the listeners."""
+
+    reads_model = False
+
+    def __init__(self, skip=2):
+        self.skip = skip
+        self.events = []
+        self.syncs = 0
+        self._cm = None
+
+    def on_epoch_start(self, model, epoch):
+        pass
+
+    def on_epoch_end(self, model, epoch):
+        self._close()
+
+    def iteration_done(self, model, iteration, epoch, score, etl_ms=0.0,
+                       batch_size=0):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        self._close()
+        self._cm = warnings.catch_warnings(record=True)
+        self._caught = self._cm.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+
+    def _close(self):
+        if self._cm is None:
+            return
+        torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(None, None, None)
+        self.syncs += sum("synchroniz" in str(w.message)
+                          for w in self._caught)
+        self._cm = None
+
+    def result(self):
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+        ms = ms[self.skip:]
+        return {"step_ms": ms, "step_ms_p50": statistics.median(ms),
+                "syncs_per_step": self.syncs / max(len(self.events) - 1, 1)}
+
+
+def _device_batches(features, labels, n, start=0):
+    """n DataSets of TRAIN_BATCH sequences already on the card, their ids
+    range-checked on the host (as the prefetch thread does)."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    out = []
+    for i in range(start, start + n):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        out.append(DataSet(torch.from_numpy(features[sl]).cuda(),
+                           torch.from_numpy(labels[sl]).cuda()))
+    return out
+
+
+class _Probe:
+    """Mixin for a FaultInjector: clones of the flat parameters at the
+    first `before_step` of each step index in `at`."""
+
+    def probe(self, net, at):
+        self.net, self.at, self.params = net, set(at), {}
+        return self
+
+    def before_step(self, step):
+        if step in self.at and step not in self.params:
+            self.params[step] = self.net.params_flat().clone()
+        super().before_step(step)
+
+
+def resilience_faults(tmp, features, labels):
+    """Phase 13b: ResilientTrainer on the LM under DL4J_CUDA_FAULTS
+    (a transient error at step 4, a NaN loss at step 6) against the same
+    run without faults; then a run of NaN steps that trips
+    max_consecutive_skips and rolls back to the newest checkpoint."""
+    import os
+    import zipfile
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train.resilience import (
+        FaultPolicy, ResilientTrainer,
+    )
+    from deeplearning4j_tpu_torch.util.faults import FaultInjector
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    from deeplearning4j_tpu_torch.util.serialization import (
+        _npz_bytes_to_tree, updater_state_to_bytes,
+    )
+
+    class Probe(_Probe, FaultInjector):
+        pass
+
+    batches = _device_batches(features, labels, RES_STEPS)
+    fast = dict(backoff_base=0.001, backoff_max=0.004)
+    runs = {}
+    for name, env in (("clean", None), ("faulted", RES_FAULTS)):
+        net = MultiLayerNetwork(resilient_lm_conf()).init()
+        if env is None:
+            inj = Probe()
+        else:
+            os.environ["DL4J_CUDA_FAULTS"] = env
+            try:
+                inj = Probe.from_env()
+            finally:
+                os.environ.pop("DL4J_CUDA_FAULTS")
+        inj.probe(net, (5, 6, 7))
+        rep = ResilientTrainer(net, os.path.join(tmp, f"b_{name}"),
+                               policy=FaultPolicy(**fast), injector=inj,
+                               write_checkpoints=False).fit(
+            ExistingDataSetIterator(batches), epochs=1)
+        runs[name] = (rep, inj.params)
+        del net
+    (rep_c, p_c), (rep_f, p_f) = runs["clean"], runs["faulted"]
+    checks = {
+        "retries": rep_f.retries, "skipped_steps": rep_f.skipped_steps,
+        "retried_step_bitwise": torch.equal(p_f[5], p_c[5]),
+        "step_after_retry_bitwise": torch.equal(p_f[6], p_c[6]),
+        "skip_restores_bitwise": torch.equal(p_f[7], p_f[6]),
+        "clean_retries": rep_c.retries}
+    if checks["retries"] != 1 or checks["skipped_steps"] != 1 \
+            or checks["clean_retries"] != 0 \
+            or not all(checks[k] for k in ("retried_step_bitwise",
+                                           "step_after_retry_bitwise",
+                                           "skip_restores_bitwise")):
+        raise AssertionError(f"faulted LM run: {checks}")
+    # a run of NaN steps past max_consecutive_skips: the newest checkpoint
+    net = MultiLayerNetwork(resilient_lm_conf()).init()
+    rep = ResilientTrainer(
+        net, os.path.join(tmp, "b_trip"), save_every_n_iterations=2,
+        policy=FaultPolicy(max_consecutive_skips=1, **fast),
+        injector=FaultInjector(nan_at=range(3, 100))).fit(
+        ExistingDataSetIterator(batches[:6]), epochs=1)
+    if not rep.diverged or rep.restored_checkpoint is None:
+        raise AssertionError(f"skip threshold did not roll back: {rep}")
+    with zipfile.ZipFile(rep.restored_checkpoint) as zf:
+        coeffs = _npz_bytes_to_tree(zf.read("coefficients.npz"))
+        opt_bytes = zf.read("updaterState.bin")
+    want = dict(iter_leaves(coeffs))
+    same_params = all(np.array_equal(t.cpu().numpy(), want[path])
+                      for path, t in iter_leaves(net.params))
+    same_opt = updater_state_to_bytes(net.opt_state) == opt_bytes
+    if not (same_params and same_opt):
+        raise AssertionError("rolled-back model is not its checkpoint: "
+                             f"params {same_params}, updater {same_opt}")
+    checks["rollback"] = {"restored": os.path.basename(
+        rep.restored_checkpoint), "iteration": net.iteration_count,
+        "params_bitwise_zip": same_params,
+        "updater_bytes_equal_zip": same_opt}
+    del net
+    torch.cuda.empty_cache()
+    return checks
+
+
+def resilience_cost(tmp, features, labels):
+    """Phase 13c: ms a step by CUDA events and syncs a step for the
+    per-call fit, a guarded resilient step and an unguarded one, in
+    turns, on batches already on the card; the snapshot's bytes and ms."""
+    import os
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.step_graph import tree_tensors
+    from deeplearning4j_tpu_torch.train.resilience import (
+        FaultPolicy, ResilientTrainer, _grouped_copy,
+    )
+    batches = _device_batches(features, labels, RES_STEPS)
+    net = MultiLayerNetwork(resilient_lm_conf()).init()
+    paths = {"per_call": None, "guarded": FaultPolicy(),
+             "unguarded": FaultPolicy(max_retries=0, skip_nonfinite=False)}
+    rows = {k: {"step_ms": [], "syncs_per_step": []} for k in paths}
+    trainer = None
+    for name in ("per_call", "guarded", "unguarded", "unguarded", "guarded",
+                 "per_call"):
+        net.iteration_count = net.epoch_count = 0
+        clock = _StepClock()
+        net.set_listeners(clock)
+        if paths[name] is None:
+            net.fit(ExistingDataSetIterator(batches), scan_steps=1,
+                    prefetch=False)
+        else:
+            trainer = ResilientTrainer(net, os.path.join(tmp, "c"),
+                                       policy=paths[name],
+                                       resume=False, write_checkpoints=False,
+                                       save_every_n_iterations=0,
+                                       save_every_n_epochs=0)
+            trainer.fit(ExistingDataSetIterator(batches), epochs=1)
+        r = clock.result()
+        rows[name]["step_ms"] += r["step_ms"]
+        rows[name]["syncs_per_step"].append(r["syncs_per_step"])
+    net.set_listeners()
+    for r in rows.values():
+        r["step_ms_p50"] = statistics.median(r["step_ms"])
+        r["step_ms_min"], r["step_ms_max"] = min(r["step_ms"]), max(
+            r["step_ms"])
+    # the snapshot alone: the driver's grouped copy and generator state
+    gen = net._epoch_generator(7919)
+    driver = trainer._driver
+    driver.snapshot(gen)
+    snap_ms = cuda_ms(lambda: driver.snapshot(gen), iters=20)
+    nbytes = driver._snap.nbytes
+    # its copies alone, grouped by dtype against one foreach over the
+    # mixed list (AdamW's int32 count among f32: the per-tensor path)
+    live = tree_tensors(net.params, net.opt_state, net.state)
+    bufs = [torch.empty_like(t) for t in live]
+    dtypes = {}
+    for t in live:
+        dtypes[str(t.dtype)] = dtypes.get(str(t.dtype), 0) + 1
+    row = {"paths": rows, "snapshot_bytes": nbytes, "snapshot_ms": snap_ms,
+           "snapshot_bound_ms": 2 * nbytes / PEAK_BYTES_PER_S * 1e3,
+           "copy_tensors": dtypes,
+           "copy_mixed_foreach_ms": cuda_ms(
+               lambda: torch._foreach_copy_(bufs, live), iters=20),
+           "copy_grouped_ms": cuda_ms(lambda: _grouped_copy(bufs, live),
+                                      iters=20),
+           "guarded_minus_per_call_ms": rows["guarded"]["step_ms_p50"]
+           - rows["per_call"]["step_ms_p50"]}
+    del net, driver, trainer, live, bufs
+    torch.cuda.empty_cache()
+    return row
+
+
+def trace_kernel_names(path):
+    """The names of the device kernels in a torch.profiler Chrome trace."""
+    with open(path) as f:
+        return [e.get("name", "") for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel"]
+
+
+def resilience_listeners(tmp, features, labels):
+    """Phase 13d: an async CheckpointListener against a synchronous one
+    at the same iteration, its syncs a step; EarlyStoppingTrainer with
+    InMemoryModelSaver (the best epoch comes back, not the last); a
+    ProfilerListener window naming the three flash kernels."""
+    import os
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.train import (
+        CheckpointListener, ProfilerListener,
+    )
+    from deeplearning4j_tpu_torch.train.earlystopping import (
+        EarlyStoppingConfiguration, EarlyStoppingTrainer,
+        MaxEpochsTerminationCondition, ScoreCalculator,
+    )
+    batches = _device_batches(features, labels, 4)
+    out = {}
+    k = 3
+    # a throwaway fit first: the allocator's blocks for a step are then
+    # cached, so neither timed run pays for them
+    warm = MultiLayerNetwork(resilient_lm_conf()).init()
+    warm.fit(ExistingDataSetIterator(batches), scan_steps=1, prefetch=False)
+    del warm
+    for mode in ("async", "sync"):
+        net = MultiLayerNetwork(resilient_lm_conf()).init()
+        clock = _StepClock(skip=0)
+        d = os.path.join(tmp, f"ckl_{mode}")
+        with CheckpointListener(d, save_every_n_iterations=k,
+                                async_save=mode == "async") as ck:
+            net.set_listeners(ck, clock)
+            t0 = time.perf_counter()
+            net.fit(ExistingDataSetIterator(batches), scan_steps=1,
+                    prefetch=False)
+            fit_s = time.perf_counter() - t0
+        out[mode] = {"fit_s": fit_s, **clock.result()}
+        del net
+        torch.cuda.empty_cache()
+    same = same_zip(os.path.join(tmp, "ckl_async", f"checkpoint_iter_{k}.zip"),
+                    os.path.join(tmp, "ckl_sync", f"checkpoint_iter_{k}.zip"))
+    out["async_zip_equals_sync_zip"] = same
+    if not same:
+        raise AssertionError("the async checkpoint differs from the sync one")
+
+    class Scripted(ScoreCalculator):
+        scores = [3.0, 1.0, 2.0, 4.0]
+
+        def calculate(self, model):
+            return self.scores.pop(0)
+
+    class EpochParams:
+        reads_model = True
+        by_epoch = []
+
+        def on_epoch_start(self, model, epoch):
+            pass
+
+        def on_epoch_end(self, model, epoch):
+            self.by_epoch.append(model.params_flat().clone())
+
+        def iteration_done(self, *a, **kw):
+            pass
+
+    net = MultiLayerNetwork(resilient_lm_conf()).init()
+    keep = EpochParams()
+    net.set_listeners(keep)
+    live = tree_leaves(net.params)
+    result = EarlyStoppingTrainer(EarlyStoppingConfiguration(
+        score_calculator=Scripted(),
+        epoch_termination_conditions=[MaxEpochsTerminationCondition(4)]),
+        net, (features[:2 * TRAIN_BATCH], labels[:2 * TRAIN_BATCH]),
+        batch_size=TRAIN_BATCH).fit()
+    best = torch.equal(net.params_flat(), keep.by_epoch[1])
+    not_last = not torch.equal(keep.by_epoch[1], keep.by_epoch[3])
+    in_place = all(a is b for a, b in zip(live, tree_leaves(net.params)))
+    out["early_stopping"] = {"best_epoch": result.best_model_epoch,
+                             "epochs": result.total_epochs,
+                             "restored_best_bitwise": best,
+                             "best_differs_from_last": not_last,
+                             "restored_in_place": in_place}
+    if result.best_model_epoch != 1 or not (best and not_last and in_place):
+        raise AssertionError(f"early stopping: {out['early_stopping']}")
+    del net, keep
+    net = MultiLayerNetwork(resilient_lm_conf()).init()
+    # iteration 1 is the profiler's warm-up, iterations 2-4 the window
+    prof = ProfilerListener(os.path.join(tmp, "prof"), start_iteration=2,
+                            num_iterations=3)
+    net.set_listeners(prof)
+    net.fit(ExistingDataSetIterator(
+        batches + _device_batches(features, labels, 1, start=4)),
+        scan_steps=1, prefetch=False)
+    names = trace_kernel_names(prof.trace_path)
+    counts = {kname: sum(kname in n for n in names) for kname in KERNELS}
+    out["profiler"] = {"trace_bytes": os.path.getsize(prof.trace_path),
+                       "kernel_events": len(names), "flash_kernels": counts}
+    if counts != {kname: 3 * N_LAYERS for kname in KERNELS}:
+        raise AssertionError(f"profiler trace kernels: {counts}")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def _net_state(net):
+    from deeplearning4j_tpu_torch.nn.step_graph import tree_tensors
+    gen = net._dropout_gen
+    return ([t.clone() for t in tree_tensors(net.params, net.opt_state,
+                                             net.state)],
+            None if gen is None else gen.get_state().clone(),
+            (net.iteration_count, net.epoch_count, net._score))
+
+
+def _unchanged(before, after) -> bool:
+    return len(before[0]) == len(after[0]) \
+        and all(torch.equal(a, b) for a, b in zip(before[0], after[0])) \
+        and ((before[1] is None and after[1] is None)
+             or torch.equal(before[1], after[1])) and before[2] == after[2]
+
+
+def resilience_memory(features, labels):
+    """Phase 13e: memory_report on the card: the LM at batch 4 (after one
+    step, so its optimizer state and generator are live), ResNet-50 bf16
+    at batch 128, 224², and the reference's own case (LeNet, batch 16):
+    analytic total against the measured peak, and the network bitwise
+    unchanged by the report."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50, model_by_name
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    rows = {}
+
+    def report(name, net, batch):
+        before = _net_state(net)
+        t0 = time.perf_counter()
+        rep = net.memory_report(batch_size=batch)
+        secs = time.perf_counter() - t0
+        measured = rep.compiled_total_bytes
+        rows[name] = {
+            "batch": batch, "analytic_train_bytes": rep.total_train_bytes,
+            "measured_bytes": measured, "measured": rep.compiled,
+            "analytic_over_measured": rep.total_train_bytes / measured,
+            "within_2x": 1 / RES_MEMORY_RATIO <= rep.total_train_bytes
+            / measured <= RES_MEMORY_RATIO,
+            "unchanged": _unchanged(before, _net_state(net)),
+            "report_s": secs}
+        # the reference holds its bound for LeNet only
+        # (tests/test_memory.py:53); the others are reported
+        if not rows[name]["unchanged"] or not measured \
+                or rep.compiled["temp_bytes"] <= 0 \
+                or (name == "lenet" and not rows[name]["within_2x"]):
+            raise AssertionError(f"memory_report {name}: {rows[name]}")
+
+    net = MultiLayerNetwork(resilient_lm_conf()).init()
+    net.fit(ExistingDataSetIterator(_device_batches(features, labels, 1)),
+            prefetch=False)
+    report("lm", net, TRAIN_BATCH)
+    del net
+    torch.cuda.empty_cache()
+    conf = dataclasses.replace(ResNet50().conf(), compute_dtype="bfloat16")
+    g = ComputationGraph(conf).init()
+    report("resnet50_bf16", g, RESNET_MEMORY_BATCH)
+    del g
+    torch.cuda.empty_cache()
+    report("lenet", model_by_name("LeNet").init(), 16)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def resilience_solvers():
+    """Phase 13f: LBFGS, ConjugateGradient and LineGradientDescent on an
+    f64 full-batch logistic regression (the reference test's shape), on
+    the card and on the CPU from one zip: score sequences within
+    RES_SOLVER_REL, LBFGS converging in fewer iterations than steepest
+    descent."""
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.train import solvers
+    rs = np.random.RandomState(0)
+    centers = rs.randn(3, 6) * 3
+    X = np.concatenate([centers[i] + rs.randn(66, 6) for i in range(3)])
+    Y = np.eye(3)[np.repeat(np.arange(3), 66)]
+    conf = (NeuralNetConfiguration.Builder().seed(0).updater(Sgd(1e-2))
+            .dtype("float64").list()
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(6)).build())
+    init = MultiLayerNetwork(conf, device="cpu").init().params_flat()
+    rows = {}
+    for name in ("LBFGS", "ConjugateGradient", "LineGradientDescent"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            net = MultiLayerNetwork(conf, device=dev).init()
+            net.set_params_flat(init)
+            t0 = time.perf_counter()
+            r = getattr(solvers, name)(max_iterations=200).optimize(
+                net, (X, Y))
+            res[dev] = (r, time.perf_counter() - t0)
+        (rc, sc), (rh, sh) = res["cuda"], res["cpu"]
+        n = min(len(rc.scores), len(rh.scores))
+        rel = max(abs(a - b) / max(abs(b), 1e-300)
+                  for a, b in zip(rc.scores[:n], rh.scores[:n]))
+        rows[name] = {"iterations": [rc.iterations, rh.iterations],
+                      "final_score": [rc.final_score, rh.final_score],
+                      "max_rel_score_diff": rel, "card_s": sc, "cpu_s": sh}
+        if rc.iterations != rh.iterations or not rel <= RES_SOLVER_REL:
+            raise AssertionError(f"{name} card vs CPU: {rows[name]}")
+    if not rows["LBFGS"]["iterations"][0] \
+            < rows["LineGradientDescent"]["iterations"][0]:
+        raise AssertionError(f"LBFGS not ahead of steepest descent: {rows}")
+    return rows
+
+
+def resilience(fa, tmp):
+    """Phase 13: fault-tolerant training on the card (see the module
+    docstring)."""
+    import os
+    t0 = time.perf_counter()
+    gpu = gpu_line()
+    _telemetry_reset()          # phase 12 leaves its switches as it found
+    cli_run = resilience_cli(fa, tmp)
+    emit({"phase": "resilience_cli", "gpu": gpu, **cli_run})
+    with np.load(os.path.join(tmp, "t.npz")) as data:
+        features, labels = data["features"], data["labels"]
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    faults = resilience_faults(tmp, features, labels)
+    emit({"phase": "resilience_faults", "gpu": gpu, **faults})
+    cost = resilience_cost(tmp, features, labels)
+    emit({"phase": "resilience_cost", "gpu": gpu, **cost})
+    lst = resilience_listeners(tmp, features, labels)
+    emit({"phase": "resilience_listeners", "gpu": gpu, **lst})
+    mem = resilience_memory(features, labels)
+    emit({"phase": "resilience_memory", "gpu": gpu, **mem})
+    sol = resilience_solvers()
+    emit({"phase": "resilience_solvers", "gpu": gpu, **sol})
+    row = {"phase": "resilience", "gpu": gpu,
+           "seconds": time.perf_counter() - t0,
+           "flash_launches": cli_run["flash_launches"],
+           "flash_launches_in_process_checks": dict(fa.KERNEL_LAUNCHES)}
+    emit(row)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4959,6 +5836,8 @@ def main(argv=None) -> int:
         data_run = data_plane(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         tele_run = telemetry(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        res_run = resilience(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -4978,7 +5857,9 @@ def main(argv=None) -> int:
                              "data_plane":
                                  data_run["flash_launches"]["flash_fwd"],
                              "telemetry":
-                                 tele_run["flash_launches"]["flash_fwd"]},
+                                 tele_run["flash_launches"]["flash_fwd"],
+                             "resilience":
+                                 res_run["flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -5004,7 +5885,9 @@ def main(argv=None) -> int:
                                  "data_plane":
                                      data_run["flash_launches"][name],
                                  "telemetry":
-                                     tele_run["flash_launches"][name]},
+                                     tele_run["flash_launches"][name],
+                                 "resilience":
+                                     res_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

@@ -58,6 +58,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
 from deeplearning4j_tpu_torch.nn.regularization import (
     apply_weight_noise, constraint_map, has_constraints,
 )
+from deeplearning4j_tpu_torch.nn.updaters import tree_map
 from deeplearning4j_tpu_torch.util import params as param_util
 from deeplearning4j_tpu_torch.util.platform import (
     DeviceLike, resolve_device, set_f32_matmul_exact,
@@ -559,3 +560,24 @@ class ComputationGraph(TrainableNet):
     def set_params_flat(self, flat):
         self.params = param_util.flat_to_params(flat, self.params)
         self._drop_graphs()
+
+    def copy(self) -> "ComputationGraph":
+        """A graph of the same configuration on the same device, with
+        copies of the parameters and vertex state and a fresh optimizer
+        (MultiLayerNetwork.copy for graphs)."""
+        clone = ComputationGraph(self.conf, device=self.device)
+        if self.params is not None:
+            clone._vertex_types = self._vertex_types or self._resolve_types()
+            clone._pre_kind = self._pre_kind
+            clone.params = tree_map(torch.clone, self.params)
+            clone.state = tree_map(torch.clone, self.state)
+            clone._build_optimizer()
+        return clone
+
+    # --------------------------------------------------------------- memory
+    def memory_report(self, batch_size: int = 32, with_compiled: bool = True):
+        """Per-vertex analytic memory estimate and, on CUDA, the measured
+        peak of one training step (DL4J NetworkMemoryReport analog — see
+        util/memory.py)."""
+        from deeplearning4j_tpu_torch.util.memory import build_memory_report
+        return build_memory_report(self, batch_size, with_compiled)

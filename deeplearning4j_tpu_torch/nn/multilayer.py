@@ -484,20 +484,7 @@ class TrainableNet:
                              iteration=self.iteration_count)
             struct = self._batch_struct(b)
             bs = int(np.shape(step_graph.flatten(struct)[0])[0])
-            rec, fresh = None, False
-            if xla_ledger.enabled():
-                key = ("train_step", step_graph.signature(struct),
-                       self._affine_key())
-                fresh = key not in self._ledger_cache
-                if fresh:
-                    loss, rec = self._counted(
-                        key, "train_step", struct, bs, 1,
-                        lambda: self._step_struct(struct, generator))
-                else:
-                    rec = self._ledger_cache[key]
-                    loss = self._step_struct(struct, generator)
-            else:
-                loss = self._step_struct(struct, generator)
+            loss, rec, fresh = self._dispatch_step(struct, generator, bs)
             sync_start = time.perf_counter()
             # wait for the device FIRST (goodput: step_compute), so the
             # host_sync span below covers only the narrow D2H fetch
@@ -522,6 +509,22 @@ class TrainableNet:
                                    self.epoch_count, self._score, etl_ms, bs)
             self.iteration_count += 1
             etl_start = time.perf_counter()
+
+    def _dispatch_step(self, struct, generator, bs: int):
+        """One per-call step on a batch struct, as the program ledger sees
+        it: (the loss on the device, the step program's ledger record or
+        None while the ledger is off, whether this step was the record's
+        counted one)."""
+        if not xla_ledger.enabled():
+            return self._step_struct(struct, generator), None, False
+        key = ("train_step", step_graph.signature(struct), self._affine_key())
+        if key not in self._ledger_cache:
+            loss, rec = self._counted(
+                key, "train_step", struct, bs, 1,
+                lambda: self._step_struct(struct, generator))
+            return loss, rec, True
+        return (self._step_struct(struct, generator),
+                self._ledger_cache[key], False)
 
     def _counted(self, key, program: str, struct, examples: int, steps: int,
                  run, finish=None):
@@ -1029,6 +1032,13 @@ class MultiLayerNetwork(TrainableNet):
         """Load a flat vector in `params_flat`'s order."""
         self.params = param_util.flat_to_params(flat, self.params)
         self._drop_graphs()
+
+    def memory_report(self, batch_size: int = 32, with_compiled: bool = True):
+        """Per-layer analytic memory estimate and, on CUDA, the measured
+        peak of one training step (DL4J NetworkMemoryReport analog — see
+        util/memory.py)."""
+        from deeplearning4j_tpu_torch.util.memory import build_memory_report
+        return build_memory_report(self, batch_size, with_compiled)
 
     def copy(self) -> "MultiLayerNetwork":
         """A network of the same configuration on the same device, with

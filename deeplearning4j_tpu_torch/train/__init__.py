@@ -1,17 +1,22 @@
-"""Training: the listeners, checkpoint manifests and the CLI entry point.
+"""Training: the listeners, the resilient trainer with its checkpoint
+manifests, the full-batch solvers and the CLI entry point.
 
-The reference's names of the ported modules are exported lazily
-(`util/lazy.py`): this package imports none of its submodules eagerly.
-The rest of the listeners, the resilient trainer and the solvers
-(ROADMAP A.12) are not ported, so their names are absent.
+The reference's names are exported lazily (`util/lazy.py`): this package
+imports none of its submodules eagerly.
 """
 from deeplearning4j_tpu_torch.util.lazy import lazy_exports
 
 _EXPORTS = {
     **dict.fromkeys(("TrainingListener", "ScoreIterationListener",
-                     "PerformanceListener", "CollectScoresIterationListener"),
+                     "PerformanceListener", "CollectScoresIterationListener",
+                     "TimeIterationListener", "EvaluativeListener",
+                     "CheckpointListener", "ProfilerListener",
+                     "DivergenceListener", "TrainingDivergedError"),
                     "listeners"),
-    "CheckpointManager": "resilience",
+    **dict.fromkeys(("CheckpointManager", "FaultPolicy", "FitReport",
+                     "PreemptionGuard", "ResilientTrainer"), "resilience"),
+    **dict.fromkeys(("BackTrackLineSearch", "LineGradientDescent",
+                     "ConjugateGradient", "LBFGS"), "solvers"),
 }
 __all__ = sorted(_EXPORTS)
 __getattr__, __dir__ = lazy_exports(__name__, globals(), _EXPORTS)

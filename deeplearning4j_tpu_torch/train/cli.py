@@ -24,8 +24,20 @@ DL4J_CUDA_PREFETCH_DEPTH) and DL4J_CUDA_SCAN_STEPS steps a chunk (default
 prints ``{"serving": url, "predict": path}`` on stderr after the result
 line, and serves until SIGTERM or SIGINT, which drain it; the run then
 exits 0. Every flag of a part not yet ported (more than one worker,
-`averaging`, checkpoints and resume, the dashboard, sharding plans)
-stops the run with "not yet ported"; none is ignored.
+`averaging`, the dashboard, sharding plans) stops the run with "not yet
+ported"; none is ignored.
+
+`--checkpoint-dir DIR` trains through `ResilientTrainer`
+(`train/resilience.py`) on the one device: atomic manifest-tracked
+checkpoints every `--save-every-iterations` steps and at each epoch's
+end (`--keep-last` kept), SIGTERM/SIGINT handled at the next step
+boundary, the per-step fault policy, and ``DL4J_CUDA_FAULTS`` fault
+injection. `--resume` (which needs `--checkpoint-dir`) continues from
+the newest valid checkpoint there, bitwise as if never stopped; `--epochs`
+is then the total. A run that is preempted exits 3 and one that diverged
+(and was rolled back to its last good checkpoint) exits 4, each with
+``{"preempted": ..., "diverged": ..., "iterations": ..., "resume_with":
+"--resume"}`` on stderr and no output zip.
 
 Telemetry, as in the reference: `--metrics` prints the final
 ``{"metrics": monitor.summary()}`` on stderr, `--trace-out PATH` records
@@ -53,8 +65,6 @@ import numpy as np
 
 # flags of parts that wait, each with the slice it comes with
 _UNPORTED_FLAGS = (
-    ("checkpoint_dir", "--checkpoint-dir", "resilience (ResilientTrainer)"),
-    ("resume", "--resume", "resilience (ResilientTrainer)"),
     ("ui_port", "--ui-port", "UI"),
     ("mesh", "--mesh", "parallel"),
 )
@@ -91,9 +101,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "dataset cache is missing (pipeline testing only); "
                         "without this flag a missing cache is an error")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="fault-tolerant training (not yet ported)")
+                   help="fault-tolerant training (ResilientTrainer): "
+                        "atomic manifest-tracked checkpoints in this "
+                        "directory, SIGTERM/SIGINT preemption handling, "
+                        "per-step fault policy")
     p.add_argument("--resume", action="store_true",
-                   help="resume from --checkpoint-dir (not yet ported)")
+                   help="auto-resume from the newest valid checkpoint in "
+                        "--checkpoint-dir (bitwise-identical continuation); "
+                        "--epochs is then the TOTAL epoch target")
     p.add_argument("--save-every-iterations", type=int, default=50,
                    help="checkpoint cadence for --checkpoint-dir runs")
     p.add_argument("--keep-last", type=int, default=3,
@@ -236,9 +251,32 @@ def _enable_telemetry(args):
     return emit_telemetry
 
 
+def _fit_resilient(net, iterator, args) -> int:
+    """The --checkpoint-dir path: 0 when the fit completed, 3 preempted,
+    4 diverged (the network then holds its last good checkpoint)."""
+    from deeplearning4j_tpu_torch.train.resilience import ResilientTrainer
+    trainer = ResilientTrainer(
+        net, args.checkpoint_dir,
+        save_every_n_iterations=args.save_every_iterations,
+        keep_last=args.keep_last, resume=args.resume)
+    report = trainer.fit(iterator, epochs=args.epochs,
+                         batch_size=args.batch_size)
+    if report.preempted or report.diverged:
+        # an incomplete run: no output model, no result line, a distinct
+        # exit code so a caller cannot take it for a finished job
+        print(json.dumps({"preempted": report.preempted,
+                          "diverged": report.diverged,
+                          "iterations": net.iteration_count,
+                          "resume_with": "--resume"}), file=sys.stderr)
+        return 3 if report.preempted else 4
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume requires --checkpoint-dir")
     try:
         args.serve_buckets = tuple(
             int(b) for b in args.serve_buckets.split(",") if b)
@@ -267,7 +305,12 @@ def main(argv=None) -> int:
                               allow_synthetic=args.synthetic_data)
         net.set_listeners(ScoreIterationListener(args.score_every),
                           PerformanceListener(args.score_every))
-        net.fit(iterator, epochs=args.epochs)
+        if args.checkpoint_dir:
+            code = _fit_resilient(net, iterator, args)
+            if code:
+                return code
+        else:
+            net.fit(iterator, epochs=args.epochs)
         save_model(net, args.output)
         print(json.dumps({"output": args.output,
                           "final_score": net.score(),

@@ -43,15 +43,15 @@ def params_to_flat(tree) -> torch.Tensor:
     return torch.cat(leaves)
 
 
-def flat_to_params(flat, template):
-    """The inverse of `params_to_flat`: a tree shaped, typed and placed
-    like `template`."""
-    flat = torch.as_tensor(flat)
+def flat_views(flat: torch.Tensor, template):
+    """A tree shaped like `template` whose leaves are views of the 1-D
+    tensor `flat` in the canonical order (no copy): autograd through the
+    views reaches `flat`, as the reference's `jax.value_and_grad` over the
+    flat vector does."""
     chunks, offset = {}, 0
     for path, leaf in iter_leaves(template):
         n = math.prod(leaf.shape)
-        chunks[path] = flat[offset:offset + n].reshape(leaf.shape).to(
-            device=leaf.device, dtype=leaf.dtype).clone()
+        chunks[path] = flat[offset:offset + n].view(leaf.shape)
         offset += n
     if offset != flat.numel():
         raise ValueError(f"flat vector of {flat.numel()} values for "
@@ -62,6 +62,18 @@ def flat_to_params(flat, template):
             return {k: rebuild(v, path + (str(k),)) for k, v in node.items()}
         return chunks[path]
     return rebuild(template, ())
+
+
+def flat_to_params(flat, template):
+    """The inverse of `params_to_flat`: a tree shaped, typed and placed
+    like `template`, each leaf its own copy."""
+    views = flat_views(torch.as_tensor(flat).reshape(-1), template)
+
+    def own(view, leaf):
+        if isinstance(leaf, dict):
+            return {k: own(view[k], v) for k, v in leaf.items()}
+        return view.to(device=leaf.device, dtype=leaf.dtype).clone()
+    return own(views, template)
 
 
 def format_param_table(rows, total: int) -> str:

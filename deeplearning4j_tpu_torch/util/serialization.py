@@ -200,13 +200,17 @@ def params_from_numpy(tree, device: DeviceLike = None,
 
 
 def save_model(model, path, save_updater: bool = True, atomic: bool = True,
-               extra_entries: Optional[dict] = None):
+               extra_entries: Optional[dict] = None,
+               compression: int = zipfile.ZIP_DEFLATED):
     """Write a model checkpoint zip (ModelSerializer.writeModel), with
     updaterState.bin when `save_updater` and the model has an optimizer
     state. `atomic`: written to a temp file and renamed, so a kill
     mid-save never leaves a truncated zip at `path`. `extra_entries`
     ({name: str|bytes}) adds caller entries to the archive (the
-    checkpoint manager's resilience.json)."""
+    checkpoint manager's resilience.json). `compression` is the zip
+    method of every entry: deflate by default, as the reference writes;
+    the checkpoint manager stores them (deflate runs at tens of MB/s on
+    the host, and a resilient fit waits for each save)."""
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     if isinstance(model, MultiLayerNetwork):
@@ -222,7 +226,7 @@ def save_model(model, path, save_updater: bool = True, atomic: bool = True,
     atomic = atomic and isinstance(path, (str, os.PathLike))
     target = f"{path}.tmp.{os.getpid()}" if atomic else path
     try:
-        with zipfile.ZipFile(target, "w", zipfile.ZIP_DEFLATED) as zf:
+        with zipfile.ZipFile(target, "w", compression) as zf:
             zf.writestr("configuration.json", model.conf.to_json())
             zf.writestr("coefficients.npz", _tree_to_npz_bytes(model.params))
             zf.writestr("state.npz", _tree_to_npz_bytes(model.state))

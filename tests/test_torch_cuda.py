@@ -27,7 +27,13 @@ CUDA fit of a small net, bitwise its in-memory fit. Telemetry: the
 program ledger's FLOPs of a small flash LM on the card equal the
 analytic count (the kernels added by formula), `train_mfu_pct` is set
 by a scan fit, and tracing, the ledger and goodput on add no host sync
-to a replayed step.
+to a replayed step. Resilience: a guarded ResilientTrainer fit bitwise
+the per-call fit (an MLP with dropout, a flash LM with residual
+dropout), a retry after a step that ran bitwise the unfaulted run (the
+card's generator restored), an async CheckpointListener zip bitwise the
+synchronous one with no added sync once its pinned buffers are cached,
+and memory_report's measured step leaving the network bitwise unchanged,
+within 2x of the analytic total for the reference's LeNet case.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -1330,3 +1336,188 @@ def test_telemetry_on_adds_no_sync_to_a_replayed_step(cuda, telemetry):
     cats = telemetry.goodput.last_session()["categories"]
     assert cats["step_compute"] > 0
     assert telemetry.summary()["train_iterations_total"] == 6 * 8
+
+
+# ------------------------------------------------------------- resilience
+def _flash_lm(device, seed=5):
+    import dataclasses
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = model_by_name("TransformerLM", vocab_size=64, seq_length=128,
+                         n_layers=2, n_embd=64, n_heads=2, dropout=0.1,
+                         attention_impl="flash", seed=seed).conf()
+    conf = dataclasses.replace(conf, layers=[
+        dataclasses.replace(l, attention_dropout=0.0)
+        if hasattr(l, "attention_dropout") else l for l in conf.layers])
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _resilient_case(case, device):
+    """(a network on the card, a fresh iterator over its data)."""
+    if case == "mlp":
+        return _dropout_mlp(device), lambda: _blob_iter(n=256)
+    return _flash_lm(device), lambda: _token_batches(64, 2, 128, 6, seed=4)
+
+
+def _same_state(a, b) -> bool:
+    from deeplearning4j_tpu_torch.nn.step_graph import tree_tensors
+    return all(torch.equal(x, y) for x, y in zip(
+        tree_tensors(a.params, a.opt_state, a.state),
+        tree_tensors(b.params, b.opt_state, b.state)))
+
+
+@pytest.mark.parametrize("case", ["mlp", "flash_lm"])
+def test_a_guarded_resilient_fit_on_the_card_is_the_per_call_fit(
+        cuda, tmp_path, case):
+    """ResilientTrainer's guarded step (device snapshot, generator state)
+    is bitwise the per-call fit's step, dropout included; the flash LM's
+    steps launch each kernel n_layers times."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.train.resilience import (
+        FaultPolicy, ResilientTrainer,
+    )
+    plain, data = _resilient_case(case, cuda)
+    plain.fit(data(), epochs=2, scan_steps=1)
+    net, _ = _resilient_case(case, cuda)
+    before = dict(fa.KERNEL_LAUNCHES)
+    rep = ResilientTrainer(net, str(tmp_path), save_every_n_iterations=3,
+                           policy=FaultPolicy()).fit(data(), epochs=2)
+    assert rep.applied_steps == plain.iteration_count
+    assert _same_state(plain, net)
+    assert net.score() == plain.score()
+    if case == "flash_lm":
+        assert fa.KERNEL_LAUNCHES["flash_fwd"] - before["flash_fwd"] \
+            == 2 * rep.applied_steps
+
+
+def test_a_retry_on_the_card_restores_tensors_and_generator(
+        cuda, tmp_path, monkeypatch):
+    """A transient error raised after the failed attempt ran (tensors
+    updated in place, dropout noise drawn on the card's generator): the
+    retry is bitwise the unfaulted step, and so is the whole run."""
+    from deeplearning4j_tpu_torch.train import resilience
+    clean, data = _resilient_case("flash_lm", cuda)
+    resilience.ResilientTrainer(clean, str(tmp_path / "a"),
+                                policy=resilience.FaultPolicy(
+                                    backoff_base=0.001)).fit(data(), epochs=2)
+    real_step = resilience._NetDriver.step
+    failed = []
+
+    def step_then_fail(self, batch, generator):
+        out = real_step(self, batch, generator)
+        if self.net.iteration_count == 4 and not failed:
+            failed.append(float(out[0]))
+            raise resilience.TransientFaultError("after the step")
+        return out
+
+    monkeypatch.setattr(resilience._NetDriver, "step", step_then_fail)
+    net, _ = _resilient_case("flash_lm", cuda)
+    rep = resilience.ResilientTrainer(
+        net, str(tmp_path / "b"),
+        policy=resilience.FaultPolicy(backoff_base=0.001)).fit(data(),
+                                                                epochs=2)
+    assert rep.retries == 1 and failed
+    assert _same_state(clean, net)
+    assert torch.equal(clean._dropout_gen.get_state(),
+                       net._dropout_gen.get_state())
+
+
+def test_an_async_checkpoint_on_the_card_is_the_sync_one(cuda, tmp_path):
+    """An async CheckpointListener's zip holds bitwise what a synchronous
+    save at the same iteration holds, though the steps after it updated
+    the card's tensors in place while the worker wrote it; once the
+    pinned buffers are cached it adds no host sync to a fit."""
+    import io
+    import os
+    import zipfile
+    from deeplearning4j_tpu_torch.train import CheckpointListener
+
+    def fit(directory, async_save):
+        net, data = _resilient_case("flash_lm", cuda)
+        with CheckpointListener(str(directory), save_every_n_iterations=2,
+                                keep_last=10, async_save=async_save) as ck:
+            net.set_listeners(ck)
+            net.fit(data(), epochs=1, scan_steps=1, prefetch=False)
+        return net
+
+    fit(tmp_path / "async", True)
+    fit(tmp_path / "sync", False)
+    names = sorted(os.listdir(str(tmp_path / "async")))
+    assert names == sorted(os.listdir(str(tmp_path / "sync"))) and names
+    for name in names:
+        za = zipfile.ZipFile(str(tmp_path / "async" / name))
+        zb = zipfile.ZipFile(str(tmp_path / "sync" / name))
+        assert sorted(za.namelist()) == sorted(zb.namelist())
+        for entry in za.namelist():
+            a, b = za.read(entry), zb.read(entry)
+            if entry.endswith(".npz"):
+                with np.load(io.BytesIO(a)) as x, np.load(io.BytesIO(b)) as y:
+                    for k in x.files:
+                        np.testing.assert_array_equal(x[k], y[k])
+            else:
+                assert a == b, entry
+    net, data = _resilient_case("flash_lm", cuda)
+    plain = [_syncs(lambda: net.fit(data(), scan_steps=1, prefetch=False))
+             for _ in range(2)]
+    with CheckpointListener(str(tmp_path / "again"),
+                            save_every_n_iterations=1, keep_last=1,
+                            async_save=True) as ck:
+        net.set_listeners(ck)
+        warm = [_syncs(lambda: net.fit(data(), scan_steps=1,
+                                       prefetch=False)) for _ in range(2)]
+    assert warm[-1] == plain[-1], (plain, warm)
+
+
+def _lenet(device):
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer, DenseLayer, OutputLayer, SubsamplingLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    conf = (NeuralNetConfiguration.Builder().seed(0).updater(Adam(1e-3))
+            .list()
+            .layer(ConvolutionLayer(n_out=20, kernel=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            .layer(ConvolutionLayer(n_out=50, kernel=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=120, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.convolutional(28, 28, 1)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def test_memory_report_on_the_card_leaves_the_network_and_measures(cuda):
+    """memory_report's measured step on the card: the allocator's peak in
+    the reference's hbm_stats keys, the network bitwise unchanged (with
+    dropout and a live optimizer state and generator), and, for the
+    reference's own case (LeNet, batch 16, tests/test_memory.py:53), the
+    analytic total within 2x of the measured one."""
+    from deeplearning4j_tpu_torch.nn.step_graph import tree_tensors
+    net, data = _resilient_case("mlp", cuda)
+    net.fit(data(), scan_steps=1)
+
+    def state():
+        return ([t.clone() for t in tree_tensors(net.params, net.opt_state,
+                                                 net.state)],
+                net._dropout_gen.get_state().clone(),
+                (net.iteration_count, net.epoch_count, net._score))
+    before = state()
+    rep = net.memory_report(batch_size=64)
+    after = state()
+    assert all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+    assert torch.equal(before[1], after[1]) and before[2] == after[2]
+    assert set(rep.compiled) == {"argument_bytes", "output_bytes",
+                                 "temp_bytes", "alias_bytes",
+                                 "generated_code_bytes"}
+    assert rep.compiled["temp_bytes"] > 0
+    lenet = _lenet(cuda)
+    rep = lenet.memory_report(batch_size=16)
+    ratio = rep.total_train_bytes / rep.compiled_total_bytes
+    assert 0.5 <= ratio <= 2.0, (rep.total_train_bytes, rep.compiled)

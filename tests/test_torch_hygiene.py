@@ -247,10 +247,7 @@ def test_data_plane_modules_import_no_torch_at_module_level(module):
 # with the item that brings it
 KNOWN_GAPS = {
     "data": {"host_cast"},      # prefetch ships source dtypes (ROADMAP)
-    "train": {"TimeIterationListener", "EvaluativeListener",
-              "CheckpointListener", "ProfilerListener", "DivergenceListener",
-              "TrainingDivergedError", "FaultPolicy", "FitReport",
-              "PreemptionGuard", "ResilientTrainer"},   # A.12
+    "train": set(),
 }
 
 

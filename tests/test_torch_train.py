@@ -9,8 +9,10 @@
   on the same batches; per-step losses and the parameters after.
 - `updaterState.bin` both ways, with one more step on each side.
 - The train CLI against the JAX CLI's `--mode single`, and the flags of
-  parts not yet ported (and `--dataset mnist`, now ported, failing on a
-  missing cache without `--synthetic-data`).
+  parts not yet ported (and the ported ones in their place: `--dataset
+  mnist` failing on a missing cache without `--synthetic-data`;
+  `--checkpoint-dir` exiting 3 when preempted and `--resume` finishing
+  bitwise the uninterrupted run).
 
 Tolerances: gradients f32 atol 1e-5, rtol 1e-4 (the same f32 math summed
 in other orders); fit losses rtol 1e-4 and parameters atol 1e-5 (ten
@@ -540,12 +542,18 @@ def test_cli_dataset_loader_iris_and_npz(tmp_path):
     ["--checkpoint-dir", "ckpt"], ["--resume"], ["--ui-port", "9001"],
     ["--serve-port", "0"], ["--mesh", "data=1"],
     ["--mode", "averaging"], ["--dataset", "mnist"]])
-def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path, monkeypatch):
+def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path, monkeypatch,
+                                            capsys):
     args = ["--model", "m.zip", "--dataset", "d.npz", "--output", "o.zip",
             "--device", "cpu"]
     if extra[0] == "--serve-port":
         # the serve handoff is ported: it serves the trained network
         _check_serve_handoff(tmp_path, extra)
+        return
+    if extra[0] in ("--checkpoint-dir", "--resume"):
+        # resilient training is ported: a preempted run exits 3 with no
+        # output zip, and --resume finishes bitwise the uninterrupted run
+        _check_resilient_cli(tmp_path, extra[0], monkeypatch, capsys)
         return
     if extra[0] == "--dataset":
         # the MNIST fetcher is ported: without --synthetic-data a missing
@@ -561,6 +569,61 @@ def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path, monkeypatch):
         return
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(args + extra)
+
+
+def _check_resilient_cli(tmp_path, flag, monkeypatch, capsys):
+    """A flash LM with residual dropout, 2 epochs of 4 steps: the plain
+    single-mode run, then the resilient path. `--checkpoint-dir` under
+    DL4J_CUDA_FAULTS=preempt_at=5 (mid-epoch) exits 3 with the
+    reference's stderr record and no output zip, and an uninterrupted
+    `--checkpoint-dir` run is bitwise the plain one; `--resume` alone is
+    refused, and after the preemption it finishes bitwise the plain run
+    (parameters, optimizer state, counters)."""
+    import dataclasses
+    import os
+    conf = model_by_name("TransformerLM", **{**LM, "dropout": 0.1}).conf()
+    conf = dataclasses.replace(conf, layers=[
+        dataclasses.replace(l, attention_dropout=0.0)
+        if hasattr(l, "attention_dropout") else l for l in conf.layers])
+    model = save_model(MultiLayerNetwork(conf, device="cpu").init(),
+                       str(tmp_path / "lm.zip"))
+    data = _npz(str(tmp_path / "t.npz"))
+    common = ["--model", model, "--dataset", data, "--device", "cpu",
+              "--epochs", "2", "--batch-size", "4", "--score-every", "1"]
+    plain = str(tmp_path / "plain.zip")
+    assert cli.main(common + ["--output", plain, "--mode", "single"]) == 0
+    out, ckpt = str(tmp_path / "o.zip"), str(tmp_path / "ckpt")
+    resilient = common + ["--output", out, "--checkpoint-dir", ckpt,
+                          "--save-every-iterations", "2"]
+    if flag == "--resume":
+        with pytest.raises(SystemExit, match="requires --checkpoint-dir"):
+            cli.main(common + ["--output", out, "--resume"])
+    else:
+        # without CUDA and without --device cpu it raises before training
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([a for a in resilient if a not in ("--device", "cpu")])
+        assert not os.path.exists(ckpt)
+    capsys.readouterr()
+    monkeypatch.setenv("DL4J_CUDA_FAULTS", "preempt_at=5")
+    assert cli.main(resilient) == 3
+    record = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
+    assert record == {"preempted": True, "diverged": False, "iterations": 5,
+                      "resume_with": "--resume"}
+    assert not (tmp_path / "o.zip").exists()
+    monkeypatch.delenv("DL4J_CUDA_FAULTS")
+    if flag == "--checkpoint-dir":
+        ckpt = str(tmp_path / "fresh")
+        assert cli.main(resilient[:-4] + ["--checkpoint-dir", ckpt]) == 0
+    else:
+        assert cli.main(resilient + ["--resume"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (line["iterations"], line["epochs"]) == (8, 2)
+    a, b = load_model(plain, device="cpu"), load_model(out, device="cpu")
+    assert torch.equal(a.params_flat(), b.params_flat())
+    assert (a.iteration_count, a.epoch_count) == (b.iteration_count,
+                                                  b.epoch_count)
+    with zipfile.ZipFile(plain) as za, zipfile.ZipFile(out) as zb:
+        assert za.read("updaterState.bin") == zb.read("updaterState.bin")
 
 
 def _check_serve_handoff(tmp_path, extra):
