@@ -340,8 +340,52 @@ result line:
              iterations. `launches_by_path` gains "resilience" ((a)'s
              five CLI runs, the subprocesses' counts printed by them).
 
+14. fleet   — the serving fleet on the card, the full-width LM saved
+             once as v1.zip. (a) The CLI's fleet mode (`--replicas 2
+             --replica-mode inprocess --buckets 1,4 --device cuda`): 50
+             inputs of batch 1 and 50 of batch 4, each sent through the
+             router and straight to one replica in turn (which goes
+             first alternates), then a 4-way burst through the router;
+             every answer within 1e-6 of v1 with plain attention, both
+             replicas dispatching, `flash_fwd` launches = n_layers x the
+             replicas' summed dispatches, no backward launch; latency
+             per bucket and route and the router's added ms (paired
+             differences: median, quartiles, range), the relay's parts
+             timed inside the router (reading the request, the hop to
+             the replica, writing the answer), the hedge count. (b)
+             The port's chaos drill
+             (`tools/serve_chaos`, its own process) on 3 subprocess
+             replicas of v1 (`.npy` bodies, token ids): SIGKILL one and
+             wedge another under closed-loop priority-tagged traffic;
+             zero 5xx, both rejoin with their generation bumped within
+             150 s, batch-class shedding, p99 recovered, the
+             availability alert fired and resolved, the drill's router
+             holding no card memory (nvidia-smi); then its
+             disaggregation drill on v1 as an LM servable (roles
+             prefill, decode; 382-token prompts, 96 KV pages of 4 tokens
+             a transfer; the prefill replica SIGKILLed mid-transfer):
+             every stream completes, and the streams whose transfer
+             completed give a single server's 32 greedy tokens exactly.
+             Launch-to-ready, kill-to-ready and wedge-to-ready seconds,
+             p99s. (c) v2 = v1 after 2 fit steps on the card (each flash
+             kernel n_layers x 2 times), saved and blessed with the
+             port's CheckpointManager into the directory that a
+             `--rollout-watch` fleet of 3 subprocess replicas tails:
+             canary, then promote, zero 5xx under traffic, every
+             replica's answer within 1e-6 of v2 with plain attention,
+             v2's answers more than 10 x 1e-6 from v1's;
+             then the port's rollout drill (`tools/rollout_drill`, its
+             own classifier) on the card: the poisoned blessing rolled
+             back with a `rollout_rejected` postmortem naming
+             `probe_accuracy`, the autoscale ramp up and drained down
+             with `forced_kills == 0`; `rollout_promote_s`,
+             `rollout_rollback_detect_s`. `launches_by_path` gains
+             "fleet": (a)'s forward launches and (c)'s two fit steps
+             (the subprocess replicas are checked by their answers).
+
 Each path's counts are set to 0 just before it is driven and read just
-after. The second-to-last line is the kernel table
+after. Every phase's row carries `t_s`, the seconds since the run
+started. The second-to-last line is the kernel table
 (``{"kernels": [...]}``); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -360,6 +404,7 @@ import time
 import urllib.error
 import urllib.request
 import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -372,6 +417,10 @@ PEAK_FLOPS = {torch.float32: 67e12,        # CUDA cores, no tensor cores
 LM_SOURCE = ("zoo:TransformerLM?vocab_size=1024&seq_length=2048&n_layers=4"
              "&n_embd=512&n_heads=8&mlp_ratio=4&attention_impl=flash")
 N_LAYERS, SEQ, VOCAB, HEADS, HEAD_DIM = 4, 2048, 1024, 8, 64
+# the zips a phase saves as its input are stored, not deflated: deflate
+# runs at tens of MB/s on the host (a ResNet-50 zip takes seconds), and
+# the checkpoint manager stores its zips too
+STORED = zipfile.ZIP_STORED
 FLASH_SOURCE = "deeplearning4j_tpu_torch/ops/csrc/flash_attention_fwd.cu"
 FLASH_REPLACES = "deeplearning4j_tpu/ops/flash_attention.py:58"
 BWD_SOURCE = "deeplearning4j_tpu_torch/ops/csrc/flash_attention_bwd.cu"
@@ -394,7 +443,14 @@ RESNET_PARITY = dict(num_classes=10, input_shape=(64, 64, 3))
 RESNET_CLI_IMAGES, RESNET_CLI_BATCH = 64, 32
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's row carries `t_s`, the seconds since the
+    run started (the timeline of where the run's time goes)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -1399,7 +1455,7 @@ def train(fa, tmp):
     name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
     lm_zip, out_zip = os.path.join(tmp, "lm.zip"), os.path.join(tmp, "out.zip")
     tokens = os.path.join(tmp, "tokens.npz")
-    save_model(model_by_name(name, **kw).init(), lm_zip)
+    save_model(model_by_name(name, **kw).init(), lm_zip, compression=STORED)
     features, labels = write_tokens(tokens, np.random.RandomState(2024))
     log = logging.getLogger("deeplearning4j_tpu_torch")
     handler, level = _ScoreLog(), log.level
@@ -1525,7 +1581,7 @@ def resnet_parity(tmp):
             for _, t in iter_leaves(src.state):
                 t.add_(0.2 * torch.rand(t.shape, generator=g))
         path = save_model(src, os.path.join(tmp, f"resnet_{dtype}.zip"),
-                          save_updater=False)
+                          save_updater=False, compression=STORED)
         gpu, cpu = load_model(path), load_model(path, device="cpu")
         x, y = X.astype(dtype), Y.astype(dtype)
         out = gpu.output(x)
@@ -1577,7 +1633,7 @@ def resnet_cli(tmp):
     t0 = time.perf_counter()
     net = ResNet50().init()
     n_params = net.num_params()
-    save_model(net, src)
+    save_model(net, src, compression=STORED)
     del net
     rs = np.random.RandomState(11)
     labels = np.zeros((RESNET_CLI_IMAGES, 1000), np.uint8)
@@ -2165,7 +2221,7 @@ def fit_equality(tmp):
     yr = np.eye(10, dtype=np.float32)[rs.randint(0, 10, 24)]
     batches = [DataSet(x8[i:i + 4], yr[i:i + 4]) for i in range(0, 24, 4)]
     src = ComputationGraph(ResNet50(**RESNET_PARITY).conf()).init()
-    path = save_model(src, os.path.join(tmp, "parity.zip"))
+    path = save_model(src, os.path.join(tmp, "parity.zip"), compression=STORED)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -2204,7 +2260,7 @@ def fit_equality(tmp):
                                  dtype="float64")
     path64 = save_model(ComputationGraph(conf64, device="cpu").init(),
                         os.path.join(tmp, "parity64.zip"),
-                        save_updater=False)
+                        save_updater=False, compression=STORED)
     x64 = (x8[:16].astype(np.float64) / 255)
     b64 = [DataSet(x64[i:i + 4], yr[i:i + 4].astype(np.float64))
            for i in range(0, 16, 4)]
@@ -2803,7 +2859,8 @@ def zoo_parity(tmp):
         with torch.no_grad():                   # BN state off its init
             for _, t in iter_leaves(src.state):
                 t.add_(0.2 * torch.rand(t.shape, generator=g))
-        path = save_model(src, os.path.join(tmp, f"tinyyolo_{dtype}.zip"))
+        path = save_model(src, os.path.join(tmp, f"tinyyolo_{dtype}.zip"),
+                          compression=STORED)
         card, cpu = load_model(path), load_model(path, device="cpu")
         mds = MultiDataSet((X.astype(dtype),), (Y.astype(dtype),))
         if dtype == "float32":
@@ -2908,7 +2965,7 @@ def yolo_cli(tmp):
                   input_shape=(YOLO_HW, YOLO_HW, 3))
     net = model.init()
     n_params = net.num_params()
-    save_model(net, src)
+    save_model(net, src, compression=STORED)
     del net
     rs = np.random.RandomState(23)
     x = rs.rand(YOLO_CLI_IMAGES, YOLO_HW, YOLO_HW, 3).astype("float32")
@@ -4246,7 +4303,7 @@ def data_equality(tmp):
               for x in ShardDataSetIterator(d, b)]
     path = save_model(ComputationGraph(ResNet50(**RESNET_PARITY).conf(),
                                        device="cpu").init(),
-                      os.path.join(tmp, "parity.zip"))
+                      os.path.join(tmp, "parity.zip"), compression=STORED)
     rings = {c: MultiProcessDataSetIterator(ShardBatchLoader(d, b),
                                             num_workers=2, copy=c)
              for c in (False, True)}
@@ -4535,7 +4592,7 @@ def telemetry_train(fa, tmp):
     name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
     lm_zip = os.path.join(tmp, "tele_lm.zip")
     tokens = os.path.join(tmp, "tele_tokens.npz")
-    save_model(model_by_name(name, **kw).init(), lm_zip)
+    save_model(model_by_name(name, **kw).init(), lm_zip, compression=STORED)
     _write_token_set(tokens, np.random.RandomState(12), TELE_SEQS)
     analytic = lm_analytic_flops()
     peak = monitor.xla.PEAK_FLOPS_BY_KIND.get(torch.cuda.get_device_name(0))
@@ -5185,7 +5242,8 @@ def resilience_cli(fa, tmp):
     from deeplearning4j_tpu_torch import monitor
     from deeplearning4j_tpu_torch.util.serialization import save_model
     lm_zip, tokens = os.path.join(tmp, "lm.zip"), os.path.join(tmp, "t.npz")
-    save_model(MultiLayerNetwork(resilient_lm_conf()).init(), lm_zip)
+    save_model(MultiLayerNetwork(resilient_lm_conf()).init(), lm_zip,
+               compression=STORED)
     _write_token_set(tokens, np.random.RandomState(1313), RES_SEQS)
     steps = RES_SEQS // TRAIN_BATCH * RES_EPOCHS
     common = ["--model", lm_zip, "--dataset", tokens, "--epochs",
@@ -5780,6 +5838,540 @@ def resilience(fa, tmp):
     return row
 
 
+# ---------------------------------------------------------------- fleet
+FLEET_TOL = 1e-6                 # answers against plain attention
+FLEET_LATENCY_PAIRS = 50         # (a): per batch size, router and direct
+FLEET_RECOVERY_BUDGET_S = 150.0  # the chaos drill's RECOVERY_BUDGET_S
+FLEET_CHAOS_TIMEOUT_S = 600
+FLEET_DISAGG_PROMPT = 382        # (b): 95 full 4-token KV pages and a half
+FLEET_DISAGG_TOKENS = 32         # (b): greedy tokens a stream
+FLEET_DISAGG_MIN = 256           # (b): the router disaggregates from here
+FLEET_DRILL_TIMEOUT_S = 480
+FLEET_ROLLOUT_BUDGET_S = 240.0
+FLEET_FIT_STEPS = 2              # (c): v2 is v1 after this many steps
+FLEET_V2_GAP = 10                # (c): max|v1 - v2| > this many FLEET_TOL
+FLEET_DEVICE = "cuda"            # every replica's --device
+
+
+def _repo_root() -> str:
+    import os
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _plain_output(fa, net, x):
+    """`net`'s output with the plain attention swapped in for the kernel
+    (no launch), on the card."""
+    real = fa.flash_attention_cuda
+    fa.flash_attention_cuda = \
+        lambda q, k, v, mask, causal: fa.flash_attention_plain(
+            q, k, v, mask, causal)
+    try:
+        with torch.no_grad():
+            return net.output(x).float().cpu().numpy()
+    finally:
+        fa.flash_attention_cuda = real
+
+
+def _tail_logs(directory, n=1500):
+    """The last `n` characters of each replica log under `directory`."""
+    import os
+    out = {}
+    if directory and os.path.isdir(directory):
+        for fn in sorted(os.listdir(directory)):
+            with open(os.path.join(directory, fn), errors="replace") as f:
+                out[fn] = f.read()[-n:]
+    return out
+
+
+def _drill(module, argv, timeout, log_dir):
+    """Run a fleet drill (`python -m deeplearning4j_tpu_torch.tools.X`) in
+    its own process: its router must not share this process's CUDA
+    context. Returns its report; a failed drill fails the phase with its
+    failures, the end of its output and its replicas' logs (the drill
+    writes them beside its report)."""
+    import os
+    out = os.path.join(log_dir, f"{module}.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (_repo_root(), env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(
+        [sys.executable, "-m", f"deeplearning4j_tpu_torch.tools.{module}",
+         "--device", FLEET_DEVICE, "--out", out] + argv,
+        capture_output=True, text=True, timeout=timeout, env=env,
+        cwd=_repo_root())
+    report = None
+    if os.path.exists(out):
+        with open(out) as f:
+            report = json.load(f)
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"{module} exited {proc.returncode}: failures "
+            f"{(report or {}).get('failures')}\nstdout tail: "
+            f"{proc.stdout[-3000:]}\nstderr tail: {proc.stderr[-3000:]}\n"
+            f"replica logs: "
+            f"{_tail_logs(os.path.join(log_dir, module + '_replicas'))}")
+    return report
+
+
+def _no_5xx(codes: dict) -> bool:
+    return not any(k.isdigit() and int(k) >= 500 and int(k) != 503
+                   for k in codes) and "transport" not in codes
+
+
+class _RelayClock:
+    """Times, inside this process's router, what each proxied predict
+    spends: the handler's read of the request body, the transport hop
+    (the replica's whole answer read into the router) and the handler's
+    reply (the answer written back to the client). Wraps the router's
+    handler and its transport while in use; `take()` returns and clears
+    the milliseconds since the last take."""
+
+    def __init__(self, fl):
+        from deeplearning4j_tpu_torch.serving import router as router_mod
+        self._handler = router_mod._RouterHandler
+        self._router = fl.router
+        self._ms = {}
+
+    def _timed(self, fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._ms[key] = self._ms.get(key, 0.0) + \
+                    (time.perf_counter() - t0) * 1e3
+        return wrapper
+
+    def __enter__(self):
+        self._saved = (self._handler._body, self._handler._reply,
+                       self._router._transport)
+        self._handler._body = self._timed(self._saved[0], "request_body")
+        self._handler._reply = self._timed(self._saved[1], "reply")
+        self._router._transport = self._timed(self._saved[2], "transport")
+        return self
+
+    def __exit__(self, *exc):
+        (self._handler._body, self._handler._reply,
+         self._router._transport) = self._saved
+
+    def take(self) -> dict:
+        out, self._ms = self._ms, {}
+        return out
+
+
+def _spread(xs) -> dict:
+    q = statistics.quantiles(xs, n=4)
+    return {"n": len(xs), "median": statistics.median(xs), "p25": q[0],
+            "p75": q[2], "min": min(xs), "max": max(xs)}
+
+
+def _quiesce(fa, served, timeout_s=30.0):
+    """The kernel launches and each replica's dispatches once neither
+    moved for half a second (a hedged predict's twin may still be running
+    when the first answer is back)."""
+    def read():
+        return (dict(fa.KERNEL_LAUNCHES),
+                {n: s.batcher.dispatches for n, s in served.items()})
+    deadline = time.monotonic() + timeout_s
+    last = read()
+    while time.monotonic() < deadline:
+        time.sleep(0.5)
+        now = read()
+        if now == last:
+            return now
+        last = now
+    raise AssertionError(f"the fleet never went quiet: {last}")
+
+
+def fleet_inprocess(fa, v1_zip, gpu):
+    """14 (a): the CLI's fleet mode, two in-process replicas of the
+    full-width LM on the card behind the router; every predict runs the
+    flash forward kernel in the replica that served it. The router's
+    added latency: FLEET_LATENCY_PAIRS inputs per batch size, each sent
+    through the router and straight to replica 0 in turn (which goes
+    first alternates), with the relay's parts timed inside the router."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.serving import cli
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    args = cli.build_parser().parse_args(
+        ["--model", f"lm={v1_zip}", "--replicas", "2", "--replica-mode",
+         "inprocess", "--buckets", "1,4", "--max-delay-ms", "5",
+         "--device", FLEET_DEVICE, "--port", "0"])
+    rs = np.random.RandomState(1414)
+    xs = [rs.randint(0, VOCAB, (4 if i % 2 else 1, SEQ, 1)).astype("float32")
+          for i in range(2 * FLEET_LATENCY_PAIRS)]
+    burst = [rs.randint(0, VOCAB, (1, SEQ, 1)).astype("float32")
+             for _ in range(4)]
+    # the plain references before the fleet runs: `_plain_output` swaps
+    # the kernel out for the whole process, and a hedged predict's twin
+    # may still run on a replica after the first answer is back
+    t0 = time.perf_counter()
+    ref = load_model(v1_zip, device=FLEET_DEVICE)
+    wants = [_plain_output(fa, ref, x) for x in xs + burst]
+    del ref
+    refs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fl = cli.build_fleet(args)
+    build_s = time.perf_counter() - t0
+    try:
+        served = {r.name: r._registry.get("lm")
+                  for r in fl.supervisor.replicas}
+        warm = {n: s.batcher.dispatches for n, s in served.items()}
+        routes = (("router", fl.url),
+                  ("direct", fl.supervisor.replicas[0].url))
+        lat = {route: {1: [], 4: []} for route, _ in routes}
+        relay = {1: [], 4: []}
+        err = 0.0
+        with _RelayClock(fl) as clock:
+            for i, (x, want) in enumerate(zip(xs, wants)):
+                batch = x.shape[0]
+                for route, url in (routes if i // 2 % 2 else routes[::-1]):
+                    clock.take()
+                    status, y, ms = post_npy(f"{url}/v1/models/lm/predict",
+                                             x)
+                    check_answer(status, y, batch)
+                    err = max(err, float(np.abs(y - want).max()))
+                    lat[route][batch].append(ms)
+                    if route == "router":
+                        relay[batch].append(clock.take())
+        results = [None] * 4
+
+        def one(j):
+            results[j] = post_npy(f"{fl.url}/v1/models/lm/predict", burst[j])
+
+        threads = [threading.Thread(target=one, args=(j,)) for j in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        for want, r in zip(wants[len(xs):], results):
+            if r is None:
+                raise AssertionError("a concurrent predict never returned")
+            check_answer(r[0], r[1], 1)
+            err = max(err, float(np.abs(r[1] - want).max()))
+        launches, dispatches = _quiesce(fa, served)
+        if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+            raise AssertionError("the fleet's predicts launched a backward "
+                                 "kernel")
+        if launches["flash_fwd"] != N_LAYERS * sum(dispatches.values()):
+            raise AssertionError(
+                f"{launches['flash_fwd']} forward launches for "
+                f"{dispatches} dispatches of a {N_LAYERS}-layer network")
+        if not all(dispatches[n] > warm[n] for n in served):
+            raise AssertionError(f"a replica served nothing: warm {warm}, "
+                                 f"after {dispatches}")
+        if not err <= FLEET_TOL:
+            raise AssertionError(f"fleet answers vs plain attention: {err}")
+        hedges = monitor.REGISTRY.collect("serving_router_hedges_total")
+        added, relay_ms = {}, {}
+        for b in (1, 4):
+            router_ms, direct_ms = lat["router"][b], lat["direct"][b]
+            added[str(b)] = _spread([r - d for r, d in
+                                     zip(router_ms, direct_ms)])
+            parts = {k: [t.get(k, 0.0) for t in relay[b]]
+                     for k in ("request_body", "transport", "reply")}
+            relay_ms[str(b)] = {
+                **{k: statistics.median(v) for k, v in parts.items()},
+                # the hop to the replica beyond a direct request's time
+                "transport_over_direct": statistics.median(
+                    t - d for t, d in zip(parts["transport"], direct_ms)),
+                # the client's time outside the three timed parts
+                "rest": statistics.median(
+                    r - sum(parts[k][j] for k in parts)
+                    for j, r in enumerate(router_ms))}
+        row = {"phase": "fleet_inprocess", "gpu": gpu,
+               "replicas": len(served), "plain_references_s": refs_s,
+               "build_and_warm_s": build_s,
+               "requests": sum(len(v) for d in lat.values()
+                               for v in d.values()) + len(burst),
+               "latency_ms": {route: {str(b): _spread(v)
+                                      for b, v in d.items()}
+                              for route, d in lat.items()},
+               "router_added_ms": added, "relay_ms": relay_ms,
+               "dispatches": dispatches, "warmup_dispatches": warm,
+               "flash_fwd_launches": launches["flash_fwd"],
+               "hedges": 0 if hedges is None else hedges.value(model="lm"),
+               "max_abs_err_vs_plain": err}
+        emit(row)
+        return row
+    finally:
+        cli.drain_fleet(fl, drain_timeout_s=2.0)
+
+
+def fleet_chaos(fa, v1_zip, tmp, gpu):
+    """14 (b): the port's chaos drill at full width, 3 subprocess
+    replicas of v1 (its own process: the router must hold no card
+    memory), then its disaggregation drill on v1 as an LM servable; the
+    transferred streams' greedy tokens against a single server's."""
+    from deeplearning4j_tpu_torch.serving.decode import DecodeConfig
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+    t0 = time.perf_counter()
+    rep = _drill("serve_chaos",
+                 ["--model", v1_zip, "--vocab", str(VOCAB), "--npy",
+                  "--buckets", "1,4", "--lm", v1_zip,
+                  "--disagg-prompt-tokens", str(FLEET_DISAGG_PROMPT),
+                  "--disagg-max-tokens", str(FLEET_DISAGG_TOKENS),
+                  "--disagg-min-tokens", str(FLEET_DISAGG_MIN)],
+                 FLEET_CHAOS_TIMEOUT_S, tmp)
+    drill_s = time.perf_counter() - t0
+    for part in ("baseline", "under_fault", "recovered"):
+        if not _no_5xx(rep[part]["codes"]):
+            raise AssertionError(f"chaos {part}: {rep[part]['codes']}")
+    faulted = (rep["faults"]["killed"], rep["faults"]["wedged"])
+    ready_s = rep["recovery"]["fault_to_ready_s"]
+    if sorted(ready_s) != sorted(faulted) or not all(
+            v <= FLEET_RECOVERY_BUDGET_S for v in ready_s.values()):
+        raise AssertionError(f"faulted replicas' fault-to-ready: {ready_s}")
+    if not rep["shed"]["batch"] > 0:
+        raise AssertionError(f"no batch-class shedding: {rep['shed']}")
+    if rep.get("router_card_memory_mib") != 0:
+        raise AssertionError("the drill's router holds card memory: "
+                             f"{rep.get('router_card_memory_mib')} MiB")
+    streams = [s for s in rep["disagg"]["streams"]
+               if s["phase"] == "before_kill" and s["transferred"]]
+    if not streams:
+        raise AssertionError("no stream rode a completed KV transfer")
+    if any(len(s["prompt"]) != FLEET_DISAGG_PROMPT
+           or len(s["tokens"]) != FLEET_DISAGG_TOKENS for s in streams):
+        raise AssertionError("a transferred stream's lengths: " + str(
+            [(len(s["prompt"]), len(s["tokens"])) for s in streams]))
+    registry = ModelRegistry(device=FLEET_DEVICE)
+    registry.deploy_lm("lm", v1_zip,
+                       decode=DecodeConfig(slots=4, page_size=4))
+    server = ModelServer(registry, port=0)
+    try:
+        mismatched = []
+        for s in streams:
+            status, doc = post_json(
+                f"{server.url}/v1/models/lm/generate",
+                {"prompt": s["prompt"], "max_tokens": len(s["tokens"]),
+                 "temperature": 0.0, "stream": False})
+            if status != 200 or doc["tokens"] != s["tokens"]:
+                mismatched.append((s["prompt"], s["tokens"],
+                                   doc.get("tokens")))
+    finally:
+        server.drain(timeout=30)
+    if mismatched:
+        raise AssertionError("disaggregated greedy tokens differ from a "
+                             f"single server's: {mismatched}")
+    row = {"phase": "fleet_chaos", "gpu": gpu, "drill_s": drill_s,
+           "fleet_start_s": rep["fleet_start_s"],
+           "launch_to_ready_s": rep["launch_s"],
+           "kill_to_ready_s": ready_s[rep["faults"]["killed"]],
+           "wedge_to_ready_s": ready_s[rep["faults"]["wedged"]],
+           "relaunch_s": rep["recovery"]["relaunch_s"],
+           "p99_ms": {"baseline": rep["baseline"]["p99_ms"],
+                      "under_fault": rep["under_fault"]["p99_ms"],
+                      "recovered": rep["recovered"]["p99_ms"],
+                      "recovery_budget": rep["recovered"]["p99_budget_ms"]},
+           "goodput_under_fault_rps": rep["under_fault"]["goodput_rps"],
+           "codes_under_fault": rep["under_fault"]["codes"],
+           "shed": rep["shed"], "hedges": rep["hedges"],
+           "fleet_restarts_total": rep["fleet_restarts_total"],
+           "slo_alert_events": [h["event"] for h in rep["slo_alerts"]],
+           "router_card_memory_mib": rep.get("router_card_memory_mib"),
+           "disagg": {"launch_to_ready_s": rep["disagg"]["launch_s"],
+                      "orchestrations_before_kill":
+                          rep["disagg"]["orchestrations_before_kill"],
+                      "failovers": rep["disagg"]["failovers"],
+                      "codes": rep["disagg"]["codes"],
+                      "prompt_tokens": FLEET_DISAGG_PROMPT,
+                      "kv_pages_per_transfer": -(-FLEET_DISAGG_PROMPT // 4),
+                      "greedy_tokens": FLEET_DISAGG_TOKENS,
+                      "streams_equal_single_server": len(streams)}}
+    emit(row)
+    return row
+
+
+def fleet_rollout(fa, v1_zip, tmp, gpu):
+    """14 (c): v2 = v1 after two fit steps on the card (the flash
+    backward kernels run here), saved and blessed with the port's
+    CheckpointManager into the directory a 3-replica subprocess fleet
+    tails; canary, promote, zero 5xx, every replica v2's answers. Then
+    the port's rollout drill on the card."""
+    import os
+
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.serving import cli
+    from deeplearning4j_tpu_torch.tools.loadgen import LoadGen
+    from deeplearning4j_tpu_torch.tools.rollout_drill import _Pump
+    from deeplearning4j_tpu_torch.train.resilience import CheckpointManager
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    rs = np.random.RandomState(2024)
+    x = rs.randint(0, VOCAB, (2, SEQ, 1)).astype("float32")
+    n = TRAIN_BATCH * FLEET_FIT_STEPS
+    seq = rs.randint(0, VOCAB, (n, SEQ + 1))
+    labels = np.zeros((n, SEQ, VOCAB), np.uint8)
+    np.put_along_axis(labels, seq[:, 1:, None], 1, axis=-1)
+    net = load_model(v1_zip, device=FLEET_DEVICE)
+    v1_out = _plain_output(fa, net, x)
+    before = dict(fa.KERNEL_LAUNCHES)
+    net.fit(ArrayDataSetIterator(seq[:, :SEQ, None].astype("float32"),
+                                 labels, batch_size=TRAIN_BATCH))
+    fit_launches = {k: fa.KERNEL_LAUNCHES[k] - before[k] for k in KERNELS}
+    if any(v != N_LAYERS * FLEET_FIT_STEPS for v in fit_launches.values()):
+        raise AssertionError(f"v2's fit launched {fit_launches}")
+    ckdir = os.path.join(tmp, "rollout_ckpts")
+    os.makedirs(ckdir)
+    args = cli.build_parser().parse_args(
+        ["--model", f"lm={v1_zip}", "--replicas", "3", "--buckets", "1,4",
+         "--device", FLEET_DEVICE, "--port", "0", "--probe-interval-s", "0.5",
+         "--rollout-watch", ckdir, "--rollout-poll-s", "0.5",
+         "--rollout-observe-s", "5", "--rollout-min-requests", "5",
+         "--rollout-canary-fraction", "0.5",
+         "--rollout-p99-floor-ms", "1000", "--slo-availability", "0.99",
+         "--slo-sample-interval-s", "0.5"])
+    t0 = time.perf_counter()
+    fl = cli.build_fleet(args)
+    start_s = time.perf_counter() - t0
+
+    class Args:
+        url = fl.url
+        model = "lm"
+        requests = 16
+        concurrency = 3
+        rate = None
+        batch_sizes = [1, 4]
+        priority_mix = None
+        max_retries = 4
+        retry_cap_s = 2.0
+        deadline_ms = None
+        timeout_s = 120.0
+        seed = 5
+        vocab = VOCAB
+        npy = True
+
+    try:
+        pump = _Pump(LoadGen(Args, (SEQ, 1))).start()
+        v2_path = CheckpointManager(ckdir).save(net, {})
+        t_bless = time.perf_counter()
+        CheckpointManager(ckdir).bless(v2_path, {"fit_steps":
+                                                 FLEET_FIT_STEPS})
+        canary_seen, verdict = None, None
+        deadline = time.monotonic() + FLEET_ROLLOUT_BUDGET_S
+        while time.monotonic() < deadline:
+            ro = fl.rollout.describe()
+            if ro["state"] == "canary" and canary_seen is None:
+                canary_seen = ro["canary"]["replica"]
+            verdict = ro["last_verdict"]
+            if verdict is not None:
+                break
+            time.sleep(0.1)
+        bless_to_verdict_s = time.perf_counter() - t_bless
+        traffic = pump.stop()
+        if pump.crashed:
+            raise AssertionError(f"traffic pump crashed: {pump.crashed}")
+        if verdict is None or verdict["decision"] != "promoted":
+            raise AssertionError(f"v2 not promoted: {verdict}; rollout "
+                                 f"{fl.rollout.describe()}")
+        if canary_seen is None:
+            raise AssertionError("the rollout never showed its canary")
+        if not _no_5xx(traffic["codes"]):
+            raise AssertionError(f"5xx during the rollout: "
+                                 f"{traffic['codes']}")
+        want = _plain_output(fa, net, x)
+        # the check below tells v2 from v1 only if they differ by more
+        v1_gap = float(np.abs(want - v1_out).max())
+        if not v1_gap > FLEET_V2_GAP * FLEET_TOL:
+            raise AssertionError(f"v2's answers are within {v1_gap} of "
+                                 "v1's: the check cannot tell them apart")
+        errs, actives = {}, {}
+        for r in fl.supervisor.replicas:
+            status, y, _ = post_npy(f"{r.url}/v1/models/lm/predict", x)
+            if status != 200:
+                raise AssertionError(f"{r.name} answered {status}")
+            errs[r.name] = float(np.abs(y - want).max())
+            _, doc = _get_json(f"{r.url}/v1/models/lm")
+            actives[r.name] = [v["source"] for v in doc["versions"]
+                               if v["version"] == doc["active_version"]]
+        if not all(e <= FLEET_TOL for e in errs.values()):
+            raise AssertionError(f"replicas vs v2's plain output: {errs}")
+        if set(map(tuple, actives.values())) != {(v2_path,)} or \
+                fl.supervisor.replicas[0].spec.models != [("lm", v2_path)]:
+            raise AssertionError(f"the fleet after promotion: {actives}, "
+                                 f"{fl.supervisor.replicas[0].spec.models}")
+    finally:
+        cli.drain_fleet(fl, drain_timeout_s=5.0)
+        monitor.slo.disable_slo()
+        monitor.timeseries.disable_timeseries()
+    t0 = time.perf_counter()
+    drill = _drill("rollout_drill", [], FLEET_DRILL_TIMEOUT_S, tmp)
+    drill_s = time.perf_counter() - t0
+    rb = drill["rollback"]
+    if rb["verdict"]["metric"] != "probe_accuracy" \
+            or rb["postmortem_metric"] != "probe_accuracy" \
+            or not rb["verdict"]["rolled_back"]:
+        raise AssertionError(f"the poisoned blessing: {rb}")
+    if drill["autoscale"]["forced_kills"] != 0 or \
+            drill["autoscale"]["peak_replicas"] <= \
+            drill["autoscale"]["initial_replicas"]:
+        raise AssertionError(f"autoscale: {drill['autoscale']}")
+    sweep = drill["sweep"][0]
+    row = {"phase": "fleet_rollout", "gpu": gpu,
+           "fit_launches": fit_launches, "fleet_start_s": start_s,
+           "canary": canary_seen,
+           "observe_s": verdict["observe_s"],
+           "promote_s": verdict["promote_s"],
+           "bless_to_promoted_s": bless_to_verdict_s,
+           "traffic": {"requests": traffic["requests"],
+                       "codes": traffic["codes"],
+                       "p99_ms": traffic["latency_ms"]["p99"]},
+           "max_abs_err_vs_v2_plain": errs, "max_abs_v1_v2": v1_gap,
+           "drill": {"seconds": drill_s,
+                     "rollout_promote_s": sweep["rollout_promote_s"],
+                     "rollout_rollback_detect_s":
+                         sweep["rollout_rollback_detect_s"],
+                     "promote_codes": drill["promote"]["codes"],
+                     "rollback_codes": drill["rollback"]["codes"],
+                     "autoscale_peak_replicas":
+                         drill["autoscale"]["peak_replicas"],
+                     "forced_kills": drill["autoscale"]["forced_kills"],
+                     "fleet_start_s": drill["fleet_start_s"]}}
+    emit(row)
+    return row
+
+
+def fleet(fa, tmp):
+    """Phase 14: the serving fleet on the card."""
+    import os
+
+    from deeplearning4j_tpu_torch.monitor import flight
+    from deeplearning4j_tpu_torch.serving.registry import load_servable
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()         # the subprocess replicas share the card
+    v1_zip = os.path.join(tmp, "v1.zip")
+    net = load_servable(LM_SOURCE, device=FLEET_DEVICE)
+    save_model(net, v1_zip, compression=STORED)
+    params = net.num_params()
+    del net
+    for name in KERNELS:
+        fa.KERNEL_LAUNCHES[name] = 0
+    try:
+        a = fleet_inprocess(fa, v1_zip, gpu)
+        b = fleet_chaos(fa, v1_zip, tmp, gpu)
+        c = fleet_rollout(fa, v1_zip, tmp, gpu)
+    finally:
+        flight.disable_flight()
+    launches = dict(fa.KERNEL_LAUNCHES)
+    if not all(launches[k] > 0 for k in KERNELS):
+        raise AssertionError(f"a kernel of the fleet path never launched: "
+                             f"{launches}")
+    emit({"phase": "fleet", "gpu": gpu, "seconds": time.perf_counter() - t0,
+          "source": LM_SOURCE, "params": params, "flash_launches": launches,
+          "router_added_ms_median": {b: v["median"] for b, v in
+                                     a["router_added_ms"].items()},
+          "kill_to_ready_s": b["kill_to_ready_s"],
+          "wedge_to_ready_s": b["wedge_to_ready_s"],
+          "rollout_promote_s": c["drill"]["rollout_promote_s"],
+          "rollout_rollback_detect_s":
+              c["drill"]["rollout_rollback_detect_s"]})
+    return {"flash_launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5838,6 +6430,8 @@ def main(argv=None) -> int:
         tele_run = telemetry(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         res_run = resilience(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet_run = fleet(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -5859,7 +6453,9 @@ def main(argv=None) -> int:
                              "telemetry":
                                  tele_run["flash_launches"]["flash_fwd"],
                              "resilience":
-                                 res_run["flash_launches"]["flash_fwd"]},
+                                 res_run["flash_launches"]["flash_fwd"],
+                             "fleet":
+                                 fleet_run["flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -5887,7 +6483,9 @@ def main(argv=None) -> int:
                                  "telemetry":
                                      tele_run["flash_launches"][name],
                                  "resilience":
-                                     res_run["flash_launches"][name]},
+                                     res_run["flash_launches"][name],
+                                 "fleet":
+                                     fleet_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

@@ -1,10 +1,10 @@
 """Serving on PyTorch/CUDA: batcher, registry, HTTP server, CLI, the
-decode engine and its KV cache, quantized variants.
+decode engine and its KV cache, quantized variants, and the fleet — the
+replica supervisor (`fleet`), the resilient router (`router`) and the
+SLO-gated rollout controller (`rollout`).
 
-The reference's names of the ported modules are exported lazily
-(`util/lazy.py`): this package imports none of its submodules eagerly.
-The fleet, router and rollout (ROADMAP A.14) are not ported, so their
-names are absent.
+The reference's names are exported lazily (`util/lazy.py`): this package
+imports none of its submodules eagerly.
 
     from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
     registry = ModelRegistry()
@@ -20,11 +20,17 @@ _EXPORTS = {
         "batcher"),
     **dict.fromkeys(("DecodeConfig", "DecodeEngine", "DecodeScheduler",
                      "GenerateRequest", "ServedLM"), "decode"),
+    **dict.fromkeys(("AutoscaleConfig", "InProcessReplica", "Replica",
+                     "ReplicaSpec", "ReplicaSupervisor", "SubprocessReplica"),
+                    "fleet"),
     "KVCacheState": "kvcache",
     **dict.fromkeys(("QTensor", "quality_delta", "quantize_params"),
                     "quantize"),
     **dict.fromkeys(("ModelLoadError", "ModelRegistry", "ServedModel",
                      "ServableVersion", "load_servable"), "registry"),
+    **dict.fromkeys(("RolloutController", "read_blessed"), "rollout"),
+    **dict.fromkeys(("CircuitBreaker", "ResilientRouter", "RouterServer"),
+                    "router"),
     **dict.fromkeys(("ModelServer", "retry_after_seconds"), "server"),
 }
 __all__ = sorted(_EXPORTS)

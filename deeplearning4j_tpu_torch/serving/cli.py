@@ -1,13 +1,28 @@
 """`python -m deeplearning4j_tpu_torch.serving` — the serve CLI.
 
-Counterpart of the JAX package's `serving/cli.py`, single-replica mode:
-stands up a ModelServer over predict servables (``--model``) and LM
-decode servables (``--lm``) side by side and runs until SIGTERM/SIGINT,
-then drains (stop admitting, flush in-flight, exit 0). The LM servables
-take speculative decoding (``--spec-*``, or ``@spec`` per servable), the
-host-RAM KV spill tier (``--kv-spill-pages``) and a disaggregation role
-(``--kv-role``). The fleet mode's flags (``--kv-roles``, ``--disagg-*``)
-are ROADMAP A.14 and exit.
+Counterpart of the JAX package's `serving/cli.py`.
+
+Single-replica mode (default): stands up a ModelServer over predict
+servables (``--model``) and LM decode servables (``--lm``) side by side
+and runs until SIGTERM/SIGINT, then drains (stop admitting, flush
+in-flight, exit 0). The LM servables take speculative decoding
+(``--spec-*``, or ``@spec`` per servable), the host-RAM KV spill tier
+(``--kv-spill-pages``) and a disaggregation role (``--kv-role``).
+
+Fleet mode (``--replicas N``, N >= 2): a ReplicaSupervisor over N serving
+replicas (subprocess by default — each its own crash domain and CUDA
+context — or ``--replica-mode inprocess``) behind a ResilientRouter with
+per-(replica, model) circuit breakers, priority-class shedding
+(``--priority-classes``, the ``X-Priority`` header), hedged retries,
+prefix-affinity routing and prefill/decode disaggregation
+(``--kv-roles``, ``--disagg-*``). ``--port`` is then the ROUTER's port
+(replicas bind ephemeral ports on localhost) and ``--device`` is passed
+to every replica. ``--rollout-watch DIR`` tails a checkpoint directory's
+``blessed.json`` (or its newest manifest entry) and canaries, then
+promotes or rolls back, each new version; ``--autoscale-max`` scales the
+fleet with the router's in-flight load. SIGTERM drains the fleet: the
+router's /readyz goes 503, the rollout settles, in-flight work finishes,
+then the replicas drain.
 
 Observability, as in the reference: the flight recorder is on for a
 served process (``--no-flight`` turns it off, ``--flight-records`` sizes
@@ -28,21 +43,28 @@ Usage:
         --lm 'gen=zoo:TransformerLM?seq_length=2048&n_embd=512' \
         --lm 'gen8=zoo:TransformerLM?seq_length=2048&n_embd=512@int8' \
         --decode-slots 4 --decode-page-size 16
+    python -m deeplearning4j_tpu_torch.serving --model lm=/ckpts/v1.zip \
+        --replicas 3 --rollout-watch /ckpts --port 8500
 
 The first line on stdout is one JSON object:
-``{"serving": url, "models": [...], "endpoints": [...]}``.
+``{"serving": url, "models": [...], "endpoints": [...]}`` (fleet mode
+adds ``"role": "router"``, the replicas, the priority classes, the
+rollout and the autoscale band).
 
-`build(args)` does everything but the signal loop, so a caller (a smoke
-run, a test) can stand the server up in-process. Networks run on
-``--device`` (default cuda; there is no fallback to the CPU).
+`build(args)` and `build_fleet(args)` do everything but the signal loop,
+so a caller (a smoke run, a test) can stand the server or the fleet up
+in-process; `drain_fleet` is the fleet's signal-time drain. Networks run
+on ``--device`` (default cuda; there is no fallback to the CPU).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 import threading
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -117,19 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
                           "/readyz: 'prefill' computes KV and ships pages "
                           "(POST .../kv/export), 'decode' lands them (POST "
                           ".../kv/import) and streams tokens, 'mixed' does "
-                          "both")
-    # the reference's fleet-mode KV flags: accepted so a reference command
-    # line parses, refused at build()
-    fleet = p.add_argument_group("fleet mode (not yet ported)")
-    fleet.add_argument("--kv-roles", default=None, metavar="R0,R1,...",
-                       help="per-replica disaggregation roles: ROADMAP "
-                            "A.14, not yet ported")
-    fleet.add_argument("--disagg-min-tokens", type=int, default=None,
-                       help="router-side disaggregation threshold: ROADMAP "
-                            "A.14, not yet ported")
-    fleet.add_argument("--disagg-timeout-s", type=float, default=None,
-                       help="router-side transfer timeout: ROADMAP A.14, "
-                            "not yet ported")
+                          "both (single-replica mode; fleet mode assigns "
+                          "roles with --kv-roles)")
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (0.0.0.0 behind a load balancer)")
     p.add_argument("--port", type=int, default=8500)
@@ -180,9 +191,106 @@ def build_parser() -> argparse.ArgumentParser:
                      help="override the burn-rate windows (seconds): "
                           "fast-long,fast-short,slow-long,slow-short "
                           "(default 3600,300,21600,1800)")
+    # ------------------------------------------------------ fleet mode
+    fleet = p.add_argument_group("fleet mode")
+    fleet.add_argument("--replicas", type=int, default=1,
+                       help="N >= 2 supervises N replicas behind the "
+                            "resilient router; 1 = plain single server")
+    fleet.add_argument("--replica-mode", choices=("subprocess", "inprocess"),
+                       default="subprocess",
+                       help="subprocess = own crash domain and CUDA "
+                            "context per replica (production); inprocess "
+                            "= threads of this process (tests)")
+    fleet.add_argument("--priority-classes",
+                       default="interactive,standard,batch",
+                       help="ordered priority ladder, highest first; "
+                            "requests select via the X-Priority header")
+    fleet.add_argument("--shed-floor", type=float, default=0.7,
+                       help="fleet utilization at which the LOWEST class "
+                            "starts shedding (higher classes shed at "
+                            "evenly spaced higher thresholds)")
+    fleet.add_argument("--per-replica-inflight", type=int, default=8,
+                       help="router-side in-flight cap per replica (the "
+                            "capacity unit behind shedding)")
+    fleet.add_argument("--probe-interval-s", type=float, default=1.0)
+    fleet.add_argument("--probe-timeout-s", type=float, default=2.0)
+    fleet.add_argument("--unhealthy-after", type=int, default=3,
+                       help="consecutive failed probes before a live "
+                            "replica is presumed wedged and replaced")
+    fleet.add_argument("--restart-budget", type=int, default=5,
+                       help="restarts allowed per replica per 10 min "
+                            "before it is marked dead (crash loop)")
+    fleet.add_argument("--no-hedge", action="store_true",
+                       help="disable hedged retries for straggler "
+                            "predicts")
+    fleet.add_argument("--kv-roles", default=None, metavar="R0,R1,...",
+                       help="per-replica disaggregation roles (comma "
+                            "list of prefill|decode|mixed, indexed by "
+                            "replica); replicas beyond the list — "
+                            "autoscaled ones included — serve 'mixed'. "
+                            "At least one replica must be able to decode")
+    fleet.add_argument("--no-affinity", action="store_true",
+                       help="disable prefix-affinity routing (steering "
+                            "same-prefix streams to the replica whose "
+                            "heartbeat advertises ownership of the "
+                            "prompt's leading KV block)")
+    fleet.add_argument("--disagg-min-tokens", type=int, default=None,
+                       help="prompts at least this many tokens long are "
+                            "prefilled on a prefill-role replica and "
+                            "their KV pages shipped to the decode "
+                            "replica before the stream is routed "
+                            "(default: disabled)")
+    fleet.add_argument("--disagg-timeout-s", type=float, default=30.0,
+                       help="per-leg timeout for the kv export/import "
+                            "transfer; a missed deadline fails over to "
+                            "local prefill on the decode replica")
+    # ----------------------------------------------- continuous rollout
+    ro = p.add_argument_group("continuous rollout")
+    ro.add_argument("--rollout-watch", default=None, metavar="DIR",
+                    help="checkpoint directory to tail for new versions; "
+                         "enables the RolloutController (fleet mode only)")
+    ro.add_argument("--rollout-model", default=None,
+                    help="served model name the rollout swaps (default: "
+                         "the first --model/--lm name)")
+    ro.add_argument("--rollout-mode", choices=("blessed", "latest"),
+                    default="blessed",
+                    help="tail the eval-gated blessed.json manifest "
+                         "(default) or the raw newest manifest entry")
+    ro.add_argument("--rollout-observe-s", type=float, default=30.0,
+                    help="canary observation window before the verdict")
+    ro.add_argument("--rollout-poll-s", type=float, default=5.0,
+                    help="how often the watcher re-reads the manifest")
+    ro.add_argument("--rollout-canary-fraction", type=float, default=0.1,
+                    help="bounded share of live traffic routed to the "
+                         "canary replica (0 < f <= 0.5)")
+    ro.add_argument("--rollout-min-requests", type=int, default=20,
+                    help="minimum canary requests before a promote "
+                         "verdict (insufficient traffic rejects)")
+    ro.add_argument("--rollout-p99-floor-ms", type=float, default=10.0,
+                    help="p99 regressions below this floor are noise, "
+                         "not a verdict; raise it where the canary's "
+                         "first requests pay a warm-up (cold swap)")
+    # ------------------------------------------------------- autoscaling
+    asc = p.add_argument_group("load-signal autoscaling")
+    asc.add_argument("--autoscale-max", type=int, default=None,
+                     metavar="N",
+                     help="enable autoscaling up to N replicas "
+                          "(--replicas is the floor); scale signal is "
+                          "router in-flight vs healthy capacity "
+                          "(--per-replica-inflight)")
+    asc.add_argument("--autoscale-high", type=float, default=0.8,
+                     help="utilization above this for consecutive ticks "
+                          "scales up")
+    asc.add_argument("--autoscale-low", type=float, default=0.25,
+                     help="utilization below this for consecutive ticks "
+                          "drains one replica (readyz-confirmed drain, "
+                          "never a kill)")
+    asc.add_argument("--autoscale-cooldown-s", type=float, default=10.0,
+                     help="minimum seconds between scaling decisions")
     p.add_argument("--device", default="cuda",
                    help="torch device the networks run on (default cuda; "
-                        "'cpu' must be asked for)")
+                        "'cpu' must be asked for); in fleet mode every "
+                        "replica's")
     return p
 
 
@@ -197,16 +305,8 @@ def _parse_specs(values, flag="--model"):
 
 
 def _decode_config(args):
-    """CLI decode knobs -> DecodeConfig (shared by all --lm servables).
-    The fleet flags, not yet ported, exit here."""
+    """CLI decode knobs -> DecodeConfig (shared by all --lm servables)."""
     from deeplearning4j_tpu_torch.serving.decode import DecodeConfig
-    fleet = [f for f in ("kv_roles", "disagg_min_tokens", "disagg_timeout_s")
-             if getattr(args, f) is not None]
-    if fleet:
-        raise SystemExit(f"--{fleet[0].replace('_', '-')}: the serving "
-                         "fleet (router, replicas, disaggregated routing) "
-                         "is ROADMAP A.14, not yet ported to the PyTorch "
-                         "package")
     if args.kv_spill_pages < 0:
         raise SystemExit("--kv-spill-pages must be >= 0")
     prefill = None
@@ -257,18 +357,12 @@ def _slo_setup(args, objectives):
     return slo.enable_slo(objectives, rules=rules)
 
 
-def build(args):
-    """Deploy every --model and --lm and start the listener:
-    (registry, server). Turns on what the observability flags ask for
-    (process-wide: the flight recorder, tracing, the SLO engine)."""
+def _setup(args):
+    """The part both modes share: turn on what the observability flags
+    ask for (process-wide: the flight recorder, tracing) and parse the
+    servables -> (buckets, specs, lm_specs, decode_cfg)."""
     from deeplearning4j_tpu_torch import monitor
     from deeplearning4j_tpu_torch.monitor import flight as flight_recorder
-    from deeplearning4j_tpu_torch.monitor import slo as slo_mod
-    from deeplearning4j_tpu_torch.serving.registry import (
-        ModelLoadError, ModelRegistry,
-    )
-    from deeplearning4j_tpu_torch.serving.server import ENDPOINTS, ModelServer
-    from deeplearning4j_tpu_torch.util.platform import resolve_device
 
     # observability defaults for served processes: the flight recorder is
     # ON (bounded host-side ring; the zero-cost contract only governs the
@@ -291,7 +385,21 @@ def build(args):
     names = [n for n, _ in specs + lm_specs]
     if len(set(names)) != len(names):
         raise SystemExit(f"duplicate servable name in {names}")
-    decode_cfg = _decode_config(args)
+    return buckets, specs, lm_specs, _decode_config(args)
+
+
+def build(args):
+    """Deploy every --model and --lm and start the listener:
+    (registry, server). Turns on what the observability flags ask for
+    (process-wide: the flight recorder, tracing, the SLO engine)."""
+    from deeplearning4j_tpu_torch.monitor import slo as slo_mod
+    from deeplearning4j_tpu_torch.serving.registry import (
+        ModelLoadError, ModelRegistry,
+    )
+    from deeplearning4j_tpu_torch.serving.server import ENDPOINTS, ModelServer
+    from deeplearning4j_tpu_torch.util.platform import resolve_device
+
+    buckets, specs, lm_specs, decode_cfg = _setup(args)
     registry = ModelRegistry(device=resolve_device(args.device))
     for name, source in specs:
         try:
@@ -337,19 +445,228 @@ def build(args):
     return registry, server
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    _, server = build(args)
+class Fleet:
+    """What `build_fleet` stood up: the supervisor, the router and its
+    HTTP face, the rollout controller (or None), the autoscale band (or
+    None) and the priority classes."""
+
+    def __init__(self, supervisor, router, server, rollout, autoscale,
+                 classes):
+        self.supervisor = supervisor
+        self.router = router
+        self.server = server
+        self.rollout = rollout
+        self.autoscale = autoscale
+        self.classes = classes
+
+    @property
+    def url(self) -> str:
+        return self.server.url
+
+
+def _kv_roles(args, lm_specs) -> tuple:
+    if not args.kv_roles:
+        return ()
+    roles = tuple(r.strip() for r in args.kv_roles.split(",") if r.strip())
+    bad = sorted({r for r in roles
+                  if r not in ("prefill", "decode", "mixed")})
+    if bad:
+        raise SystemExit(f"--kv-roles: unknown role(s) {bad} "
+                         "(expected prefill|decode|mixed)")
+    if (len(roles) >= args.replicas
+            and all(r == "prefill" for r in roles[:args.replicas])):
+        raise SystemExit("--kv-roles: every replica is 'prefill' — "
+                         "at least one must be able to decode")
+    if roles and not lm_specs:
+        raise SystemExit("--kv-roles only applies to --lm servables")
+    return roles
+
+
+def build_fleet(args) -> Fleet:
+    """--replicas N: launch the replicas (in parallel), wait until every
+    one probes ready, then start the router (``--port`` is its port) and,
+    with --rollout-watch, the rollout controller. Prints the router's
+    announcement line. In subprocess mode this process creates no CUDA
+    context: the device is only passed on."""
+    from deeplearning4j_tpu_torch.monitor import slo as slo_mod
+    from deeplearning4j_tpu_torch.serving.fleet import (
+        AutoscaleConfig, InProcessReplica, ReplicaSpec, ReplicaSupervisor,
+        SubprocessReplica,
+    )
+    from deeplearning4j_tpu_torch.serving.quantize import parse_variant
+    from deeplearning4j_tpu_torch.serving.router import (
+        ResilientRouter, RouterServer,
+    )
+
+    buckets, specs, lm_specs, decode_cfg = _setup(args)
+    classes = tuple(c.strip() for c in args.priority_classes.split(",")
+                    if c.strip())
+    if not classes:
+        raise SystemExit("--priority-classes must name at least one class")
+    roles = _kv_roles(args, lm_specs)
+
+    def _role(i: int) -> str:
+        # replicas past the list (autoscaled growth included) serve mixed
+        return roles[i] if i < len(roles) else "mixed"
+
+    def _spec(i: int) -> ReplicaSpec:
+        return ReplicaSpec(specs, buckets=buckets,
+                           max_delay_ms=args.max_delay_ms,
+                           queue_limit=args.queue_limit,
+                           default_deadline_s=args.deadline_s,
+                           enable_faults=args.enable_fault_injection,
+                           lms=lm_specs, decode=decode_cfg,
+                           trace_out=args.trace_out,
+                           postmortem_dir=args.postmortem_dir,
+                           flight=not args.no_flight,
+                           flight_records=args.flight_records,
+                           slo_availability=args.slo_availability,
+                           slo_p99_ms=args.slo_p99_ms,
+                           slo_sample_interval_s=args.slo_sample_interval_s,
+                           slo_windows=args.slo_windows,
+                           kv_role=_role(i), device=args.device)
+    if args.replica_mode == "subprocess":
+        for _, source in specs + lm_specs:
+            base, _variant = parse_variant(source)
+            if base.startswith("zoo:") or os.path.exists(base):
+                continue
+            raise SystemExit(f"fleet replicas cannot serve {source!r} "
+                             "(need a path or zoo: name)")
+        env = dict(os.environ)
+
+        def factory(i):
+            return SubprocessReplica(f"replica-{i}", _spec(i), env=env)
+    else:
+        def factory(i):
+            return InProcessReplica(f"replica-{i}", _spec(i))
+
+    autoscale = None
+    if args.autoscale_max is not None:
+        try:
+            autoscale = AutoscaleConfig(
+                min_replicas=args.replicas,
+                max_replicas=args.autoscale_max,
+                capacity_per_replica=args.per_replica_inflight,
+                high_watermark=args.autoscale_high,
+                low_watermark=args.autoscale_low,
+                cooldown_s=args.autoscale_cooldown_s,
+                drain_timeout_s=args.drain_timeout_s)
+        except ValueError as e:
+            raise SystemExit(f"--autoscale-*: {e}") from None
+    rollout_model = None
+    if args.rollout_watch is not None:
+        model_names = [n for n, _ in specs + lm_specs]
+        rollout_model = args.rollout_model or model_names[0]
+    supervisor = ReplicaSupervisor(
+        factory, args.replicas,
+        probe_interval_s=args.probe_interval_s,
+        probe_timeout_s=args.probe_timeout_s,
+        unhealthy_after=args.unhealthy_after,
+        restart_budget=args.restart_budget,
+        autoscale=autoscale)
+    try:
+        supervisor.start()
+    except Exception as e:                    # noqa: BLE001
+        raise SystemExit(f"fleet launch failed: {e}") from None
+    router = ResilientRouter(
+        supervisor.healthy, classes=classes,
+        shed_floor=args.shed_floor,
+        per_replica_inflight=args.per_replica_inflight,
+        hedge=not args.no_hedge, timeout_s=args.deadline_s,
+        slo_p99_ms=args.slo_p99_ms,
+        canary_fraction=args.rollout_canary_fraction,
+        affinity=not args.no_affinity,
+        disagg_min_tokens=args.disagg_min_tokens,
+        disagg_timeout_s=args.disagg_timeout_s)
+    slo_engine = _slo_setup(args, slo_mod.router_objectives(
+        slo_p99_ms=args.slo_p99_ms,
+        availability_target=args.slo_availability))
+    server = RouterServer(router, supervisor=supervisor,
+                          host=args.host, port=args.port,
+                          slo_engine=slo_engine)
+    rollout = None
+    if rollout_model is not None:
+        from deeplearning4j_tpu_torch.serving.rollout import RolloutController
+        rollout = RolloutController(
+            supervisor, router, args.rollout_watch, rollout_model,
+            watch=args.rollout_mode,
+            poll_interval_s=args.rollout_poll_s,
+            observe_s=args.rollout_observe_s,
+            min_canary_requests=args.rollout_min_requests,
+            p99_floor_ms=args.rollout_p99_floor_ms)
+        server.rollout = rollout
+        rollout.start()
+    endpoints = ["/v1/models", "/v1/fleet", "/healthz", "/readyz",
+                 "/metrics"]
+    if slo_engine is not None:
+        endpoints += ["/v1/slo", "/v1/timeseries"]
+    print(json.dumps({"serving": server.url, "role": "router",
+                      "replicas": [r.describe() for r in
+                                   supervisor.replicas],
+                      "priority_classes": list(classes),
+                      "endpoints": endpoints,
+                      "rollout": (rollout.describe()
+                                  if rollout is not None else None),
+                      "autoscale": (None if autoscale is None else
+                                    {"min": autoscale.min_replicas,
+                                     "max": autoscale.max_replicas})}))
+    sys.stdout.flush()
+    return Fleet(supervisor, router, server, rollout, autoscale, classes)
+
+
+def drain_fleet(fleet: Fleet, drain_timeout_s: float = 30.0):
+    """The fleet's graceful drain, the single server's contract at fleet
+    scope: flip the router's /readyz to 503 FIRST so the balancer stops
+    sending, settle the rollout (a promotion must not race the teardown),
+    give the balancer a moment to observe, let router-tracked in-flight
+    work finish, then stop the replicas (each drains whatever is still
+    inside it) and the router."""
+    fleet.server.draining = True
+    if fleet.rollout is not None:
+        fleet.rollout.stop()
+    grace = min(2.0, drain_timeout_s)
+    time.sleep(grace)
+    deadline = time.monotonic() + max(0.0, drain_timeout_s - grace)
+    while time.monotonic() < deadline and any(
+            r.inflight() for r in fleet.supervisor.replicas):
+        time.sleep(0.1)
+    fleet.supervisor.stop()
+    fleet.server.stop()
+
+
+def _wait_for_signal(action: str):
     stop = threading.Event()
 
     def _on_signal(signum, frame):
-        print(json.dumps({"signal": signum, "action": "drain"}),
+        print(json.dumps({"signal": signum, "action": action}),
               file=sys.stderr)
         stop.set()
 
     for s in (signal.SIGTERM, signal.SIGINT):
         signal.signal(s, _on_signal)
     stop.wait()
+
+
+def _main_fleet(args) -> int:
+    fleet = build_fleet(args)
+    _wait_for_signal("fleet drain")
+    drain_fleet(fleet, args.drain_timeout_s)
+    if args.trace_out:
+        # supervisor.stop() SIGTERMed the replicas: each drained and
+        # saved its own segment next to the router's
+        from deeplearning4j_tpu_torch import monitor
+        n = monitor.save_trace(args.trace_out)
+        print(json.dumps({"trace_out": args.trace_out, "events": n}),
+              file=sys.stderr)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.replicas > 1:
+        return _main_fleet(args)
+    _, server = build(args)
+    _wait_for_signal("drain")
     server.drain(timeout=args.drain_timeout_s)
     if args.trace_out:
         from deeplearning4j_tpu_torch import monitor

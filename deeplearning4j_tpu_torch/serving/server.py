@@ -28,8 +28,13 @@ and generate surfaces:
     GET  /v1/models/{name}            one servable
     GET  /healthz                     process liveness (always 200)
     GET  /readyz                      200 only when warmed and not draining;
-                                      carries the server's kv_role and
+                                      carries the server's rollout role
+                                      and generation, its kv_role and
                                       each LM's prefix-ownership digests
+    POST /v1/rollout/role             {"role": "stable"|"canary",
+                                      "rollout_generation": N}: the
+                                      fleet's rollout state, mirrored
+                                      onto this server's /readyz
     GET  /metrics                     Prometheus exposition (monitor/);
                                       ``?format=openmetrics`` adds
                                       trace exemplars + ``# EOF``
@@ -61,8 +66,6 @@ request's deadline expires, 503 with Retry-After while draining (a swap
 racing a drain included), 499 (logged, nothing sent) when a streaming
 client went away, and anything unexpected a JSON 500 with the error
 class only — a traceback never crosses the wire.
-
-`/v1/rollout/role` comes with ROADMAP A.14.
 """
 from __future__ import annotations
 
@@ -98,22 +101,26 @@ ENDPOINTS = ["/v1/models", "/v1/models/{name}", "/v1/models/{name}/predict",
              "/v1/models/{name}/rollback", "/v1/models/{name}/kv/export",
              "/v1/models/{name}/kv/import", "/healthz", "/readyz",
              "/metrics", "/v1/debug/flight", "/v1/slo", "/v1/timeseries",
-             "/v1/faults"]
+             "/v1/rollout/role", "/v1/faults"]
 
 KV_ROLES = ("prefill", "decode", "mixed")
 
 
 def retry_after_seconds(queue_depth: int, queue_limit: int,
-                        draining: bool = False) -> int:
+                        draining: bool = False,
+                        rng: Optional[random.Random] = None) -> int:
     """Jittered Retry-After hint for 429/503: the ceiling scales with
     queue fullness (a flat 5 s while draining), and the value is drawn
-    uniformly from [1, ceiling] so shed clients do not retry in step."""
+    uniformly from [1, ceiling] so shed clients do not retry in step.
+    `rng` (default: the module-level `random`) makes the draw
+    reproducible; the router passes its own."""
+    rng = rng if rng is not None else random
     if draining:
         ceiling = 5
     else:
         fullness = min(1.0, queue_depth / max(1, queue_limit))
         ceiling = 1 + int(round(4 * fullness))
-    return random.randint(1, max(1, ceiling))
+    return rng.randint(1, max(1, ceiling))
 
 
 def metrics_payload(query: str):
@@ -235,6 +242,9 @@ class _Handler(BaseHTTPRequestHandler):
                 # LM's leading-block ownership digests
                 self._json({"status": "ready",
                             "models": self._srv.registry.names(),
+                            "role": self._srv.role,
+                            "rollout_generation":
+                                self._srv.rollout_generation,
                             "kv_role": self._srv.kv_role,
                             "kv_ownership": self._srv.kv_ownership()})
             else:
@@ -293,6 +303,25 @@ class _Handler(BaseHTTPRequestHandler):
         if parts[:2] == ["v1", "models"] and len(parts) == 5 \
                 and parts[3] == "kv" and parts[4] in ("export", "import"):
             self._kv(parts[2], parts[4])
+            return
+        if url.path == "/v1/rollout/role":
+            # rollout control surface: the fleet's RolloutController (or
+            # SubprocessReplica.set_role relaying for it) marks this
+            # server canary/stable so its own /readyz agrees with the
+            # fleet view on the router's /v1/fleet
+            try:
+                payload = json.loads(self._body() or b"{}")
+                role = payload.get("role")
+                if role not in ("stable", "canary"):
+                    raise ValueError('role must be "stable" or "canary"')
+                self._srv.role = role
+                self._srv.rollout_generation = int(
+                    payload.get("rollout_generation", 0))
+            except (ValueError, TypeError, AttributeError) as e:
+                self._json({"error": str(e)}, code=400)
+                return
+            self._json({"role": self._srv.role,
+                        "rollout_generation": self._srv.rollout_generation})
             return
         if url.path == "/v1/faults" and self._srv.enable_faults:
             # chaos surface: wedge/unwedge THIS server mid-traffic. Only
@@ -743,6 +772,10 @@ class ModelServer:
         if self.enable_faults:
             self.faults.apply_env()
         self.draining = False
+        # rollout state mirrored from the fleet (POST /v1/rollout/role),
+        # surfaced on /readyz
+        self.role = "stable"
+        self.rollout_generation = 0
         # KV-fabric disaggregation role: "prefill" servers compute KV for
         # long prompts and ship pages, "decode" servers only serve
         # generation, "mixed" (default) does both — published on /readyz

@@ -33,7 +33,11 @@ dropout), a retry after a step that ran bitwise the unfaulted run (the
 card's generator restored), an async CheckpointListener zip bitwise the
 synchronous one with no added sync once its pinned buffers are cached,
 and memory_report's measured step leaving the network bitwise unchanged,
-within 2x of the analytic total for the reference's LeNet case.
+within 2x of the analytic total for the reference's LeNet case. The
+fleet: two in-process replicas of a flash LM behind the router, every
+predict through the kernel (n_layers launches a dispatch) and within
+1e-4 of plain attention; a SIGKILLed subprocess replica relaunched on
+the card, answering bitwise as before while the router kept answering.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -1521,3 +1525,117 @@ def test_memory_report_on_the_card_leaves_the_network_and_measures(cuda):
     rep = lenet.memory_report(batch_size=16)
     ratio = rep.total_train_bytes / rep.compiled_total_bytes
     assert 0.5 <= ratio <= 2.0, (rep.total_train_bytes, rep.compiled)
+
+
+# ------------------------------------------------------------ the fleet
+def _fleet_lm_zip(path):
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    net = model_by_name("TransformerLM", vocab_size=64, seq_length=128,
+                        n_layers=2, n_embd=64, n_heads=2,
+                        attention_impl="flash").init(device="cuda")
+    save_model(net, str(path))
+    return str(path)
+
+
+def _fleet_predict(url, x):
+    import io
+    import urllib.request
+    buf = io.BytesIO()
+    np.save(buf, x)
+    r = urllib.request.urlopen(urllib.request.Request(
+        url + "/v1/models/lm/predict", data=buf.getvalue(),
+        headers={"Content-Type": "application/octet-stream",
+                 "Accept": "application/octet-stream"}), timeout=120)
+    return r.status, np.load(io.BytesIO(r.read()))
+
+
+def test_an_in_process_fleet_serves_through_the_kernel(cuda, tmp_path):
+    """The CLI's fleet mode with two in-process replicas on the card:
+    every predict through the router runs the flash forward kernel in the
+    replica that served it (n_layers launches a batcher dispatch, both
+    replicas dispatching, no backward launch), and each answer is within
+    1e-4 of the same network with plain attention."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.serving import cli
+    zip_path = _fleet_lm_zip(tmp_path / "lm.zip")
+    args = cli.build_parser().parse_args(
+        ["--model", f"lm={zip_path}", "--replicas", "2", "--replica-mode",
+         "inprocess", "--buckets", "1,4", "--device", "cuda", "--port",
+         "0"])
+    for k in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[k] = 0
+    fleet = cli.build_fleet(args)
+    try:
+        served = [r._registry.get("lm") for r in fleet.supervisor.replicas]
+        rs = np.random.RandomState(0)
+        pairs = []
+        for i in range(10):
+            x = rs.randint(0, 64, (1 + 3 * (i % 2), 128, 1)) \
+                .astype("float32")
+            status, y = _fleet_predict(fleet.url, x)
+            assert status == 200 and y.shape == (x.shape[0], 128, 64)
+            pairs.append((x, y))
+        dispatches = sum(s.batcher.dispatches for s in served)
+        assert KERNEL_LAUNCHES["flash_fwd"] == 2 * dispatches
+        assert KERNEL_LAUNCHES["flash_bwd_dq"] == 0
+        assert KERNEL_LAUNCHES["flash_bwd_dkv"] == 0
+        assert all(s.batcher.dispatches > 2 for s in served)   # 2 warms
+        real = fa.flash_attention_cuda
+        fa.flash_attention_cuda = \
+            lambda q, k, v, mask, causal: fa.flash_attention_plain(
+                q, k, v, mask, causal)
+        try:
+            for x, y in pairs:
+                ref = served[0].model.output(x).float().cpu().numpy()
+                assert np.abs(y - ref).max() <= 1e-4
+        finally:
+            fa.flash_attention_cuda = real
+    finally:
+        cli.drain_fleet(fleet, drain_timeout_s=1.0)
+        monitor.flight.disable_flight()
+
+
+def test_a_killed_subprocess_replica_rejoins_on_the_card(cuda, tmp_path):
+    """Two subprocess replicas on one card behind the router; SIGKILL
+    one: the router keeps answering 200 from the other, the supervisor
+    relaunches the killed one (generation 1) on the card, and its answers
+    are bitwise those before the kill."""
+    import time
+
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.serving import (
+        ReplicaSpec, ReplicaSupervisor, ResilientRouter, RouterServer,
+        SubprocessReplica,
+    )
+    from deeplearning4j_tpu_torch.tools.serve_chaos import replica_env
+    zip_path = _fleet_lm_zip(tmp_path / "lm.zip")
+    spec = ReplicaSpec([("lm", zip_path)], buckets=(1,), device="cuda")
+    env = replica_env()
+    sup = ReplicaSupervisor(
+        lambda i: SubprocessReplica(f"replica-{i}", spec, env=env,
+                                    stderr_path=str(tmp_path / f"r{i}.log")),
+        2, probe_interval_s=0.5, restart_backoff_s=0.2)
+    sup.start()
+    server = RouterServer(ResilientRouter(sup.healthy, hedge=False))
+    x = np.random.RandomState(1).randint(0, 64, (1, 128, 1)) \
+        .astype("float32")
+    try:
+        victim = sup.replicas[0]
+        _, before = _fleet_predict(victim.url, x)
+        t0 = time.monotonic()
+        victim.proc.kill()
+        while not (victim.generation >= 1 and victim.state == "ready"):
+            status, y = _fleet_predict(server.url, x)
+            assert status == 200 and np.array_equal(y, before)
+            assert time.monotonic() - t0 < 150, victim.describe()
+            time.sleep(0.2)
+        status, after = _fleet_predict(victim.url, x)
+        assert status == 200 and np.array_equal(after, before)
+        assert monitor.REGISTRY.collect(
+            "serving_fleet_restarts_total").value(
+            replica="replica-0", reason="crash") == 1
+    finally:
+        server.stop()
+        sup.stop()

@@ -476,19 +476,87 @@ def test_cli_build_serves_lm_beside_a_predict_model(capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--kv-roles", "prefill,decode"], "A.14"),
-    (["--disagg-min-tokens", "64"], "A.14"),
-    (["--disagg-timeout-s", "5"], "A.14"),
-    (["--kv-spill-pages", "-1"], ">= 0"),
-    (["--lm", "bad"], "NAME=SOURCE"),
+    pytest.param(["--kv-spill-pages", "-1"], ">= 0", id="flags3->= 0"),
+    pytest.param(["--lm", "bad"], "NAME=SOURCE", id="flags4-NAME=SOURCE"),
 ])
 def test_cli_refuses_unported_decode_flags(flags, match):
-    """The fleet mode's KV flags (ROADMAP A.14) and malformed values
-    exit; the single-server decode flags build (next test)."""
+    """Malformed decode values exit; the single-server decode flags build
+    (test_cli_builds_spec_spill_and_kv_role), and the fleet's KV flags
+    build a fleet (test_cli_fleet_kv_flags_build_a_fleet_and_generate)."""
     args = cli.build_parser().parse_args(
         ["--lm", f"g={ZOO_SRC}", "--device", "cpu", "--port", "0"] + flags)
     with pytest.raises(SystemExit, match=match):
         cli.build(args)
+
+
+def _stream_tokens(url, prompt, n):
+    toks = []
+    with _gen(url, {"prompt": prompt, "max_tokens": n, "stream": True},
+              "g") as r:
+        for line in r:
+            if line.startswith(b"data: "):
+                ev = json.loads(line[6:])
+                if "token" in ev:
+                    toks.append(ev["token"])
+    return toks
+
+
+def _registry_with_lm():
+    registry = ModelRegistry(device="cpu")
+    registry.deploy_lm("lm", ZOO_SRC, decode=DecodeConfig(
+        slots=2, page_size=4, prefill_buckets=(8, 32)))
+    return registry
+
+
+@pytest.mark.parametrize("flags", [
+    pytest.param(["--kv-roles", "prefill,decode"], id="kv-roles"),
+    pytest.param(["--kv-roles", "prefill,decode", "--disagg-min-tokens",
+                  "8"], id="disagg-min-tokens"),
+    pytest.param(["--disagg-timeout-s", "5"], id="disagg-timeout-s"),
+])
+def test_cli_fleet_kv_flags_build_a_fleet_and_generate(flags):
+    """The fleet mode's KV flags build a fleet of two in-process LM
+    replicas behind the router, and generation streams through it: the
+    roles reach the replicas' /readyz, a long prompt's KV is prefilled on
+    the prefill replica and shipped, and the transfer timeout reaches the
+    router. Greedy tokens equal a single server's."""
+    from deeplearning4j_tpu_torch import monitor
+    args = cli.build_parser().parse_args(
+        ["--lm", f"g={ZOO_SRC}", "--device", "cpu", "--port", "0",
+         "--replicas", "2", "--replica-mode", "inprocess",
+         "--decode-slots", "2", "--decode-page-size", "4",
+         "--prefill-buckets", "8,32", "--probe-interval-s", "0.2"] + flags)
+    monitor.REGISTRY.reset()
+    fleet = cli.build_fleet(args)
+    single = ModelServer(_registry_with_lm(), port=0)
+    try:
+        prompt = list(range(3, 15))
+        want = json.loads(_gen(single.url, {"prompt": prompt,
+                                            "max_tokens": 4,
+                                            "stream": False}).read())
+        got = _stream_tokens(fleet.url, prompt, 4)
+        assert got == want["tokens"]
+        reps = json.loads(urllib.request.urlopen(
+            fleet.url + "/v1/fleet", timeout=10).read())["replicas"]
+        roles = [r["kv_role"] for r in reps]
+        if "--kv-roles" in flags:
+            assert roles == ["prefill", "decode"]
+        else:
+            assert roles == ["mixed", "mixed"]
+        orch = monitor.REGISTRY.collect(
+            "serving_transfer_orchestrations_total")
+        if "--disagg-min-tokens" in flags:
+            assert fleet.router.disagg_min_tokens == 8
+            assert orch is not None and orch.value(model="g") >= 1
+        else:
+            assert fleet.router.disagg_min_tokens is None
+            assert orch is None
+        assert fleet.router.disagg_timeout_s == (
+            5.0 if "--disagg-timeout-s" in flags else 30.0)
+    finally:
+        single.drain(timeout=10)
+        cli.drain_fleet(fleet, drain_timeout_s=0.5)
+        monitor.flight.disable_flight()
 
 
 @pytest.mark.parametrize("flags,check", [
