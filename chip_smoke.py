@@ -382,6 +382,32 @@ result line:
              `rollout_rollback_detect_s`. `launches_by_path` gains
              "fleet": (a)'s forward launches and (c)'s two fit steps
              (the subprocess replicas are checked by their answers).
+15. parallel — data-parallel training of the full-width LM (f32,
+             AdamW 3e-4, seeded token batches). (a) train.cli.main's
+             default `--mode sync` (a ParallelWrapper over the one-rank
+             NCCL group the CLI forms) against `--mode single`, 10 steps
+             each: parameters bitwise equal, equal flash launches
+             (n_layers x 10 each), one all-reduce a step; then the plain
+             and the plan's train step timed by CUDA events (p50), the
+             plan's describe(). (b) Two processes on the one card over
+             gloo (NCCL will not put two ranks on one GPU): which gloo
+             collectives take CUDA tensors, the all-reduce ms of the
+             LM's 54.6 MB f32 gradient (through host memory: not a
+             multi-GPU number); SYNC at global batch 4 (2 a rank) for 4
+             steps, the ranks bitwise equal to each other and within
+             1e-5 of each leaf's update of a one-rank batch-4 run;
+             AVERAGING (frequency 2, optimizer state averaged) with the
+             ranks' parameters after each average bitwise a by-hand
+             emulation's (two networks stepping their halves, averaged
+             in f32). (c) `--mesh data=1,zero=1` and `--mesh
+             data=1,zero=3` through the CLI: bitwise (a)'s parameters
+             (nothing splits over one rank); the fraction of the LM's
+             bytes ZeRO would shard at data=2. (d) SharedGradientsTrainer
+             in two processes over SocketTransport, the LM at depth 1,
+             gradients threshold-encoded on the card: replicas bitwise
+             equal, compression ratio, sparsity, bytes sent a step.
+             `launches_by_path` gains "parallel": (a)'s sync run, (c)'s
+             two runs, (b)'s and (d)'s ranks (each rank's own counts).
 
 Each path's counts are set to 0 just before it is driven and read just
 after. Every phase's row carries `t_s`, the seconds since the run
@@ -395,6 +421,7 @@ import argparse
 import io
 import json
 import logging
+import math
 import statistics
 import subprocess
 import sys
@@ -6372,6 +6399,717 @@ def fleet(fa, tmp):
     return {"flash_launches": launches}
 
 
+# ------------------------------------------------------- phase 15: parallel
+# the parallel phase: 40 sequences at batch 4 = 10 steps a CLI run; the
+# two-rank runs take 16 sequences (4 steps of global batch 4, 2 a rank)
+PAR_SEQS, PAR_STEPS, PAR_RANK_SEQS = 40, 10, 16
+PAR_RANK_STEPS = PAR_RANK_SEQS // TRAIN_BATCH
+# two ranks against one rank, leaf by leaf: the first batch's summed
+# gradient within 1e-5 of each leaf's own norm, the loss within 1e-5; the
+# parameters after the first AdamW step within 1e-5 of each leaf's update
+# norm, after 4 steps within 1e-4, both over the elements whose first
+# gradient is at least 1e-6. Below that AdamW's update g / (|g| + 1e-8) is
+# ill-conditioned: the gradient's rounding (5e-10 measured) moves it by a
+# good part of lr. The two ranks are also held bitwise to one process
+# that sums the two halves' gradients, which covers every element.
+PAR_GRAD_TOL = PAR_UPDATE_TOL = 1e-5
+PAR_DRIFT_TOL = 1e-4
+PAR_CONDITIONED_GRAD = 1e-6
+PAR_GRAD_FLOATS = 13651968      # the LM's f32 gradient (54.6 MB)
+# (a)'s step time: the plain step and the plan's, interleaved in pairs
+PAR_STEP_PAIRS = 40
+# (b) and (d) run as two ranks in their own processes on the one card
+PAR_DRIVER = r'''
+import hashlib, json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from deeplearning4j_tpu_torch.ops import flash_attention as fa
+from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+from deeplearning4j_tpu_torch.parallel.distributed import (
+    DistributedConfig, initialize_distributed, shutdown_distributed)
+from deeplearning4j_tpu_torch.util.platform import set_f32_matmul_exact
+from deeplearning4j_tpu_torch.util.serialization import load_model
+
+part, rank, coord, lm_zip, tokens, out, port = sys.argv[1:8]
+rank = int(rank)
+set_f32_matmul_exact()
+data = np.load(tokens)
+X, Y = data["features"], data["labels"]
+
+
+def digest(net):
+    return hashlib.sha256(net.params_flat().detach().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def counts():
+    return dict(fa.KERNEL_LAUNCHES)
+
+
+res = {"rank": rank}
+if part == "probe":
+    # what this build's gloo carries on CUDA tensors: each collective in
+    # a group of its own (an unsupported one can leave its pair unusable),
+    # a line per collective as it lands
+    import datetime
+    initialize_distributed(DistributedConfig(
+        coordinator_address=coord, num_processes=2, process_id=rank,
+        local_rank=0, backend="gloo"), device_type="cuda")
+    x = torch.full((4,), float(rank + 1), device="cuda")
+
+    def all_reduce(g):
+        y = x.clone()
+        dist.all_reduce(y, group=g)
+        return y.tolist() == [3.0] * 4
+
+    def broadcast(g):
+        y = x.clone()
+        dist.broadcast(y, 0, group=g)
+        return y.tolist() == [1.0] * 4
+
+    def all_gather(g):
+        ys = [torch.empty(4, device="cuda") for _ in range(2)]
+        dist.all_gather(ys, x.clone(), group=g)
+        return [y.tolist() for y in ys] == [[1.0] * 4, [2.0] * 4]
+
+    def send_recv(g):
+        if rank == 0:
+            dist.send(x.clone(), 1, group=g)
+            return True
+        y = torch.empty(4, device="cuda")
+        dist.recv(y, 0, group=g)
+        return y.tolist() == [1.0] * 4
+
+    def all_gather_into_tensor(g):
+        y = torch.empty(8, device="cuda")
+        dist.all_gather_into_tensor(y, x.clone(), group=g)
+        return y.tolist() == [1.0] * 4 + [2.0] * 4
+
+    def reduce_scatter_tensor(g):
+        y = torch.empty(2, device="cuda")
+        dist.reduce_scatter_tensor(y, x.clone(), group=g)
+        return y.tolist() == [3.0] * 2
+
+    # send/recv last: on CUDA tensors it can break the transport for
+    # what follows (a device pointer written as host memory)
+    ops = {f.__name__: f for f in (
+        all_reduce, broadcast, all_gather, all_gather_into_tensor,
+        reduce_scatter_tensor, send_recv)}
+    for name, op in ops.items():
+        g = dist.new_group([0, 1],
+                           timeout=datetime.timedelta(seconds=20))
+        try:
+            right = op(g)
+            torch.cuda.synchronize()
+            verdict = "ok" if right else "ran, wrong values"
+        except Exception as e:
+            verdict = f"{type(e).__name__}: {str(e)[:160]}"
+        print("PAR_PROBE " + json.dumps({name: verdict}), flush=True)
+        dist.barrier()
+    shutdown_distributed()
+elif part == "b":
+    initialize_distributed(DistributedConfig(
+        coordinator_address=coord, num_processes=2, process_id=rank,
+        local_rank=0, backend="gloo"), device_type="cuda")
+    res["backend"] = str(dist.get_backend())
+    # the all-reduce of the LM's f32 gradient, through host memory
+    flat = torch.randn(int(os.environ["PAR_GRAD_FLOATS"]), device="cuda")
+    for _ in range(2):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(5):
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res["all_reduce_ms"] = ms
+    del flat
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, ShardingPlan)
+    from deeplearning4j_tpu_torch.util.params import params_to_flat
+    # the data group's summed gradient of the first global batch
+    net = load_model(lm_zip, device="cuda")
+    net._engage_plan(ShardingPlan())
+    loss, grads, _, _ = net._grad_struct(
+        net._batch_struct(DataSet(X[:4], Y[:4])), None)
+    grads, loss = net._plan_rt.reduce_grads(grads, loss)
+    np.save(os.path.join(out, f"grad_{rank}.npy"),
+            params_to_flat(grads).detach().cpu().numpy())
+    res["grad_loss"] = float(loss)
+    net._engage_plan(None)
+    del net, grads
+    # SYNC: global batch 4, 2 a rank, 4 steps
+    for k in fa.KERNEL_LAUNCHES:
+        fa.KERNEL_LAUNCHES[k] = 0
+    net = load_model(lm_zip, device="cuda")
+    w = ParallelWrapper(net)
+    res["sync_workers"] = w.n_workers
+
+    class FirstStep:
+        def on_epoch_start(self, n, e):
+            pass
+
+        def on_epoch_end(self, n, e):
+            pass
+
+        def iteration_done(self, n, it, ep, score, etl, bs):
+            if it == 0:
+                np.save(os.path.join(out, f"sync1_{rank}.npy"),
+                        n.params_flat().detach().cpu().numpy())
+
+    net.set_listeners(FirstStep())
+    t0 = time.perf_counter()
+    w.fit(ArrayDataSetIterator(X, Y, batch_size=4), epochs=1)
+    torch.cuda.synchronize()
+    res["sync_s"] = time.perf_counter() - t0
+    res["sync_syncs"] = net._plan_syncs
+    res["sync_launches"] = counts()
+    res["sync_iterations"] = net.iteration_count
+    res["sync_score"] = net.score()
+    np.save(os.path.join(out, f"sync_{rank}.npy"),
+            net.params_flat().detach().cpu().numpy())
+    # AVERAGING: frequency 2, optimizer state averaged too
+    del net, w
+    torch.cuda.empty_cache()
+    for k in fa.KERNEL_LAUNCHES:
+        fa.KERNEL_LAUNCHES[k] = 0
+    net = load_model(lm_zip, device="cuda")
+    w = ParallelWrapper(net, mode="averaging", averaging_frequency=2,
+                        average_updaters=True)
+    seen = {}
+
+    class AfterAverage:
+        def on_epoch_start(self, n, e):
+            pass
+
+        def on_epoch_end(self, n, e):
+            pass
+
+        def iteration_done(self, n, it, ep, score, etl, bs):
+            if (it + 1) % 2 == 0:
+                seen[str(it + 1)] = digest(n)
+
+    net.set_listeners(AfterAverage())
+    w.fit(ArrayDataSetIterator(X, Y, batch_size=4), epochs=1)
+    res["avg_launches"] = counts()
+    res["avg_digests"] = seen
+    res["avg_syncs"] = w.syncs
+    res["avg_final"] = digest(net)
+    shutdown_distributed()
+elif part == "d":
+    from deeplearning4j_tpu_torch.parallel import (
+        SharedGradientsTrainer, SocketTransport)
+    for k in fa.KERNEL_LAUNCHES:
+        fa.KERNEL_LAUNCHES[k] = 0
+    net = load_model(lm_zip, device="cuda")
+    with SocketTransport(rank=rank, n_workers=2,
+                         base_port=int(port)) as transport:
+        trainer = SharedGradientsTrainer(net, n_workers=2, threshold=1e-4,
+                                         rank=rank, transport=transport)
+        t0 = time.perf_counter()
+        trainer.fit(ArrayDataSetIterator(X, Y, batch_size=4), epochs=1,
+                    batch_size=4)
+        torch.cuda.synchronize()
+        res.update({
+            "seconds": time.perf_counter() - t0,
+            "iterations": trainer.iteration_count,
+            "compression_ratio": trainer.compression_ratio(),
+            "sparsity": trainer.sparsity(),
+            "bytes_sent": transport.bytes_sent,
+            "messages_sent": transport.messages_sent,
+            "score": net.score(), "launches": counts(),
+            "digest": digest(net)})
+print("PAR_RESULT " + json.dumps(res), flush=True)
+'''
+
+
+def _par_ranks(part, lm_zip, tokens, tmp, timeout=400):
+    """PAR_DRIVER's `part` as ranks 0 and 1 in two processes on the
+    card: each rank's result record."""
+    import os
+    from deeplearning4j_tpu_torch.parallel.distributed import free_port
+    coord = f"127.0.0.1:{free_port()}"
+    base = _two_free_ports()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)), PAR_GRAD_FLOATS=str(PAR_GRAD_FLOATS))
+    env.pop("DL4J_CUDA_FAULTS", None)
+    # each rank writes to files: a full pipe would stall a rank inside a
+    # collective while its peer waits on it
+    logs = [(open(os.path.join(tmp, f"par_{part}_{r}.out"), "w+"),
+             open(os.path.join(tmp, f"par_{part}_{r}.err"), "w+"))
+            for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PAR_DRIVER, part, str(r), coord, lm_zip,
+         tokens, tmp, str(base)], stdout=logs[r][0], stderr=logs[r][1],
+        text=True, env=env) for r in range(2)]
+    outs = []
+    deadline = time.monotonic() + timeout
+    try:
+        # until both end, one fails (its peer would wait on it to the
+        # group's timeout) or the deadline passes
+        while any(p.poll() is None for p in procs) \
+                and not any(p.poll() for p in procs) \
+                and time.monotonic() < deadline:
+            time.sleep(0.2)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for p, (out_f, err_f) in zip(procs, logs):
+            out_f.seek(0)
+            err_f.seek(0)
+            outs.append((p.returncode, out_f.read(), err_f.read()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (f for pair in logs for f in pair):
+            f.close()
+    results = []
+    for code, out, err in outs:
+        if part == "probe":
+            results.append({k: v for ln in out.splitlines()
+                            if ln.startswith("PAR_PROBE ")
+                            for k, v in json.loads(ln[10:]).items()})
+            continue
+        line = next((ln for ln in out.splitlines()
+                     if ln.startswith("PAR_RESULT ")), None)
+        if code != 0 or line is None:
+            first = min(outs, key=lambda o: o[0] in (0, -9))
+            raise AssertionError(
+                f"parallel ({part}) ranks exited "
+                f"{[o[0] for o in outs]}: {first[2][-2500:]}")
+        results.append(json.loads(line[len("PAR_RESULT "):]))
+    return results
+
+
+def _two_free_ports() -> int:
+    """A port p with p and p + 1 free (SocketTransport binds base + rank)."""
+    import socket
+    from deeplearning4j_tpu_torch.parallel.distributed import free_port
+    for _ in range(50):
+        p = free_port()
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind(("127.0.0.1", p + 1))
+            except OSError:
+                continue
+        return p
+    raise RuntimeError("no two adjacent free ports")
+
+
+def _flat_of(zip_path):
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    return load_model(zip_path, device="cpu").params_flat()
+
+
+def _par_paired_ms(lm_zip, batches, plan, pairs):
+    """CUDA-event ms of the plain train step and the plan's (engaged on a
+    one-rank group), in `pairs` interleaved pairs on two networks from
+    one zip: pair i times both on batch i, the order alternating.
+    Returns (plain ms, plan ms, the plan's collectives)."""
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    nets = [load_model(lm_zip), load_model(lm_zip)]
+    gens = [torch.Generator(device="cuda").manual_seed(0) for _ in nets]
+    nets[1]._engage_plan(plan)
+
+    def step(k, ds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = nets[k]._train_step(ds, gens[k])
+        end.record()
+        float(loss)
+        return start.elapsed_time(end)
+    try:
+        for k in (0, 1):
+            step(k, batches[0])
+        ms = ([], [])
+        for i in range(pairs):
+            ds = batches[i % len(batches)]
+            for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+                ms[k].append(step(k, ds))
+        syncs = nets[1]._plan_rt.syncs
+    finally:
+        nets[1]._engage_plan(None)
+    return ms[0], ms[1], syncs
+
+
+def parallel_cli(fa, tmp, lm_zip, tokens, features, labels):
+    """Phase 15 (a) and (c): the train CLI's default `--mode sync` on a
+    one-rank NCCL group against `--mode single`, and `--mesh
+    data=1,zero=1|3`."""
+    import os
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import ShardingPlan
+    from deeplearning4j_tpu_torch.parallel.distributed import (
+        initialize_distributed, shutdown_distributed,
+    )
+    from deeplearning4j_tpu_torch.parallel.zero import (
+        sharded_fraction, zero_spec,
+    )
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    common = ["--model", lm_zip, "--dataset", tokens, "--epochs", "1",
+              "--batch-size", str(TRAIN_BATCH), "--score-every", "1"]
+    runs = {}
+    for name, extra in (("single", ["--mode", "single"]),
+                        ("sync", []),
+                        ("zero1", ["--mesh", "data=1,zero=1"]),
+                        ("zero3", ["--mesh", "data=1,zero=3"])):
+        out = os.path.join(tmp, f"par_{name}.zip")
+        t0 = time.perf_counter()
+        code, stdout, stderr, launches = _cli_in_process(
+            fa, common + ["--output", out] + extra)
+        wall = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"parallel CLI {name}: exit {code}: "
+                                 f"{stderr[-1500:]}")
+        result = json.loads(stdout.strip().splitlines()[-1])
+        record = None
+        for line in reversed(stderr.strip().splitlines()):
+            if line.startswith('{"parallel"'):
+                record = json.loads(line)["parallel"]
+                break
+        if result["iterations"] != PAR_STEPS:
+            raise AssertionError(f"parallel CLI {name} ran {result}")
+        want = N_LAYERS * PAR_STEPS
+        if any(launches[k] != want for k in KERNELS):
+            raise AssertionError(f"parallel CLI {name}: launches "
+                                 f"{launches} != {want} per kernel")
+        if name != "single" and (record is None or record["world"] != 1
+                                 or record["backend"] != "nccl"
+                                 or record["syncs"] != PAR_STEPS):
+            raise AssertionError(f"parallel CLI {name}: record {record}")
+        runs[name] = {"wall_s": wall, "final_score": result["final_score"],
+                      "launches": launches, "record": record,
+                      "flat": _flat_of(out)}
+    # (a) sync over one rank is the plain fit, bitwise; (c) so are the
+    # ZeRO stages over one rank (nothing splits)
+    for name in ("sync", "zero1", "zero3"):
+        diff = (runs[name]["flat"] - runs["single"]["flat"]).abs().max()
+        runs[name]["max_abs_diff_vs_single"] = float(diff)
+        if float(diff) != 0.0:
+            raise AssertionError(f"{name} differs from single by {diff}")
+    # step ms on the card: the plain step and the plan's step (its
+    # one-rank NCCL all-reduce of the gradients and loss), paired
+    batches = [DataSet(features[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                       labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+               for i in range(PAR_SEQS // TRAIN_BATCH)]
+    net = load_model(lm_zip)
+    initialize_distributed(device_type="cuda", single=True)
+    try:
+        plan = ShardingPlan()
+        plain_ms, sync_ms, syncs = _par_paired_ms(lm_zip, batches, plan,
+                                                  PAR_STEP_PAIRS)
+        plan_desc = plan.describe()
+        fraction_data1 = sharded_fraction(net.params, plan.mesh())
+    finally:
+        shutdown_distributed()
+    diffs = sorted(b - a for a, b in zip(plain_ms, sync_ms))
+    q1, _, q3 = statistics.quantiles(diffs, n=4)
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    nbytes = sharded = 0
+    for _, leaf in iter_leaves(net.params):
+        b = leaf.numel() * leaf.element_size()
+        nbytes += b
+        sharded += b if zero_spec(leaf, 2) else 0
+    for r in runs.values():
+        del r["flat"]
+    return {"runs": runs, "plan": plan_desc,
+            "step_ms_p50": {"single": statistics.median(plain_ms),
+                            "sync": statistics.median(sync_ms)},
+            "step_ms": {"single": plain_ms, "sync": sync_ms},
+            "sync_minus_single_ms": {
+                "pairs": len(diffs), "median": statistics.median(diffs),
+                "q1": q1, "q3": q3, "min": diffs[0], "max": diffs[-1]},
+            "syncs_per_step": syncs / (PAR_STEP_PAIRS + 1),
+            "sharded_fraction_data1": fraction_data1,
+            "sharded_fraction_at_data2": sharded / nbytes}
+
+
+def parallel_two_ranks(fa, tmp, lm_zip, features, labels):
+    """Phase 15 (b): SYNC and AVERAGING over two ranks on the one card
+    (gloo through host memory), against one rank and a by-hand
+    emulation."""
+    import hashlib
+    import os
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    tokens = os.path.join(tmp, "par_rank_tokens.npz")
+    np.savez(tokens, features=features[:PAR_RANK_SEQS],
+             labels=labels[:PAR_RANK_SEQS])
+    probes = _par_ranks("probe", lm_zip, tokens, tmp, timeout=90)
+    gloo_cuda = {}
+    for name in ("all_reduce", "broadcast", "all_gather",
+                 "all_gather_into_tensor", "reduce_scatter_tensor",
+                 "send_recv"):
+        verdicts = [p.get(name, "no answer (hung or crashed)")
+                    for p in probes]
+        gloo_cuda[name] = next((v for v in verdicts if v != "ok"), "ok")
+    if gloo_cuda["all_reduce"] != "ok":
+        raise AssertionError(f"gloo all_reduce on CUDA tensors: "
+                             f"{gloo_cuda['all_reduce']}")
+    ranks = _par_ranks("b", lm_zip, tokens, tmp)
+    for r in ranks:
+        if r["sync_iterations"] != PAR_RANK_STEPS or r["sync_workers"] != 2:
+            raise AssertionError(f"two-rank SYNC ran {r}")
+    a, b = (np.load(os.path.join(tmp, f"sync_{i}.npy")) for i in (0, 1))
+    if not np.array_equal(a, b):
+        raise AssertionError("SYNC ranks' parameters differ")
+    # the first batch's gradient: the two ranks' sum against one rank's,
+    # leaf by leaf
+    g0, g1 = (np.load(os.path.join(tmp, f"grad_{i}.npy")) for i in (0, 1))
+    if not np.array_equal(g0, g1):
+        raise AssertionError("the ranks' reduced gradients differ")
+    one = load_model(lm_zip)
+    one_loss, one_grads, _ = one.compute_gradient_and_score(
+        DataSet(features[:TRAIN_BATCH], labels[:TRAIN_BATCH]))
+    from deeplearning4j_tpu_torch.util.params import flat_to_params
+    g_one = _cpu_tree(one_grads)
+    del one_grads
+    grads = _leaf_table(flat_to_params(torch.from_numpy(g0), g_one), g_one)
+    loss_err = abs(ranks[0]["grad_loss"] - float(one_loss)) \
+        / abs(float(one_loss))
+    worst_g = max(grads, key=lambda p: grads[p]["err"])
+    if not (grads[worst_g]["err"] <= PAR_GRAD_TOL
+            and loss_err <= PAR_GRAD_TOL):
+        raise AssertionError(f"two-rank gradient vs one rank: leaf "
+                             f"{worst_g} {grads[worst_g]}, loss {loss_err}")
+    # one process that sums the two halves' gradients (each rank's loss is
+    # scaled by its share, 1/2, an exact factor): bitwise the two ranks,
+    # after the first step and after the fourth
+    from deeplearning4j_tpu_torch.nn.updaters import tree_map
+    sync1 = np.load(os.path.join(tmp, "sync1_0.npy"))
+    emu = load_model(lm_zip)
+    for i in range(PAR_RANK_STEPS):
+        halves = []
+        for r in range(2):
+            lo = i * TRAIN_BATCH + r * TRAIN_BATCH // 2
+            sl = slice(lo, lo + TRAIN_BATCH // 2)
+            halves.append(emu.compute_gradient_and_score(
+                DataSet(features[sl], labels[sl]))[1])
+        emu._update(tree_map(lambda x, y: x * 0.5 + y * 0.5, *halves))
+        del halves
+        if i in (0, PAR_RANK_STEPS - 1) and not np.array_equal(
+                emu.params_flat().detach().cpu().numpy(),
+                sync1 if i == 0 else a):
+            raise AssertionError(f"two-rank SYNC after step {i + 1} is not "
+                                 "bitwise the summed halves' emulation")
+    del emu
+    # the one-rank batch-4 run of the same steps, leaf by leaf against
+    # each leaf's own update
+    before = {p: t.detach().cpu().clone() for p, t in iter_leaves(one.params)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tables = {}
+    for i in range(PAR_RANK_STEPS):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        one._train_step(DataSet(features[sl], labels[sl]), gen)
+        if i in (0, PAR_RANK_STEPS - 1):
+            one_tree = _cpu_tree(one.params)
+            tables[i + 1] = _leaf_table(
+                flat_to_params(torch.from_numpy(sync1 if i == 0 else a),
+                               one_tree), one_tree, before, g_one)
+    worst = {}
+    for steps, tol in ((1, PAR_UPDATE_TOL), (PAR_RANK_STEPS, PAR_DRIFT_TOL)):
+        t = tables[steps]
+        leaf = max(t, key=lambda p: t[p]["err"])
+        cond = max(t, key=lambda p: t[p]["err_conditioned"])
+        worst[steps] = {"leaf": {"leaf": leaf, **t[leaf]},
+                        "conditioned": {"leaf": cond, **t[cond]}}
+        if not t[cond]["err_conditioned"] <= tol:
+            raise AssertionError(
+                f"two-rank SYNC vs one rank after {steps} steps: leaf "
+                f"{cond} {t[cond]} of its update")
+    del one
+    # AVERAGING emulated in one process: two networks step their halves,
+    # averaged by hand (f32 mean) after steps 2 and 4
+    nets = [load_model(lm_zip) for _ in range(2)]
+    gens = [torch.Generator(device="cuda").manual_seed(s) for s in (1, 2)]
+    want = {}
+    for i in range(PAR_RANK_STEPS):
+        for r, net in enumerate(nets):
+            lo = i * TRAIN_BATCH + r * TRAIN_BATCH // 2
+            sl = slice(lo, lo + TRAIN_BATCH // 2)
+            net._train_step(DataSet(features[sl], labels[sl]), gens[r])
+        if (i + 1) % 2 == 0:
+            _average_by_hand(nets)
+            want[str(i + 1)] = hashlib.sha256(
+                nets[0].params_flat().detach().cpu().numpy().tobytes()
+            ).hexdigest()
+    for r in ranks:
+        if r["avg_digests"] != want:
+            raise AssertionError(f"AVERAGING rank {r['rank']} after each "
+                                 f"average {r['avg_digests']} != the "
+                                 f"emulation's {want}")
+    del nets
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["sync_launches"][k] + r["avg_launches"][k]
+                       for r in ranks) for k in KERNELS}
+    want_launches = 2 * 2 * N_LAYERS * PAR_RANK_STEPS
+    if any(launches[k] != want_launches for k in KERNELS):
+        raise AssertionError(f"two-rank launches {launches} != "
+                             f"{want_launches}")
+    ar = sorted(ms for r in ranks for ms in r["all_reduce_ms"])
+    return {"gloo_cuda": gloo_cuda,
+            "backend": ranks[0]["backend"],
+            "all_reduce_ms_p50": statistics.median(ar),
+            "all_reduce_ms": ar,
+            "all_reduce_bytes": PAR_GRAD_FLOATS * 4,
+            "all_reduce_note": "gloo through host memory, two ranks on "
+                               "one card; not a multi-GPU number",
+            "sync_s": [r["sync_s"] for r in ranks],
+            "sync_syncs": [r["sync_syncs"] for r in ranks],
+            "grad_worst_leaf": {"leaf": worst_g, **grads[worst_g]},
+            "grad_total_norm": math.sqrt(sum(r["norm"] ** 2
+                                             for r in grads.values())),
+            "loss_err_vs_one_rank": loss_err,
+            "update_worst_after_1": worst[1],
+            f"update_worst_after_{PAR_RANK_STEPS}": worst[PAR_RANK_STEPS],
+            "sync_bitwise_summed_halves": True,
+            "grad_by_leaf": grads,
+            f"update_by_leaf_after_{PAR_RANK_STEPS}":
+                tables[PAR_RANK_STEPS],
+            "avg_syncs": [r["avg_syncs"] for r in ranks],
+            "avg_digests_equal_emulation": True,
+            "launches": launches}
+
+
+def _leaf_table(a_tree, b_tree, before=None, grads=None):
+    """Per leaf of two trees on the CPU: ||a - b|| over ||b|| ("err"),
+    or, with `before` (b's leaves before its steps), over the leaf's
+    update ||b - before||; the norm it is measured against ("norm") and
+    the largest element error ("max_abs"). With `grads` (the first
+    step's gradient) also the same ratio over the elements whose first
+    gradient is at least PAR_CONDITIONED_GRAD ("err_conditioned", of
+    "conditioned" elements) and the |gradient| of the worst element."""
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    b_leaves = dict(iter_leaves(b_tree))
+    g_leaves = dict(iter_leaves(grads)) if grads is not None else {}
+
+    def ratio(diff, ref):
+        norm = float(ref.norm())
+        if norm:
+            return float(diff.norm()) / norm, norm
+        return (math.inf if diff.numel() and float(diff.abs().max())
+                else 0.0), norm
+    table = {}
+    for path, a in iter_leaves(a_tree):
+        b = b_leaves[path]
+        ref = b if before is None else b - before[path]
+        diff = a - b
+        err, norm = ratio(diff, ref)
+        row = {"err": err, "norm": norm,
+               "max_abs": float(diff.abs().max())}
+        if path in g_leaves:
+            g = g_leaves[path].abs()
+            keep = g >= PAR_CONDITIONED_GRAD
+            row["err_conditioned"] = ratio(diff[keep], ref[keep])[0]
+            row["conditioned"] = int(keep.sum())
+            row["elements"] = g.numel()
+            row["grad_at_max"] = float(
+                g.reshape(-1)[diff.abs().argmax()])
+        table["/".join(path)] = row
+    return table
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _average_by_hand(nets):
+    """The f32 mean of two networks' parameters, floating optimizer state
+    and layer state, written into both."""
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    with torch.no_grad():
+        for kind in (lambda n: tree_leaves(n.params),
+                     lambda n: [t for t in tree_leaves(n.state)
+                                if t.is_floating_point()],
+                     lambda n: [t for t in tree_leaves(n.opt_state)
+                                if t.is_floating_point()]):
+            for a, b in zip(kind(nets[0]), kind(nets[1])):
+                m = ((a.float() + b.float()) / 2).to(a.dtype)
+                a.copy_(m)
+                b.copy_(m)
+
+
+def parallel_shared(fa, tmp):
+    """Phase 15 (d): SharedGradientsTrainer across two processes over
+    SocketTransport, the LM at depth 1, gradients encoded on the card."""
+    import os
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.registry import parse_zoo_source
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
+    lm1 = os.path.join(tmp, "lm_depth1.zip")
+    save_model(model_by_name(name, **{**kw, "n_layers": 1}).init(), lm1,
+               compression=STORED)
+    tokens = os.path.join(tmp, "par_rank_tokens.npz")
+    ranks = _par_ranks("d", lm1, tokens, tmp)
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("shared-gradient replicas differ")
+    steps = PAR_RANK_STEPS
+    for r in ranks:
+        if r["iterations"] != steps or any(
+                r["launches"][k] != steps for k in KERNELS):
+            raise AssertionError(f"shared-gradient rank ran {r}")
+    return {"ranks": [{k: r[k] for k in ("seconds", "compression_ratio",
+                                         "sparsity", "bytes_sent",
+                                         "messages_sent", "score")}
+                      for r in ranks],
+            "bytes_sent_per_step": [r["bytes_sent"] / steps for r in ranks],
+            "replicas_bitwise": True,
+            "launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in KERNELS}}
+
+
+def parallel(fa, tmp):
+    """Phase 15: data-parallel training of the full-width LM."""
+    import os
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.registry import parse_zoo_source
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    t_phase = time.perf_counter()
+    name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
+    lm_zip, tokens = os.path.join(tmp, "lm.zip"), os.path.join(tmp, "t.npz")
+    save_model(model_by_name(name, **kw).init(), lm_zip, compression=STORED)
+    rs = np.random.RandomState(1515)
+    _write_token_set(tokens, rs, PAR_SEQS)
+    with np.load(tokens) as d:
+        features, labels = d["features"], d["labels"]
+    t0 = time.perf_counter()
+    cli_part = parallel_cli(fa, tmp, lm_zip, tokens, features, labels)
+    cli_part["seconds"] = time.perf_counter() - t0
+    emit({"phase": "parallel_cli", **cli_part})
+    t0 = time.perf_counter()
+    ranks_part = parallel_two_ranks(fa, tmp, lm_zip, features, labels)
+    ranks_part["seconds"] = time.perf_counter() - t0
+    emit({"phase": "parallel_two_ranks", **ranks_part})
+    t0 = time.perf_counter()
+    shared_part = parallel_shared(fa, tmp)
+    shared_part["seconds"] = time.perf_counter() - t0
+    emit({"phase": "parallel_shared", **shared_part})
+    launches = {k: sum(cli_part["runs"][r]["launches"][k]
+                       for r in ("sync", "zero1", "zero3"))
+                + ranks_part["launches"][k] + shared_part["launches"][k]
+                for k in KERNELS}
+    want = 3 * N_LAYERS * PAR_STEPS + 4 * N_LAYERS * PAR_RANK_STEPS \
+        + 2 * PAR_RANK_STEPS
+    if any(launches[k] != want for k in KERNELS):
+        raise AssertionError(f"parallel launches {launches} != {want}")
+    row = {"phase": "parallel", "seconds": time.perf_counter() - t_phase,
+           "flash_launches": launches}
+    emit(row)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -6432,6 +7170,8 @@ def main(argv=None) -> int:
         res_run = resilience(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         fleet_run = fleet(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        par_run = parallel(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -6455,7 +7195,9 @@ def main(argv=None) -> int:
                              "resilience":
                                  res_run["flash_launches"]["flash_fwd"],
                              "fleet":
-                                 fleet_run["flash_launches"]["flash_fwd"]},
+                                 fleet_run["flash_launches"]["flash_fwd"],
+                             "parallel":
+                                 par_run["flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -6485,7 +7227,9 @@ def main(argv=None) -> int:
                                  "resilience":
                                      res_run["flash_launches"][name],
                                  "fleet":
-                                     fleet_run["flash_launches"][name]},
+                                     fleet_run["flash_launches"][name],
+                                 "parallel":
+                                     par_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

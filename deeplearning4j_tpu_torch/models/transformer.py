@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's `models/transformer.py`: the same fields,
 defaults and config, so ``zoo:TransformerLM?...`` builds the same
-network in both packages. The sharding rules come with the parallel
-slice.
+network in both packages, and `sharding_rules` is the reference's
+tensor- and expert-parallel rule table.
 """
 from __future__ import annotations
 
@@ -65,6 +65,28 @@ class TransformerLM(ZooModel):
                                loss="mcxent"))
         b.set_input_type(InputType.recurrent(1, self.seq_length))
         return b.build()
+
+    @staticmethod
+    def sharding_rules():
+        """Megatron tp + ep rules for the stack above. Paths look like
+        "1/attn/Wq" (block params are nested dicts)."""
+        from deeplearning4j_tpu_torch.parallel.mesh import MODEL_AXIS, P
+        from deeplearning4j_tpu_torch.parallel.sharding import ShardingRules
+        return ShardingRules((
+            # attention: column-parallel QKV, row-parallel output
+            (r".*/attn/W[qkv]$", P(None, MODEL_AXIS)),
+            (r".*/attn/Wo$", P(MODEL_AXIS, None)),
+            # MoE (3D, leading expert dim): expert parallelism over
+            # "model"; listed before the dense rules, since spec_for
+            # skips a rule longer than the leaf's rank
+            (r".*/W1$", P(MODEL_AXIS, None, None)),
+            (r".*/W2$", P(MODEL_AXIS, None, None)),
+            # dense MLP: column-parallel up, row-parallel down
+            (r".*/W1$", P(None, MODEL_AXIS)),
+            (r".*/W2$", P(MODEL_AXIS, None)),
+            # embedding: vocab-sharded
+            (r"^0/W$", P(MODEL_AXIS, None)),
+        ))
 
 
 @dataclasses.dataclass

@@ -27,8 +27,9 @@ gradient accumulation, prefetch with device-side normalization, per-vertex
 updaters and frozen vertices, per-vertex gradient checkpointing, and
 truncated BPTT (every sequence input, label and mask chunked along one
 shared T, the recurrent vertices' state carried across chunks); then
-`evaluate*` and `rnn_time_step`. Sharding plans raise
-NotImplementedError naming ROADMAP A.15.
+`evaluate*` and `rnn_time_step`. A sharding plan (`fit(plan=)` or the
+`use_mesh` one) runs every path data-parallel, as in
+`MultiLayerNetwork.fit`.
 """
 from __future__ import annotations
 
@@ -338,14 +339,23 @@ class ComputationGraph(TrainableNet):
                 tup(mds.features_masks), tup(mds.labels_masks))
 
     def _grad_struct(self, struct, generator, carries=None):
-        """(loss, grads, new state, new carries) of one batch struct."""
+        """(loss, grads, new state, new carries) of one batch struct;
+        under a plan, of this rank's block, scaled by its share."""
+        struct, scale = self._plan_local(struct)
         feats, labels, fmasks, lmasks = struct
         loss, grads, (new_state, new_carries) = self._gradients(
-            lambda live: self._score_fn(
+            lambda live: self._scaled(self._score_fn(
                 live, self.state, self._stage_inputs(feats),
                 self._as_labels(labels), self._as_masks(fmasks),
-                self._as_masks(lmasks), True, generator, carries))
+                self._as_masks(lmasks), True, generator, carries), scale))
         return loss, grads, new_state, new_carries
+
+    @staticmethod
+    def _loss_mask(struct):
+        """The first output's labels mask (the share of a multi-output
+        graph's loss is taken from its first output)."""
+        lmasks = struct[3]
+        return None if lmasks is None else lmasks[0]
 
     def _tbptt_chunks(self, struct):
         """The batch in chunks of tbptt_fwd_length along the one T that
@@ -422,18 +432,21 @@ class ComputationGraph(TrainableNet):
         step's static buffers device to device)."""
         if self.params is None:
             self.init()
-        scan_steps = self._fit_modes(scan_steps, accumulate_steps, plan)
+        scan_steps, plan = self._fit_modes(scan_steps, accumulate_steps,
+                                           plan)
         with engaged_device_affine(data, self.listeners) as aff:
             self._set_input_affine(aff)
             copy_marked = self._own_held_batches(
                 data, self.device, self._prefetches(data), scan_steps,
                 accumulate_steps)
             try:
+                self._engage_plan(plan)
                 self._run_epochs(
                     epochs, lambda: self._mds_stream(data), scan_steps,
                     accumulate_steps, 331,
                     getattr(data, "reset", lambda: None))
             finally:
+                self._engage_plan(None)
                 self._input_affine = None
                 restore_view_batches(copy_marked)
         return self

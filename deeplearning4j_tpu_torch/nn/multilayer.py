@@ -31,8 +31,10 @@ does). Every fit path records the reference's telemetry
 (`step_graph.record_iteration`, the `train/*` spans, the goodput session
 and the program ledger, `monitor/`): host scalars only, outside any
 captured graph. `rnn_time_step` streams through the recurrent layers with their
-state kept between calls. Sharding plans raise NotImplementedError
-naming ROADMAP A.15.
+state kept between calls. A sharding plan (`fit(plan=)`, or the
+process-wide `parallel.use_mesh` plan) makes every fit path
+data-parallel over the ranks of the process group, with ZeRO and rule
+sharding (`parallel/plan.PlanRuntime`, engaged for the fit's length).
 """
 from __future__ import annotations
 
@@ -187,11 +189,6 @@ def as_mask(m, device: torch.device) -> Optional[torch.Tensor]:
     return None if m is None else _tensor(m).to(device)
 
 
-def not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not yet ported to the PyTorch "
-                               f"port (ROADMAP {item})")
-
-
 def layer_call(layer, params, state, x, *, train: bool, mask, generator,
                remat: bool, seq: bool = False, carry=None):
     """layer.apply -> (y, new_state), or with `seq` layer.apply_seq from
@@ -273,6 +270,8 @@ class TrainableNet:
         self._input_affine = None
         self._affine_held = None
         self._dropout_gen = None
+        self._plan_rt = None            # parallel/plan.PlanRuntime
+        self._plan_syncs = 0            # collectives of released plans
 
     def _own_held_batches(self, source, staging_device, staged: bool,
                           scan_steps: int, accumulate_steps: int) -> list:
@@ -337,7 +336,9 @@ class TrainableNet:
         streams themselves differ)."""
         if self._dropout_gen is None:
             self._dropout_gen = torch.Generator(device=self.device)
-        self._dropout_gen.manual_seed(self.conf.seed
+        offset = 0 if self._plan_rt is None \
+            else self._plan_rt.generator_offset()
+        self._dropout_gen.manual_seed(self.conf.seed + offset
                                       + stride * (self.epoch_count + 1))
         return self._dropout_gen
 
@@ -371,12 +372,28 @@ class TrainableNet:
         return apply_device_affine(_tensor(x).to(self.device), shift, scale,
                                    self._compute_dtype)
 
+    def _grad_shapes(self) -> list:
+        """(shape, dtype) of each gradient leaf: the whole parameters'
+        (a sharded plan stores pieces)."""
+        if self._plan_rt is not None:
+            return self._plan_rt.whole_shapes
+        return [(p.shape, p.dtype) for p in tree_leaves(self.params)]
+
     def _bound_tensors(self) -> list:
         return step_graph.tree_tensors(self.params, self.opt_state,
                                        self.state) \
             + list(self._input_affine or ())
 
-    def _apply_grads(self, grads):
+    def _apply_grads(self, grads, loss=None):
+        """`_update(grads)`; under a sharding plan the data group's
+        reduction first and the plan's sharded update. Returns the loss
+        (the global one under a plan)."""
+        if self._plan_rt is not None:
+            return self._plan_rt.apply(self, grads, loss)
+        self._update(grads)
+        return loss
+
+    def _update(self, grads):
         """The updater chain (clipping included), the in-place update, the
         constraints' projection, the new optimizer state written into the
         old one's tensors."""
@@ -390,6 +407,8 @@ class TrainableNet:
 
     def _commit_state(self, new_state):
         with torch.no_grad():
+            if self._plan_rt is not None:
+                new_state = self._plan_rt.reduce_state(new_state)
             step_graph.commit(self.state, new_state)
 
     def _step_struct(self, struct, generator) -> torch.Tensor:
@@ -403,7 +422,7 @@ class TrainableNet:
         carries, detached)."""
         loss, grads, new_state, new_carries = self._grad_struct(
             struct, generator, carries)
-        self._apply_grads(grads)
+        loss = self._apply_grads(grads, loss)
         self._commit_state(new_state)
         return loss, new_carries
 
@@ -412,8 +431,11 @@ class TrainableNet:
         gradients with respect to the parameters as stored (`params`, by
         default the network's), `aux` (the new layer state and carries)
         detached."""
+        if params is None:
+            params = self.params if self._plan_rt is None \
+                else self._plan_rt.full_params(self.params)
         live = tree_map(lambda t: t.detach().requires_grad_(
-            t.is_floating_point()), self.params if params is None else params)
+            t.is_floating_point()), params)
         leaves = [t for t in tree_leaves(live) if t.requires_grad]
         with torch.enable_grad():
             loss, aux = score(live)
@@ -571,11 +593,55 @@ class TrainableNet:
                 etl_ms = 0.0
             etl_start = time.perf_counter()
 
+    def _plan_local(self, struct):
+        """(this rank's block of the batch struct, its loss scale) under
+        an engaged plan; (struct, None) without one."""
+        if self._plan_rt is None:
+            return struct, None
+        return self._plan_rt.local_batch(struct, self._loss_mask(struct))
+
+    @staticmethod
+    def _scaled(result, scale):
+        """A score function's (loss, aux) with the loss times `scale`."""
+        if scale is None:
+            return result
+        loss, aux = result
+        return loss * scale, aux
+
+    def _engage_plan(self, plan):
+        """Engage `plan` on the network (None: whole tensors, no plan).
+        Engaging or releasing a plan drops the captured steps and ledger
+        records: they hold (or lack) the plan's collectives."""
+        rt = self._plan_rt
+        if rt is not None and rt.plan != plan:
+            self._plan_rt = None
+            rt.release(self)
+            self._plan_syncs += rt.syncs
+            self._drop_graphs()
+            self._ledger_cache = {}
+        if plan is not None and self._plan_rt is None:
+            from deeplearning4j_tpu_torch.parallel.plan import PlanRuntime
+            self._plan_rt = PlanRuntime(plan, self)
+            self._drop_graphs()
+            self._ledger_cache = {}
+
     def _fit_modes(self, scan_steps, accumulate_steps, plan):
-        """Validate fit's options as the reference does; the resolved
-        scan_steps."""
-        if plan is not None:
-            raise not_ported("fit(plan=...) (sharding plans)", "A.15")
+        """Validate fit's options as the reference does: (the resolved
+        scan_steps, the plan: `plan`, else the `use_mesh` one)."""
+        from deeplearning4j_tpu_torch.parallel.plan import (
+            ShardingPlan, active_plan, check_capturable,
+        )
+        if plan is None:
+            plan = active_plan()
+        if plan is not None and not isinstance(plan, ShardingPlan):
+            raise TypeError(f"plan must be a parallel.ShardingPlan, got "
+                            f"{type(plan).__name__}")
+        scan_steps = self._resolve_scan(scan_steps, accumulate_steps)
+        if plan is not None and (scan_steps > 1 or accumulate_steps > 1):
+            check_capturable(self.device)
+        return scan_steps, plan
+
+    def _resolve_scan(self, scan_steps, accumulate_steps):
         if accumulate_steps > 1:
             if self.conf.backprop_type == "tbptt":
                 raise ValueError("accumulate_steps does not apply to "
@@ -803,14 +869,26 @@ class MultiLayerNetwork(TrainableNet):
         return (ds.features, ds.labels, ds.features_mask, ds.labels_mask)
 
     def _grad_struct(self, struct, generator, carries=None):
-        """(loss, grads, new state, new carries) of one batch struct."""
+        """(loss, grads, new state, new carries) of one batch struct;
+        under a plan, of this rank's block, scaled by its share."""
+        struct, scale = self._plan_local(struct)
         x, y, fm, lm = struct
         loss, grads, (new_state, new_carries) = self._gradients(
-            lambda live: self._score_fn(
+            lambda live: self._scaled(self._score_fn(
                 live, self.state, self._stage_x(x), self._as_labels(y),
                 self._as_mask(fm), self._as_mask(lm), True, generator,
-                carries))
+                carries), scale))
         return loss, grads, new_state, new_carries
+
+    def _loss_mask(self, struct):
+        """The mask the loss normalizes by: the labels mask, else the
+        features mask under a sequence head."""
+        _, _, fm, lm = struct
+        if lm is not None:
+            return lm
+        if self.layers and _required_kind(self.layers[-1]) == Kind.RNN:
+            return fm
+        return None
 
     def _tbptt_chunks(self, struct):
         """The batch in chunks of tbptt_fwd_length along time: features,
@@ -878,10 +956,16 @@ class MultiLayerNetwork(TrainableNet):
         - backprop_type "tbptt": per-call chunk steps whatever scan_steps
           says (`_fit_epoch_tbptt`); accumulate_steps > 1 raises.
 
-        `plan` raises NotImplementedError naming its ROADMAP item."""
+        - plan (a `parallel.ShardingPlan`; default: the `use_mesh`
+          plan): data parallelism over the process group's ranks, each
+          reading the global batch and keeping its block of rows, with
+          the plan's ZeRO stage and rules (`parallel/plan.py`). Every
+          path above runs under it; on CUDA the scan and accumulate
+          paths need NCCL. At the end the network holds whole tensors."""
         if self.params is None:
             self.init()
-        scan_steps = self._fit_modes(scan_steps, accumulate_steps, plan)
+        scan_steps, plan = self._fit_modes(scan_steps, accumulate_steps,
+                                           plan)
         iterator = self._as_iterator(data, batch_size)
         if prefetch is None:
             prefetch = fit_prefetch_enabled()
@@ -897,9 +981,11 @@ class MultiLayerNetwork(TrainableNet):
                 iterator, iterator._device if staged else self.device,
                 staged, scan_steps, accumulate_steps)
             try:
+                self._engage_plan(plan)
                 self._run_epochs(epochs, lambda: iterator, scan_steps,
                                  accumulate_steps, 7919, iterator.reset)
             finally:
+                self._engage_plan(None)
                 self._input_affine = None
                 restore_view_batches(copy_marked)
         return self

@@ -293,7 +293,9 @@ class ChunkedFit:
       or device tensors, state committed in place; returns the loss;
     - `_grad_struct(struct, generator)`: (loss, grads, new_state,
       new_carries);
-    - `_apply_grads(grads)`: the updater chain and the in-place update;
+    - `_apply_grads(grads, loss)`: the updater chain and the in-place
+      update (under a sharding plan the data group's reduction first);
+      returns the loss;
     - `_bound_tensors()`: the tensors a captured step reads;
     - `_affine_key()`: what of the device affine a captured step reads;
     - `_id_inputs()`: (flat leaf index, layer, (n, message)) of each
@@ -451,15 +453,16 @@ class ChunkedFit:
     # --------------------------------------------------------- accumulate
     def accumulate(self, batches, K: int, defer: bool):
         net = self.net
-        params = tree_tensors(net.params)
+        shapes = net._grad_shapes()
         acc = net._accum_buffers
-        if acc is None or len(acc["gsum"]) != len(params) or not all(
-                g.shape == p.shape and g.dtype == p.dtype
-                for g, p in zip(acc["gsum"], params)):
+        if acc is None or len(acc["gsum"]) != len(shapes) or not all(
+                g.shape == shape and g.dtype == dtype
+                for g, (shape, dtype) in zip(acc["gsum"], shapes)):
             score_dtype = torch.promote_types(torch.float32, torch.promote_types(
                 net._compute_dtype, net._param_dtype))
             acc = net._accum_buffers = {
-                "gsum": [torch.zeros_like(p) for p in params],
+                "gsum": [torch.zeros(shape, dtype=dtype, device=net.device)
+                         for shape, dtype in shapes],
                 "lsum": torch.zeros((), dtype=score_dtype, device=net.device),
                 "n": torch.zeros((), dtype=torch.float32, device=net.device)}
         extra = acc["gsum"] + [acc["lsum"], acc["n"]]
@@ -476,8 +479,8 @@ class ChunkedFit:
             it = iter(acc["gsum"])
             n = acc["n"]
             grads = tree_map(lambda p: next(it) / n.to(p.dtype), net.params)
-            net._apply_grads(grads)
-            loss = acc["lsum"] / n.to(acc["lsum"].dtype)
+            loss = net._apply_grads(grads,
+                                    acc["lsum"] / n.to(acc["lsum"].dtype))
             torch._foreach_zero_(acc["gsum"])
             acc["lsum"].zero_()
             return loss

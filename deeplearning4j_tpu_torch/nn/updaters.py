@@ -16,8 +16,10 @@ of it and moves between the packages. Counts are int32 scalars.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -395,9 +397,28 @@ def clip(max_delta: float) -> Transform:
                                   updates), state))
 
 
+_NORM_HOOK = threading.local()
+
+
+@contextlib.contextmanager
+def global_norm_hook(fn: Callable):
+    """Inside the block `global_norm(updates)` is `fn(updates)`: a
+    sharded update (`parallel/plan.py`) measures the whole gradient from
+    its pieces."""
+    prev = getattr(_NORM_HOOK, "fn", None)
+    _NORM_HOOK.fn = fn
+    try:
+        yield
+    finally:
+        _NORM_HOOK.fn = prev
+
+
 def global_norm(updates) -> torch.Tensor:
     """sqrt of the sum of squares over all leaves, summed leaf by leaf in
     the reference's order."""
+    hook = getattr(_NORM_HOOK, "fn", None)
+    if hook is not None:
+        return hook(updates)
     total = sum((g * g).sum() for g in tree_leaves(updates))
     return torch.sqrt(torch.as_tensor(total))
 

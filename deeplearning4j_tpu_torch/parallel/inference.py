@@ -1,16 +1,19 @@
 """ParallelInference — thread-safe inference with dynamic batching.
 
 Counterpart of the JAX package's `parallel/inference.py` (DL4J's
-`ParallelInference.java` and `BatchedInferenceObservable.java`), on one
-device:
+`ParallelInference.java` and `BatchedInferenceObservable.java`):
 
-- SEQUENTIAL mode: each caller's batch runs as it comes.
-- BATCHED mode: concurrent requests are coalesced into one device batch
-  (up to `max_batch_size`), run once, and the results scattered back.
+- SEQUENTIAL mode: each caller's batch runs as it comes, round-robin over
+  the replicas.
+- BATCHED mode: concurrent requests are coalesced into one batch (up to
+  `max_batch_size`), split into contiguous blocks across the replicas,
+  run at once, and the results scattered back.
 
-The reference shards the batch over a device mesh's data axis; the port
-runs on the network's own device. A mesh of more than one device is
-ROADMAP A.15 (`parallel/*`) and raises NotImplementedError.
+`mesh` is None (the network's own device), a device, or a list of
+devices: one replica per device (the network itself on its own device,
+copies elsewhere), as the reference shards its batch over the mesh's
+data axis. Tensor-parallel servables (`plan=`) come with the next slice
+(ROADMAP A.15b) and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -45,31 +48,45 @@ class _Request:
         self.error = None
 
 
-def _mesh_devices(mesh, model) -> torch.device:
-    """The one device inference runs on. `mesh` is None (the network's
-    own device), a device, or a sequence of devices; more than one
-    device is not ported, and a device other than the network's raises
-    rather than moving it."""
-    if mesh is None:
-        return torch.device(model.device)
-    devices = [mesh] if isinstance(mesh, (str, torch.device)) \
-        else list(mesh)
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"ParallelInference over {len(devices)} devices is ROADMAP "
-            "A.15 (parallel/*), not yet ported; pass one device")
-    dev = resolve_device(devices[0])
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
+def _mesh_devices(mesh, model) -> list:
+    """The devices inference runs on, one replica each. `mesh` is None
+    (the network's own device), a device, or a sequence of devices. One
+    named device must be the network's own (it is not moved); with
+    several, copies are made on the others."""
     own = torch.device(model.device)
-    if dev.type != own.type or (dev.index is not None
-                                and own.index is not None
-                                and dev.index != own.index):
+    if mesh is None:
+        return [own]
+    devices = [resolve_device(d) for d in (
+        [mesh] if isinstance(mesh, (str, torch.device)) else list(mesh))]
+    if not devices:
+        raise ValueError("mesh names no device")
+    if len(devices) == 1 and not _same_device(devices[0], own):
         raise ValueError(f"the network lives on {own}, the mesh names "
-                         f"{dev}; load it there first")
-    return own
+                         f"{devices[0]}; load it there first")
+    return [own if _same_device(d, own) else d for d in devices]
+
+
+def _replica(model, device: torch.device):
+    """`model` on `device`: the network itself when it lives there, else
+    a copy of its parameters and layer state there."""
+    if _same_device(torch.device(model.device), device):
+        return model
+    from deeplearning4j_tpu_torch.nn.multilayer import tree_to
+    clone = model.copy()
+    clone.device = device
+    clone.params = tree_to(clone.params, device)
+    clone.state = tree_to(clone.state, device)
+    clone._reset_fit_state()
+    return clone
 
 
 class ParallelInference:
-    """Thread-safe batched inference over one device.
+    """Thread-safe batched inference over one replica per device.
 
         pi = ParallelInference(net, mode=InferenceMode.BATCHED,
                                max_batch_size=64)
@@ -85,10 +102,15 @@ class ParallelInference:
             raise RuntimeError("model must be initialized before serving")
         if plan is not None:
             raise NotImplementedError(
-                "tensor-parallel servables (a sharding plan) are ROADMAP "
-                "A.15 (parallel/*), not yet ported")
-        self.device = _mesh_devices(mesh, model)
+                "tensor-parallel servables (a sharding plan) come with the "
+                "next slice of the port (ROADMAP A.15b: ring, context and "
+                "pipeline parallelism, ParallelInference(plan=))")
+        self.devices = _mesh_devices(mesh, model)
+        self.device = self.devices[0]
+        self.n_devices = len(self.devices)
         self.model = model
+        self._replicas = [_replica(model, d) for d in self.devices]
+        self._next = 0
         self.mode = InferenceMode(mode)
         self.max_batch_size = int(max_batch_size)
         self._queue: "queue.Queue[_Request]" = queue.Queue(maxsize=queue_limit)
@@ -141,10 +163,36 @@ class ParallelInference:
                                 time.perf_counter() - t0, domain="serving")
         return out
 
-    def _run_batch(self, x):
-        with self._swap_lock:   # the model is read atomically vs a swap
-            model = self.model
-        return self._run_with(model, x)
+    def _run_batch(self, x, batched: bool = False):
+        """One replica's forward (SEQUENTIAL: round-robin), or the batch
+        split in contiguous blocks over every replica at once (BATCHED)."""
+        with self._swap_lock:   # the replicas are read atomically vs a swap
+            replicas = self._replicas
+            turn = self._next
+            self._next = (self._next + 1) % len(replicas)
+        if not batched or len(replicas) == 1:
+            return self._run_with(replicas[turn], x)
+        n = x.shape[0]
+        per = -(-n // len(replicas))
+        blocks = [(r, x[i * per:(i + 1) * per])
+                  for i, r in enumerate(replicas) if i * per < n]
+        outs, errors = [None] * len(blocks), []
+
+        def run(i):
+            try:
+                outs[i] = self._run_with(*blocks[i])
+            except Exception as e:      # noqa: BLE001 — raised below
+                errors.append(e)
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(1, len(blocks))]
+        for t in threads:
+            t.start()
+        run(0)
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return np.concatenate(outs, axis=0)
 
     # ------------------------------------------------------------------ API
     def output(self, x, timeout: Optional[float] = 60.0):
@@ -219,7 +267,7 @@ class ParallelInference:
                 with monitor.span("inference/batch",
                                   n=int(batch.shape[0]),
                                   requests=len(reqs)):
-                    out = self._run_batch(batch)
+                    out = self._run_batch(batch, batched=True)
                 ofs = 0
                 for r in reqs:
                     r.result = out[ofs:ofs + r.x.shape[0]]
@@ -254,10 +302,13 @@ class ParallelInference:
         if torch.device(model.device) != self.device:
             raise ValueError(f"replacement lives on {model.device}, this "
                              f"ParallelInference serves on {self.device}")
+        replicas = [_replica(model, d) for d in self.devices]
         if warmup is not None:
-            warmup(lambda x: self._run_with(model, x))
+            for r in replicas:
+                warmup(lambda x, r=r: self._run_with(r, x))
         with self._swap_lock:
             self.model = model
+            self._replicas = replicas
 
     def shutdown(self):
         self._stop.set()

@@ -14,21 +14,34 @@ Usage:
 
 The parser keeps the reference's flags and defaults and adds `--device`
 (default ``cuda``; ``cpu`` runs on the CPU, and without CUDA the default
-raises). `--mode single` runs `net.fit`; `--mode sync` (the default) is
-data parallelism, which over one worker is the same plain fit, so it runs
-that when exactly one worker is visible. The fit takes `fit`'s own
+raises). `--mode single` runs `net.fit`. `--mode sync` (the default)
+trains through a SYNC_GRADIENTS `ParallelWrapper` over the process group
+it finds (`parallel/distributed.py`): under torchrun's variables
+(MASTER_ADDR/MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK) or the
+reference's (COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID) each rank
+joins it, NCCL on CUDA (rank r on ``cuda:LOCAL_RANK``) and gloo on the
+CPU; launched alone it forms a one-rank group, and on a host with several
+visible CUDA devices it starts one worker per device, as the reference
+uses every local device. `--mode averaging` is DL4J's AVERAGING
+(`--averaging-frequency`, `--no-average-updaters`). `--mesh SPEC`
+("data=2,model=1,zero=1,rules=megatron", `parallel.parse_plan`) trains
+under that sharding plan (`use_mesh`), in single or sync mode; averaging
+refuses it, as in the reference. Only rank 0 saves the model, prints the
+result line and serves `--serve-port`; with a plan or a group it also
+prints ``{"parallel": {"mode", "world", "plan", "syncs"}}`` on stderr
+(``syncs``: the collectives the fit issued). The fit takes `fit`'s own
 defaults, as the reference's CLI does: prefetch on (DL4J_CUDA_FIT_PREFETCH,
 DL4J_CUDA_PREFETCH_DEPTH) and DL4J_CUDA_SCAN_STEPS steps a chunk (default
 1, per-call). `--serve-port` hands the trained network to a
 `ModelServer` on that port (0 picks a free one) with `--serve-buckets`,
 prints ``{"serving": url, "predict": path}`` on stderr after the result
 line, and serves until SIGTERM or SIGINT, which drain it; the run then
-exits 0. Every flag of a part not yet ported (more than one worker,
-`averaging`, the dashboard, sharding plans) stops the run with "not yet
-ported"; none is ignored.
+exits 0. The dashboard's flag (`--ui-port`) stops the run with "not yet
+ported"; no flag is ignored.
 
 `--checkpoint-dir DIR` trains through `ResilientTrainer`
-(`train/resilience.py`) on the one device: atomic manifest-tracked
+(`train/resilience.py`), over the sync-mode wrapper (averaging refuses
+it, as in the reference): atomic manifest-tracked
 checkpoints every `--save-every-iterations` steps and at each epoch's
 end (`--keep-last` kept), SIGTERM/SIGINT handled at the next step
 boundary, the per-step fault policy, and ``DL4J_CUDA_FAULTS`` fault
@@ -66,7 +79,6 @@ import numpy as np
 # flags of parts that wait, each with the slice it comes with
 _UNPORTED_FLAGS = (
     ("ui_port", "--ui-port", "UI"),
-    ("mesh", "--mesh", "parallel"),
 )
 
 
@@ -86,9 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--mode", choices=["sync", "averaging", "single"],
                    default="sync",
-                   help="sync = data parallelism (one worker: a plain fit); "
-                        "averaging = DL4J AVERAGING (not yet ported); "
-                        "single = plain net.fit")
+                   help="sync = data parallelism over the process group "
+                        "(ParallelWrapper SYNC_GRADIENTS); averaging = DL4J "
+                        "AVERAGING; single = plain net.fit")
     p.add_argument("--averaging-frequency", type=int, default=5)
     p.add_argument("--no-average-updaters", action="store_true",
                    help="skip averaging optimizer state (saveUpdater=false)")
@@ -133,7 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-buckets", default="1,8,32,128",
                    help="batch-size bucket ladder for --serve-port")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help="sharding plan (not yet ported)")
+                   help="sharding plan, e.g. 'data=2,zero=1' or "
+                        "'data=2,model=2,rules=megatron' (keys: data, "
+                        "model, zero, rules)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; cpu for "
                         "the CPU)")
@@ -145,9 +159,6 @@ def _refuse_unported(args):
         if getattr(args, attr):
             raise SystemExit(f"{flag}: not yet ported to the PyTorch port "
                              f"(comes with the {part} slice)")
-    if args.mode == "averaging":
-        raise SystemExit("--mode averaging: not yet ported to the PyTorch "
-                         "port (comes with the parallel slice)")
 
 
 def _serve_trained(net, args) -> None:
@@ -170,9 +181,60 @@ def _serve_trained(net, args) -> None:
     server.drain()
 
 
-def _workers(device) -> int:
+def _spawn_local_workers(argv, n: int) -> int:
+    """One worker process per visible CUDA device, joined into one group
+    on a free local port (the reference drives every local device);
+    rank 0's exit code, or the first failure's."""
+    import os
+    import subprocess
+
+    from deeplearning4j_tpu_torch.parallel.distributed import free_port
+    port = free_port()
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   NUM_PROCESSES=str(n), PROCESS_ID=str(r),
+                   LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch.train"]
+            + list(argv), env=env))
+    codes = [p.wait() for p in procs]
+    return codes[0] if codes[0] else next((c for c in codes if c), 0)
+
+
+def _join_group(args):
+    """The process group this run trains in and this rank's device: (the
+    device, whether this call formed the group)."""
     import torch
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.distributed import (
+        DistributedConfig, initialize_distributed, rank_device,
+    )
+    from deeplearning4j_tpu_torch.util.platform import resolve_device
+    device = resolve_device(args.device)
+    if dist.is_initialized():
+        return device, False
+    cfg = DistributedConfig.from_env()
+    initialize_distributed(cfg, device_type=device.type, single=True)
+    if device.type == "cuda":
+        device = rank_device("cuda", cfg)
+        torch.cuda.set_device(device)
+    return device, True
+
+
+def _parallel_record(args, net, wrapper, plan) -> dict:
+    """The stderr record of a data-parallel run."""
+    import torch.distributed as dist
+    syncs = net._plan_syncs + (wrapper.syncs if wrapper is not None else 0)
+    desc = wrapper.plan if wrapper is not None else plan
+    return {"parallel": {
+        "mode": args.mode,
+        "world": dist.get_world_size() if dist.is_initialized() else 1,
+        "backend": str(dist.get_backend()) if dist.is_initialized()
+        else None,
+        "plan": None if desc is None else desc.describe(),
+        "syncs": syncs}}
 
 
 def _load_data(name: str, batch_size: int, allow_synthetic: bool = False):
@@ -251,12 +313,12 @@ def _enable_telemetry(args):
     return emit_telemetry
 
 
-def _fit_resilient(net, iterator, args) -> int:
+def _fit_resilient(net, target, iterator, args) -> int:
     """The --checkpoint-dir path: 0 when the fit completed, 3 preempted,
     4 diverged (the network then holds its last good checkpoint)."""
     from deeplearning4j_tpu_torch.train.resilience import ResilientTrainer
     trainer = ResilientTrainer(
-        net, args.checkpoint_dir,
+        target, args.checkpoint_dir,
         save_every_n_iterations=args.save_every_iterations,
         keep_last=args.keep_last, resume=args.resume)
     report = trainer.fit(iterator, epochs=args.epochs,
@@ -264,12 +326,18 @@ def _fit_resilient(net, iterator, args) -> int:
     if report.preempted or report.diverged:
         # an incomplete run: no output model, no result line, a distinct
         # exit code so a caller cannot take it for a finished job
-        print(json.dumps({"preempted": report.preempted,
-                          "diverged": report.diverged,
-                          "iterations": net.iteration_count,
-                          "resume_with": "--resume"}), file=sys.stderr)
+        if _is_coordinator():
+            print(json.dumps({"preempted": report.preempted,
+                              "diverged": report.diverged,
+                              "iterations": net.iteration_count,
+                              "resume_with": "--resume"}), file=sys.stderr)
         return 3 if report.preempted else 4
     return 0
+
+
+def _is_coordinator() -> bool:
+    from deeplearning4j_tpu_torch.parallel.distributed import is_coordinator
+    return is_coordinator()
 
 
 def main(argv=None) -> int:
@@ -283,20 +351,63 @@ def main(argv=None) -> int:
     except ValueError:
         raise SystemExit(f"--serve-buckets must be comma-separated ints, "
                          f"got {args.serve_buckets!r}")
+    mesh_plan = None
+    if args.mesh:
+        from deeplearning4j_tpu_torch.parallel.plan import parse_plan
+        try:
+            mesh_plan = parse_plan(args.mesh)
+        except ValueError as e:
+            raise SystemExit(f"--mesh: {e}")
+        if args.mode == "averaging":
+            raise SystemExit("--mesh applies to --mode single|sync "
+                             "(AVERAGING keeps per-worker replicas by "
+                             "definition)")
+    if args.checkpoint_dir and args.mode == "averaging":
+        raise SystemExit("--checkpoint-dir supports --mode single|sync "
+                         "(AVERAGING replica state is not resumable)")
+    from deeplearning4j_tpu_torch.parallel.distributed import (
+        DistributedConfig, shutdown_distributed,
+    )
+    from deeplearning4j_tpu_torch.util.platform import resolve_device
+    device = resolve_device(args.device)
+    parallel = args.mode != "single" or mesh_plan is not None
+    if parallel and device.type == "cuda" \
+            and not DistributedConfig.from_env().configured:
+        import torch
+        import torch.distributed as dist
+        if not dist.is_initialized() and torch.cuda.device_count() > 1:
+            return _spawn_local_workers(
+                sys.argv[1:] if argv is None else argv,
+                torch.cuda.device_count())
+    formed = False
+    if parallel:
+        device, formed = _join_group(args)
+    try:
+        if mesh_plan is not None:
+            try:
+                # the extents against the group's ranks, before the fit
+                mesh_plan.mesh()
+            except ValueError as e:
+                raise SystemExit(f"--mesh: {e}")
+        return _train(args, device, mesh_plan, parallel)
+    finally:
+        if formed:
+            shutdown_distributed()
+
+
+def _train(args, device, mesh_plan, parallel: bool) -> int:
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, TrainingMode, use_mesh,
+    )
     from deeplearning4j_tpu_torch.train.listeners import (
         PerformanceListener, ScoreIterationListener,
     )
-    from deeplearning4j_tpu_torch.util.platform import resolve_device
     from deeplearning4j_tpu_torch.util.serialization import (
         load_model, save_model,
     )
-    device = resolve_device(args.device)
-    if args.mode == "sync" and _workers(device) > 1:
-        raise SystemExit(
-            f"--mode sync over {_workers(device)} CUDA devices: not yet "
-            "ported to the PyTorch port (comes with the parallel slice); "
-            "use --mode single or make one device visible")
+    import contextlib
     emit_telemetry = _enable_telemetry(args)
+    lead = _is_coordinator()
     # telemetry emits in a finally: a fit that dies mid-run still leaves
     # the trace/metrics record — the crash case is when it is most needed
     try:
@@ -305,18 +416,42 @@ def main(argv=None) -> int:
                               allow_synthetic=args.synthetic_data)
         net.set_listeners(ScoreIterationListener(args.score_every),
                           PerformanceListener(args.score_every))
-        if args.checkpoint_dir:
-            code = _fit_resilient(net, iterator, args)
-            if code:
-                return code
-        else:
-            net.fit(iterator, epochs=args.epochs)
+        wrapper = None
+        # --mesh: the whole training section runs under use_mesh, so the
+        # plain fit, the wrapper and ResilientTrainer all resolve it
+        ctx = use_mesh(mesh_plan) if mesh_plan is not None \
+            else contextlib.nullcontext()
+        with ctx:
+            if mesh_plan is not None and lead:
+                print(f"mesh plan: {mesh_plan.describe()}", file=sys.stderr)
+            if args.mode != "single":
+                wrapper = ParallelWrapper(
+                    net, mode=(TrainingMode.SYNC_GRADIENTS
+                               if args.mode == "sync"
+                               else TrainingMode.AVERAGING),
+                    averaging_frequency=args.averaging_frequency,
+                    average_updaters=not args.no_average_updaters)
+            if args.checkpoint_dir:
+                code = _fit_resilient(net, wrapper or net, iterator, args)
+                if code:
+                    return code
+            elif wrapper is not None:
+                wrapper.fit(iterator, epochs=args.epochs,
+                            batch_size=args.batch_size)
+            else:
+                net.fit(iterator, epochs=args.epochs)
+        if not lead:
+            return 0
         save_model(net, args.output)
         print(json.dumps({"output": args.output,
                           "final_score": net.score(),
                           "iterations": net.iteration_count,
                           "epochs": net.epoch_count}))
         sys.stdout.flush()
+        if parallel:
+            print(json.dumps(_parallel_record(args, net, wrapper,
+                                              mesh_plan)),
+                  file=sys.stderr, flush=True)
         if args.serve_port is not None:
             _serve_trained(net, args)
         return 0

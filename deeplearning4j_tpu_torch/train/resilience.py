@@ -59,8 +59,18 @@ Where the port differs from the reference, by design:
   across packages only for networks without stochastic layers.
 
 `util/faults.py` injects deterministic faults at the same step
-boundaries (``DL4J_CUDA_FAULTS``). A `ParallelWrapper` (several
-devices) waits for the parallel slice (ROADMAP A.15).
+boundaries (``DL4J_CUDA_FAULTS``).
+
+Data parallelism: a SYNC_GRADIENTS `ParallelWrapper` (every rank of the
+process group runs its own trainer over it), or a network under the
+`use_mesh` plan, trains through the plan's step (`parallel/plan.py`),
+engaged after the resume and released at the end. Rank 0 writes the
+checkpoints, of whole tensors (a sharded plan gathers them on every rank
+first), with the plan's description banked in ``extra["plan"]``; every
+rank restores them, and resuming under another plan (another ZeRO stage)
+logs a warning and re-shards onto the live plan. A mid-epoch resume
+restores rank 0's dropout stream on rank 0; the other data ranks restart
+theirs from the epoch seed (bitwise for networks without dropout).
 """
 from __future__ import annotations
 
@@ -484,9 +494,44 @@ class _NetDriver:
     #: the epoch generator's seed stride (`TrainableNet._epoch_generator`)
     stride = 7919
 
+    #: the plan the trainer engages; None: the `use_mesh` one, if any
+    plan = None
+
     def __init__(self, net):
         self.net = net
         self._snap = _DeviceSnapshot()
+
+    def engage(self):
+        """Engage the plan on the network (after any resume)."""
+        from deeplearning4j_tpu_torch.parallel.plan import active_plan
+        plan = self.plan if self.plan is not None else active_plan()
+        if plan is not None:
+            self.net._engage_plan(plan)
+
+    def release(self):
+        if self.net._plan_rt is not None:
+            self.net._engage_plan(None)
+
+    def plan_describe(self) -> Optional[dict]:
+        """The engaged plan's description (banked in checkpoints)."""
+        rt = self.net._plan_rt
+        if rt is not None:
+            return rt.plan.describe()
+        from deeplearning4j_tpu_torch.parallel.plan import active_plan
+        plan = self.plan if self.plan is not None else active_plan()
+        return None if plan is None else plan.describe()
+
+    def data_index(self) -> int:
+        rt = self.net._plan_rt
+        return 0 if rt is None else rt.data_index
+
+    def whole_view(self):
+        """A block in which the network holds whole tensors (collective
+        under a sharded plan)."""
+        import contextlib
+        rt = self.net._plan_rt
+        return contextlib.nullcontext() if rt is None \
+            else rt.whole_view(self.net)
 
     def prepare(self):
         if self.net.params is None:
@@ -546,6 +591,31 @@ class _GraphDriver(_NetDriver):
         return self.net._iter_data(source)
 
 
+class _WrapperDriver(_NetDriver):
+    """A SYNC_GRADIENTS ParallelWrapper's step: the network's own step
+    under the wrapper's plan, on batches the wrapper pads to the ranks."""
+
+    def __init__(self, wrapper):
+        from deeplearning4j_tpu_torch.parallel.wrapper import TrainingMode
+        if wrapper.mode != TrainingMode.SYNC_GRADIENTS:
+            raise NotImplementedError(
+                "ResilientTrainer drives ParallelWrapper in SYNC_GRADIENTS "
+                "mode only (AVERAGING keeps per-worker replica state that "
+                "is not checkpointable step-by-step yet)")
+        super().__init__(wrapper.model)
+        self.wrapper = wrapper
+        self.plan = wrapper.plan
+        if wrapper._is_graph:
+            self.stride = _GraphDriver.stride
+
+    def make_source(self, data, batch_size):
+        return self.wrapper._source(data, batch_size)
+
+    def batches(self, source):
+        from deeplearning4j_tpu_torch.parallel.wrapper import _PaddedSource
+        return iter(_PaddedSource(self.wrapper, source))
+
+
 def _generator_extra(generator: torch.Generator) -> dict:
     state = generator.get_state()
     return {"state": bytes(state.numpy()).hex(),
@@ -578,9 +648,8 @@ class ResilientTrainer:
 
     With a `torch.distributed` process group, only rank 0 writes
     checkpoints (every process restores); override with
-    `write_checkpoints=`. A `ParallelWrapper` raises NotImplementedError:
-    data-parallel resilience comes with the parallel slice (ROADMAP
-    A.15).
+    `write_checkpoints=`. `model` may be a SYNC_GRADIENTS
+    `ParallelWrapper` (see the module doc).
     """
 
     def __init__(self, model, checkpoint_dir: str,
@@ -595,12 +664,10 @@ class ResilientTrainer:
                  eval_gate=None):
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
         if type(model).__name__ == "ParallelWrapper":
-            raise NotImplementedError(
-                "ResilientTrainer over a ParallelWrapper is not yet ported "
-                "to the PyTorch port (ROADMAP A.15, the parallel slice); "
-                "pass the network itself to train on one device")
-        self._driver = _GraphDriver(model) \
-            if isinstance(model, ComputationGraph) else _NetDriver(model)
+            self._driver = _WrapperDriver(model)
+        else:
+            self._driver = _GraphDriver(model) \
+                if isinstance(model, ComputationGraph) else _NetDriver(model)
         self.net = self._driver.net
         self.ckpt = CheckpointManager(checkpoint_dir, keep_last=keep_last)
         self.save_every_n_iterations = save_every_n_iterations
@@ -671,6 +738,11 @@ class ResilientTrainer:
                 pass
 
     def _save(self, report: FitReport, step_in_epoch: int):
+        # every rank enters: a sharded plan gathers whole tensors
+        with self._driver.whole_view():
+            return self._save_whole(report, step_in_epoch)
+
+    def _save_whole(self, report: FitReport, step_in_epoch: int):
         if not self._writes_enabled():
             return None
         extra = {
@@ -692,6 +764,11 @@ class ResilientTrainer:
                             exc_info=True)
         if self.net._score is not None:
             extra["score"] = float(self.net._score)
+        plan_desc = self._driver.plan_describe()
+        if plan_desc is not None:
+            # the plan the run trained under: a resume onto another one
+            # is detected and logged
+            extra["plan"] = plan_desc
         nz = self._normalizer_extra()
         if nz is not None:
             extra["normalizer"] = nz
@@ -845,6 +922,14 @@ class ResilientTrainer:
         report.resumed_from = entry["path"]
         step_in_epoch = int(extra.get("step_in_epoch", 0))
         self._dispatch_idx = int(extra.get("dispatch_idx", 0))
+        live_plan = self._driver.plan_describe()
+        if extra.get("plan") != live_plan:
+            # supported (checkpoints hold whole tensors; the live plan
+            # re-shards them when it is engaged) but never silent
+            log.warning(
+                "resuming onto a different sharding plan: checkpoint "
+                "trained under %s, live plan is %s — placements re-derived "
+                "from the live plan", extra.get("plan"), live_plan)
         if step_in_epoch > 0:
             self._gen = self._driver.epoch_generator()
             banked = extra.get("torch_rng")
@@ -873,6 +958,22 @@ class ResilientTrainer:
         step_in_epoch, resumed_mid_epoch = 0, False
         if self.resume:
             step_in_epoch, resumed_mid_epoch = self._resume(report)
+        self._driver.engage()
+        if resumed_mid_epoch and self._driver.data_index() > 0:
+            log.info("data rank %d restarts its dropout stream from the "
+                     "epoch seed (the checkpoint banks rank 0's)",
+                     self._driver.data_index())
+            self._gen = self._driver.epoch_generator()
+        try:
+            return self._fit_engaged(data, epochs, batch_size, report,
+                                     step_in_epoch, resumed_mid_epoch)
+        finally:
+            self._driver.release()
+
+    def _fit_engaged(self, data, epochs, batch_size, report, step_in_epoch,
+                     resumed_mid_epoch):
+        net = self.net
+        policy = self.policy
 
         source = self._driver.make_source(data, batch_size)
         # weakly held: _save banks the seekable stream position while the
@@ -1046,6 +1147,7 @@ class ResilientTrainer:
         """Graceful degradation: restore the newest good checkpoint so the
         model is left usable, then stop (or raise, per policy)."""
         report.diverged = True
+        self._driver.release()          # the restore loads whole tensors
         monitor.counter("resilience_divergence_rollbacks_total",
                         "Unrecoverable divergences rolled back to the "
                         "last good checkpoint").inc()

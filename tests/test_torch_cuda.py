@@ -38,6 +38,9 @@ fleet: two in-process replicas of a flash LM behind the router, every
 predict through the kernel (n_layers launches a dispatch) and within
 1e-4 of plain attention; a SIGKILLed subprocess replica relaunched on
 the card, answering bitwise as before while the router kept answering.
+Data parallelism: fit(plan=) over a one-rank NCCL group bitwise the
+plain fit, per call and with the all-reduce captured in the step's graph;
+a captured step under gloo refused before it starts.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -1639,3 +1642,50 @@ def test_a_killed_subprocess_replica_rejoins_on_the_card(cuda, tmp_path):
     finally:
         server.stop()
         sup.stop()
+
+
+# ------------------------------------------------------ data parallelism
+@pytest.fixture
+def one_rank_group(cuda):
+    """A one-rank process group of `backend` on the card, left after."""
+    from deeplearning4j_tpu_torch.parallel.distributed import (
+        DistributedConfig, free_port, initialize_distributed,
+        shutdown_distributed,
+    )
+
+    def form(backend):
+        initialize_distributed(DistributedConfig(
+            coordinator_address=f"127.0.0.1:{free_port()}",
+            num_processes=1, process_id=0, backend=backend),
+            device_type="cuda")
+    yield form
+    shutdown_distributed()
+
+
+@pytest.mark.parametrize("scan", [1, 4])
+def test_a_plan_on_one_nccl_rank_is_bitwise_the_plain_fit(one_rank_group,
+                                                          cuda, scan):
+    """fit(plan=) over a one-rank NCCL group (the all-reduce of gradients
+    and loss captured in the step's CUDA graph when scan_steps=4) is
+    bitwise the plain fit, ZeRO-1's sharded update path included."""
+    from deeplearning4j_tpu_torch.parallel import ShardingPlan
+    one_rank_group("nccl")
+    plain, planned = _lm(cuda, dropout=0.1), _lm(cuda, dropout=0.1)
+    plain.fit(_lm_iter(), epochs=2, scan_steps=scan)
+    planned.fit(_lm_iter(), epochs=2, scan_steps=scan,
+                plan=ShardingPlan(zero_stage=1))
+    assert _same(plain, planned) and plain.score() == planned.score()
+    assert planned._plan_syncs > 0
+
+
+def test_a_captured_step_under_gloo_is_refused(one_rank_group, cuda):
+    """gloo's collectives cannot sit in a CUDA graph: a scan under a plan
+    raises before any step, and per-call steps run."""
+    from deeplearning4j_tpu_torch.parallel import ShardingPlan
+    one_rank_group("gloo")
+    net = _lm(cuda)
+    with pytest.raises(RuntimeError, match="cannot"):
+        net.fit(_lm_iter(), scan_steps=4, plan=ShardingPlan())
+    assert net.iteration_count == 0
+    net.fit(_lm_iter(), plan=ShardingPlan())
+    assert net.iteration_count == 12 and np.isfinite(net.score())

@@ -508,7 +508,7 @@ def test_graph_evaluate_and_roc_match_the_reference(tmp_path):
 @pytest.mark.parametrize("case,item", [("tbptt", "A.7"), ("plan", "A.15"),
                                        ("rnn_time_step", "A.7")])
 def test_what_still_raises_names_its_roadmap_item(container, case, item):
-    """Sharding plans still raise naming their item. tbptt and
+    """Sharding plans train now (a plan must be a ShardingPlan). tbptt and
     rnn_time_step (item A.7) are ported: on these feed-forward nets the
     multilayer network chunks the (B, 4) features as the reference does
     (one chunk of the default 20 covers them, so tbptt equals the
@@ -517,8 +517,17 @@ def test_what_still_raises_names_its_roadmap_item(container, case, item):
     net = _port_mlp() if container == "mln" else _port_graph()
     X, Y = _blobs(n=32)
     if case == "plan":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        # sharding plans train now (tests/test_torch_plan.py): anything
+        # but a ShardingPlan is refused, and a one-rank plan is bitwise
+        # the plain fit
+        from deeplearning4j_tpu_torch.parallel import ShardingPlan
+        with pytest.raises(TypeError, match="ShardingPlan"):
             net.fit(ArrayDataSetIterator(X, Y, batch_size=16), plan=object())
+        plain = _port_mlp() if container == "mln" else _port_graph()
+        plain.fit(ArrayDataSetIterator(X, Y, batch_size=16))
+        net.fit(ArrayDataSetIterator(X, Y, batch_size=16),
+                plan=ShardingPlan(zero_stage=3))
+        assert _equal(net, plain) and net.score() == plain.score()
     elif case == "tbptt":
         net.conf = dataclasses.replace(net.conf, backprop_type="tbptt")
         if container == "graph":

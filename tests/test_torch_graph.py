@@ -380,8 +380,17 @@ def test_paths_not_yet_ported_raise_and_name_the_roadmap(case):
               }.get(case, {})
     mds = MultiDataSet((seq, vec), (y_seq, y_ff))
     if case == "plan":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.15"):
+        # sharding plans train now (tests/test_torch_plan.py): anything
+        # but a ShardingPlan is refused; a one-rank plan is bitwise the
+        # plain fit
+        from deeplearning4j_tpu_torch.parallel import ShardingPlan
+        with pytest.raises(TypeError, match="ShardingPlan"):
             net.fit(mds, **fit_kw)
+        std = ComputationGraph(conf, device="cpu").init()
+        net.fit([mds, mds], plan=ShardingPlan())
+        std.fit([mds, mds])
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(net.params), tree_leaves(std.params)))
     elif case == "tbptt":
         # tbptt trains now (ROADMAP A.7 is ported): one chunk covers T = 5,
         # so it equals the standard fit bitwise (tests/test_torch_tbptt.py

@@ -88,6 +88,10 @@ def test_importing_the_port_pulls_in_no_jax():
             "import deeplearning4j_tpu_torch.serving.kvcache\n"
             "import deeplearning4j_tpu_torch.serving.kvfabric\n"
             "import deeplearning4j_tpu_torch.parallel.inference\n"
+            "import deeplearning4j_tpu_torch.parallel.wrapper\n"
+            "import deeplearning4j_tpu_torch.parallel.shared\n"
+            "import deeplearning4j_tpu_torch.parallel.transport\n"
+            "import deeplearning4j_tpu_torch.parallel.zero\n"
             "import deeplearning4j_tpu_torch.train.resilience\n"
             "import deeplearning4j_tpu_torch.serving.quantize\n"
             "import deeplearning4j_tpu_torch.util.serialization\n"
@@ -263,7 +267,7 @@ def _reference_exports(package: str):
 
 
 @pytest.mark.parametrize("package", ["", "data", "serving", "train",
-                                     "models"])
+                                     "models", "parallel"])
 def test_package_exports_are_the_references_minus_unported(package):
     """Each port `__init__` exports the reference's names whose modules
     are ported (lazily, PEP 562), and no name of a module that is not."""
@@ -287,6 +291,33 @@ def test_package_exports_are_the_references_minus_unported(package):
         assert name in dir(pkg)
     for name in sorted(absent):
         assert not hasattr(pkg, name), name
+
+
+# the sequence-and-stage half of `parallel/` (ROADMAP A.15b)
+PARALLEL_LATER_SLICE = {"ring_self_attention", "make_ring_attention",
+                        "blockwise_attention", "ContextParallelTrainer",
+                        "PipelineParallelTrainer"}
+
+
+def test_parallel_exports_the_references_all_but_the_later_slice():
+    """`parallel.__all__` is the reference's, in its order, less the
+    names of ring, context and pipeline parallelism; importing the
+    package imports none of its modules (the names resolve lazily)."""
+    from deeplearning4j_tpu import parallel as jparallel
+    from deeplearning4j_tpu_torch import parallel
+    assert parallel.__all__ == [n for n in jparallel.__all__
+                                if n not in PARALLEL_LATER_SLICE]
+    for name in PARALLEL_LATER_SLICE:
+        assert not hasattr(parallel, name)
+    code = ("import sys\n"
+            "import deeplearning4j_tpu_torch.parallel\n"
+            "mods = sorted(m for m in sys.modules if m.startswith("
+            "'deeplearning4j_tpu_torch.parallel.'))\n"
+            "assert mods == [], mods\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_importing_the_package_imports_no_layer():

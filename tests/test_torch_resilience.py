@@ -196,10 +196,30 @@ def test_resume_parity_computation_graph(tmp_path):
 
 
 def test_parallel_wrapper_waits_for_the_parallel_slice(tmp_path):
-    class ParallelWrapper:          # the reference's class name
-        model = None
-    with pytest.raises(NotImplementedError, match="A.15"):
-        ResilientTrainer(ParallelWrapper(), str(tmp_path))
+    """The wrapper has landed: a SYNC_GRADIENTS wrapper over one rank
+    crashes, resumes, and ends bitwise the network's own uninterrupted
+    resilient run; AVERAGING is refused with the reference's error. (Two
+    ranks: tests/test_torch_wrapper.py.)"""
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, TrainingMode,
+    )
+    ref = _reference_run(tmp_path, shuffle=True)
+    with pytest.raises(SimulatedCrash):
+        ResilientTrainer(ParallelWrapper(_net()), str(tmp_path / "w"),
+                         save_every_n_iterations=2, policy=FAST,
+                         injector=FaultInjector(crash_at=7)
+                         ).fit(_data(shuffle=True), epochs=3)
+    resumed = _net()
+    rep = ResilientTrainer(ParallelWrapper(resumed), str(tmp_path / "w"),
+                           save_every_n_iterations=2, policy=FAST
+                           ).fit(_data(shuffle=True), epochs=3)
+    assert rep.resumed_from is not None
+    _assert_same_run(ref, resumed)
+    with pytest.raises(NotImplementedError, match="SYNC_GRADIENTS mode "
+                                                  "only"):
+        ResilientTrainer(ParallelWrapper(_net(),
+                                         mode=TrainingMode.AVERAGING),
+                         str(tmp_path / "a"))
 
 
 def test_resume_under_streaming_lands_on_exact_shard_offset(tmp_path):

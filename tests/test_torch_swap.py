@@ -553,9 +553,15 @@ def test_parallel_inference_rejects_after_shutdown_and_meshes():
     pi.shutdown()
     with pytest.raises(RuntimeError):
         pi.output(X[:8])
-    with pytest.raises(NotImplementedError, match="A.15"):
-        ParallelInference(net, mesh=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.15"):
+    # two replicas answer what one device answers, in both modes
+    for mode in ("sequential", "batched"):
+        with ParallelInference(net, mesh=["cpu", "cpu"], mode=mode) as two:
+            assert two.n_devices == 2
+            for n in (8, 5):
+                np.testing.assert_array_equal(two.output(X[:n]),
+                                              _out(net, X[:n]))
+    # tensor-parallel servables come with the next slice
+    with pytest.raises(NotImplementedError, match="A.15b"):
         ParallelInference(net, plan=object())
     assert ParallelInference(net, mesh=["cpu"],
                              mode="sequential").device.type == "cpu"

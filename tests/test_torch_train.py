@@ -395,8 +395,18 @@ def test_fit_options_not_yet_ported_raise(kw, match):
     net = model_by_name("TransformerLM", **LM).init(device="cpu")
     X, Y = _tokens(4, 24, 48, seed=5)
     if match == "plan":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.15"):
+        # sharding plans train now (tests/test_torch_plan.py): a
+        # one-rank plan is bitwise the plain fit, and a plan must be a
+        # ShardingPlan
+        from deeplearning4j_tpu_torch.parallel import ShardingPlan
+        with pytest.raises(TypeError, match="ShardingPlan"):
             net.fit((X, Y), batch_size=4, **kw)
+        plain = model_by_name("TransformerLM", **LM).init(device="cpu")
+        plain.fit((X, Y), batch_size=4)
+        net.fit((X, Y), batch_size=4, plan=ShardingPlan(zero_stage=1))
+        assert net.iteration_count == 1 and net.score() == plain.score()
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(net.params), tree_leaves(plain.params)))
     else:
         # scan, accumulation and prefetch train now
         # (tests/test_torch_fit_paths.py)
@@ -555,6 +565,12 @@ def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path, monkeypatch,
         # output zip, and --resume finishes bitwise the uninterrupted run
         _check_resilient_cli(tmp_path, extra[0], monkeypatch, capsys)
         return
+    if extra[0] in ("--mesh", "--mode"):
+        # data parallelism is ported: over the one-rank group the CLI
+        # forms, `--mesh data=1` (sync) and `--mode averaging` train
+        # bitwise as `--mode single` does; averaging refuses --mesh
+        _check_parallel_cli(tmp_path, extra, capsys)
+        return
     if extra[0] == "--dataset":
         # the MNIST fetcher is ported: without --synthetic-data a missing
         # cache stops the run, as in the reference
@@ -569,6 +585,33 @@ def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path, monkeypatch,
         return
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(args + extra)
+
+
+def _check_parallel_cli(tmp_path, extra, capsys):
+    model = save_model(model_by_name("TransformerLM", **LM).init(
+        device="cpu"), str(tmp_path / "lm.zip"))
+    data = _npz(str(tmp_path / "t.npz"))
+    common = ["--model", model, "--dataset", data, "--device", "cpu",
+              "--epochs", "2", "--batch-size", "4", "--score-every", "1"]
+    plain, out = str(tmp_path / "plain.zip"), str(tmp_path / "o.zip")
+    assert cli.main(common + ["--output", plain, "--mode", "single"]) == 0
+    capsys.readouterr()
+    assert cli.main(common + ["--output", out] + extra) == 0
+    io = capsys.readouterr()
+    line = json.loads(io.out.strip().splitlines()[-1])
+    assert (line["iterations"], line["epochs"]) == (8, 2)
+    record = json.loads(io.err.strip().splitlines()[-1])["parallel"]
+    assert record["world"] == 1 and record["backend"] == "gloo"
+    # sync: one all-reduce a step (gradients and loss in one buffer);
+    # averaging (frequency 5): a loss mean a step for the listeners, the
+    # average at step 5 and the final one
+    assert record["syncs"] == (8 if extra[0] == "--mesh" else 10)
+    a, b = load_model(plain, device="cpu"), load_model(out, device="cpu")
+    assert torch.equal(a.params_flat(), b.params_flat())
+    if extra[0] == "--mode":
+        with pytest.raises(SystemExit, match="--mesh applies to"):
+            cli.main(common + ["--output", out, "--mesh", "data=1"]
+                     + extra)
 
 
 def _check_resilient_cli(tmp_path, flag, monkeypatch, capsys):
