@@ -230,7 +230,7 @@ result line:
              the default worker count (it fails if that is 0, e.g. under
              DL4J_CUDA_ETL_WORKERS=0) and ImagePreProcessingScaler on the
              pipe, into ComputationGraph.fit(scan_steps=10) of the zoo's
-             ResNet50(), f32 then bf16 compute: a warm epoch, then three
+             ResNet50(), f32 then bf16 compute: a warm epoch, then two
              epochs each from memory (ExistingDataSetIterator over the
              same batches), from the ring with copy=True and with
              copy=False, in turns: step ms, imgs/s, the train loop's wait
@@ -278,7 +278,7 @@ result line:
              time, span counts, and tools/trace_report.py and
              tools/perf_report.py (stdlib only) reading the files with
              exit 0. (b) ResNet-50 bf16 at the bench shape through
-             fit(scan_steps=10), epochs of 20 steps: 3-epoch fits with
+             fit(scan_steps=10), epochs of 20 steps: 2-epoch fits with
              telemetry off and with tracing, the ledger and goodput on,
              in turns: step ms medians and spreads, syncs a step equal
              off and on (sync_sites), host launch calls a step equal
@@ -342,8 +342,8 @@ result line:
 
 14. fleet   — the serving fleet on the card, the full-width LM saved
              once as v1.zip. (a) The CLI's fleet mode (`--replicas 2
-             --replica-mode inprocess --buckets 1,4 --device cuda`): 50
-             inputs of batch 1 and 50 of batch 4, each sent through the
+             --replica-mode inprocess --buckets 1,4 --device cuda`): 25
+             inputs of batch 1 and 25 of batch 4, each sent through the
              router and straight to one replica in turn (which goes
              first alternates), then a 4-way burst through the router;
              every answer within 1e-6 of v1 with plain attention, both
@@ -408,6 +408,25 @@ result line:
              equal, compression ratio, sparsity, bytes sent a step.
              `launches_by_path` gains "parallel": (a)'s sync run, (c)'s
              two runs, (b)'s and (d)'s ranks (each rank's own counts).
+16. sequence — sequence and pipeline parallelism of the full-width LM
+             (f32, AdamW 3e-4, TF32 off) in one pair of gloo ranks on the
+             card (the ring's K/V through pinned host memory). (a)
+             `ring_flash_self_attention` at (4, 2048, 8, 64) over seq=2
+             (1024 a rank), causal and masked non-causal (a rank's whole
+             shard of one row masked): each rank's output within 1e-4 of
+             the card's plain dense attention of the whole sequence,
+             dQ/dK/dV within 1e-4 of each tensor's largest entry of that
+             attention's autograd; flash launches a call (2 forward, 2 of
+             each backward), ms a call, the rotation's ms, bytes and
+             route. (b) ContextParallelTrainer at seq=2, 4 steps: the
+             ranks bitwise equal, each leaf within 1e-5 of its update
+             of a one-process fit of the same batches after one step
+             (1e-4 after four, phase 15's drift bound), over the elements
+             whose first gradient is at least 1e-6; step p50, launches a
+             step and rank. (c) PipelineParallelTrainer at stage=2 (2
+             blocks a stage, 4 microbatches, bubble 1/5), 4 steps, the
+             same comparisons. At most 90 s. `launches_by_path` gains
+             "sequence" ((a) and (b)) and "pipeline" ((c)), both ranks.
 
 Each path's counts are set to 0 just before it is driven and read just
 after. Every phase's row carries `t_s`, the seconds since the run
@@ -1989,6 +2008,30 @@ def launch_profile(fn, steps):
                 for k in KERNELS}}
 
 
+def merged_profile(windows):
+    """launch_profile rows of equal-length windows as one: per-step
+    figures averaged, wall summed, the idle share over the sum; each
+    window's flash counts kept beside."""
+    if any("steps" not in w for w in windows):
+        return {"device_time": "not measured",
+                "wall_ms": sum(w["wall_ms"] for w in windows)}
+    n = len(windows)
+    wall = sum(w["wall_ms"] for w in windows)
+    busy = sum(w["device_busy_ms_per_step"] * w["steps"] for w in windows)
+    out = {"steps": sum(w["steps"] for w in windows), "wall_ms": wall,
+           "windows": n, "idle_share": max(0.0, 1.0 - busy / wall)}
+    for key in ("host_launch_calls_per_step", "graph_launches_per_step",
+                "device_kernels_per_step", "device_busy_ms_per_step"):
+        out[key] = sum(w[key] for w in windows) / n
+    out["flash_kernels_per_step"] = {
+        k: sum(w["flash_kernels_per_step"][k] for w in windows) / n
+        for k in KERNELS}
+    out["flash_kernels_by_window"] = [
+        {k: w["flash_kernels_per_step"][k] * w["steps"] for k in KERNELS}
+        for w in windows]
+    return out
+
+
 def sync_sites(fn):
     """Host-device synchronisations during fn(), as CUDA's sync debug
     mode reports them, each by where it happened: inside a chunk's
@@ -2065,7 +2108,8 @@ def resnet_fit(compute_dtype):
         # at capture
         torch.cuda.reset_peak_memory_stats()
         first_ms = timed(scan, 2 if scan == 1 else 2 * FIT_K)  # warm/capture
-        walls = [timed(scan) for _ in range(2 if scan == 1 else 3)]
+        # two timed fits a mode
+        walls = [timed(scan) for _ in range(2)]
         peak = torch.cuda.max_memory_allocated()
         n_prof = 4 if scan == 1 else 2 * FIT_K
         prof = launch_profile(lambda: net.fit(make_it(n_prof),
@@ -2118,8 +2162,10 @@ def train_scan(fa):
     y = np.zeros((n, SEQ, VOCAB), np.uint8)
     np.put_along_axis(y, seq[:, 1:, None], 1, axis=-1)
 
-    def fit(scan):
-        net.fit(ArrayDataSetIterator(x, y, batch_size=TRAIN_BATCH),
+    def fit(scan, steps=LM_SCAN_STEPS):
+        n_rows = steps * TRAIN_BATCH
+        net.fit(ArrayDataSetIterator(x[:n_rows], y[:n_rows],
+                                     batch_size=TRAIN_BATCH),
                 scan_steps=scan)
 
     def timed(scan):
@@ -2136,9 +2182,14 @@ def train_scan(fa):
         torch.cuda.reset_peak_memory_stats()
         first = timed(scan)                  # warm-up / capture
         counted = dict(fa.KERNEL_LAUNCHES)
-        steps = [timed(scan) for _ in range(3)]
+        steps = [timed(scan) for _ in range(2)]
         peak = torch.cuda.max_memory_allocated()
-        prof = launch_profile(lambda: fit(scan), LM_SCAN_STEPS)
+        # one profiler window a chunk (LM_SCAN_K steps), summed: one
+        # window over all 16 replayed steps once came back a backward
+        # kernel short (ROADMAP M.1)
+        prof = merged_profile([launch_profile(
+            lambda: fit(scan, LM_SCAN_K), LM_SCAN_K)
+            for _ in range(LM_SCAN_STEPS // LM_SCAN_K)])
         sites, where = sync_sites(lambda: fit(scan))
         step_ms = statistics.median(steps)
         rows[mode] = {"scan_steps": scan, "first_fit_step_ms": first,
@@ -4013,7 +4064,7 @@ def lm_ops(fa, tmp):
 # the data_plane phase: ResNet-50 at the bench shape from uint8 shards
 # (20 batches of RESNET_BATCH), the LM from token shards, equality at the
 # parity shape, the train -> serve handoff
-DATA_IMAGES, DATA_CLASSES, DATA_K, DATA_ROUNDS = 2560, 1000, 10, 3
+DATA_IMAGES, DATA_CLASSES, DATA_K, DATA_ROUNDS = 2560, 1000, 10, 2
 DATA_PARITY_IMAGES, DATA_PARITY_BATCH = 24, 4
 HANDOFF_REQUESTS = 8
 
@@ -4486,7 +4537,7 @@ def data_plane(fa, tmp):
 # /metrics, SLOs, the flight recorder and fault injection
 TELE_SEQS, TELE_K = 80, 10              # 20 steps of batch 4 a run
 TELE_PREDICTS, TELE_STREAMS, TELE_TOKENS = 64, 4, 64
-TELE_RESNET_EPOCHS, TELE_RESNET_ROUNDS = 3, 5
+TELE_RESNET_EPOCHS, TELE_RESNET_ROUNDS = 2, 2
 TELE_TRACEPARENT = ("00-0123456789abcdef0123456789abcdef-"
                     "fedcba9876543210-01")
 MFU_AGREEMENT = 0.01    # the gauge against the trace's step, relative
@@ -5867,7 +5918,7 @@ def resilience(fa, tmp):
 
 # ---------------------------------------------------------------- fleet
 FLEET_TOL = 1e-6                 # answers against plain attention
-FLEET_LATENCY_PAIRS = 50         # (a): per batch size, router and direct
+FLEET_LATENCY_PAIRS = 25         # (a): per batch size, router and direct
 FLEET_RECOVERY_BUDGET_S = 150.0  # the chaos drill's RECOVERY_BUDGET_S
 FLEET_CHAOS_TIMEOUT_S = 600
 FLEET_DISAGG_PROMPT = 382        # (b): 95 full 4-token KV pages and a half
@@ -6417,9 +6468,9 @@ PAR_DRIFT_TOL = 1e-4
 PAR_CONDITIONED_GRAD = 1e-6
 PAR_GRAD_FLOATS = 13651968      # the LM's f32 gradient (54.6 MB)
 # (a)'s step time: the plain step and the plan's, interleaved in pairs
-PAR_STEP_PAIRS = 40
+PAR_STEP_PAIRS = 20
 # (b) and (d) run as two ranks in their own processes on the one card
-PAR_DRIVER = r'''
+PAR_SCRIPT = r'''
 import hashlib, json, os, sys, time
 import numpy as np
 import torch
@@ -6627,9 +6678,9 @@ print("PAR_RESULT " + json.dumps(res), flush=True)
 '''
 
 
-def _par_ranks(part, lm_zip, tokens, tmp, timeout=400):
-    """PAR_DRIVER's `part` as ranks 0 and 1 in two processes on the
-    card: each rank's result record."""
+def _par_ranks(part, lm_zip, tokens, tmp, timeout=400, script=None):
+    """`script`'s (default PAR_SCRIPT) `part` as ranks 0 and 1 in two
+    processes on the card: each rank's result record."""
     import os
     from deeplearning4j_tpu_torch.parallel.distributed import free_port
     coord = f"127.0.0.1:{free_port()}"
@@ -6643,8 +6694,9 @@ def _par_ranks(part, lm_zip, tokens, tmp, timeout=400):
              open(os.path.join(tmp, f"par_{part}_{r}.err"), "w+"))
             for r in range(2)]
     procs = [subprocess.Popen(
-        [sys.executable, "-c", PAR_DRIVER, part, str(r), coord, lm_zip,
-         tokens, tmp, str(base)], stdout=logs[r][0], stderr=logs[r][1],
+        [sys.executable, "-c", script or PAR_SCRIPT, part, str(r), coord,
+         lm_zip, tokens, tmp, str(base)], stdout=logs[r][0],
+        stderr=logs[r][1],
         text=True, env=env) for r in range(2)]
     outs = []
     deadline = time.monotonic() + timeout
@@ -7110,6 +7162,329 @@ def parallel(fa, tmp):
     return row
 
 
+# ------------------------------------------------------- phase 16: sequence
+# (a) the ring at the LM's attention shape over seq=2; (b) and (c) 4 steps
+# of global batch 4 (the LM's TRAIN_BATCH), each rank 1024 steps of each
+# sequence in (b), 2 of the 4 blocks in (c) over 4 microbatches of 1
+SEQ_RING_SHAPE = (4, SEQ, HEADS, HEAD_DIM)
+SEQ_RING_TOL = 1e-4          # the kernel table's f32 atol; gradients of
+#                              each tensor's largest entry
+SEQ_STEPS, SEQ_MICROBATCHES = 4, 4
+SEQ_RING_CALLS = 5           # timed ring calls a case
+SEQ_BUDGET_S = 90.0
+SEQ_SCRIPT = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from deeplearning4j_tpu_torch.ops import flash_attention as fa
+from deeplearning4j_tpu_torch.data.iterator import ArrayDataSetIterator
+from deeplearning4j_tpu_torch.nn.layers.attention import (
+    dot_product_attention)
+from deeplearning4j_tpu_torch.parallel import (
+    ContextParallelTrainer, MeshConfig, PipelineParallelTrainer, build_mesh)
+from deeplearning4j_tpu_torch.parallel import ring as R
+from deeplearning4j_tpu_torch.parallel.distributed import (
+    DistributedConfig, initialize_distributed, shutdown_distributed)
+from deeplearning4j_tpu_torch.util.platform import set_f32_matmul_exact
+from deeplearning4j_tpu_torch.util.serialization import load_model
+
+part, rank, coord, lm_zip, tokens, out, port = sys.argv[1:8]
+rank = int(rank)
+cfg = json.loads(os.environ["SEQ_CONFIG"])
+set_f32_matmul_exact()
+initialize_distributed(DistributedConfig(
+    coordinator_address=coord, num_processes=2, process_id=rank,
+    local_rank=0, backend="gloo"), device_type="cuda")
+res = {"rank": rank, "backend": str(dist.get_backend())}
+
+
+def zero():
+    for k in fa.KERNEL_LAUNCHES:
+        fa.KERNEL_LAUNCHES[k] = 0
+
+
+def counts():
+    return dict(fa.KERNEL_LAUNCHES)
+
+
+def timed(fn, n):
+    ms = []
+    for _ in range(n):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[len(ms) // 2]
+
+
+# (a) the flash ring against the card's dense attention of the whole
+# sequence
+mesh = build_mesh(MeshConfig(data=1, seq=2))
+ring = R.Ring.of(mesh)
+B, T, H, D = cfg["shape"]
+g = torch.Generator(device="cuda").manual_seed(1616)
+q, k, v, w = (torch.randn(B, T, H, D, generator=g, device="cuda")
+              for _ in range(4))
+mask = (torch.rand(B, T, generator=g, device="cuda") > 0.2).float()
+mask[1, T // 2:] = 0.0          # rank 1's whole shard of row 1
+tl = T // 2
+sl = slice(rank * tl, (rank + 1) * tl)
+ring_rows = {}
+for case, causal, m in (("causal", True, None), ("masked", False, mask)):
+    qd, kd, vd = (x.clone().requires_grad_() for x in (q, k, v))
+    ref = dot_product_attention(qd, kd, vd, mask=m, causal=causal)
+    rg = torch.autograd.grad((ref * w).sum(), (qd, kd, vd))
+    ref = ref.detach()[:, sl]
+    del qd, kd, vd
+    ql, kl, vl = (x[:, sl].clone().requires_grad_() for x in (q, k, v))
+    ml = None if m is None else m[:, sl].contiguous()
+    wl = w[:, sl]
+    zero()
+    R.reset_transfers()
+    o = R.ring_flash_self_attention(ql, kl, vl, ring=ring, causal=causal,
+                                    mask=ml)
+    fwd_launches = counts()
+    fwd_transfers = dict(R.TRANSFERS, routes=dict(R.TRANSFERS["routes"]))
+    gl = torch.autograd.grad((o * wl).sum(), (ql, kl, vl))
+    all_launches = counts()
+    row = {"out_max_abs_err": float((o.detach() - ref).abs().max()),
+           "grad_err_of_largest": {
+               n: float((a - b[:, sl]).abs().max() / b.abs().max())
+               for n, a, b in zip(("dq", "dk", "dv"), gl, rg)},
+           "launches_forward": fwd_launches,
+           "launches_forward_backward": all_launches,
+           "rotation_bytes_forward": fwd_transfers["bytes"],
+           "routes": fwd_transfers["routes"]}
+    del rg, gl, ref
+
+    def fwd():
+        with torch.no_grad():
+            R.ring_flash_self_attention(ql, kl, vl, ring=ring,
+                                        causal=causal, mask=ml)
+
+    def fwd_bwd():
+        o2 = R.ring_flash_self_attention(ql, kl, vl, ring=ring,
+                                         causal=causal, mask=ml)
+        torch.autograd.grad((o2 * wl).sum(), (ql, kl, vl))
+
+    R.reset_transfers()
+    row["forward_ms"] = timed(fwd, cfg["calls"])
+    shifts = R.TRANSFERS["shifts"]
+    row["rotation_ms"] = 1e3 * R.TRANSFERS["seconds"] / max(shifts, 1)
+    row["rotation_bytes"] = R.TRANSFERS["bytes"] / max(shifts, 1)
+    row["forward_backward_ms"] = timed(fwd_bwd, cfg["calls"])
+    ring_rows[case] = row
+res["ring"] = ring_rows
+del q, k, v, w, mask
+torch.cuda.empty_cache()
+data = np.load(tokens)
+X, Y = data["features"], data["labels"]
+
+
+class Steps:
+    def __init__(self, name):
+        self.name, self.t = name, [time.perf_counter()]
+
+    def on_epoch_start(self, n, e):
+        pass
+
+    def on_epoch_end(self, n, e):
+        pass
+
+    def iteration_done(self, n, it, ep, score, etl, bs):
+        self.t.append(time.perf_counter())
+        if it == 0:
+            np.save(os.path.join(out, f"{self.name}1_{rank}.npy"),
+                    n.params_flat().detach().cpu().numpy())
+
+
+def train(name, make):
+    net = load_model(lm_zip, device="cuda")
+    steps = Steps(name)
+    net.set_listeners(steps)
+    trainer = make(net)
+    zero()
+    R.reset_transfers()
+    dist.barrier()
+    steps.t = [time.perf_counter()]
+    trainer.fit(ArrayDataSetIterator(X, Y, batch_size=cfg["batch"]),
+                epochs=1, batch_size=cfg["batch"])
+    torch.cuda.synchronize()
+    np.save(os.path.join(out, f"{name}_{rank}.npy"),
+            net.params_flat().detach().cpu().numpy())
+    ms = [(b - a) * 1e3 for a, b in zip(steps.t, steps.t[1:])]
+    return {"iterations": net.iteration_count, "score": net.score(),
+            "step_ms": ms, "step_ms_p50": sorted(ms)[len(ms) // 2],
+            "launches": counts(), "syncs": trainer.syncs,
+            "rotation": {"shifts": R.TRANSFERS["shifts"],
+                         "bytes": R.TRANSFERS["bytes"],
+                         "seconds": R.TRANSFERS["seconds"],
+                         "routes": dict(R.TRANSFERS["routes"])}}
+
+
+res["context"] = train("cp", lambda net: ContextParallelTrainer(
+    net, build_mesh(MeshConfig(data=1, seq=2))))
+torch.cuda.empty_cache()
+res["pipeline"] = train("pp", lambda net: PipelineParallelTrainer(
+    net, build_mesh(MeshConfig(data=1, stage=2)),
+    n_microbatches=cfg["microbatches"]))
+shutdown_distributed()
+print("PAR_RESULT " + json.dumps(res), flush=True)
+"""
+
+
+def _seq_one_process(lm_zip, features, labels):
+    """The one-process fit of the same batches on the card: its first
+    gradient, and its parameters after step 1 and after the last step
+    (CPU trees), and the parameters before."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.updaters import tree_map
+    from deeplearning4j_tpu_torch.util.params import iter_leaves
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    one = load_model(lm_zip)
+    _, grads, _ = one.compute_gradient_and_score(
+        DataSet(features[:TRAIN_BATCH], labels[:TRAIN_BATCH]))
+    g_one = _cpu_tree(grads)
+    del grads
+    before = {p: t.detach().cpu().clone() for p, t in iter_leaves(one.params)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    after = {}
+    for i in range(SEQ_STEPS):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        one._train_step(DataSet(features[sl], labels[sl]), gen)
+        if i in (0, SEQ_STEPS - 1):
+            # copies: the steps update the parameters in place
+            after[i + 1] = tree_map(lambda t: t.detach().cpu().clone(),
+                                    one.params)
+    del one
+    torch.cuda.empty_cache()
+    return g_one, before, after
+
+
+def _seq_against_one(tmp, name, one):
+    """(b)/(c)'s comparisons: the two ranks bitwise equal after step 1 and
+    at the end, and each leaf within PAR_UPDATE_TOL of its update after
+    step 1 (PAR_DRIFT_TOL after the last) over the conditioned elements."""
+    import os
+    from deeplearning4j_tpu_torch.util.params import flat_to_params
+    g_one, before, after = one
+    worst = {}
+    for steps, tag, tol in ((1, f"{name}1", PAR_UPDATE_TOL),
+                            (SEQ_STEPS, name, PAR_DRIFT_TOL)):
+        a, b = (np.load(os.path.join(tmp, f"{tag}_{r}.npy")) for r in (0, 1))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{name} ranks' parameters differ after "
+                                 f"{steps} steps")
+        t = _leaf_table(flat_to_params(torch.from_numpy(a), after[steps]),
+                        after[steps], before, g_one)
+        leaf = max(t, key=lambda p: t[p]["err"])
+        cond = max(t, key=lambda p: t[p]["err_conditioned"])
+        worst[steps] = {"leaf": {"leaf": leaf, **t[leaf]},
+                        "conditioned": {"leaf": cond, **t[cond]},
+                        "tolerance": tol}
+        if not t[cond]["err_conditioned"] <= tol:
+            raise AssertionError(
+                f"{name} vs one process after {steps} steps: leaf {cond} "
+                f"{t[cond]} of its update")
+    return worst
+
+
+def sequence(fa, tmp):
+    """Phase 16: sequence and pipeline parallelism of the full-width LM
+    over two gloo ranks on the card."""
+    import os
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.registry import parse_zoo_source
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    t_phase = time.perf_counter()
+    name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
+    lm_zip, tokens = os.path.join(tmp, "lm.zip"), os.path.join(tmp, "t.npz")
+    save_model(model_by_name(name, **kw).init(), lm_zip, compression=STORED)
+    rs = np.random.RandomState(1616)
+    _write_token_set(tokens, rs, SEQ_STEPS * TRAIN_BATCH)
+    with np.load(tokens) as d:
+        features, labels = d["features"], d["labels"]
+    os.environ["SEQ_CONFIG"] = json.dumps({
+        "shape": SEQ_RING_SHAPE, "calls": SEQ_RING_CALLS,
+        "batch": TRAIN_BATCH, "microbatches": SEQ_MICROBATCHES})
+    try:
+        ranks = _par_ranks("seq", lm_zip, tokens, tmp, timeout=300,
+                           script=SEQ_SCRIPT)
+    finally:
+        os.environ.pop("SEQ_CONFIG", None)
+    ranks_s = time.perf_counter() - t_phase
+    # (a) each rank's shard against the dense attention
+    ring = {}
+    for case in ("causal", "masked"):
+        rows = [r["ring"][case] for r in ranks]
+        err = max(x["out_max_abs_err"] for x in rows)
+        gerr = {g: max(x["grad_err_of_largest"][g] for x in rows)
+                for g in ("dq", "dk", "dv")}
+        want = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+        for x in rows:
+            if x["launches_forward"] != dict(want, flash_bwd_dq=0,
+                                             flash_bwd_dkv=0) \
+                    or x["launches_forward_backward"] != want:
+                raise AssertionError(f"ring {case} launches {x}")
+            if x["routes"] != {"gloo_host": 1}:
+                raise AssertionError(f"ring {case} route {x['routes']}")
+        if not (err <= SEQ_RING_TOL and max(gerr.values()) <= SEQ_RING_TOL):
+            raise AssertionError(f"ring {case}: out {err}, grads {gerr}")
+        ring[case] = {"out_max_abs_err": err, "grad_err_of_largest": gerr,
+                      "launches_per_call": rows[0][
+                          "launches_forward_backward"],
+                      "forward_ms": [x["forward_ms"] for x in rows],
+                      "forward_backward_ms": [x["forward_backward_ms"]
+                                              for x in rows],
+                      "rotation_ms": [x["rotation_ms"] for x in rows],
+                      "rotation_bytes": rows[0]["rotation_bytes"],
+                      "route": "gloo_host"}
+    emit({"phase": "sequence_ring", "shape": list(SEQ_RING_SHAPE),
+          "seq": 2, "dtype": "float32", **ring})
+    one = _seq_one_process(lm_zip, features, labels)
+    parts = {}
+    per_step = {"context": {k: 2 * N_LAYERS for k in KERNELS},
+                "pipeline": {k: (SEQ_MICROBATCHES + 1) * N_LAYERS // 2
+                             for k in KERNELS}}
+    for part, tag in (("context", "cp"), ("pipeline", "pp")):
+        runs = [r[part] for r in ranks]
+        for r in runs:
+            if r["iterations"] != SEQ_STEPS or any(
+                    r["launches"][k] != per_step[part][k] * SEQ_STEPS
+                    for k in KERNELS):
+                raise AssertionError(f"{part}: {r}")
+        worst = _seq_against_one(tmp, tag, one)
+        parts[part] = {
+            "score": runs[0]["score"],
+            "step_ms_p50": [r["step_ms_p50"] for r in runs],
+            "step_ms": [r["step_ms"] for r in runs],
+            "launches_per_step_and_rank": per_step[part],
+            "launches": {k: sum(r["launches"][k] for r in runs)
+                         for k in KERNELS},
+            "gradient_syncs": [r["syncs"] for r in runs],
+            "rotation": [r["rotation"] for r in runs],
+            "ranks_bitwise_equal": True,
+            "update_worst_after_1": worst[1],
+            f"update_worst_after_{SEQ_STEPS}": worst[SEQ_STEPS]}
+        emit({"phase": f"sequence_{part}", **parts[part]})
+    del one
+    seconds = time.perf_counter() - t_phase
+    row = {"phase": "sequence", "seconds": seconds, "ranks_s": ranks_s,
+           "budget_s": SEQ_BUDGET_S,
+           "flash_launches": {
+               "sequence": {k: parts["context"]["launches"][k]
+                            for k in KERNELS},
+               "pipeline": parts["pipeline"]["launches"]}}
+    emit(row)
+    if seconds > SEQ_BUDGET_S:
+        raise AssertionError(f"phase 16 took {seconds:.1f} s "
+                             f"> {SEQ_BUDGET_S}")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -7172,6 +7547,8 @@ def main(argv=None) -> int:
         fleet_run = fleet(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         par_run = parallel(fa, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_run = sequence(fa, tmp)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -7197,7 +7574,11 @@ def main(argv=None) -> int:
                              "fleet":
                                  fleet_run["flash_launches"]["flash_fwd"],
                              "parallel":
-                                 par_run["flash_launches"]["flash_fwd"]},
+                                 par_run["flash_launches"]["flash_fwd"],
+                             "sequence": seq_run["flash_launches"][
+                                 "sequence"]["flash_fwd"],
+                             "pipeline": seq_run["flash_launches"][
+                                 "pipeline"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -7229,7 +7610,11 @@ def main(argv=None) -> int:
                                  "fleet":
                                      fleet_run["flash_launches"][name],
                                  "parallel":
-                                     par_run["flash_launches"][name]},
+                                     par_run["flash_launches"][name],
+                                 "sequence": seq_run["flash_launches"][
+                                     "sequence"][name],
+                                 "pipeline": seq_run["flash_launches"][
+                                     "pipeline"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

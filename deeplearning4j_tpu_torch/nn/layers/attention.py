@@ -10,8 +10,15 @@ to, and their outputs are zeroed.
 `MultiHeadAttention` with ``attention_impl`` "flash" or "blockwise" and no
 dropout runs `ops.flash_attention`, which launches the Hopper kernels on a
 CUDA tensor (the forward, and in the backward the dQ and dK/dV kernels)
-and uses their plain versions on a CPU tensor. The context-parallel (ring)
-branches come with the parallel slice.
+and uses their plain versions on a CPU tensor.
+
+Context-parallel mode (`context_parallel`, entered by
+`parallel/context.ContextParallelTrainer`): the time axis is sharded over
+the mesh's ``seq`` group, so attention runs the ring
+(`parallel/ring.py`): `ring_flash_self_attention` (the flash kernels per
+shard pair, merged by their LSEs) where the flash path would run, else
+`ring_self_attention` (dropout); RoPE positions and
+`PositionalEmbeddingLayer`'s rows are offset by the shard's global start.
 
 Training draws its dropout masks from an explicit `torch.Generator` on the
 activations' device (the reference splits a JAX key per layer; the two
@@ -38,6 +45,46 @@ from deeplearning4j_tpu_torch.nn.initializers import get_initializer
 from deeplearning4j_tpu_torch.nn.step_graph import check_ids
 
 NEG = -1e30
+
+
+# --- context-parallel mode ------------------------------------------------
+_CONTEXT_PARALLEL: list = []
+
+
+class context_parallel:
+    """Marks that the time axis is sharded over a ``seq`` group: `group`
+    (a process group), this rank's `index` in it and the `degree`. Used
+    by ContextParallelTrainer; the layers read it."""
+
+    def __init__(self, group, index: int, degree: int):
+        self.group, self.index, self.degree = group, int(index), int(degree)
+        self._ring = None
+
+    @property
+    def ring(self):
+        """The group as `parallel.ring.Ring`."""
+        if self._ring is None:
+            from deeplearning4j_tpu_torch.parallel.ring import Ring
+            self._ring = Ring(self.group, self.index, self.degree)
+        return self._ring
+
+    def __enter__(self):
+        _CONTEXT_PARALLEL.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _CONTEXT_PARALLEL.pop()
+
+
+def active_context_parallel() -> Optional[context_parallel]:
+    return _CONTEXT_PARALLEL[-1] if _CONTEXT_PARALLEL else None
+
+
+def _seq_offset(t_local: int) -> int:
+    """Global position of this shard's first step (0 when the time axis
+    is not sharded)."""
+    cp = active_context_parallel()
+    return 0 if cp is None else cp.index * t_local
 
 
 @register_layer
@@ -181,11 +228,26 @@ class MultiHeadAttention(LayerConf):
             if train and generator is not None else 0.0
         x = self.maybe_dropout_input(x, train, generator)
         q, k, v = self._qkv(params, x)
+        t_loc = x.shape[1]
         if self.use_rope:
-            pos = torch.arange(x.shape[1], device=x.device)[None]
+            pos = (_seq_offset(t_loc)
+                   + torch.arange(t_loc, device=x.device))[None]
             q = rope(q, pos)
             k = rope(k, pos)
-        if self.attention_impl in ("flash", "blockwise") and drop == 0.0:
+        flash = self.attention_impl in ("flash", "blockwise") \
+            and drop == 0.0
+        cp = active_context_parallel()
+        if cp is not None:
+            from deeplearning4j_tpu_torch.parallel import ring
+            if flash:
+                out = ring.ring_flash_self_attention(
+                    q, k, v, ring=cp.ring, causal=self.causal, mask=mask,
+                    block_q=self.block_size, block_k=self.block_size)
+            else:
+                out = ring.ring_self_attention(
+                    q, k, v, ring=cp.ring, causal=self.causal, mask=mask,
+                    dropout=drop, generator=generator)
+        elif flash:
             from deeplearning4j_tpu_torch.ops.flash_attention import (
                 flash_attention,
             )
@@ -349,10 +411,19 @@ class PositionalEmbeddingLayer(LayerConf):
     def apply(self, params, state, x, *, train=False, mask=None,
               generator=None):
         t = x.shape[1]
-        if t > self.max_length:
-            raise ValueError(f"sequence length {t} exceeds max_length "
-                             f"{self.max_length}")
-        return x + params["P"][:t][None], state
+        cp = active_context_parallel()
+        if cp is None:
+            if t > self.max_length:
+                raise ValueError(f"sequence length {t} exceeds max_length "
+                                 f"{self.max_length}")
+            return x + params["P"][:t][None], state
+        # a context-parallel shard: this shard's rows; the global length
+        # must fit (a slice past the table would be silently short)
+        if t * cp.degree > self.max_length:
+            raise ValueError(f"global sequence length {t * cp.degree} "
+                             f"exceeds max_length {self.max_length}")
+        start = _seq_offset(t)
+        return x + params["P"][start:start + t][None], state
 
 
 @register_layer

@@ -365,15 +365,16 @@ def scale_by_rms(decay: float, eps: float) -> Transform:
 
 def scale_by_trust_ratio(trust_coefficient: float,
                          eps: float = 0.0) -> Transform:
-    def scaled(u, p):
-        p_norm = torch.linalg.vector_norm(p)
-        u_norm = torch.linalg.vector_norm(u)
-        ratio = trust_coefficient * p_norm / (u_norm + eps)
-        zero = (p_norm == 0.0) | (u_norm == 0.0)
-        return u * torch.where(zero, torch.ones_like(ratio), ratio)
-    return Transform(lambda params: {},
-                     lambda updates, state, params: (
-                         tree_map(scaled, updates, params), state))
+    def update(updates, state, params):
+        norms = iter(zip(*leaf_norms(params, updates)))
+
+        def scaled(u, p):
+            p_norm, u_norm = next(norms)
+            ratio = trust_coefficient * p_norm / (u_norm + eps)
+            zero = (p_norm == 0.0) | (u_norm == 0.0)
+            return u * torch.where(zero, torch.ones_like(ratio), ratio)
+        return tree_map(scaled, updates, params), state
+    return Transform(lambda params: {}, update)
 
 
 def add_decayed_weights(weight_decay: float) -> Transform:
@@ -401,16 +402,26 @@ _NORM_HOOK = threading.local()
 
 
 @contextlib.contextmanager
-def global_norm_hook(fn: Callable):
-    """Inside the block `global_norm(updates)` is `fn(updates)`: a
-    sharded update (`parallel/plan.py`) measures the whole gradient from
-    its pieces."""
-    prev = getattr(_NORM_HOOK, "fn", None)
-    _NORM_HOOK.fn = fn
+def global_norm_hook(fn: Callable, leaf_fn: Optional[Callable] = None):
+    """Inside the block `global_norm(updates)` is `fn(updates)` and
+    `leaf_norms(*trees)` is `leaf_fn(*trees)`: a sharded update
+    (`parallel/plan.py`) measures whole leaves from their pieces."""
+    prev = (getattr(_NORM_HOOK, "fn", None),
+            getattr(_NORM_HOOK, "leaf", None))
+    _NORM_HOOK.fn, _NORM_HOOK.leaf = fn, leaf_fn
     try:
         yield
     finally:
-        _NORM_HOOK.fn = prev
+        _NORM_HOOK.fn, _NORM_HOOK.leaf = prev
+
+
+def leaf_norms(*trees) -> list:
+    """Per tree, the norm of each of its leaves (tree_leaves order)."""
+    hook = getattr(_NORM_HOOK, "leaf", None)
+    if hook is not None:
+        return hook(*trees)
+    return [[torch.linalg.vector_norm(t) for t in tree_leaves(tree)]
+            for tree in trees]
 
 
 def global_norm(updates) -> torch.Tensor:

@@ -8,8 +8,10 @@ ZeRO stages and rule sharding), which `ParallelWrapper` (SYNC_GRADIENTS
 and AVERAGING) drives; `SharedGradientsTrainer` exchanges
 threshold-encoded gradients (`encoding.py`) over a socket transport
 (`transport.py`); `ParallelInference` serves one replica per device.
-Ring attention, context and pipeline parallelism come with the next
-slice (ROADMAP A.15b). Names resolve lazily (`util/lazy.py`).
+Sequence parallelism runs ring attention over the mesh's ``seq`` axis
+(`ring.py`, `ContextParallelTrainer` in `context.py`); pipeline
+parallelism splits a transformer torso over its ``stage`` axis
+(`pipeline.py`). Names resolve lazily (`util/lazy.py`).
 """
 from deeplearning4j_tpu_torch.util.lazy import lazy_exports
 
@@ -27,6 +29,10 @@ _EXPORTS = {
     "logical_to_mesh": "sharding",
     "DistributedConfig": "distributed",
     "initialize_distributed": "distributed",
+    "blockwise_attention": "ring", "make_ring_attention": "ring",
+    "ring_self_attention": "ring",
+    "ContextParallelTrainer": "context",
+    "PipelineParallelTrainer": "pipeline",
     "LoopbackTransport": "shared", "SharedGradientsTrainer": "shared",
     "sharded_fraction": "zero", "zero_place": "zero", "zero_spec": "zero",
     "ShardingPlan": "plan", "active_plan": "plan", "parse_plan": "plan",
@@ -42,6 +48,8 @@ __all__ = [
     "bitmap_encode", "bitmap_decode", "SocketTransport",
     "ShardingRules", "shard_params", "logical_to_mesh",
     "DistributedConfig", "initialize_distributed",
+    "ring_self_attention", "make_ring_attention", "blockwise_attention",
+    "ContextParallelTrainer", "PipelineParallelTrainer",
     "SharedGradientsTrainer", "LoopbackTransport",
     "zero_place", "zero_spec", "sharded_fraction",
     "ShardingPlan", "use_mesh", "active_plan", "parse_plan",

@@ -12,8 +12,8 @@ Counterpart of the JAX package's `parallel/inference.py` (DL4J's
 `mesh` is None (the network's own device), a device, or a list of
 devices: one replica per device (the network itself on its own device,
 copies elsewhere), as the reference shards its batch over the mesh's
-data axis. Tensor-parallel servables (`plan=`) come with the next slice
-(ROADMAP A.15b) and raise NotImplementedError.
+data axis. Tensor-parallel servables (`plan=`) come with tensor-parallel
+compute (ROADMAP A.15c) and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -102,9 +102,9 @@ class ParallelInference:
             raise RuntimeError("model must be initialized before serving")
         if plan is not None:
             raise NotImplementedError(
-                "tensor-parallel servables (a sharding plan) come with the "
-                "next slice of the port (ROADMAP A.15b: ring, context and "
-                "pipeline parallelism, ParallelInference(plan=))")
+                "tensor-parallel servables (a sharding plan) come with "
+                "tensor-parallel compute (ROADMAP A.15c: split matmuls, "
+                "ParallelInference(plan=))")
         self.devices = _mesh_devices(mesh, model)
         self.device = self.devices[0]
         self.n_devices = len(self.devices)

@@ -3,22 +3,25 @@
 Counterpart of the JAX package's `parallel/mesh.py`. The reference builds
 a `jax.sharding.Mesh` over the local devices of one process; the port has
 one rank per process and builds its mesh over the world of the process
-group (`torch.distributed.device_mesh.init_device_mesh`), with the
-reference's axis names. `MeshConfig.resolve` is the reference's, so the
-same extents fail with the same errors. The ``seq`` and ``stage`` axes are
-resolved and validated; a degree above 1 on them comes with the sequence
-and pipeline slice (ROADMAP A.15b).
+group, with the reference's four axes in the reference's order, (data,
+stage, seq, model). `MeshConfig.resolve` is the reference's, so the same
+extents fail with the same errors.
 
-A rank's place in the mesh is row-major over (data, model), as the
-reference's ``reshape(d, p, s, m)``: rank = data_index * model + model_index.
+Rank r has the coordinates of r in ``np.arange(world).reshape(d, p, s,
+m)``, the reference's device layout: rank = ((data * p + stage) * s +
+seq) * m + model. Every axis has its process group, formed when the mesh
+is built (every rank builds it, at the same point of the program); a
+group over several axes (``mesh.group(("data", "seq"))``) is formed on
+its first request, which every rank must make at the same point too.
 `data_sharding`/`replicated_sharding` describe placements (a mesh and a
 partition spec), the port's stand-in for `NamedSharding`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -26,6 +29,8 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 STAGE_AXIS = "stage"
+#: the reference's axis order (`build_mesh`'s reshape(d, p, s, m))
+AXES = (DATA_AXIS, STAGE_AXIS, SEQ_AXIS, MODEL_AXIS)
 
 
 class PartitionSpec(tuple):
@@ -70,39 +75,63 @@ class MeshConfig:
 
 
 class Mesh:
-    """A (data, model) mesh over the ranks of the process group.
+    """A (data, stage, seq, model) mesh over the ranks of the process
+    group.
 
-    `shape` maps axis names to degrees, as the reference's `mesh.shape`.
-    `group(axis)` is the process group of the ranks that share this
-    rank's place on the other axis (None when there is no process group:
-    a one-rank mesh, whose collectives are identities). `index(axis)` is
-    this rank's coordinate on `axis`."""
+    `shape` maps axis names to degrees in the reference's axis order, as
+    the reference's `mesh.shape`. `group(axis)` is the process group of
+    the ranks that share this rank's place on every other axis; `axis`
+    may be a tuple of axes (the group spans all of them). It is None when
+    there is no process group: a one-rank mesh, whose collectives are
+    identities. `index(axis)` is this rank's coordinate on `axis`."""
 
-    def __init__(self, data: int, model: int, device_type: str = "cpu"):
-        self.shape = {DATA_AXIS: int(data), MODEL_AXIS: int(model)}
+    def __init__(self, data: int, model: int = 1, device_type: str = "cpu",
+                 seq: int = 1, stage: int = 1):
+        self.shape = {DATA_AXIS: int(data), STAGE_AXIS: int(stage),
+                      SEQ_AXIS: int(seq), MODEL_AXIS: int(model)}
         self.device_type = device_type
-        self.device_mesh = None
-        self._coords = (0, 0)
-        if dist.is_initialized():
-            from torch.distributed.device_mesh import init_device_mesh
-            self.device_mesh = init_device_mesh(
-                device_type, (data, model),
-                mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
-            rank = dist.get_rank()
-            self._coords = (rank // model, rank % model)
+        self.grouped = dist.is_initialized()
+        self._rank = dist.get_rank() if self.grouped else 0
+        dims = tuple(self.shape[a] for a in AXES)
+        self._coords = tuple(int(c) for c in np.unravel_index(
+            self._rank, dims))
+        self._groups: dict = {}
+        if self.grouped:
+            for axis in AXES:
+                self._groups[(axis,)] = self._new_group((axis,))
 
-    def group(self, axis: str):
-        if self.device_mesh is None:
+    def _new_group(self, axes: Tuple[str, ...]):
+        """Form the groups of `axes` (one for each place on the other
+        axes: every rank takes part in forming each) and return this
+        rank's."""
+        dims = tuple(self.shape[a] for a in AXES)
+        grid = np.arange(int(np.prod(dims))).reshape(dims)
+        keep = [AXES.index(a) for a in axes]
+        rest = [i for i in range(len(AXES)) if i not in keep]
+        blocks = np.transpose(grid, rest + keep).reshape(
+            -1, int(np.prod([dims[i] for i in keep])))
+        mine = None
+        for ranks in blocks:
+            g = dist.new_group([int(r) for r in ranks])
+            if self._rank in ranks:
+                mine = g
+        return mine
+
+    def group(self, axis):
+        if not self.grouped:
             return None
-        return self.device_mesh.get_group(axis)
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        key = tuple(a for a in AXES if a in axes)
+        if key not in self._groups:
+            self._groups[key] = self._new_group(key)
+        return self._groups[key]
 
     def index(self, axis: str) -> int:
-        return self._coords[0 if axis == DATA_AXIS else 1]
+        return self._coords[AXES.index(axis)]
 
     def __repr__(self):
-        return (f"Mesh(data={self.shape[DATA_AXIS]}, "
-                f"model={self.shape[MODEL_AXIS]}, "
-                f"device_type={self.device_type!r})")
+        return ("Mesh(" + ", ".join(f"{a}={n}" for a, n in self.shape.items())
+                + f", device_type={self.device_type!r})")
 
 
 def _world_size() -> int:
@@ -112,9 +141,10 @@ def _world_size() -> int:
 def build_mesh(config: Optional[MeshConfig] = None,
                devices: Optional[Sequence] = None,
                device_type: Optional[str] = None) -> Mesh:
-    """A (data, model) mesh over the world of the process group (one
-    rank without a group). `devices`, when given, must number the world's
-    ranks: the port has one device per rank."""
+    """A (data, stage, seq, model) mesh over the world of the process
+    group (one rank without a group). `devices`, when given, must number
+    the world's ranks: the port has one device per rank. Collective:
+    every rank of the group builds it."""
     config = config or MeshConfig()
     world = _world_size()
     if devices is not None and len(list(devices)) != world:
@@ -122,14 +152,10 @@ def build_mesh(config: Optional[MeshConfig] = None,
                          f"process group of {world} ranks (one device "
                          "per rank)")
     d, m, s, p = config.resolve(world)
-    if s != 1 or p != 1:
-        raise NotImplementedError(
-            f"seq={s}, stage={p}: sequence and pipeline parallelism come "
-            "with the next slice of the port (ROADMAP A.15b)")
     if device_type is None:
         device_type = "cuda" if dist.is_initialized() \
             and dist.get_backend() == "nccl" else "cpu"
-    return Mesh(d, m, device_type)
+    return Mesh(d, m, device_type, seq=s, stage=p)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,3 +193,22 @@ def shard_dim(t: torch.Tensor, dim: int, n: int, index: int) -> torch.Tensor:
         return t
     size = t.shape[dim] // n
     return t.narrow(dim, index * size, size)
+
+
+def all_reduce_flat(tensors: List[torch.Tensor], group
+                    ) -> List[torch.Tensor]:
+    """SUM of each tensor over `group`: one flat buffer per dtype,
+    reduced in place, split back into views of it."""
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    out = list(tensors)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        ofs = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[ofs:ofs + n].view(tensors[i].shape)
+            ofs += n
+    return out

@@ -39,8 +39,9 @@ runs one process per rank and does the partitioner's work itself, in
   ``model`` rank runs the whole forward and backward, so a plan with
   ``model > 1`` splits storage and pays the gathers but splits no work
   (ROADMAP A.15c). Engaging one logs a one-time warning saying so.
-- A global-norm clip inside the updater measures the whole gradient: the
-  pieces' squares meet in one all-reduce (`nn/updaters.global_norm`).
+- A global-norm clip inside the updater measures the whole gradient, and
+  Lars's trust ratio each whole leaf: the pieces' squares meet in one
+  all-reduce (`nn/updaters.global_norm`, `leaf_norms`).
 
 At the fit's end the network holds whole tensors again (`release`).
 Collectives are issued on the stream of the step, so a CUDA graph of the
@@ -52,7 +53,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +61,7 @@ import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.parallel.mesh import (
     DATA_AXIS, MODEL_AXIS, Mesh, MeshConfig, P, PartitionSpec, Placement,
-    all_gather_dim, build_mesh, shard_dim,
+    all_gather_dim, all_reduce_flat, build_mesh, shard_dim,
 )
 from deeplearning4j_tpu_torch.parallel.sharding import (
     ShardingRules, local_piece,
@@ -295,7 +296,7 @@ class PlanRuntime:
         self.n_data = self.mesh.shape[DATA_AXIS]
         self.n_model = self.mesh.shape[MODEL_AXIS]
         self.data_index = self.mesh.index(DATA_AXIS)
-        self.grouped = self.mesh.device_mesh is not None
+        self.grouped = self.mesh.grouped
         if self.n_model > 1 and not _warned_model_compute:
             _warned_model_compute.append(True)
             log.warning(
@@ -315,8 +316,6 @@ class PlanRuntime:
                             for p, leaf in _paths(whole)}
         self.sharded_params = any(self.param_specs.values())
         self.sharded_state = any(self.state_specs.values())
-        if self.sharded_state:
-            self._check_updaters(net)
         net.params = self._pieces(whole, self.param_specs)
         if self.sharded_state:
             net.opt_state = self._opt_pieces(net.opt_state, whole)
@@ -330,19 +329,6 @@ class PlanRuntime:
         while dims and dims[-1] is None:
             dims.pop()
         return P(*dims)
-
-    @staticmethod
-    def _check_updaters(net):
-        from deeplearning4j_tpu_torch.nn.updaters import Lars, get_updater
-        ups = [net.conf.updater] + [
-            getattr(layer, "updater", None) for _, _, layer
-            in net._label_tree()]
-        if any(u is not None and isinstance(get_updater(u), Lars)
-               for u in ups):
-            raise NotImplementedError(
-                "Lars's per-leaf trust ratio under a sharded optimizer "
-                "state (zero_stage >= 1 or sharding rules) is not ported; "
-                "use zero_stage=0 without rules")
 
     def _pieces(self, tree, specs):
         return _walk(tree, lambda p, t: local_piece(t, specs[p], self.mesh)
@@ -453,24 +439,11 @@ class PlanRuntime:
         return 1000003 * self.data_index
 
     # -------------------------------------------------------- collectives
-    def _all_reduce(self, tensors: List[torch.Tensor], group, op=None
+    def _all_reduce(self, tensors: List[torch.Tensor], group
                     ) -> List[torch.Tensor]:
-        """SUM (or `op`) of each tensor over `group`: one flat buffer per
-        dtype, reduced in place, split back."""
-        by_dtype: Dict[torch.dtype, List[int]] = {}
-        for i, t in enumerate(tensors):
-            by_dtype.setdefault(t.dtype, []).append(i)
-        out = list(tensors)
-        for idx in by_dtype.values():
-            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-            dist.all_reduce(flat, op=op or dist.ReduceOp.SUM, group=group)
-            self.syncs += 1
-            ofs = 0
-            for i in idx:
-                n = tensors[i].numel()
-                out[i] = flat[ofs:ofs + n].view(tensors[i].shape)
-                ofs += n
-        return out
+        """SUM of each tensor over `group` (one collective per dtype)."""
+        self.syncs += len({t.dtype for t in tensors})
+        return all_reduce_flat(tensors, group)
 
     def reduce_grads(self, grads, loss):
         """The data group's sum of the (already share-scaled) gradients
@@ -503,28 +476,50 @@ class PlanRuntime:
         by_path = {p: s / self.n_data for (p, _), s in zip(items, summed)}
         return _walk(new_state, lambda p, t: by_path.get(p, t))
 
-    def global_norm(self, updates) -> torch.Tensor:
-        """||g|| of a tree of state-spec pieces: each distinct piece's
-        squares counted once over the world."""
-        world = self.n_data * self.n_model
-        local = None
-        for p, g in _paths(updates):
-            if isinstance(g, dict):
-                continue
-            spec = self.state_specs.get(p, P())
-            held = world
-            for axis in spec:
-                if axis is not None:
-                    held //= self.mesh.shape[axis]
-            sq = (g * g).sum() / held
-            local = sq if local is None else local + sq
-        if local is None:
-            return torch.zeros(())
-        total = local.reshape(1).clone()
+    def _held(self, path: str) -> int:
+        """How many ranks hold the same piece of leaf `path` (its state
+        spec's)."""
+        held = self.n_data * self.n_model
+        for axis in self.state_specs.get(path, P()):
+            if axis is not None:
+                held //= self.mesh.shape[axis]
+        return held
+
+    def _summed_squares(self, trees) -> List[torch.Tensor]:
+        """For each tree of state-spec pieces, each leaf's squares summed
+        over the whole leaf: every distinct piece counted once over the
+        world, all leaves in one all-reduce. Flat, trees in order."""
+        sqs = [(t * t).sum() / self._held(p)
+               for tree in trees for p, t in _paths(tree)
+               if not isinstance(t, dict)]
+        if not sqs:
+            return []
+        dtype = sqs[0].dtype
+        for t in sqs[1:]:
+            dtype = torch.promote_types(dtype, t.dtype)
+        total = torch.stack([t.to(dtype) for t in sqs])
         if self.grouped:
             dist.all_reduce(total)
             self.syncs += 1
-        return torch.sqrt(total.reshape(()))
+        return list(total.unbind())
+
+    def global_norm(self, updates) -> torch.Tensor:
+        """||g|| of a tree of state-spec pieces."""
+        sqs = self._summed_squares([updates])
+        if not sqs:
+            return torch.zeros(())
+        return torch.sqrt(torch.stack(sqs).sum())
+
+    def leaf_norms(self, *trees) -> List[List[torch.Tensor]]:
+        """Per tree, each whole leaf's norm from this rank's pieces (Lars's
+        trust ratio), the trees' squares in one all-reduce."""
+        flat = [torch.sqrt(t) for t in self._summed_squares(trees)]
+        out, ofs = [], 0
+        for tree in trees:
+            n = sum(1 for _, t in _paths(tree) if not isinstance(t, dict))
+            out.append(flat[ofs:ofs + n])
+            ofs += n
+        return out
 
     # --------------------------------------------------------------- step
     def apply(self, net, grads, loss):
@@ -544,7 +539,8 @@ class PlanRuntime:
                 t, self.state_specs[p], P(), self.mesh))
             p_s = _walk(net.params, lambda p, t: local_piece_view(
                 t, self.state_specs[p], self.param_specs[p], self.mesh))
-            with updaters.global_norm_hook(self.global_norm):
+            with updaters.global_norm_hook(self.global_norm,
+                                          self.leaf_norms):
                 updates, new_opt = net._tx.update(g_s, net.opt_state, p_s)
             updaters.apply_updates(p_s, updates)
             # pieces finer than the stored layout (ZeRO-1) gathered back

@@ -251,3 +251,177 @@ def resilient_plan(rank, world, zip_path, X, Y, batch, ckpt_dir, epochs,
                            __import__("deeplearning4j_tpu_torch.nn.updaters",
                                       fromlist=["tree_leaves"]).tree_leaves(
                                net.opt_state)]}
+
+
+# ------------------------------------------- sequence and pipeline slice
+def mesh_coords4(rank, world, data, stage=1, seq=1, model=1):
+    """This rank's coordinates on the four axes, each axis group's ranks
+    and those of the (data, seq) and (data, stage) groups."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import MeshConfig, build_mesh
+    mesh = build_mesh(MeshConfig(data=data, stage=stage, seq=seq,
+                                 model=model))
+    axes = ("data", "stage", "seq", "model")
+    groups = {a: dist.get_process_group_ranks(mesh.group(a)) for a in axes}
+    for combo in (("data", "seq"), ("data", "stage")):
+        groups["+".join(combo)] = dist.get_process_group_ranks(
+            mesh.group(combo))
+    return {"coords": [mesh.index(a) for a in axes], "groups": groups,
+            "shape": dict(mesh.shape)}
+
+
+def ring_attention(rank, world, data, seq, q, k, v, w, mask=None,
+                   causal=True, impl="online", block=8, device="cpu"):
+    """make_ring_attention (impl "online") or the flash ring through the
+    same global wrapper (impl "flash"), on the global (B, T, H, D)
+    inputs: the output, the gradients of sum(out * w) with respect to q,
+    k and v, the rotation counters and the metric counters."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshConfig, build_mesh, make_ring_attention,
+    )
+    from deeplearning4j_tpu_torch.parallel import ring as R
+    mesh = build_mesh(MeshConfig(data=data, seq=seq))
+    R.reset_transfers()
+    names = ("ring_attention_calls_total", "ring_bytes_rotated_total")
+
+    def values():
+        dump = monitor.dump()
+        return [sum(s["value"] for s in dump.get(n, {}).get("series", ()))
+                for n in names]
+    before = values()
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    launched = dict(fa.KERNEL_LAUNCHES)
+    qt, kt, vt = (torch.tensor(a, device=device, requires_grad=True)
+                  for a in (q, k, v))
+    mt = None if mask is None else torch.tensor(mask, device=device)
+    if impl == "online":
+        out = make_ring_attention(mesh, causal=causal)(qt, kt, vt, mt)
+    else:
+        ring = R.Ring.of(mesh)
+        n = q.shape[1] // ring.size
+        loc = [R._ShardSeq.apply(a, ring) for a in (qt, kt, vt)]
+        ml = None if mt is None else mt.narrow(1, ring.index * n, n)
+        out = R._GatherSeq.apply(R.ring_flash_self_attention(
+            *loc, ring=ring, causal=causal, mask=ml, block_q=block,
+            block_k=block), ring)
+    grads = torch.autograd.grad((out * torch.tensor(w, device=device))
+                                .sum(), (qt, kt, vt))
+    return {"out": out.detach().cpu().numpy(),
+            "grads": [g.cpu().numpy() for g in grads],
+            "launches": {n: fa.KERNEL_LAUNCHES[n] - launched[n]
+                         for n in launched},
+            "transfers": {k2: v2 for k2, v2 in R.TRANSFERS.items()
+                          if k2 != "seconds"},
+            "metrics": {n: a - b for n, a, b in zip(names, values(),
+                                                    before)}}
+
+
+def ring_gradcheck(rank, world, seq, q, k, v, w, mask=None, causal=True):
+    """The port's gradientcheck (f64 central differences) over q of the
+    ring through make_ring_attention: every rank checks the same entries
+    of the global q."""
+    from deeplearning4j_tpu_torch.gradientcheck import check_gradients
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshConfig, build_mesh, make_ring_attention,
+    )
+    attend = make_ring_attention(build_mesh(MeshConfig(seq=seq)),
+                                 causal=causal)
+    kt, vt, wt = (torch.tensor(a) for a in (k, v, w))
+    mt = None if mask is None else torch.tensor(mask)
+
+    class Probe:
+        device = torch.device("cpu")
+        params = {"q": torch.tensor(q)}
+        state = {}
+        _compute_dtype = _param_dtype = torch.float64
+
+        def _score_fn(self, p, state, x, y, fm, lm, train):
+            return (attend(p["q"], kt, vt, mt) * wt).sum(), None
+
+    res = check_gradients(Probe(), np.zeros(1), np.zeros(1),
+                          max_per_param=24, eps=1e-6, max_rel_error=1e-6)
+    return {"passed": res.passed, "max_rel_error": res.max_rel_error,
+            "checked": res.n_params_checked}
+
+
+def _lm_source(net, X, Y, batch, fmask=None, lmask=None):
+    from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+    from deeplearning4j_tpu_torch.data.iterator import ExistingDataSetIterator
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    cut = (lambda a, i: None if a is None else a[i:i + batch])
+    if isinstance(net, ComputationGraph):
+        return [MultiDataSet(
+            (X[i:i + batch],), (Y[i:i + batch],),
+            None if fmask is None else (cut(fmask, i),),
+            None if lmask is None else (cut(lmask, i),))
+            for i in range(0, len(X), batch)]
+    return ExistingDataSetIterator([
+        DataSet(X[i:i + batch], Y[i:i + batch], cut(fmask, i),
+                cut(lmask, i)) for i in range(0, len(X), batch)])
+
+
+def context_fit(rank, world, zip_path, X, Y, batch, data=1, seq=1,
+                fmask=None, lmask=None, device="cpu"):
+    """ContextParallelTrainer over a (data, seq) mesh: the flat params,
+    the scores, the kernel launches and the ring's transfers."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import (
+        ContextParallelTrainer, MeshConfig, build_mesh,
+    )
+    from deeplearning4j_tpu_torch.parallel import ring as R
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    if device == "cuda":
+        from deeplearning4j_tpu_torch.util.platform import (
+            set_f32_matmul_exact,
+        )
+        set_f32_matmul_exact()
+    net = load_model(zip_path, device=device)
+    sc = _Scores()
+    net.set_listeners(sc)
+    t = ContextParallelTrainer(net, build_mesh(MeshConfig(data=data,
+                                                          seq=seq)))
+    R.reset_transfers()
+    for kname in fa.KERNEL_LAUNCHES:
+        fa.KERNEL_LAUNCHES[kname] = 0
+    t.fit(_lm_source(net, X, Y, batch, fmask, lmask), epochs=1,
+          batch_size=batch)
+    return {"flat": net.params_flat().detach().cpu().numpy().copy(),
+            "scores": sc.vals, "iterations": net.iteration_count,
+            "syncs": t.syncs, "launches": dict(fa.KERNEL_LAUNCHES),
+            "routes": dict(R.TRANSFERS["routes"])}
+
+
+def pipeline_fit(rank, world, zip_path, X, Y, batch, data=1, stage=2,
+                 n_microbatches=None, fmask=None, lmask=None,
+                 device="cpu"):
+    """PipelineParallelTrainer over a (data, stage) mesh: the flat params,
+    the scores, the kernel launches and the ring's transfers."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshConfig, PipelineParallelTrainer, build_mesh,
+    )
+    from deeplearning4j_tpu_torch.parallel import ring as R
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    if device == "cuda":
+        from deeplearning4j_tpu_torch.util.platform import (
+            set_f32_matmul_exact,
+        )
+        set_f32_matmul_exact()
+    net = load_model(zip_path, device=device)
+    sc = _Scores()
+    net.set_listeners(sc)
+    t = PipelineParallelTrainer(
+        net, build_mesh(MeshConfig(data=data, stage=stage)),
+        n_microbatches=n_microbatches)
+    R.reset_transfers()
+    for kname in fa.KERNEL_LAUNCHES:
+        fa.KERNEL_LAUNCHES[kname] = 0
+    t.fit(_lm_source(net, X, Y, batch, fmask, lmask), epochs=1,
+          batch_size=batch)
+    return {"flat": net.params_flat().detach().cpu().numpy().copy(),
+            "scores": sc.vals, "iterations": net.iteration_count,
+            "syncs": t.syncs, "launches": dict(fa.KERNEL_LAUNCHES),
+            "routes": dict(R.TRANSFERS["routes"]),
+            "blocks": t.my_blocks}

@@ -40,7 +40,14 @@ predict through the kernel (n_layers launches a dispatch) and within
 the card, answering bitwise as before while the router kept answering.
 Data parallelism: fit(plan=) over a one-rank NCCL group bitwise the
 plain fit, per call and with the all-reduce captured in the step's graph;
-a captured step under gloo refused before it starts.
+a captured step under gloo refused before it starts. Sequence and
+pipeline parallelism: two gloo ranks on the card (K/V through pinned host
+memory): the flash ring's output within 1e-4 of the online ring on the
+CPU and its gradients within 1e-4 of each tensor's largest entry, two
+flash launches of each kernel a call; a context-parallel and a pipelined
+LM fit with the ranks bitwise equal, the expected launches, and the
+parameters within 1e-4 relative (1e-6 absolute) of the same fit's on two
+CPU ranks.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -1689,3 +1696,84 @@ def test_a_captured_step_under_gloo_is_refused(one_rank_group, cuda):
     assert net.iteration_count == 0
     net.fit(_lm_iter(), plan=ShardingPlan())
     assert net.iteration_count == 12 and np.isfinite(net.score())
+
+
+# ------------------------------------------- sequence and pipeline slice
+@pytest.fixture(scope="module")
+def card_ranks():
+    """Two spawned ranks (tests/_torch_dist): gloo groups on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from _torch_dist import RankPool
+    pool = RankPool(2)
+    yield pool
+    pool.close()
+
+
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True)],
+                         ids=["causal", "masked"])
+def test_the_flash_ring_on_two_card_ranks(card_ranks, causal, masked):
+    """ring_flash_self_attention on two ranks of the card against the
+    online ring on two CPU ranks: the same global inputs and outputs."""
+    rs = np.random.RandomState(16)
+    q, k, v, w = (rs.randn(2, 256, 2, 64).astype("float32")
+                  for _ in range(4))
+    mask = None
+    if masked:
+        mask = (rs.rand(2, 256) > 0.3).astype("float32")
+        mask[1, 128:] = 0.0
+    kw = dict(data=1, seq=2, q=q, k=k, v=v, w=w, mask=mask, causal=causal)
+    card = card_ranks.run("ring_attention", 2, impl="flash", device="cuda",
+                          block=128, **kw)
+    cpu = card_ranks.run("ring_attention", 2, impl="online", **kw)
+    for c in card:
+        np.testing.assert_allclose(c["out"], cpu[0]["out"], atol=1e-4,
+                                   rtol=0)
+        for a, b in zip(c["grads"], cpu[0]["grads"]):
+            assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+        assert c["launches"] == {"flash_fwd": 2, "flash_bwd_dq": 2,
+                                 "flash_bwd_dkv": 2}
+        assert c["transfers"]["routes"] == {"gloo_host": 2}
+
+
+def _card_lm_zip(tmp_path):
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    conf = TransformerLM(vocab_size=32, seq_length=128, n_layers=2,
+                         n_embd=128, n_heads=2, seed=5,
+                         attention_impl="flash").conf()
+    conf = dataclasses.replace(conf, updater=Nesterovs(learning_rate=0.05,
+                                                       momentum=0.9))
+    path = str(tmp_path / "lm.zip")
+    save_model(MultiLayerNetwork(conf, device="cpu").init(), path)
+    rs = np.random.RandomState(3)
+    x = rs.randint(0, 32, (12, 128)).astype("float32")
+    y = np.eye(32, dtype="float32")[(x.astype(int) + 1) % 32]
+    return path, x[..., None], y
+
+
+@pytest.mark.parametrize("job,kw,per_step", [
+    ("context_fit", dict(seq=2), 2 * 2),
+    ("pipeline_fit", dict(stage=2, n_microbatches=4), (4 + 1) * 1)],
+    ids=["context", "pipeline"])
+def test_sequence_and_pipeline_fits_on_two_card_ranks(card_ranks, tmp_path,
+                                                      job, kw, per_step):
+    """Three steps of a flash LM on two card ranks: the ranks bitwise
+    equal, every kernel launched `per_step` times a step and rank, the
+    parameters within 1e-4 relative of two CPU ranks' fit."""
+    path, x, y = _card_lm_zip(tmp_path)
+    card = card_ranks.run(job, 2, zip_path=path, X=x, Y=y, batch=4,
+                          device="cuda", **kw)
+    cpu = card_ranks.run(job, 2, zip_path=path, X=x, Y=y, batch=4, **kw)
+    np.testing.assert_array_equal(card[0]["flat"], card[1]["flat"])
+    for c in card:
+        assert c["iterations"] == 3
+        assert c["launches"] == {n: 3 * per_step for n in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        assert set(c["routes"]) == {"gloo_host"}
+    np.testing.assert_allclose(card[0]["flat"], cpu[0]["flat"], rtol=1e-4,
+                               atol=1e-6)

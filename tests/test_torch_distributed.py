@@ -5,8 +5,9 @@
 torchrun's; `initialize_distributed` forms a group or raises (never the
 reference's "continuing single-process" warning); over a 4-rank gloo
 group (`tests/_torch_dist`) the mesh places ranks row-major over (data,
-model), as the reference's `reshape(d, p, s, m)`, and the collectives
-the plan issues run.
+stage, seq, model), as the reference's `reshape(d, p, s, m)`, with a
+group for each axis and for (data, seq) and (data, stage), and the
+plan's collectives run.
 """
 import numpy as np
 import pytest
@@ -79,18 +80,17 @@ def test_one_rank_group_and_its_mesh(clean_env):
                                       single=True) is False
         assert dist.is_initialized() and dist.get_backend() == "gloo"
         mesh = build_mesh()
-        assert mesh.shape == {"data": 1, "model": 1}
+        assert mesh.shape == {"data": 1, "stage": 1, "seq": 1, "model": 1}
         assert data_sharding(mesh).spec == P("data")
         assert replicated_sharding(mesh).spec == P()
         assert str(P(None, "model")) == "PartitionSpec(None, 'model')"
         assert str(P("data")) == "PartitionSpec('data',)"
-        # seq and stage resolve as the reference's; above 1 they wait
-        from deeplearning4j_tpu_torch.parallel import mesh as pmesh
-        clean_env.setattr(pmesh, "_world_size", lambda: 4)
-        with pytest.raises(NotImplementedError, match="A.15b"):
+        # seq and stage resolve as the reference's: a degree the world
+        # does not hold raises its error
+        with pytest.raises(ValueError, match="!= available devices 1"):
             build_mesh(MeshConfig(data=2, seq=2))
         with pytest.raises(ValueError, match="one device per rank"):
-            build_mesh(devices=["cpu"])
+            build_mesh(devices=["cpu", "cpu"])
     finally:
         pdist.shutdown_distributed()
     assert not dist.is_initialized()
@@ -114,8 +114,8 @@ def test_mesh_over_four_ranks_is_row_major(pool):
                                                [2, 3]]
     assert [o["coordinator"] for o in out] == [True, False, False, False]
     assert [o["index"] for o in out] == [0, 1, 2, 3]
-    assert all(o["count"] == 4 and o["shape"] == {"data": 2, "model": 2}
-               for o in out)
+    assert all(o["count"] == 4 and o["shape"] == {
+        "data": 2, "stage": 1, "seq": 1, "model": 2} for o in out)
 
 
 def test_the_collectives_run_over_gloo(pool):
@@ -123,3 +123,42 @@ def test_the_collectives_run_over_gloo(pool):
     for summed, gathered in out:
         np.testing.assert_array_equal(summed, [1, 1, 1])
         np.testing.assert_array_equal(gathered, [0, 0, 0, 1, 1, 1])
+
+
+MESHES4 = [("data2_seq2", dict(data=2, seq=2), {
+    "coords": [[0, 0, 0, 0], [0, 0, 1, 0], [1, 0, 0, 0], [1, 0, 1, 0]],
+    "data": [[0, 2], [1, 3], [0, 2], [1, 3]],
+    "seq": [[0, 1], [0, 1], [2, 3], [2, 3]],
+    "stage": [[0], [1], [2], [3]]}),
+    ("data2_stage2", dict(data=2, stage=2), {
+        "coords": [[0, 0, 0, 0], [0, 1, 0, 0], [1, 0, 0, 0], [1, 1, 0, 0]],
+        "data": [[0, 2], [1, 3], [0, 2], [1, 3]],
+        "stage": [[0, 1], [0, 1], [2, 3], [2, 3]],
+        "seq": [[0], [1], [2], [3]]})]
+
+
+@pytest.mark.parametrize("name,kw,want", MESHES4, ids=[m[0] for m in MESHES4])
+def test_mesh_with_seq_and_stage_axes(pool, name, kw, want):
+    """data=2,seq=2 and data=2,stage=2 over four ranks: the reference's
+    (data, stage, seq, model) coordinates, a group per axis, and the
+    two-axis groups the context and pipeline trainers reduce over."""
+    import jax
+
+    from deeplearning4j_tpu.parallel import MeshConfig as JConfig
+    from deeplearning4j_tpu.parallel import build_mesh as jbuild
+    ref = jbuild(JConfig(**kw), devices=jax.devices()[:4])
+    out = pool.run("mesh_coords4", 4, **kw)
+    assert [o["coords"] for o in out] == want["coords"]
+    for axis in ("data", "seq", "stage"):
+        assert [o["groups"][axis] for o in out] == want[axis]
+    assert [o["groups"]["model"] for o in out] == [[r] for r in range(4)]
+    split = "seq" if kw.get("seq") else "stage"
+    other = "stage" if split == "seq" else "seq"
+    assert all(o["groups"]["data+" + split] == [0, 1, 2, 3]
+               and o["groups"]["data+" + other] == o["groups"]["data"]
+               for o in out)
+    assert all(o["shape"] == dict(ref.shape) for o in out)
+    assert list(out[0]["shape"]) == list(ref.shape)
+    ids = np.vectorize(lambda d: d.id)(ref.devices)
+    for r, o in enumerate(out):
+        assert tuple(np.argwhere(ids == r)[0]) == tuple(o["coords"])

@@ -293,22 +293,24 @@ def test_package_exports_are_the_references_minus_unported(package):
         assert not hasattr(pkg, name), name
 
 
-# the sequence-and-stage half of `parallel/` (ROADMAP A.15b)
-PARALLEL_LATER_SLICE = {"ring_self_attention", "make_ring_attention",
-                        "blockwise_attention", "ContextParallelTrainer",
-                        "PipelineParallelTrainer"}
+# the sequence-and-stage half of `parallel/` landed with ring, context
+# and pipeline parallelism: no name of the reference's is left out
+PARALLEL_LATER_SLICE = set()
 
 
 def test_parallel_exports_the_references_all_but_the_later_slice():
-    """`parallel.__all__` is the reference's, in its order, less the
-    names of ring, context and pipeline parallelism; importing the
-    package imports none of its modules (the names resolve lazily)."""
+    """`parallel.__all__` is the reference's whole `__all__`, in its
+    order (ring, context and pipeline parallelism included); importing
+    the package imports none of its modules (the names resolve
+    lazily)."""
     from deeplearning4j_tpu import parallel as jparallel
     from deeplearning4j_tpu_torch import parallel
     assert parallel.__all__ == [n for n in jparallel.__all__
                                 if n not in PARALLEL_LATER_SLICE]
-    for name in PARALLEL_LATER_SLICE:
-        assert not hasattr(parallel, name)
+    assert parallel.__all__ == list(jparallel.__all__)
+    for name in parallel.__all__:
+        assert getattr(parallel, name).__module__.startswith(
+            "deeplearning4j_tpu_torch.parallel.")
     code = ("import sys\n"
             "import deeplearning4j_tpu_torch.parallel\n"
             "mods = sorted(m for m in sys.modules if m.startswith("

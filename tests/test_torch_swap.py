@@ -560,8 +560,8 @@ def test_parallel_inference_rejects_after_shutdown_and_meshes():
             for n in (8, 5):
                 np.testing.assert_array_equal(two.output(X[:n]),
                                               _out(net, X[:n]))
-    # tensor-parallel servables come with the next slice
-    with pytest.raises(NotImplementedError, match="A.15b"):
+    # tensor-parallel servables come with tensor-parallel compute
+    with pytest.raises(NotImplementedError, match="A.15c"):
         ParallelInference(net, plan=object())
     assert ParallelInference(net, mesh=["cpu"],
                              mode="sequential").device.type == "cpu"
