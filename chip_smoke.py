@@ -103,12 +103,13 @@ result line:
              first, then the replayed CUDA graph, f32 and bf16: fit and
              chunk wall ms, step ms, imgs/s, TFLOP/s, host launch calls,
              graph launches and device kernels a step, device busy ms
-             and idle share (torch.profiler), peak memory, and the
-             host-device syncs of a fit by site (none inside a chunk's
-             dispatch, one loss fetch a chunk). (b) the full-width LM
+             and idle share (torch.profiler, one chunk), peak memory,
+             and the host-device syncs of a fit by site (none inside a
+             chunk's dispatch, one loss fetch a chunk). (b) the full-width LM
              through fit(scan_steps=8) over 16 steps, per-call and graph:
-             step ms, the same profile; each captured step must run each
-             flash kernel n_layers times (the profiler's kernel events).
+             step ms, the same profile (one chunk); each captured step
+             must run each flash kernel n_layers times (the profiler's
+             kernel events).
              (c) equality on the card, graph against per-call from one
              init: the LM (16 steps) bitwise, a small MLP with dropout
              0.5 bitwise, ResNet50 at 64² (batch 4, two chunks of 3,
@@ -222,7 +223,7 @@ result line:
              dK/dV 0.
 11. data_plane — the shard data plane (no hand-written kernel: shards,
              the ring and the record readers are numpy in worker
-             processes). (a) 2560 seeded uint8 images (224², int labels,
+             processes). (a) 1280 seeded uint8 images (224², int labels,
              1000 classes) written through ShardWriter (bytes and convert
              seconds; the phase fails naming the bytes if the temporary
              directory cannot hold them), streamed by
@@ -230,10 +231,10 @@ result line:
              the default worker count (it fails if that is 0, e.g. under
              DL4J_CUDA_ETL_WORKERS=0) and ImagePreProcessingScaler on the
              pipe, into ComputationGraph.fit(scan_steps=10) of the zoo's
-             ResNet50(), f32 then bf16 compute: a warm epoch, then two
-             epochs each from memory (ExistingDataSetIterator over the
-             same batches), from the ring with copy=True and with
-             copy=False, in turns: step ms, imgs/s, the train loop's wait
+             ResNet50(), f32 then bf16 compute: a warm epoch, then
+             DATA_ROUNDS epochs each from memory (ExistingDataSetIterator
+             over the same batches), from the ring with copy=True and
+             with copy=False, in turns: step ms, imgs/s, the train loop's wait
              for its batches (the first chunk's apart), the ring's fetch
              wait, the workers' decode
              ms, host ms to stage one batch (its pinned copy), the ring's
@@ -241,7 +242,8 @@ result line:
              profiled epoch each from memory and the ring), peak memory,
              and, for each ring mode, the stage that sets the pace: the
              device unless its median step trails memory's by more than
-             memory's run-to-run spread, else the fetch wait or the
+             memory's run-to-run spread (0 over one round), else the
+             fetch wait or the
              staging, whichever is longer a batch. (b) the train phase's token set (32
              sequences of 2048, next-token labels one-hot uint8) as
              shards, through the ring (2 workers) into the full-width
@@ -255,9 +257,9 @@ result line:
              scan_steps=3, accumulate_steps=2 and per-call fits without
              prefetch. (d) `python -m deeplearning4j_tpu_torch.train
              --dataset mnist --synthetic-data --serve-port 0` on LeNet in
-             a subprocess: 8 predicts over the socket equal the reloaded
-             output zip's output() on the card (atol 1e-5), then SIGTERM
-             drains it and it exits 0. `launches_by_path` gains
+             a subprocess, beside (c): 8 predicts over the socket equal
+             the reloaded output zip's output() on the card (atol 1e-5),
+             then SIGTERM drains it and it exits 0. `launches_by_path` gains
              "data_plane": (b)'s profiled kernel events, n_layers x 16 of
              each kernel; (a), (c) and (d) launch none (the wrappers'
              counts).
@@ -278,12 +280,13 @@ result line:
              time, span counts, and tools/trace_report.py and
              tools/perf_report.py (stdlib only) reading the files with
              exit 0. (b) ResNet-50 bf16 at the bench shape through
-             fit(scan_steps=10), epochs of 20 steps: 2-epoch fits with
+             fit(scan_steps=10), epochs of 20 steps: 1-epoch fits with
              telemetry off and with tracing, the ledger and goodput on,
-             in turns: step ms medians and spreads, syncs a step equal
-             off and on (sync_sites), host launch calls a step equal
-             (launch_profile), the ledger within 5 % of the FLOPs counted
-             from the conv shapes (bench.py's 3.149e12 printed beside),
+             TELE_RESNET_ROUNDS in turns: step ms medians and spreads,
+             syncs a step equal off and on (sync_sites), host launch
+             calls a step equal (launch_profile, one chunk), the ledger
+             within 5 % of the FLOPs counted from the conv shapes
+             (bench.py's 3.149e12 printed beside),
              `train_mfu_pct`; then f32 once. (c) `serving.cli.build` over
              the LM as `lm` (predict) and `gen` (4 slots, 16-token
              pages), first without telemetry (`--no-flight`), then with
@@ -307,7 +310,8 @@ result line:
              (i) uninterrupted; (ii) DL4J_CUDA_FAULTS=preempt_at=7
              exiting 3 with no output zip, then `--resume`; (iii) in a
              subprocess, a real SIGTERM once two checkpoints are on disk
-             (exit 3), then `--resume` in another. (ii) and (iii) end
+             (exit 3), then `--resume` in another, both beside (i) and
+             (ii) (the runs share nothing). (ii) and (iii) end
              with output zips and last checkpoints' resilience.json
              bitwise (i)'s; each run launches each flash kernel n_layers
              times a step it trained; checkpoint save and restore seconds
@@ -427,10 +431,32 @@ result line:
              blocks a stage, 4 microbatches, bubble 1/5), 4 steps, the
              same comparisons. At most 90 s. `launches_by_path` gains
              "sequence" ((a) and (b)) and "pipeline" ((c)), both ranks.
+17. tensor — tensor- and expert-parallel compute, in phase 16's pair of
+             ranks after its parts: the full-width LM at data=1,model=2
+             under `TransformerLM.sharding_rules()` (each rank 4 of the 8
+             heads, half the MLP and half the vocabulary's rows). (a)
+             `ParallelInference(net, plan=)` on a (4, 2048) batch: each
+             rank's answer within 1e-5 of the one-process predict on the
+             card and bitwise the other rank's, n_layers flash_fwd
+             launches a forward and rank; ms a predict. (b) fit(plan=),
+             4 steps of batch 4: the ranks bitwise equal (the replicated
+             leaves are computed on each), each leaf within 1e-5 of its
+             one-process update after one step and 1e-4 after four (phase
+             15's rule, phase 16's one-process fit), n_layers launches of
+             each kernel a step and rank, the program ledger's FLOPs a
+             rank equal to the analytic count of the local shapes; step
+             p50, the model group's collectives a step and their ms, the
+             parameter bytes and peak memory a rank against one process.
+             (c) TransformerLMMoE at the same width, depth 2 (8 experts,
+             4 a rank), 2 steps: the same comparisons. At most 60 s.
+             `launches_by_path` gains "tensor" ((a) to (c), both ranks).
 
 Each path's counts are set to 0 just before it is driven and read just
-after. Every phase's row carries `t_s`, the seconds since the run
-started. The second-to-last line is the kernel table
+after. The run sets DL4J_CUDA_ZIP_STORED=1 for itself and every process
+it starts: the zips the port writes (the CLIs' outputs, the listeners'
+checkpoints) are stored, not deflated, which at tens of MB/s on the host
+cost the run minutes. Every phase's row carries `t_s`, the seconds since
+the run started. The second-to-last line is the kernel table
 (``{"kernels": [...]}``); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -453,12 +479,25 @@ import warnings
 import zipfile
 
 import numpy as np
-import torch
 
-# the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
+if __name__ == "__mp_main__":
+    # a worker of the data plane's ring: multiprocessing's spawn runs the
+    # parent's main file in each, which the workers never call, and
+    # importing torch there delayed the ring's first batch by seconds
+    torch = None
+else:
+    import torch
+
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W), by
+# dtype name
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12,        # CUDA cores, no tensor cores
-              torch.bfloat16: 989e12}      # tensor cores
+PEAK_FLOPS = {"float32": 67e12,        # CUDA cores, no tensor cores
+              "bfloat16": 989e12}      # tensor cores
+
+
+def peak_flops(dtype) -> float:
+    """PEAK_FLOPS of a torch dtype or a dtype name."""
+    return PEAK_FLOPS[str(dtype).rpartition(".")[2]]
 
 LM_SOURCE = ("zoo:TransformerLM?vocab_size=1024&seq_length=2048&n_layers=4"
              "&n_embd=512&n_heads=8&mlp_ratio=4&attention_impl=flash")
@@ -484,6 +523,9 @@ GEN_LENGTHS = (17, 100, 700, 1500)
 # 224x224) and its FLOP count (bench.py:277: 2 x 4.1 GMAC x 3 a image)
 RESNET_BATCH, RESNET_HW, RESNET_STEPS = 128, 224, 20
 RESNET_WARMUP, RESNET_TIMED = 3, 10
+# resnet_fit's timed fits a mode after its warm/capture fit (cut to one
+# to keep the whole run inside its time limit)
+RESNET_FIT_TIMED = 1
 RESNET_FLOP_PER_IMAGE = 24.6e9
 RESNET_PARITY = dict(num_classes=10, input_shape=(64, 64, 3))
 RESNET_CLI_IMAGES, RESNET_CLI_BATCH = 64, 32
@@ -549,6 +591,49 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+class ProfEvent:
+    """One torch.profiler event: its name (demangled, as torch.profiler
+    names it), device type and start and end in microseconds."""
+
+    __slots__ = ("name", "device_type", "start_us", "end_us")
+
+    def __init__(self, name, device_type, start_us, end_us):
+        self.name, self.device_type = name, device_type
+        self.start_us, self.end_us = start_us, end_us
+
+    @property
+    def us(self) -> float:
+        return self.end_us - self.start_us
+
+
+# the events torch.profiler's own event list leaves out
+_UNLISTED_EVENTS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new",
+    "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr",
+    "aten::_version"))
+
+
+def profiler_events(prof):
+    """`prof`'s events as `prof.events()` lists them (but for its merge
+    of a CPU op into a same-named only child), read from the profiler's
+    raw results: `prof.events()` builds a tree of Python objects, seconds
+    for a window of ResNet-50 steps."""
+    names, out = {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in _UNLISTED_EVENTS \
+                or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        if name not in names:
+            names[name] = torch._C._demangle(name) if len(name) > 1 \
+                else name
+        start = e.start_ns() / 1e3
+        out.append(ProfEvent(names[name], e.device_type(), start,
+                             start + e.duration_ns() / 1e3))
+    return out
+
+
 def device_ms(fn, match=None, iters: int = 10, tries: int = 3):
     """Device time per call of the CUDA kernels `fn` launches (only those
     whose name holds `match`, if given: one per call), from torch.profiler's
@@ -566,7 +651,7 @@ def device_ms(fn, match=None, iters: int = 10, tries: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
+        us = [e.us for e in profiler_events(prof)
               if e.device_type == DeviceType.CUDA
               and (match is None or match in e.name)]
         if us and (len(us) == iters if match else len(us) % iters == 0):
@@ -597,7 +682,7 @@ def attention_bound_ms(q, k, causal):
     flops = attention_flops(4, q, k, causal)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
         + b * h * tq * 4
-    t_ops = flops / PEAK_FLOPS[q.dtype]
+    t_ops = flops / peak_flops(q.dtype)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -877,7 +962,7 @@ def bwd_bound_ms(q, k, flops_per_pair_per_d, n_outputs_q, n_outputs_k,
     es = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * es + 2 * b * h * tq * 4 \
         + (n_outputs_q * q.numel() + n_outputs_k * k.numel()) * es
-    t_ops = flops / PEAK_FLOPS[q.dtype]
+    t_ops = flops / peak_flops(q.dtype)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -1162,15 +1247,16 @@ def profile_decode_steps(engine, steps=4):
             engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in profiler_events(prof)
+              if e.device_type == DeviceType.CUDA]
     if not events:
         return {"device_time": "not measured", "wall_ms": wall_ms}
     copies = [e for e in events if "memcpy" in e.name.lower()
               or "memset" in e.name.lower()]
-    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    busy_ms = sum(e.us for e in events) / 1e3
     by_name = {}
     for e in events:
-        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+        by_name[e.name] = by_name.get(e.name, 0) + e.us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -1466,13 +1552,14 @@ def profile_steps(net, batch, gen, steps=2):
             float(net._train_step(batch, gen))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in profiler_events(prof)
+               if e.device_type == DeviceType.CUDA]
     if not kernels:
         return {"phase": "train_profile", "device_time": "not measured",
                 "wall_ms": wall_ms}
     by_cat, by_name = {}, {}
     for e in kernels:
-        us = e.time_range.elapsed_us()
+        us = e.us
         by_cat[_category(e.name)] = by_cat.get(_category(e.name), 0) + us
         by_name[e.name] = by_name.get(e.name, 0) + us
     busy_ms = sum(by_cat.values()) / 1e3
@@ -1772,10 +1859,10 @@ def phased_profile(net, score, steps=2):
                 torch.cuda.synchronize()
             net.state = tree_map(lambda t: t.detach(), new_state)
             losses.append(float(loss.detach()))
-    events = prof.events()
+    events = profiler_events(prof)
     # the host's ranges; the profiler also puts each range on the device
     # timeline (a span over its kernels), which is not a kernel
-    ranges = [(e.time_range.start, e.time_range.end, e.name.split("/")[1])
+    ranges = [(e.start_us, e.end_us, e.name.split("/")[1])
               for e in events if e.name.startswith("step/")
               and e.device_type == DeviceType.CPU]
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
@@ -1785,12 +1872,12 @@ def phased_profile(net, score, steps=2):
     by_cat, by_name, unplaced = {}, {}, 0
     for e in kernels:
         phase = next((p for a, b, p in ranges
-                      if a <= e.time_range.start <= b), None)
+                      if a <= e.start_us <= b), None)
         if phase is None:
             unplaced += 1
             continue
         cat = _resnet_category(e.name, phase)
-        ms = e.time_range.elapsed_us() / 1e3
+        ms = e.us / 1e3
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
         key = (cat, e.name[:70])
         by_name[key] = by_name.get(key, 0.0) + ms
@@ -1862,8 +1949,7 @@ def resnet_timed(compute_dtype):
     p50 = statistics.median(step_ms)
     tflops = RESNET_FLOP_PER_IMAGE * RESNET_BATCH / (p50 / 1e3) / 1e12
     dtype = compute_dtype or "float32"
-    peak_flops = PEAK_FLOPS[torch.bfloat16 if dtype == "bfloat16"
-                            else torch.float32]
+    peak_rate = peak_flops(dtype)
     steps = prof.get("steps", 2)
     row = {"phase": "resnet_timed", "compute_dtype": dtype,
            "params": net.num_params(), "batch": RESNET_BATCH,
@@ -1874,8 +1960,8 @@ def resnet_timed(compute_dtype):
            "step_ms": step_ms, "step_host_ms_p50": statistics.median(host_ms),
            "imgs_per_s": RESNET_BATCH / (p50 / 1e3),
            "tflops_at_24.6_gflop_per_image": tflops,
-           "peak_tflops": peak_flops / 1e12,
-           "share_of_peak": tflops * 1e12 / peak_flops,
+           "peak_tflops": peak_rate / 1e12,
+           "share_of_peak": tflops * 1e12 / peak_rate,
            "launches_per_step": prof.get("kernel_launches", 0) / steps,
            "syncs_per_step": syncs,
            "idle_share": prof.get("idle_share", "not measured"),
@@ -1987,13 +2073,13 @@ def launch_profile(fn, steps):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
+    events = profiler_events(prof)
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     kernels = [e for e in device if not e.name.startswith("Memcpy")
                and not e.name.startswith("Memset")]
     launches = [e for e in events if e.device_type == DeviceType.CPU
                 and e.name in LAUNCH_CALLS]
-    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    busy_ms = sum(e.us for e in device) / 1e3
     if not device:
         return {"device_time": "not measured", "wall_ms": wall_ms}
     return {"steps": steps, "wall_ms": wall_ms,
@@ -2108,13 +2194,15 @@ def resnet_fit(compute_dtype):
         # at capture
         torch.cuda.reset_peak_memory_stats()
         first_ms = timed(scan, 2 if scan == 1 else 2 * FIT_K)  # warm/capture
-        # two timed fits a mode
-        walls = [timed(scan) for _ in range(2)]
+        walls = [timed(scan) for _ in range(RESNET_FIT_TIMED)]
         peak = torch.cuda.max_memory_allocated()
-        n_prof = 4 if scan == 1 else 2 * FIT_K
+        # the profiler's window is one chunk (its events take seconds
+        # to read back); the syncs are counted over a whole fit
+        n_prof = 4 if scan == 1 else FIT_K
         prof = launch_profile(lambda: net.fit(make_it(n_prof),
                                               scan_steps=scan), n_prof)
-        sites, where = sync_sites(lambda: net.fit(make_it(n_prof),
+        n_sync = 4 if scan == 1 else 2 * FIT_K
+        sites, where = sync_sites(lambda: net.fit(make_it(n_sync),
                                                   scan_steps=scan))
         wall = statistics.median(walls)
         step_ms = wall / (2 * FIT_K)
@@ -2184,12 +2272,11 @@ def train_scan(fa):
         counted = dict(fa.KERNEL_LAUNCHES)
         steps = [timed(scan) for _ in range(2)]
         peak = torch.cuda.max_memory_allocated()
-        # one profiler window a chunk (LM_SCAN_K steps), summed: one
-        # window over all 16 replayed steps once came back a backward
-        # kernel short (ROADMAP M.1)
+        # one profiler window of one chunk (LM_SCAN_K steps): one window
+        # over all 16 replayed steps once came back a backward kernel
+        # short (ROADMAP M.1)
         prof = merged_profile([launch_profile(
-            lambda: fit(scan, LM_SCAN_K), LM_SCAN_K)
-            for _ in range(LM_SCAN_STEPS // LM_SCAN_K)])
+            lambda: fit(scan, LM_SCAN_K), LM_SCAN_K)])
         sites, where = sync_sites(lambda: fit(scan))
         step_ms = statistics.median(steps)
         rows[mode] = {"scan_steps": scan, "first_fit_step_ms": first,
@@ -2413,6 +2500,8 @@ def fit_graph(fa, tmp):
 CHARS, CHAR_SEQ, CHAR_BATCH, CHAR_SEQS, TBPTT = 47, 1000, 32, 64, 50
 STREAM_PRIME, STREAM_STEPS = 50, 200
 BENCH_VOCAB, BENCH_UNITS, BENCH_T, BENCH_BATCH, RNN_K = 77, 200, 50, 64, 10
+# char_lstm_fit's timed fits a mode (cut to two for the run's time limit)
+CHAR_FIT_TIMED = 2
 
 
 def char_sequences(rs, n, t, vocab):
@@ -2704,9 +2793,9 @@ def char_lstm_fit():
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         first_ms = timed(scan)
-        walls = [timed(scan) for _ in range(3)]
+        walls = [timed(scan) for _ in range(CHAR_FIT_TIMED)]
         peak = torch.cuda.max_memory_allocated()
-        n_prof = 2 if scan == 1 else n
+        n_prof = 2 if scan == 1 else RNN_K          # one chunk
         prof = launch_profile(lambda: fit(net, scan, n_prof), n_prof)
         sites, where = sync_sites(lambda: fit(net, scan))
         step_ms = statistics.median(walls) / n
@@ -3117,16 +3206,15 @@ def _yolo2(compute_dtype=None, dtype=None):
 def step_rate_row(name, compute_dtype, batch, gflop, step_ms, host_ms, peak):
     p50 = statistics.median(step_ms)
     dtype = compute_dtype or "float32"
-    peak_flops = PEAK_FLOPS[torch.bfloat16 if dtype == "bfloat16"
-                            else torch.float32]
+    peak_rate = peak_flops(dtype)
     tflops = 3 * gflop * 1e9 * batch / (p50 / 1e3) / 1e12
     return {"phase": name, "compute_dtype": dtype, "batch": batch,
             "step_ms_p50": p50, "step_ms_max": max(step_ms),
             "step_ms": step_ms, "step_host_ms_p50": statistics.median(host_ms),
             "imgs_per_s": batch / (p50 / 1e3),
             "forward_gflop_per_image": gflop,
-            "tflops_at_3x_forward": tflops, "peak_tflops": peak_flops / 1e12,
-            "share_of_peak": tflops * 1e12 / peak_flops,
+            "tflops_at_3x_forward": tflops, "peak_tflops": peak_rate / 1e12,
+            "share_of_peak": tflops * 1e12 / peak_rate,
             "peak_memory_bytes": peak}
 
 
@@ -3219,10 +3307,12 @@ def yolo_graph():
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated()
-        n_prof = 4 if scan == 1 else 2 * YOLO_SCAN_K
+        # one chunk profiled, a whole fit's syncs counted
+        n_prof = 4 if scan == 1 else YOLO_SCAN_K
         prof = launch_profile(lambda: net.fit(make_it(n_prof),
                                               scan_steps=scan), n_prof)
-        sites, where = sync_sites(lambda: net.fit(make_it(n_prof),
+        n_sync = 4 if scan == 1 else 2 * YOLO_SCAN_K
+        sites, where = sync_sites(lambda: net.fit(make_it(n_sync),
                                                   scan_steps=scan))
         step = statistics.median(walls) / (2 * YOLO_SCAN_K)
         rows[mode] = {"scan_steps": scan, "fit_wall_ms": walls,
@@ -3818,10 +3908,11 @@ def profile_spec_rounds(engine, rounds=3):
             engine.spec_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in profiler_events(prof)
+              if e.device_type == DeviceType.CUDA]
     copies = [e for e in events if "memcpy" in e.name.lower()
               or "memset" in e.name.lower()]
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    busy = sum(e.us for e in events) / 1e3
     syncs = count_syncs(engine.spec_step)
     return {"rounds": rounds, "round_ms": wall_ms / rounds,
             "kernel_launches_per_round": (len(events) - len(copies))
@@ -4064,7 +4155,7 @@ def lm_ops(fa, tmp):
 # the data_plane phase: ResNet-50 at the bench shape from uint8 shards
 # (20 batches of RESNET_BATCH), the LM from token shards, equality at the
 # parity shape, the train -> serve handoff
-DATA_IMAGES, DATA_CLASSES, DATA_K, DATA_ROUNDS = 2560, 1000, 10, 2
+DATA_IMAGES, DATA_CLASSES, DATA_K, DATA_ROUNDS = 1280, 1000, 10, 1
 DATA_PARITY_IMAGES, DATA_PARITY_BATCH = 24, 4
 HANDOFF_REQUESTS = 8
 
@@ -4428,12 +4519,13 @@ def data_equality(tmp):
     return out
 
 
-def data_handoff(tmp):
+def data_handoff(tmp, environ):
     """Phase 11d: `python -m deeplearning4j_tpu_torch.train --dataset
     mnist --synthetic-data --mode single --serve-port 0` on LeNet in a
-    subprocess; HANDOFF_REQUESTS predicts over the socket equal the
-    reloaded output zip's output() on the card (atol 1e-5: batches padded
-    to the serving buckets), then SIGTERM drains it and it exits 0."""
+    subprocess with `environ`; HANDOFF_REQUESTS predicts over the socket
+    equal the reloaded output zip's output() on the card (atol 1e-5:
+    batches padded to the serving buckets), then SIGTERM drains it and it
+    exits 0."""
     import os
     import signal
     from deeplearning4j_tpu_torch.models.zoo import LeNet
@@ -4444,7 +4536,7 @@ def data_handoff(tmp):
     save_model(LeNet().init(), src)
     cache = os.path.join(tmp, "handoff-datasets")
     os.makedirs(cache)
-    env = dict(os.environ, DL4J_CUDA_DATA_DIR=cache)
+    env = dict(environ, DL4J_CUDA_DATA_DIR=cache)
     repo = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"]
                                 if env.get("PYTHONPATH") else "")
@@ -4515,8 +4607,29 @@ def data_plane(fa, tmp):
     lm = data_lm(fa, tmp)
     for k in KERNELS:
         fa.KERNEL_LAUNCHES[k] = 0
-    equality = data_equality(tmp)
-    handoff = data_handoff(tmp)
+    # (d) beside (c): they share only the card, (c)'s check is bitwise and
+    # (d)'s atol 1e-5; (d) gets the environment as it is now ((c) sets a
+    # variable in it meanwhile)
+    import os
+    environ, handoff = dict(os.environ), {}
+
+    def run_handoff():
+        try:
+            handoff["row"] = data_handoff(tmp, environ)
+        except Exception as e:  # noqa: BLE001 — raised below
+            handoff["error"] = e
+
+    beside = threading.Thread(target=run_handoff, daemon=True)
+    beside.start()
+    try:
+        equality = data_equality(tmp)
+    finally:
+        beside.join(timeout=600)    # its subprocess ends with it
+    if "error" in handoff:
+        raise handoff["error"]
+    if "row" not in handoff:
+        raise AssertionError("data_plane handoff did not end")
+    handoff = handoff["row"]
     after_cd = dict(fa.KERNEL_LAUNCHES)
     row = {"phase": "data_plane", "gpu": gpu_line(),
            "seconds": time.perf_counter() - t0, "resnet": resnet_rows,
@@ -4537,7 +4650,7 @@ def data_plane(fa, tmp):
 # /metrics, SLOs, the flight recorder and fault injection
 TELE_SEQS, TELE_K = 80, 10              # 20 steps of batch 4 a run
 TELE_PREDICTS, TELE_STREAMS, TELE_TOKENS = 64, 4, 64
-TELE_RESNET_EPOCHS, TELE_RESNET_ROUNDS = 2, 2
+TELE_RESNET_EPOCHS, TELE_RESNET_ROUNDS = 1, 1
 TELE_TRACEPARENT = ("00-0123456789abcdef0123456789abcdef-"
                     "fedcba9876543210-01")
 MFU_AGREEMENT = 0.01    # the gauge against the trace's step, relative
@@ -4853,8 +4966,8 @@ def telemetry_resnet():
     batches = [DataSet(x8, y)] * (2 * FIT_K)
     peak = monitor.xla.PEAK_FLOPS_BY_KIND[torch.cuda.get_device_name(0)]
 
-    def make_it():
-        return ExistingDataSetIterator(batches).set_pre_processor(
+    def make_it(n=2 * FIT_K):
+        return ExistingDataSetIterator(batches[:n]).set_pre_processor(
             ImagePreProcessingScaler())
 
     out = {}
@@ -4911,9 +5024,10 @@ def telemetry_resnet():
             syncs[mode].append({"per_step": sum(sites.values())
                                 / (2 * FIT_K), "sites": sites,
                                 "where": where})
-            if mode not in launches:
+            if mode not in launches:        # one chunk profiled
                 launches[mode] = launch_profile(
-                    lambda: net.fit(make_it(), scan_steps=FIT_K), 2 * FIT_K)
+                    lambda: net.fit(make_it(FIT_K), scan_steps=FIT_K),
+                    FIT_K)
         _telemetry_reset()
         min_syncs = {m: min(r["per_step"] for r in v)
                      for m, v in syncs.items()}
@@ -5258,16 +5372,18 @@ def _cli_in_process(fa, argv, env=None):
     return code, out.getvalue(), err.getvalue(), dict(fa.KERNEL_LAUNCHES)
 
 
-def _cli_subprocess(argv, kill_after_checkpoints=None, timeout=600):
+def _cli_subprocess(argv, kill_after_checkpoints=None, timeout=600,
+                    environ=None):
     """`cli.main` in a fresh interpreter (RES_CLI_DRIVER prints the
-    wrapper's launch counts on stderr at exit). With
-    `kill_after_checkpoints` = (directory, n), a real SIGTERM is sent once
-    the directory's manifest lists n checkpoints. (exit code, stdout,
-    stderr, flash launches, seconds to the signal or None)."""
+    wrapper's launch counts on stderr at exit) with `environ` (default
+    this process's environment). With `kill_after_checkpoints` =
+    (directory, n), a real SIGTERM is sent once the directory's manifest
+    lists n checkpoints. (exit code, stdout, stderr, flash launches,
+    seconds to the signal or None)."""
     import os
     import signal
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
-        __file__)))
+    env = dict(os.environ if environ is None else environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     env.pop("DL4J_CUDA_FAULTS", None)
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-c", RES_CLI_DRIVER, *argv],
@@ -5335,46 +5451,70 @@ def resilience_cli(fa, tmp):
             + (["--resume"] if resume else [])
 
     runs = {}
-    monitor.REGISTRY.reset()
-    with _Stopwatch() as watch:
-        t0 = time.perf_counter()
-        code, out, _, launches = _cli_in_process(fa, args("i"))
-        runs["i"] = {"exit": code, "wall_s": time.perf_counter() - t0,
-                     "launches": launches,
-                     "result": json.loads(out.strip().splitlines()[-1])}
-        saves_i = list(watch.save_s)
-        t0 = time.perf_counter()
-        code, _, err, launches = _cli_in_process(
-            fa, args("ii"),
-            env={"DL4J_CUDA_FAULTS": f"preempt_at={RES_PREEMPT_AT}"})
-        runs["ii_preempted"] = {
-            "exit": code, "wall_s": time.perf_counter() - t0,
-            "launches": launches, "record": _stderr_record(err),
-            "output_zip": os.path.exists(os.path.join(tmp, "out_ii.zip"))}
-        t0 = time.perf_counter()
-        code, out, _, launches = _cli_in_process(fa, args("ii", True))
-        runs["ii_resumed"] = {
-            "exit": code, "wall_s": time.perf_counter() - t0,
-            "launches": launches,
-            "result": json.loads(out.strip().splitlines()[-1])}
-    hist = {k: monitor.REGISTRY.collect(
-        f"resilience_checkpoint_{k}_seconds").snapshot()
-        for k in ("save", "restore")}
-    t0 = time.perf_counter()
-    code, _, err, launches, signalled = _cli_subprocess(
-        args("iii"), kill_after_checkpoints=(os.path.join(tmp, "ck_iii"), 2))
-    runs["iii_sigterm"] = {
-        "exit": code, "wall_s": time.perf_counter() - t0,
-        "signal_at_s": signalled, "launches": launches,
-        "record": _stderr_record(err),
-        "output_zip": os.path.exists(os.path.join(tmp, "out_iii.zip"))}
-    t0 = time.perf_counter()
-    code, out, err, launches, _ = _cli_subprocess(args("iii", True))
-    runs["iii_resumed"] = {
-        "exit": code, "wall_s": time.perf_counter() - t0,
-        "launches": launches, "stderr_tail": err[-400:],
-        "result": json.loads(out.strip().splitlines()[-1])
-        if code == 0 else None}
+
+    # taken here: (ii) sets a variable in this environment meanwhile
+    environ = dict(os.environ)
+
+    def iii():
+        """(iii) in its own processes, beside (i) and (ii) in this one:
+        the runs share no state, and each counts its own launches."""
+        try:
+            t0 = time.perf_counter()
+            code, _, err, launches, signalled = _cli_subprocess(
+                args("iii"), environ=environ,
+                kill_after_checkpoints=(os.path.join(tmp, "ck_iii"), 2))
+            runs["iii_sigterm"] = {
+                "exit": code, "wall_s": time.perf_counter() - t0,
+                "signal_at_s": signalled, "launches": launches,
+                "record": _stderr_record(err),
+                "output_zip": os.path.exists(
+                    os.path.join(tmp, "out_iii.zip"))}
+            t0 = time.perf_counter()
+            code, out, err, launches, _ = _cli_subprocess(
+                args("iii", True), environ=environ)
+            runs["iii_resumed"] = {
+                "exit": code, "wall_s": time.perf_counter() - t0,
+                "launches": launches, "stderr_tail": err[-400:],
+                "result": json.loads(out.strip().splitlines()[-1])
+                if code == 0 else None}
+        except Exception as e:  # noqa: BLE001 — reported below
+            runs["iii_error"] = f"{type(e).__name__}: {e}"
+
+    beside = threading.Thread(target=iii, daemon=True)
+    beside.start()
+    try:
+        monitor.REGISTRY.reset()
+        with _Stopwatch() as watch:
+            t0 = time.perf_counter()
+            code, out, _, launches = _cli_in_process(fa, args("i"))
+            runs["i"] = {"exit": code, "wall_s": time.perf_counter() - t0,
+                         "launches": launches,
+                         "result": json.loads(out.strip().splitlines()[-1])}
+            saves_i = list(watch.save_s)
+            t0 = time.perf_counter()
+            code, _, err, launches = _cli_in_process(
+                fa, args("ii"),
+                env={"DL4J_CUDA_FAULTS": f"preempt_at={RES_PREEMPT_AT}"})
+            runs["ii_preempted"] = {
+                "exit": code, "wall_s": time.perf_counter() - t0,
+                "launches": launches, "record": _stderr_record(err),
+                "output_zip": os.path.exists(
+                    os.path.join(tmp, "out_ii.zip"))}
+            t0 = time.perf_counter()
+            code, out, _, launches = _cli_in_process(fa, args("ii", True))
+            runs["ii_resumed"] = {
+                "exit": code, "wall_s": time.perf_counter() - t0,
+                "launches": launches,
+                "result": json.loads(out.strip().splitlines()[-1])}
+        hist = {k: monitor.REGISTRY.collect(
+            f"resilience_checkpoint_{k}_seconds").snapshot()
+            for k in ("save", "restore")}
+    finally:
+        # a failure here waits for (iii): no process outlives the run
+        beside.join(timeout=1200)
+    if beside.is_alive() or "iii_resumed" not in runs:
+        raise AssertionError(f"the subprocess runs (iii) did not end: "
+                             f"{runs.get('iii_error', sorted(runs))}")
 
     for run in ("i", "ii_resumed", "iii_resumed"):
         r = runs[run]
@@ -5918,7 +6058,7 @@ def resilience(fa, tmp):
 
 # ---------------------------------------------------------------- fleet
 FLEET_TOL = 1e-6                 # answers against plain attention
-FLEET_LATENCY_PAIRS = 25         # (a): per batch size, router and direct
+FLEET_LATENCY_PAIRS = 15         # (a): per batch size, router and direct
 FLEET_RECOVERY_BUDGET_S = 150.0  # the chaos drill's RECOVERY_BUDGET_S
 FLEET_CHAOS_TIMEOUT_S = 600
 FLEET_DISAGG_PROMPT = 382        # (b): 95 full 4-token KV pages and a half
@@ -6262,6 +6402,42 @@ def fleet_chaos(fa, v1_zip, tmp, gpu):
     return row
 
 
+def _canary_requests(fl, canary, v2_path, bless_unix):
+    """The canary replica's predicts from its flight recorder, by when
+    they started: before the blessing, while the replica loaded v2 (from
+    the blessing to v2's load time, the version's `loaded_at`), while
+    it warmed v2 (to the swap's return: v2 live, where the rollout's
+    observation window opens) and after; count, p50 and max ms of each,
+    and the three slowest with their start (s from v2 live) and
+    timeline."""
+    rep = next(r for r in fl.supervisor.replicas
+                if r.name == canary["replica"])
+    _, doc = _get_json(f"{rep.url}/v1/debug/flight")
+    _, model = _get_json(f"{rep.url}/v1/models/lm")
+    loaded = next(v["loaded_at"] for v in model["versions"]
+                  if v["source"] == v2_path)
+    live = canary["started_unix"]
+    recs = [r for r in doc.get("records", []) if r.get("kind") == "predict"
+            and r.get("duration_ms") is not None]
+
+    def side(lo, hi):
+        ms = sorted(r["duration_ms"] for r in recs
+                    if lo <= r["start_unix"] < hi)
+        return {"n": len(ms), "p50_ms": ms[len(ms) // 2] if ms else None,
+                "max_ms": ms[-1] if ms else None}
+    slowest = sorted(recs, key=lambda r: r["duration_ms"])[-3:]
+    return {"v2_load_s": loaded - bless_unix, "v2_warm_s": live - loaded,
+            "before_blessing": side(-math.inf, bless_unix),
+            "during_v2_load": side(bless_unix, loaded),
+            "during_v2_warm": side(loaded, live),
+            "after_v2_live": side(live, math.inf),
+            "slowest": [{"start_s_from_v2_live":
+                         round(r["start_unix"] - live, 3),
+                         "duration_ms": r["duration_ms"],
+                         "events": r.get("events", [])[:8]}
+                        for r in slowest]}
+
+
 def fleet_rollout(fa, v1_zip, tmp, gpu):
     """14 (c): v2 = v1 after two fit steps on the card (the flash
     backward kernels run here), saved and blessed with the port's
@@ -6324,21 +6500,24 @@ def fleet_rollout(fa, v1_zip, tmp, gpu):
     try:
         pump = _Pump(LoadGen(Args, (SEQ, 1))).start()
         v2_path = CheckpointManager(ckdir).save(net, {})
-        t_bless = time.perf_counter()
+        t_bless, bless_unix = time.perf_counter(), time.time()
         CheckpointManager(ckdir).bless(v2_path, {"fit_steps":
                                                  FLEET_FIT_STEPS})
-        canary_seen, verdict = None, None
+        canary_seen, canary_doc, verdict = None, None, None
         deadline = time.monotonic() + FLEET_ROLLOUT_BUDGET_S
         while time.monotonic() < deadline:
             ro = fl.rollout.describe()
             if ro["state"] == "canary" and canary_seen is None:
                 canary_seen = ro["canary"]["replica"]
+                canary_doc = dict(ro["canary"])
             verdict = ro["last_verdict"]
             if verdict is not None:
                 break
             time.sleep(0.1)
         bless_to_verdict_s = time.perf_counter() - t_bless
         traffic = pump.stop()
+        canary_requests = None if canary_doc is None \
+            else _canary_requests(fl, canary_doc, v2_path, bless_unix)
         if pump.crashed:
             raise AssertionError(f"traffic pump crashed: {pump.crashed}")
         if verdict is None or verdict["decision"] != "promoted":
@@ -6396,6 +6575,8 @@ def fleet_rollout(fa, v1_zip, tmp, gpu):
            "traffic": {"requests": traffic["requests"],
                        "codes": traffic["codes"],
                        "p99_ms": traffic["latency_ms"]["p99"]},
+           "canary_requests": canary_requests,
+           "verdict_stats": verdict.get("stats"),
            "max_abs_err_vs_v2_plain": errs, "max_abs_v1_v2": v1_gap,
            "drill": {"seconds": drill_s,
                      "rollout_promote_s": sweep["rollout_promote_s"],
@@ -7032,14 +7213,17 @@ def parallel_two_ranks(fa, tmp, lm_zip, features, labels):
             "launches": launches}
 
 
-def _leaf_table(a_tree, b_tree, before=None, grads=None):
+def _leaf_table(a_tree, b_tree, before=None, grads=None, ulps=0):
     """Per leaf of two trees on the CPU: ||a - b|| over ||b|| ("err"),
     or, with `before` (b's leaves before its steps), over the leaf's
     update ||b - before||; the norm it is measured against ("norm") and
     the largest element error ("max_abs"). With `grads` (the first
     step's gradient) also the same ratio over the elements whose first
     gradient is at least PAR_CONDITIONED_GRAD ("err_conditioned", of
-    "conditioned" elements) and the |gradient| of the worst element."""
+    "conditioned" elements) and the |gradient| of the worst element.
+    With `ulps`, "err_conditioned" counts each element's |a - b| only
+    beyond `ulps` f32 ulps of b ("err_conditioned_raw" without that
+    floor)."""
     from deeplearning4j_tpu_torch.util.params import iter_leaves
     b_leaves = dict(iter_leaves(b_tree))
     g_leaves = dict(iter_leaves(grads)) if grads is not None else {}
@@ -7062,6 +7246,13 @@ def _leaf_table(a_tree, b_tree, before=None, grads=None):
             g = g_leaves[path].abs()
             keep = g >= PAR_CONDITIONED_GRAD
             row["err_conditioned"] = ratio(diff[keep], ref[keep])[0]
+            if ulps:
+                ulp = torch.nextafter(b.abs(), torch.full_like(b, math.inf)) \
+                    - b.abs()
+                row["err_conditioned_raw"] = row["err_conditioned"]
+                row["err_conditioned"] = ratio(
+                    (diff.abs() - ulps * ulp).clamp_min(0)[keep],
+                    ref[keep])[0]
             row["conditioned"] = int(keep.sum())
             row["elements"] = g.numel()
             row["grad_at_max"] = float(
@@ -7172,8 +7363,21 @@ SEQ_RING_TOL = 1e-4          # the kernel table's f32 atol; gradients of
 SEQ_STEPS, SEQ_MICROBATCHES = 4, 4
 SEQ_RING_CALLS = 5           # timed ring calls a case
 SEQ_BUDGET_S = 90.0
+# phase 17 runs in phase 16's ranks: (a) 1 + TENSOR_PREDICT_CALLS timed
+# predicts, (b) phase 16's 4 steps, (c) the MoE LM at depth 2 for 2 steps
+TENSOR_PREDICT_CALLS = 3
+TENSOR_PREDICT_TOL = 1e-5
+TENSOR_MOE_LAYERS, TENSOR_MOE_STEPS = 2, 2
+# (b) and (c)'s rounding floor: each element's difference from one
+# process counts only beyond this many f32 ulps of the one-process value.
+# At the zoo's AdamW 3e-4 one ulp of a layer-norm gamma just above 1.0
+# (1.19e-7) is 1.75e-5 of its 512-element leaf's first update (3e-4 x
+# sqrt(512)), so without the floor PAR_UPDATE_TOL cannot tell the stored
+# value's rounding from an error
+TENSOR_ROUNDING_ULPS = 1
+TENSOR_BUDGET_S = 60.0
 SEQ_SCRIPT = r"""
-import json, os, sys, time
+import contextlib, json, os, sys, time
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -7296,13 +7500,21 @@ class Steps:
 
     def iteration_done(self, n, it, ep, score, etl, bs):
         self.t.append(time.perf_counter())
+        rt = getattr(n, "_plan_rt", None)
+        if rt is not None:
+            # the model group's collectives since the fit engaged the plan
+            self.collectives = dict(rt.model_collectives)
         if it == 0:
-            np.save(os.path.join(out, f"{self.name}1_{rank}.npy"),
-                    n.params_flat().detach().cpu().numpy())
+            # under a plan the network holds pieces: whole them (on
+            # every rank at once) to save
+            with (rt.whole_view(n) if rt is not None
+                  else contextlib.nullcontext()):
+                np.save(os.path.join(out, f"{self.name}1_{rank}.npy"),
+                        n.params_flat().detach().cpu().numpy())
 
 
-def train(name, make):
-    net = load_model(lm_zip, device="cuda")
+def train(name, make, path=None, n=None):
+    net = load_model(path or lm_zip, device="cuda")
     steps = Steps(name)
     net.set_listeners(steps)
     trainer = make(net)
@@ -7310,7 +7522,7 @@ def train(name, make):
     R.reset_transfers()
     dist.barrier()
     steps.t = [time.perf_counter()]
-    trainer.fit(ArrayDataSetIterator(X, Y, batch_size=cfg["batch"]),
+    trainer.fit(ArrayDataSetIterator(X[:n], Y[:n], batch_size=cfg["batch"]),
                 epochs=1, batch_size=cfg["batch"])
     torch.cuda.synchronize()
     np.save(os.path.join(out, f"{name}_{rank}.npy"),
@@ -7319,6 +7531,7 @@ def train(name, make):
     return {"iterations": net.iteration_count, "score": net.score(),
             "step_ms": ms, "step_ms_p50": sorted(ms)[len(ms) // 2],
             "launches": counts(), "syncs": trainer.syncs,
+            "collectives": getattr(steps, "collectives", None),
             "rotation": {"shifts": R.TRANSFERS["shifts"],
                          "bytes": R.TRANSFERS["bytes"],
                          "seconds": R.TRANSFERS["seconds"],
@@ -7331,19 +7544,78 @@ torch.cuda.empty_cache()
 res["pipeline"] = train("pp", lambda net: PipelineParallelTrainer(
     net, build_mesh(MeshConfig(data=1, stage=2)),
     n_microbatches=cfg["microbatches"]))
+torch.cuda.empty_cache()
+
+# phase 17 (tensor): data=1, model=2 under the LM's Megatron rules
+from deeplearning4j_tpu_torch.models.transformer import TransformerLM
+from deeplearning4j_tpu_torch.monitor import xla as ledger
+from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+from deeplearning4j_tpu_torch.parallel import ParallelInference, ShardingPlan
+t_tensor = time.perf_counter()
+plan = ShardingPlan(data=1, model=2, rules=TransformerLM.sharding_rules())
+tres = {}
+base = torch.cuda.memory_allocated()
+net = load_model(lm_zip, device="cuda")
+pi = ParallelInference(net, plan=plan, mode="sequential")
+tres["param_bytes"] = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(net.params))
+xp = X[:cfg["batch"]]
+zero()
+np.save(os.path.join(out, f"tp_pred_{rank}.npy"), pi.output(xp))
+tres["predict_launches"] = counts()
+tres["predict_collectives"] = dict(net._plan_rt.model_collectives)
+tres["predict_ms"] = timed(lambda: pi.output(xp), cfg["tensor_calls"])
+pi.shutdown()
+del pi, net
+torch.cuda.empty_cache()
+
+
+class PlanFit:
+    # the fit under the plan, per call (gloo's collectives cannot be
+    # captured), the program ledger counting its first step
+    def __init__(self, net):
+        self.net, self.syncs = net, 0
+
+    def fit(self, it, epochs, batch_size):
+        ledger.clear_ledger()
+        ledger.enable_ledger()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            self.net.fit(it, epochs=epochs, plan=plan, scan_steps=1)
+        finally:
+            ledger.disable_ledger()
+        self.syncs = self.net._plan_syncs
+        self.flops = [r.flops for r in ledger.records()
+                      if r.name == "mln/train_step"]
+        self.peak = torch.cuda.max_memory_allocated() - base
+
+
+for key, tag, path, n in (("train", "tp", lm_zip, None),
+                          ("moe", "tpmoe", cfg["moe_zip"],
+                           cfg["moe_steps"] * cfg["batch"])):
+    fits = []
+    tres[key] = train(tag, lambda net: fits.append(PlanFit(net))
+                      or fits[-1], path=path, n=n)
+    tres[key].update(flops=fits[0].flops, peak_bytes=fits[0].peak)
+    torch.cuda.empty_cache()
+tres["seconds"] = time.perf_counter() - t_tensor
+res["tensor"] = tres
 shutdown_distributed()
 print("PAR_RESULT " + json.dumps(res), flush=True)
 """
 
 
-def _seq_one_process(lm_zip, features, labels):
+def _seq_one_process(lm_zip, features, labels, steps=SEQ_STEPS):
     """The one-process fit of the same batches on the card: its first
     gradient, and its parameters after step 1 and after the last step
-    (CPU trees), and the parameters before."""
+    (CPU trees), the parameters before, and the peak bytes the fit
+    allocated."""
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.nn.updaters import tree_map
     from deeplearning4j_tpu_torch.util.params import iter_leaves
     from deeplearning4j_tpu_torch.util.serialization import load_model
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     one = load_model(lm_zip)
     _, grads, _ = one.compute_gradient_and_score(
         DataSet(features[:TRAIN_BATCH], labels[:TRAIN_BATCH]))
@@ -7352,39 +7624,45 @@ def _seq_one_process(lm_zip, features, labels):
     before = {p: t.detach().cpu().clone() for p, t in iter_leaves(one.params)}
     gen = torch.Generator(device="cuda").manual_seed(0)
     after = {}
-    for i in range(SEQ_STEPS):
+    for i in range(steps):
         sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
         one._train_step(DataSet(features[sl], labels[sl]), gen)
-        if i in (0, SEQ_STEPS - 1):
+        if i in (0, steps - 1):
             # copies: the steps update the parameters in place
             after[i + 1] = tree_map(lambda t: t.detach().cpu().clone(),
                                     one.params)
+    peak = torch.cuda.max_memory_allocated() - base
     del one
     torch.cuda.empty_cache()
-    return g_one, before, after
+    return g_one, before, after, peak
 
 
-def _seq_against_one(tmp, name, one):
+def _seq_against_one(tmp, name, one, last=SEQ_STEPS, ulps=0):
     """(b)/(c)'s comparisons: the two ranks bitwise equal after step 1 and
     at the end, and each leaf within PAR_UPDATE_TOL of its update after
-    step 1 (PAR_DRIFT_TOL after the last) over the conditioned elements."""
+    step 1 (PAR_DRIFT_TOL after the last) over the conditioned elements
+    (each element's difference beyond `ulps` ulps of its value,
+    `_leaf_table`)."""
     import os
     from deeplearning4j_tpu_torch.util.params import flat_to_params
-    g_one, before, after = one
+    g_one, before, after = one[:3]
     worst = {}
     for steps, tag, tol in ((1, f"{name}1", PAR_UPDATE_TOL),
-                            (SEQ_STEPS, name, PAR_DRIFT_TOL)):
+                            (last, name, PAR_DRIFT_TOL)):
         a, b = (np.load(os.path.join(tmp, f"{tag}_{r}.npy")) for r in (0, 1))
         if not np.array_equal(a, b):
             raise AssertionError(f"{name} ranks' parameters differ after "
                                  f"{steps} steps")
         t = _leaf_table(flat_to_params(torch.from_numpy(a), after[steps]),
-                        after[steps], before, g_one)
+                        after[steps], before, g_one, ulps=ulps)
         leaf = max(t, key=lambda p: t[p]["err"])
         cond = max(t, key=lambda p: t[p]["err_conditioned"])
         worst[steps] = {"leaf": {"leaf": leaf, **t[leaf]},
                         "conditioned": {"leaf": cond, **t[cond]},
-                        "tolerance": tol}
+                        "tolerance": tol, "rounding_ulps": ulps}
+        if ulps:
+            raw = max(t, key=lambda p: t[p]["err_conditioned_raw"])
+            worst[steps]["conditioned_raw"] = {"leaf": raw, **t[raw]}
         if not t[cond]["err_conditioned"] <= tol:
             raise AssertionError(
                 f"{name} vs one process after {steps} steps: leaf {cond} "
@@ -7403,13 +7681,18 @@ def sequence(fa, tmp):
     name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
     lm_zip, tokens = os.path.join(tmp, "lm.zip"), os.path.join(tmp, "t.npz")
     save_model(model_by_name(name, **kw).init(), lm_zip, compression=STORED)
+    moe_zip = os.path.join(tmp, "moe.zip")
+    save_model(model_by_name("TransformerLMMoE", **dict(
+        kw, n_layers=TENSOR_MOE_LAYERS)).init(), moe_zip, compression=STORED)
     rs = np.random.RandomState(1616)
     _write_token_set(tokens, rs, SEQ_STEPS * TRAIN_BATCH)
     with np.load(tokens) as d:
         features, labels = d["features"], d["labels"]
     os.environ["SEQ_CONFIG"] = json.dumps({
         "shape": SEQ_RING_SHAPE, "calls": SEQ_RING_CALLS,
-        "batch": TRAIN_BATCH, "microbatches": SEQ_MICROBATCHES})
+        "batch": TRAIN_BATCH, "microbatches": SEQ_MICROBATCHES,
+        "moe_zip": moe_zip, "moe_steps": TENSOR_MOE_STEPS,
+        "tensor_calls": TENSOR_PREDICT_CALLS})
     try:
         ranks = _par_ranks("seq", lm_zip, tokens, tmp, timeout=300,
                            script=SEQ_SCRIPT)
@@ -7470,10 +7753,11 @@ def sequence(fa, tmp):
             "update_worst_after_1": worst[1],
             f"update_worst_after_{SEQ_STEPS}": worst[SEQ_STEPS]}
         emit({"phase": f"sequence_{part}", **parts[part]})
-    del one
-    seconds = time.perf_counter() - t_phase
-    row = {"phase": "sequence", "seconds": seconds, "ranks_s": ranks_s,
-           "budget_s": SEQ_BUDGET_S,
+    # phase 17's part of the ranks' time is its own
+    tensor_s = max(r["tensor"]["seconds"] for r in ranks)
+    seconds = time.perf_counter() - t_phase - tensor_s
+    row = {"phase": "sequence", "seconds": seconds,
+           "ranks_s": ranks_s - tensor_s, "budget_s": SEQ_BUDGET_S,
            "flash_launches": {
                "sequence": {k: parts["context"]["launches"][k]
                             for k in KERNELS},
@@ -7482,6 +7766,109 @@ def sequence(fa, tmp):
     if seconds > SEQ_BUDGET_S:
         raise AssertionError(f"phase 16 took {seconds:.1f} s "
                              f"> {SEQ_BUDGET_S}")
+    row["tensor"] = tensor(fa, tmp, [r["tensor"] for r in ranks], one,
+                           lm_zip, moe_zip, features, labels, tensor_s)
+    return row
+
+
+def _tensor_flops(layers, model):
+    """The LM's train step's FLOPs at batch TRAIN_BATCH on one rank of a
+    `model`-way split (the ledger's rules: 6 x GEMM parameters x tokens,
+    the flash kernels' 18 x D a live pair, head and head dim)."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    e = HEADS * HEAD_DIM
+    gemm = 6 * (12 * e * e * layers // model + e * VOCAB) \
+        * TRAIN_BATCH * SEQ
+    flash = 18 * HEAD_DIM * fa.live_pairs(SEQ, SEQ, True) * TRAIN_BATCH \
+        * (HEADS // model) * layers
+    return gemm + flash
+
+
+def tensor(fa, tmp, tr, one, lm_zip, moe_zip, features, labels,
+           ranks_s):
+    """Phase 17: tensor- and expert-parallel compute of the full-width LM
+    at data=1,model=2, checked against one process on the card (the
+    ranks ran in phase 16's processes; `tr` their records)."""
+    import os
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    t_phase = time.perf_counter()
+    # (a) predict
+    net = load_model(lm_zip)
+    want = net.output(features[:TRAIN_BATCH]).float().cpu().numpy()
+    del net
+    torch.cuda.empty_cache()
+    preds = [np.load(os.path.join(tmp, f"tp_pred_{r}.npy")) for r in (0, 1)]
+    if not np.array_equal(preds[0], preds[1]):
+        raise AssertionError("tensor (a): the ranks' answers differ")
+    err = float(np.abs(preds[0] - want).max())
+    if not err <= TENSOR_PREDICT_TOL:
+        raise AssertionError(f"tensor (a): {err} from one process")
+    fwd_only = {"flash_fwd": N_LAYERS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for t in tr:
+        if t["predict_launches"] != fwd_only:
+            raise AssertionError(f"tensor (a) launches {t}")
+    # (b) train, (c) MoE: the counts, then the one-process comparisons
+    one_moe = _seq_one_process(moe_zip, features, labels,
+                               steps=TENSOR_MOE_STEPS)
+    parts = {}
+    for part, tag, layers, steps, ref in (
+            ("train", "tp", N_LAYERS, SEQ_STEPS, one),
+            ("moe", "tpmoe", TENSOR_MOE_LAYERS, TENSOR_MOE_STEPS, one_moe)):
+        runs = [t[part] for t in tr]
+        flops = _tensor_flops(layers, 2)
+        for r in runs:
+            if r["iterations"] != steps or any(
+                    r["launches"][k] != layers * steps for k in KERNELS):
+                raise AssertionError(f"tensor {part}: {r}")
+            if part == "train" and r["flops"] != [flops]:
+                raise AssertionError(f"tensor {part}: ledger FLOPs "
+                                     f"{r['flops']}, analytic {flops}")
+        worst = _seq_against_one(tmp, tag, ref, last=steps,
+                                 ulps=TENSOR_ROUNDING_ULPS)
+        c = runs[0]["collectives"]
+        parts[part] = {
+            "score": runs[0]["score"],
+            "step_ms_p50": [r["step_ms_p50"] for r in runs],
+            "step_ms": [r["step_ms"] for r in runs],
+            "launches_per_step_and_rank": {k: layers for k in KERNELS},
+            "launches": {k: sum(r["launches"][k] for r in runs)
+                         for k in KERNELS},
+            "collectives_per_step": c["calls"] / steps,
+            "collective_ms_per_step": 1e3 * c["seconds"] / steps,
+            "collective_bytes_per_step": c["bytes"] / steps,
+            "plan_syncs": [r["syncs"] for r in runs],
+            "ledger_flops_per_rank": runs[0]["flops"],
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in runs],
+            "peak_bytes_one_process": ref[3],
+            "ranks_bitwise_equal": True,
+            "update_worst_after_1": worst[1],
+            f"update_worst_after_{steps}": worst[steps]}
+        if part == "train":
+            whole = _tensor_flops(layers, 1)
+            parts[part].update(analytic_flops_per_rank=flops,
+                               one_process_flops=whole,
+                               flops_share=flops / whole)
+    del one_moe
+    seconds = time.perf_counter() - t_phase + ranks_s
+    row = {"phase": "tensor", "seconds": seconds, "ranks_s": ranks_s,
+           "budget_s": TENSOR_BUDGET_S, "mesh": {"data": 1, "model": 2},
+           "predict": {"max_abs_err": err, "ranks_bitwise_equal": True,
+                       "launches_per_forward_and_rank": fwd_only,
+                       "ms": [t["predict_ms"] for t in tr],
+                       "collectives_per_forward":
+                           tr[0]["predict_collectives"],
+                       "param_bytes_per_rank": [t["param_bytes"]
+                                                for t in tr],
+                       "param_bytes_one_process": PAR_GRAD_FLOATS * 4},
+           **parts,
+           "flash_launches": {k: sum(t["predict_launches"][k]
+                                     + t["train"]["launches"][k]
+                                     + t["moe"]["launches"][k] for t in tr)
+                              for k in KERNELS}}
+    emit(row)
+    if seconds > TENSOR_BUDGET_S:
+        raise AssertionError(f"phase 17 took {seconds:.1f} s "
+                             f"> {TENSOR_BUDGET_S}")
     return row
 
 
@@ -7494,10 +7881,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    import os
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.util.platform import set_f32_matmul_exact
     set_f32_matmul_exact()
+    os.environ["DL4J_CUDA_ZIP_STORED"] = "1"    # inherited by subprocesses
 
     gpu = gpu_line()
     print(gpu, flush=True)
@@ -7578,7 +7967,9 @@ def main(argv=None) -> int:
                              "sequence": seq_run["flash_launches"][
                                  "sequence"]["flash_fwd"],
                              "pipeline": seq_run["flash_launches"][
-                                 "pipeline"]["flash_fwd"]},
+                                 "pipeline"]["flash_fwd"],
+                             "tensor": seq_run["tensor"][
+                                 "flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -7614,7 +8005,9 @@ def main(argv=None) -> int:
                                  "sequence": seq_run["flash_launches"][
                                      "sequence"][name],
                                  "pipeline": seq_run["flash_launches"][
-                                     "pipeline"][name]},
+                                     "pipeline"][name],
+                                 "tensor": seq_run["tensor"][
+                                     "flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

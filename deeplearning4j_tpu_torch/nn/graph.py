@@ -28,8 +28,8 @@ updaters and frozen vertices, per-vertex gradient checkpointing, and
 truncated BPTT (every sequence input, label and mask chunked along one
 shared T, the recurrent vertices' state carried across chunks); then
 `evaluate*` and `rnn_time_step`. A sharding plan (`fit(plan=)` or the
-`use_mesh` one) runs every path data-parallel, as in
-`MultiLayerNetwork.fit`.
+`use_mesh` one) runs every path data-parallel, and with ``model > 1``
+tensor-parallel, as in `MultiLayerNetwork.fit`.
 """
 from __future__ import annotations
 
@@ -219,6 +219,12 @@ class ComputationGraph(TrainableNet):
         run `apply_seq` from their carry (rnn_time_step, tbptt)."""
         if self._vertex_types is None:
             self._vertex_types = self._resolve_types()
+        with self._compute_scope():
+            return self._run_dag(params, state, inputs, train, generator,
+                                 fmasks, stash_pre, carries)
+
+    def _run_dag(self, params, state, inputs, train, generator, fmasks,
+                 stash_pre, carries):
         params = self._cast_params(params)
         acts: Dict[str, Any] = {}
         masks: Dict[str, Any] = {}
@@ -291,7 +297,8 @@ class ComputationGraph(TrainableNet):
             raise RuntimeError("Network is not initialized — call init() "
                                "first")
         with torch.inference_mode():
-            acts, _, _, _ = self._forward(self.params, self.state,
+            acts, _, _, _ = self._forward(self._forward_params(),
+                                          self.state,
                                           self._as_inputs(inputs), False)
         outs = tuple(acts[o] for o in self.conf.network_outputs)
         return outs[0] if len(outs) == 1 else outs
@@ -299,7 +306,8 @@ class ComputationGraph(TrainableNet):
     def feed_forward(self, *inputs, train: bool = False):
         """Every vertex's activation, by name (DL4J feedForward)."""
         with torch.no_grad():
-            acts, _, _, _ = self._forward(self.params, self.state,
+            acts, _, _, _ = self._forward(self._forward_params(),
+                                          self.state,
                                           self._as_inputs(inputs), train)
         return acts
 
@@ -322,14 +330,16 @@ class ComputationGraph(TrainableNet):
             elif self._vertex_types[out_name].kind == Kind.RNN:
                 lmask = masks[vd.inputs[0]]
             # the reference scores the head with no dropout key
-            s = vd.vertex.score(params_c.get(out_name, {}),
-                                acts["__pre__" + out_name], labels[i],
-                                train=train, generator=None, mask=lmask)
+            with self._compute_scope():
+                s = vd.vertex.score(params_c.get(out_name, {}),
+                                    acts["__pre__" + out_name], labels[i],
+                                    train=train, generator=None, mask=lmask)
             total = total + s.to(torch.promote_types(torch.float32, s.dtype))
-        for name, p in params.items():
-            vertex = self.conf.vertices[name].vertex
-            if isinstance(vertex, LayerConf):
-                total = total + vertex.regularization_score(p)
+        with self._compute_scope():
+            total = self._regularization(params, [
+                (name, self.conf.vertices[name].vertex) for name in params
+                if isinstance(self.conf.vertices[name].vertex, LayerConf)],
+                total)
         return total, (new_state, new_carries)
 
     @staticmethod
@@ -494,7 +504,8 @@ class ComputationGraph(TrainableNet):
             mds = MultiDataSet((mds.features,), (mds.labels,))
         with torch.no_grad():
             loss, _ = self._score_fn(
-                self.params, self.state, self._as_inputs(mds.features),
+                self._forward_params(), self.state,
+                self._as_inputs(mds.features),
                 self._as_labels(mds.labels), None, None, False)
         return float(loss)
 
@@ -534,7 +545,7 @@ class ComputationGraph(TrainableNet):
             prep.append(x[:, None, :] if single else x)
         with torch.no_grad():
             acts, _, self._rnn_carries, _ = self._forward(
-                self.params, self.state, tuple(prep), False,
+                self._forward_params(), self.state, tuple(prep), False,
                 carries=self._rnn_carries)
         outs = []
         for o in self.conf.network_outputs:

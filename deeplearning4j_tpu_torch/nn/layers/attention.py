@@ -20,6 +20,20 @@ shard pair, merged by their LSEs) where the flash path would run, else
 `ring_self_attention` (dropout); RoPE positions and
 `PositionalEmbeddingLayer`'s rows are offset by the shard's global start.
 
+Tensor- and expert-parallel mode: under a sharding plan whose rules
+split these layers' kernels over ``model`` (`TransformerLM.
+sharding_rules()`; `parallel/plan.PlanRuntime`), each rank is handed its
+pieces and computes with them (`parallel/tensor.py`). The attention's
+Q/K/V projections are column-parallel, so a rank computes its
+``n_heads / model`` heads (the flash kernel runs on those), and ``Wo`` is
+row-parallel, its partial products summed over ``model`` before ``bo``;
+the block's MLP is column-parallel up (``b1`` sliced) and row-parallel
+down (``b2`` after the sum); the MoE's experts are split on their
+leading dim, each rank scoring every expert's gate and running its own
+experts; the embedding looks up the rank's vocabulary rows (ids outside
+give zeros) or its columns, then sums or gathers over ``model``. Which
+split a layer runs is read off the shapes it is handed.
+
 Training draws its dropout masks from an explicit `torch.Generator` on the
 activations' device (the reference splits a JAX key per layer; the two
 streams differ, so parity tests run dropout-free or compare
@@ -43,8 +57,18 @@ from deeplearning4j_tpu_torch.nn.conf.base import (
 )
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
 from deeplearning4j_tpu_torch.nn.step_graph import check_ids
+from deeplearning4j_tpu_torch.parallel import tensor as tp
 
 NEG = -1e30
+COLUMN = (None, tp.MODEL)       # a kernel's output dim split over model
+ROW = (tp.MODEL,)               # its input dim (or a stack's lead dim)
+ATTENTION_SPLIT = {"Wq": COLUMN, "Wk": COLUMN, "Wv": COLUMN, "Wo": ROW}
+
+
+def _heads_divide(layer, n: int):
+    if layer.n_heads % n:
+        raise ValueError(f"{type(layer).__name__}: n_heads {layer.n_heads} "
+                         f"not divisible by the model degree {n}")
 
 
 # --- context-parallel mode ------------------------------------------------
@@ -189,6 +213,10 @@ class MultiHeadAttention(LayerConf):
     has_bias: bool = False
     attention_impl: str = "dense"
     block_size: int = 512
+    TP_GROUPS = (ATTENTION_SPLIT,)
+
+    def check_model_degree(self, n: int):
+        _heads_divide(self, n)
 
     def output_type(self, input_type: InputType) -> InputType:
         t = input_type.shape[0]
@@ -213,13 +241,20 @@ class MultiHeadAttention(LayerConf):
                 p[b] = torch.zeros((self.n_out,), dtype=dtype)
         return p, {}
 
-    def _qkv(self, params, x):
+    def _qkv(self, params, x, mg=None):
+        """(q, k, v) heads; with a model group, this rank's heads."""
+        h = self.n_heads
+        if mg is not None:
+            x = tp.copy_to_model(x, mg)
+            h //= mg.size
         q = x @ params["Wq"]
         k = x @ params["Wk"]
         v = x @ params["Wv"]
         if self.has_bias:
-            q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-        h = self.n_heads
+            bq, bk, bv = (params[b] if mg is None
+                          else tp.model_slice(params[b], mg)
+                          for b in ("bq", "bk", "bv"))
+            q, k, v = q + bq, k + bk, v + bv
         return _split_heads(q, h), _split_heads(k, h), _split_heads(v, h)
 
     def apply(self, params, state, x, *, train=False, mask=None,
@@ -227,7 +262,10 @@ class MultiHeadAttention(LayerConf):
         drop = self.attention_dropout \
             if train and generator is not None else 0.0
         x = self.maybe_dropout_input(x, train, generator)
-        q, k, v = self._qkv(params, x)
+        # column pieces of Wq/Wk/Wv: this rank's heads (tensor parallel)
+        mg = tp.require(self) if params["Wq"].shape[1] != self.n_out \
+            else None
+        q, k, v = self._qkv(params, x, mg)
         t_loc = x.shape[1]
         if self.use_rope:
             pos = (_seq_offset(t_loc)
@@ -262,6 +300,8 @@ class MultiHeadAttention(LayerConf):
                                         causal=self.causal, dropout=drop,
                                         generator=generator)
         y = _merge_heads(out) @ params["Wo"]
+        if mg is not None:          # row-parallel: the heads' partial sums
+            y = tp.reduce_from_model(y, mg)
         if self.has_bias:
             y = y + params["bo"]
         if mask is not None:
@@ -285,6 +325,11 @@ class TransformerBlock(LayerConf):
     weight_init: str = "xavier"
     attention_impl: str = "dense"
     block_size: int = 512
+    TP_GROUPS = ({"attn/" + k: s for k, s in ATTENTION_SPLIT.items()},
+                 {"W1": COLUMN, "W2": ROW})
+
+    def check_model_degree(self, n: int):
+        _heads_divide(self, n)
 
     def output_type(self, input_type: InputType) -> InputType:
         t = input_type.shape[0]
@@ -332,8 +377,16 @@ class TransformerBlock(LayerConf):
             a = dropout(a, self.residual_dropout, generator)
         x = x + a
         h, _ = ln.apply(params["ln2"], {}, x)
-        h = get_activation(self.activation)(h @ params["W1"] + params["b1"])
-        h = h @ params["W2"] + params["b2"]
+        act = get_activation(self.activation)
+        if params["W1"].shape[1] != self.mlp_ratio * self.n_out:
+            # column-parallel up, row-parallel down (tensor parallel)
+            mg = tp.require(self)
+            h = act(tp.copy_to_model(h, mg) @ params["W1"]
+                    + tp.model_slice(params["b1"], mg))
+            h = tp.reduce_from_model(h @ params["W2"], mg) + params["b2"]
+        else:
+            h = act(h @ params["W1"] + params["b1"])
+            h = h @ params["W2"] + params["b2"]
         y = x + h
         if mask is not None:
             y = y * mask[..., None].to(y.dtype)
@@ -352,6 +405,7 @@ class MoEFeedForward(LayerConf):
     mlp_ratio: int = 4
     activation: str = "gelu"
     weight_init: str = "xavier"
+    TP_GROUPS = ({"W1": ROW, "W2": ROW},)
 
     def output_type(self, input_type: InputType) -> InputType:
         t = input_type.shape[0]
@@ -386,9 +440,19 @@ class MoEFeedForward(LayerConf):
                                 torch.zeros_like(gates))
             gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
         act = get_activation(self.activation)
-        h = act(torch.einsum("btf,efh->bteh", x, params["W1"]) + params["b1"])
-        y = torch.einsum("bteh,eho->bteo", h, params["W2"]) + params["b2"]
+        b1, b2 = params["b1"], params["b2"]
+        mg = tp.require(self) if params["W1"].shape[0] != self.n_experts \
+            else None
+        if mg is not None:
+            # expert parallel: this rank's experts, their gates and biases
+            x = tp.copy_to_model(x, mg)
+            gates, b1, b2 = (tp.model_slice(t, mg, d)
+                             for t, d in ((gates, -1), (b1, 0), (b2, 0)))
+        h = act(torch.einsum("btf,efh->bteh", x, params["W1"]) + b1)
+        y = torch.einsum("bteh,eho->bteo", h, params["W2"]) + b2
         out = torch.einsum("bteo,bte->bto", y, gates)
+        if mg is not None:
+            out = tp.reduce_from_model(out, mg)
         if mask is not None:
             out = out * mask[..., None].to(out.dtype)
         return out, state
@@ -434,6 +498,8 @@ class EmbeddingSequenceLayer(LayerConf):
     n_out: int = 0
     n_in: Optional[int] = None      # vocabulary size (required)
     weight_init: str = "normal"
+    #: vocab-parallel rows, or column pieces (`ShardingRules.megatron()`)
+    TP_GROUPS = ({"W": ROW}, {"W": COLUMN})
 
     def output_type(self, input_type: InputType) -> InputType:
         t = input_type.shape[0]
@@ -458,7 +524,19 @@ class EmbeddingSequenceLayer(LayerConf):
         # an id out of range would trip a device-side assert on CUDA,
         # which poisons the whole context: refuse it as bad input instead
         check_ids(self, idx, *self.id_range(params))
-        y = params["W"][idx]
+        w = params["W"]
+        if w.shape[0] != self.n_in:
+            # vocab parallel: this rank's rows; other ids give zeros
+            mg = tp.require(self)
+            local = idx - mg.index * w.shape[0]
+            inside = (local >= 0) & (local < w.shape[0])
+            y = w[local.clamp(0, w.shape[0] - 1)] \
+                * inside[..., None].to(w.dtype)
+            y = tp.reduce_from_model(y, mg)
+        elif w.shape[1] != self.n_out:
+            y = tp.gather_from_model(w[idx], tp.require(self))
+        else:
+            y = w[idx]
         if mask is not None:
             y = y * mask[..., None].to(y.dtype)
         return y, state

@@ -8,6 +8,13 @@ AutoEncoder, RepeatVector, PermuteLayer and ReshapeLayer. Weights are
 (in, out), applied as ``x @ W``. `init` draws from one CPU
 `torch.Generator` in the order the reference splits its key; the values
 differ from the reference's for one seed (other random streams).
+
+Under a sharding plan whose rules split ``W``'s output dim over
+``model`` (`ShardingRules.megatron()`), DenseLayer, OutputLayer,
+CenterLossOutputLayer, AutoEncoder and EmbeddingLayer compute
+column-parallel (``TP_GROUPS``; `parallel/tensor.linear`): this rank's
+columns and its slice of the bias, gathered whole, since the next layer
+reads the whole input and a loss the whole logits.
 """
 from __future__ import annotations
 
@@ -24,6 +31,11 @@ from deeplearning4j_tpu_torch.nn.conf.base import (
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
 from deeplearning4j_tpu_torch.nn.losses import get_loss
 from deeplearning4j_tpu_torch.nn.step_graph import check_ids
+from deeplearning4j_tpu_torch.parallel import tensor as tp
+
+#: the leaf spec under which a layer of (in, out) kernel ``W`` computes
+#: column-parallel (`parallel/tensor.py`)
+COLUMN_W = ({"W": (None, tp.MODEL)},)
 
 
 def _dense_init(layer, generator, input_type, dtype, bias_init=0.0):
@@ -39,15 +51,14 @@ def _dense_init(layer, generator, input_type, dtype, bias_init=0.0):
 
 def _affine(layer, params, x, train, generator):
     x = layer.maybe_dropout_input(x, train, generator)
-    y = x @ params["W"]
-    if layer.has_bias:
-        y = y + params["b"]
-    return y
+    return tp.linear(x, params["W"], params["b"] if layer.has_bias else None,
+                     layer.n_out, layer)
 
 
 @register_layer
 @dataclasses.dataclass(frozen=True)
 class DenseLayer(LayerConf):
+    TP_GROUPS = COLUMN_W
     n_out: int = 0
     n_in: Optional[int] = None          # inferred from input when None
     activation: str = "identity"
@@ -111,6 +122,7 @@ class EmbeddingLayer(LayerConf):
     integer ids (floats are truncated). Ids outside [0, n_in) raise, as
     the port's EmbeddingSequenceLayer does: on CUDA such an index trips a
     device-side assert."""
+    TP_GROUPS = COLUMN_W
     n_out: int = 0
     n_in: Optional[int] = None          # vocab size
     activation: str = "identity"
@@ -140,9 +152,16 @@ class EmbeddingLayer(LayerConf):
         if idx.ndim == 2 and idx.shape[-1] == 1:
             idx = idx[..., 0]
         check_ids(self, idx, *self.id_range(params))
-        y = params["W"][idx]
-        if self.has_bias:
-            y = y + params["b"]
+        w = params["W"]
+        y = w[idx]
+        b = params["b"] if self.has_bias else None
+        if w.shape[1] != self.n_out:        # this rank's columns
+            mg = tp.require(self)
+            if b is not None:
+                y = y + tp.model_slice(b, mg)
+            y = tp.gather_from_model(y, mg)
+        elif b is not None:
+            y = y + b
         return get_activation(self.activation)(y), state
 
 
@@ -191,6 +210,7 @@ class DropoutLayer(LayerConf):
 class OutputLayer(LayerConf):
     """Dense + loss head (DL4J OutputLayer): `apply` gives the
     post-activation predictions; `score` the loss on the pre-activations."""
+    TP_GROUPS = COLUMN_W
     n_out: int = 0
     n_in: Optional[int] = None
     activation: str = "softmax"
@@ -226,6 +246,7 @@ class CenterLossOutputLayer(LayerConf):
     """Softmax head + center loss (DL4J CenterLossOutputLayer): loss =
     primary + lambda/2 * ||f - c_y||^2. As in the reference, the centers
     `cL` are ordinary parameters moved by the gradient."""
+    TP_GROUPS = COLUMN_W
     n_out: int = 0
     n_in: Optional[int] = None
     activation: str = "softmax"
@@ -291,6 +312,7 @@ class AutoEncoder(LayerConf):
     """Denoising autoencoder (DL4J AutoEncoder). As a stacked layer it is
     the encoder; `pretrain_score` corrupts the input, encodes, decodes
     with the tied weight Wᵀ and scores the reconstruction."""
+    TP_GROUPS = COLUMN_W
     n_out: int = 0
     n_in: Optional[int] = None
     activation: str = "sigmoid"
@@ -313,7 +335,8 @@ class AutoEncoder(LayerConf):
               generator=None):
         x = self.maybe_dropout_input(x, train, generator)
         act = get_activation(self.activation)
-        return act(x @ params["W"] + params["b"]), state
+        return act(tp.linear(x, params["W"], params["b"], self.n_out,
+                             self)), state
 
     def pretrain_score(self, params, x, generator=None):
         act = get_activation(self.activation)

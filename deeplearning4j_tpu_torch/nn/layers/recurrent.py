@@ -35,6 +35,7 @@ from deeplearning4j_tpu_torch.nn.conf.base import (
 )
 from deeplearning4j_tpu_torch.nn.initializers import get_initializer
 from deeplearning4j_tpu_torch.nn.losses import get_loss
+from deeplearning4j_tpu_torch.parallel import tensor as tp
 
 
 def _steps(xw, mask):
@@ -331,7 +332,10 @@ class GravesBidirectionalLSTM(Bidirectional):
 @register_layer
 @dataclasses.dataclass(frozen=True)
 class RnnOutputLayer(LayerConf):
-    """Time-distributed dense + activation (DL4J RnnOutputLayer)."""
+    """Time-distributed dense + activation (DL4J RnnOutputLayer); under
+    a plan that splits ``W``'s columns over ``model``, column-parallel
+    with whole logits (`parallel/tensor.linear`)."""
+    TP_GROUPS = ({"W": (None, tp.MODEL)},)
     n_out: int = 0
     n_in: Optional[int] = None
     activation: str = "softmax"
@@ -354,10 +358,9 @@ class RnnOutputLayer(LayerConf):
 
     def preout(self, params, x, train=False, generator=None):
         x = self.maybe_dropout_input(x, train, generator)
-        y = x @ params["W"]
-        if self.has_bias:
-            y = y + params["b"]
-        return y
+        return tp.linear(x, params["W"],
+                         params["b"] if self.has_bias else None,
+                         self.n_out, self)
 
     def apply(self, params, state, x, *, train=False, mask=None,
               generator=None):

@@ -34,10 +34,14 @@ captured graph. `rnn_time_step` streams through the recurrent layers with their
 state kept between calls. A sharding plan (`fit(plan=)`, or the
 process-wide `parallel.use_mesh` plan) makes every fit path
 data-parallel over the ranks of the process group, with ZeRO and rule
-sharding (`parallel/plan.PlanRuntime`, engaged for the fit's length).
+sharding (`parallel/plan.PlanRuntime`, engaged for the fit's length);
+under ``model > 1`` the layers that can compute with their rule-split
+pieces do (`parallel/tensor.py`), in the step and in `output`, `score`
+and `feed_forward` while a plan is engaged.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional
 
@@ -373,11 +377,50 @@ class TrainableNet:
                                    self._compute_dtype)
 
     def _grad_shapes(self) -> list:
-        """(shape, dtype) of each gradient leaf: the whole parameters'
-        (a sharded plan stores pieces)."""
+        """(shape, dtype) of each gradient leaf: the parameters' as the
+        forward reads them (a sharded plan stores pieces)."""
         if self._plan_rt is not None:
-            return self._plan_rt.whole_shapes
+            return self._plan_rt.grad_shapes
         return [(p.shape, p.dtype) for p in tree_leaves(self.params)]
+
+    def _forward_params(self):
+        """The parameters the forward reads: as stored, or under an
+        engaged plan the split layers' pieces and every other leaf whole
+        (`PlanRuntime.forward_params`)."""
+        rt = self._plan_rt
+        return self.params if rt is None else rt.forward_params(self.params)
+
+    def _compute_scope(self):
+        """The block a forward runs in: under an engaged plan that splits
+        compute, its model group engaged for the split layers."""
+        rt = self._plan_rt
+        return contextlib.nullcontext() if rt is None else rt.compute_scope()
+
+    def _regularization(self, params, layers, reg=None) -> torch.Tensor:
+        """`reg` (default 0) plus the l1/l2 penalty of `layers` ((key,
+        layer) pairs) on the forward's `params`; under a plan that splits
+        compute, the pieces' penalties are summed over ``model``."""
+        if reg is None:
+            reg = torch.zeros((), dtype=torch.float32, device=self.device)
+        split = {} if self._plan_rt is None \
+            else self._plan_rt.split_by_layer
+        pieces = None
+        for key, layer in layers:
+            p = params.get(key, {})
+            names = split.get(key)
+            if not names or not (layer.l1 or layer.l2):
+                reg = reg + layer.regularization_score(p)
+                continue
+            reg = reg + layer.regularization_score(
+                {k: v for k, v in p.items() if k not in names})
+            part = layer.regularization_score(
+                {k: v for k, v in p.items() if k in names})
+            pieces = part if pieces is None else pieces + part
+        if pieces is not None:
+            from deeplearning4j_tpu_torch.parallel import tensor as tp
+            reg = reg + tp.reduce_from_model(pieces,
+                                             self._plan_rt.model_group)
+        return reg
 
     def _bound_tensors(self) -> list:
         return step_graph.tree_tensors(self.params, self.opt_state,
@@ -432,8 +475,7 @@ class TrainableNet:
         default the network's), `aux` (the new layer state and carries)
         detached."""
         if params is None:
-            params = self.params if self._plan_rt is None \
-                else self._plan_rt.full_params(self.params)
+            params = self._forward_params()
         live = tree_map(lambda t: t.detach().requires_grad_(
             t.is_floating_point()), params)
         leaves = [t for t in tree_leaves(live) if t.requires_grad]
@@ -774,6 +816,12 @@ class MultiLayerNetwork(TrainableNet):
         carries)."""
         if self._input_types is None:
             self._input_types = self._resolve_types()
+        with self._compute_scope():
+            return self._run_layers(params, state, x, train, generator,
+                                    fmask, upto, carries, collect)
+
+    def _run_layers(self, params, state, x, train, generator, fmask, upto,
+                    carries, collect):
         params = self._cast_params(params)
         cur_type = self.conf.input_type
         n = len(self.layers) if upto is None else upto
@@ -825,12 +873,13 @@ class MultiLayerNetwork(TrainableNet):
             fmask if _required_kind(self.layers[head_i]) == Kind.RNN
             else None)
         # the reference scores the head with no dropout key
-        loss = self.layers[head_i].score(params_c[str(head_i)], feat, y,
-                                         train=train, generator=None,
-                                         mask=out_mask)
-        reg = torch.zeros((), dtype=torch.float32, device=loss.device)
-        for i, layer in enumerate(self.layers):
-            reg = reg + layer.regularization_score(params[str(i)])
+        with self._compute_scope():
+            loss = self.layers[head_i].score(params_c[str(head_i)], feat, y,
+                                             train=train, generator=None,
+                                             mask=out_mask)
+            reg = self._regularization(
+                params, [(str(i), layer)
+                         for i, layer in enumerate(self.layers)])
         score_dtype = torch.promote_types(torch.float32, loss.dtype)
         return loss.to(score_dtype) + reg, (new_state, new_carries)
 
@@ -841,7 +890,7 @@ class MultiLayerNetwork(TrainableNet):
         if self.params is None:
             raise RuntimeError("Network is not initialized — call init() first")
         with torch.inference_mode():
-            y, _, _ = self._forward(self.params, self.state,
+            y, _, _ = self._forward(self._forward_params(), self.state,
                                     self._as_input(x), False)
         return y
 
@@ -858,7 +907,7 @@ class MultiLayerNetwork(TrainableNet):
             rng = torch.Generator(device=self.device).manual_seed(
                 self.conf.seed + 15485863 * self._ff_counter)
         with torch.no_grad():
-            acts, _, _ = self._forward(self.params, self.state,
+            acts, _, _ = self._forward(self._forward_params(), self.state,
                                        self._as_input(x), train,
                                        rng if train else None, collect=True)
         return acts
@@ -959,7 +1008,8 @@ class MultiLayerNetwork(TrainableNet):
         - plan (a `parallel.ShardingPlan`; default: the `use_mesh`
           plan): data parallelism over the process group's ranks, each
           reading the global batch and keeping its block of rows, with
-          the plan's ZeRO stage and rules (`parallel/plan.py`). Every
+          the plan's ZeRO stage and rules (`parallel/plan.py`), and
+          tensor- and expert-parallel compute over ``model``. Every
           path above runs under it; on CUDA the scan and accumulate
           paths need NCCL. At the end the network holds whole tensors."""
         if self.params is None:
@@ -1053,7 +1103,8 @@ class MultiLayerNetwork(TrainableNet):
             return self._score if self._score is not None else float("nan")
         with torch.no_grad():
             loss, _ = self._score_fn(
-                self.params, self.state, self._as_input(dataset.features),
+                self._forward_params(), self.state,
+                self._as_input(dataset.features),
                 self._as_labels(dataset.labels),
                 self._as_mask(dataset.features_mask),
                 self._as_mask(dataset.labels_mask), False)
@@ -1081,7 +1132,7 @@ class MultiLayerNetwork(TrainableNet):
             x = x[:, None, :]
         with torch.no_grad():
             y, _, self._rnn_carries = self._forward(
-                self.params, self.state, x, False,
+                self._forward_params(), self.state, x, False,
                 carries=self._rnn_carries)
         return y[:, -1, :] if single and y.ndim == 3 else y
 

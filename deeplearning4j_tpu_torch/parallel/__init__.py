@@ -4,10 +4,12 @@ Counterpart of the JAX package's `parallel/`. The port runs one process
 per rank in a `torch.distributed` process group (`distributed.py`) and
 builds its mesh over that group's world (`mesh.py`). Data parallelism
 runs in the containers' own fit under a `ShardingPlan` (`plan.py`, with
-ZeRO stages and rule sharding), which `ParallelWrapper` (SYNC_GRADIENTS
-and AVERAGING) drives; `SharedGradientsTrainer` exchanges
+ZeRO stages and rule sharding; with ``model > 1`` the layers compute
+tensor- and expert-parallel with their pieces, `tensor.py`), which
+`ParallelWrapper` (SYNC_GRADIENTS and AVERAGING) drives; `SharedGradientsTrainer` exchanges
 threshold-encoded gradients (`encoding.py`) over a socket transport
-(`transport.py`); `ParallelInference` serves one replica per device.
+(`transport.py`); `ParallelInference` serves one replica per device,
+or a tensor-parallel servable under a plan.
 Sequence parallelism runs ring attention over the mesh's ``seq`` axis
 (`ring.py`, `ContextParallelTrainer` in `context.py`); pipeline
 parallelism splits a transformer torso over its ``stage`` axis

@@ -31,14 +31,28 @@ runs one process per rank and does the partitioner's work itself, in
   each rank runs the updater on its piece of the reduced gradient and of
   the parameters, and the updated pieces are all-gathered into the whole
   parameters.
-- ZeRO-3 and rule-sharded (Megatron) parameters: parameters are stored
-  in pieces too, and the fit gathers the whole tensor where it is used
-  (before the forward), so the forward and backward run the plain
-  layers; the gradient of a piece is the piece of the whole gradient.
-  Tensor-parallel compute (split matmuls) is not done here: every
-  ``model`` rank runs the whole forward and backward, so a plan with
-  ``model > 1`` splits storage and pays the gathers but splits no work
-  (ROADMAP A.15c). Engaging one logs a one-time warning saying so.
+- ZeRO-3: parameters are stored in pieces too, and the fit gathers the
+  whole tensor where it is used (before the forward); the gradient of a
+  piece is the piece of the whole gradient.
+- Rule-sharded (Megatron) parameters: with ``model > 1`` they are stored
+  as this rank's pieces and the layers that can compute with pieces do
+  (`parallel/tensor.py`): column-parallel kernels (``P(None, "model")``,
+  the QKV projections, an MLP's up-projection, every 2-D ``W`` under
+  `ShardingRules.megatron()`), row-parallel ones (``P("model", None)``:
+  the attention output, an MLP's down-projection), the vocab-parallel
+  embedding and the expert-parallel MoE (``P("model", None, None)``).
+  Their forward receives the pieces (gathered over ``data`` only, at
+  ZeRO-3) and the gradients of the pieces are not summed over
+  ``model``; a replicated leaf such a layer uses only in part (a
+  column-parallel layer's bias, the MoE's per-expert biases) is sliced
+  in the forward by `tensor.model_slice`, whose backward all-gathers the
+  pieces' gradients, so every model rank holds its whole gradient.
+  Fully replicated leaves come out bitwise equal on every model rank.
+  Layers with no split compute (convolutions and recurrent layers whose
+  kernels a rule matches, a layer with weight noise) gather their
+  rule-split leaves at use, as ZeRO-3 does; engaging such a plan logs a
+  one-time warning naming them. Which layers compute split is declared
+  on each layer class (``TP_GROUPS``).
 - A global-norm clip inside the updater measures the whole gradient, and
   Lars's trust ratio each whole leaf: the pieces' squares meet in one
   all-reduce (`nn/updaters.global_norm`, `leaf_norms`).
@@ -63,6 +77,7 @@ from deeplearning4j_tpu_torch.parallel.mesh import (
     DATA_AXIS, MODEL_AXIS, Mesh, MeshConfig, P, PartitionSpec, Placement,
     all_gather_dim, all_reduce_flat, build_mesh, shard_dim,
 )
+from deeplearning4j_tpu_torch.parallel import tensor as tp
 from deeplearning4j_tpu_torch.parallel.sharding import (
     ShardingRules, local_piece,
 )
@@ -297,28 +312,95 @@ class PlanRuntime:
         self.n_model = self.mesh.shape[MODEL_AXIS]
         self.data_index = self.mesh.index(DATA_AXIS)
         self.grouped = self.mesh.grouped
-        if self.n_model > 1 and not _warned_model_compute:
-            _warned_model_compute.append(True)
-            log.warning(
-                "ShardingPlan: model=%d splits the parameters' storage "
-                "only; every model rank gathers the whole tensors and "
-                "computes the whole forward and backward (tensor-parallel "
-                "compute is ROADMAP A.15c)", self.n_model)
         #: collectives issued (a host counter: a captured step counts
         #: its collectives once, when it is captured)
         self.syncs = 0
+        #: the model group's collectives among them: calls, bytes and
+        #: host seconds (`parallel/tensor.ModelGroup`)
+        self.model_collectives = {"calls": 0, "bytes": 0, "seconds": 0.0}
         whole = net.params
-        #: (shape, dtype) of each whole parameter, in tree_leaves order
-        self.whole_shapes = [(t.shape, t.dtype) for _, t in _paths(whole)]
         self.param_specs = {p: self._effective(plan.param_spec(p, leaf))
                             for p, leaf in _paths(whole)}
         self.state_specs = {p: self._effective(plan.state_spec(p, leaf))
                             for p, leaf in _paths(whole)}
+        rule_specs = {p: self._effective(plan._rule_spec(p, leaf.ndim))
+                      for p, leaf in _paths(whole)}
+        self._check_divisible(whole, rule_specs)
+        #: the layout the forward reads each leaf in: its rule spec where
+        #: its layer computes split, else whole
+        self.forward_specs, gathered = self._split_compute(net, rule_specs)
+        self.split_compute = any(self.forward_specs.values())
+        #: (shape, dtype) of each gradient leaf (the forward's layout)
+        self.grad_shapes = [
+            (_split_shape(t.shape, self.forward_specs[p], self.mesh),
+             t.dtype) for p, t in _paths(whole)]
+        #: layer key -> its top-level leaves the forward reads as pieces
+        self.split_by_layer: dict = {}
+        for p, spec in self.forward_specs.items():
+            if spec:
+                key, _, rest = p.partition("/")
+                self.split_by_layer.setdefault(key, set()).add(
+                    rest.split("/")[0])
+        self.model_group = tp.ModelGroup(
+            self.mesh.group(MODEL_AXIS), self.n_model,
+            self.mesh.index(MODEL_AXIS), self._count_model_sync) \
+            if self.split_compute else None
+        if gathered and not _warned_model_compute:
+            _warned_model_compute.append(True)
+            log.warning(
+                "ShardingPlan: model=%d: %s have no split compute; every "
+                "model rank gathers these rule-split leaves at use and "
+                "computes their layers whole", self.n_model,
+                ", ".join(sorted(gathered)))
         self.sharded_params = any(self.param_specs.values())
         self.sharded_state = any(self.state_specs.values())
         net.params = self._pieces(whole, self.param_specs)
         if self.sharded_state:
             net.opt_state = self._opt_pieces(net.opt_state, whole)
+
+    def _count_model_sync(self, nbytes: int, seconds: float):
+        self.syncs += 1
+        c = self.model_collectives
+        c["calls"] += 1
+        c["bytes"] += nbytes
+        c["seconds"] += seconds
+
+    def _check_divisible(self, whole, rule_specs):
+        """A rule splits a dim only into equal pieces (the reference's
+        placement refuses an uneven one)."""
+        for p, t in _paths(whole):
+            for dim, axis in enumerate(rule_specs[p]):
+                if axis is not None and t.shape[dim] % self.mesh.shape[axis]:
+                    raise ValueError(
+                        f"ShardingPlan: leaf {p!r} of shape "
+                        f"{tuple(t.shape)}: its dimension {dim} should be "
+                        f"divisible by the {axis!r} degree "
+                        f"{self.mesh.shape[axis]}, but it is equal to "
+                        f"{t.shape[dim]}")
+
+    def _split_compute(self, net, rule_specs):
+        """(leaf path -> the forward's spec, the rule-split leaves of
+        layers with no split compute). A layer computes split when every
+        rule-split leaf of it lies in one of its ``TP_GROUPS``."""
+        forward = {p: P() for p in rule_specs}
+        gathered = []
+        if self.n_model == 1:
+            return forward, gathered
+        for key, _, layer in net._label_tree():
+            prefix = key + "/"
+            specs = {p[len(prefix):]: s for p, s in rule_specs.items()
+                     if p.startswith(prefix) and s}
+            if not specs:
+                continue
+            if tp.split_leaves(layer, specs) is None:
+                gathered.extend(prefix + k for k in specs)
+                continue
+            check = getattr(layer, "check_model_degree", None)
+            if check is not None:
+                check(self.n_model)
+            for k, s in specs.items():
+                forward[prefix + k] = s
+        return forward, gathered
 
     # -------------------------------------------------------------- specs
     def _effective(self, spec: PartitionSpec) -> PartitionSpec:
@@ -365,13 +447,29 @@ class PlanRuntime:
 
     # ------------------------------------------------------ whole tensors
     def full_params(self, params):
-        """The whole parameters from this rank's pieces (the forward's
-        gather-at-use)."""
+        """The whole parameters from this rank's pieces (the fit's end, a
+        checkpoint, the constraints)."""
         if not self.sharded_params:
             return params
         with torch.no_grad():
             return _walk(params, lambda p, t: self._gather(
                 t, self.param_specs[p]) if self.param_specs[p] else t)
+
+    def forward_params(self, params):
+        """The parameters the forward reads: the pieces of the layers that
+        compute split (gathered over ``data`` alone at ZeRO-3), every
+        other leaf whole."""
+        if not self.sharded_params:
+            return params
+        with torch.no_grad():
+            return _walk(params, lambda p, t: self._gather(
+                t, self.param_specs[p], self.forward_specs[p])
+                if self.param_specs[p] != self.forward_specs[p] else t)
+
+    def compute_scope(self):
+        """The block the forward runs in: the split layers' model group
+        engaged (`parallel/tensor.py`)."""
+        return tp.engaged(self.model_group)
 
     def full_opt_state(self, opt_state, params_whole):
         if not self.sharded_state:
@@ -536,7 +634,7 @@ class PlanRuntime:
             # the state-spec pieces of the gradient and of the stored
             # parameters (views: an update lands in the stored tensor)
             g_s = _walk(grads, lambda p, t: local_piece_view(
-                t, self.state_specs[p], P(), self.mesh))
+                t, self.state_specs[p], self.forward_specs[p], self.mesh))
             p_s = _walk(net.params, lambda p, t: local_piece_view(
                 t, self.state_specs[p], self.param_specs[p], self.mesh))
             with updaters.global_norm_hook(self.global_norm,
@@ -571,6 +669,15 @@ def local_piece_view(t: torch.Tensor, spec: PartitionSpec,
             continue
         t = shard_dim(t, dim, mesh.shape[axis], mesh.index(axis))
     return t
+
+
+def _split_shape(shape, spec: PartitionSpec, mesh: Mesh):
+    """`shape` with each dim `spec` splits divided by its axis degree."""
+    out = list(shape)
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            out[dim] //= mesh.shape[axis]
+    return torch.Size(out)
 
 
 def check_capturable(device: torch.device):

@@ -7,8 +7,9 @@ MultiLayerNetwork, "res2a_a_conv/W" in a graph); the first match whose
 spec fits the leaf's rank wins, and no match is replicated.
 
 Where the reference hands the specs to XLA's partitioner, the port places
-each leaf's piece on its rank itself (`shard_params`) and the fit path
-gathers the pieces where the whole tensor is used (`parallel/plan.py`).
+each leaf's piece on its rank itself (`shard_params`); the layers that
+compute split take the pieces (`parallel/tensor.py`), and the others'
+pieces are gathered where the whole tensor is used (`parallel/plan.py`).
 """
 from __future__ import annotations
 

@@ -21,8 +21,20 @@ Counterpart of the JAX package's `serving/registry.py`:
 
 `deploy_lm` publishes a decode servable (`serving/decode.py`'s
 `ServedLM`) beside them; redeploying a name is a version swap for both
-kinds. Keras sources and sharded (mesh) servables come with later
-slices (ROADMAP A.15-A.16).
+kinds. Keras sources come with a later slice of the port.
+
+- **Tensor-parallel servables.** ``deploy(..., plan=)`` serves under a
+  `ShardingPlan` (`ParallelInference(plan=)`: the kernels stay split
+  over ``model``, the batch over ``data``). Every rank of the process
+  group deploys; on a group of more than one rank, rank 0 is the leader
+  (it alone takes requests: only it serves HTTP), and the others call
+  `ServedModel.follow()`, which replays the leader's warm-up, forwards,
+  swaps and rollbacks until the leader shuts down. The leader loads and
+  checks a swap's source before it tells the followers, and a swap or
+  rollback goes ahead only when every rank has loaded it (one vote over
+  the group): a source that fails on any rank is rejected on all of
+  them, which go on serving the live version. While the followers load,
+  the leader's forwards wait for them.
 """
 from __future__ import annotations
 
@@ -162,7 +174,8 @@ class ServedModel:
     def __init__(self, name: str, model, source: str,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  max_delay_ms: float = 5.0,
-                 queue_limit: int = 256, device: DeviceLike = None):
+                 queue_limit: int = 256, device: DeviceLike = None,
+                 mesh=None, plan=None):
         from deeplearning4j_tpu_torch.parallel.inference import (
             InferenceMode, ParallelInference,
         )
@@ -185,15 +198,27 @@ class ServedModel:
         #: lock-free snapshot of the active version's metadata for the
         #: request path (atomic attribute swap; never indexes live lists)
         self.active_info = self.versions[0].describe()
-        self.pi = ParallelInference(model, mode=InferenceMode.SEQUENTIAL)
+        # `plan`: a tensor-parallel servable; on a group of more than one
+        # rank, rank 0 leads and the others follow (the module doc)
+        role = None
+        if plan is not None:
+            import torch.distributed as dist
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                role = "leader" if dist.get_rank() == 0 else "follower"
+        self.pi = ParallelInference(model, mesh=mesh, plan=plan, role=role,
+                                    mode=InferenceMode.SEQUENTIAL)
         it = _input_type_of(model)
         self.input_shape: Tuple[int, ...] = tuple(it.shape)
+        self.last_swap_seconds: Optional[float] = None
+        if self.pi.role == "follower":
+            self.batcher = None
+            self.warmup_seconds = 0.0
+            self.status = "following"
+            return
         self.batcher = ShapeBucketedBatcher(
             self.pi.output, self.input_shape, buckets=buckets,
             max_delay_ms=max_delay_ms, queue_limit=queue_limit, name=name)
         self.warmup_seconds = self.batcher.warm()
-        #: seconds of the last swap/rollback's warm + switch
-        self.last_swap_seconds: Optional[float] = None
         self.status = "ready"
         monitor.gauge("serving_model_ready",
                       "1 while the servable is warmed and live",
@@ -204,21 +229,69 @@ class ServedModel:
         """The network serving right now."""
         return self.pi.model
 
+    def follow(self) -> int:
+        """A follower rank of a tensor-parallel servable: replay the
+        leader's forwards, swaps and rollbacks until it shuts down.
+        Returns the number of forwards run."""
+        try:
+            return self.pi.follow(on_call=self._on_call)
+        finally:
+            self.status = "stopped"
+
+    def _on_call(self, message: dict):
+        if message["op"] == "swap":
+            self.swap(message["source"])
+        elif message["op"] == "rollback":
+            self.rollback()
+
+    def _agreed(self, message: dict, prepare):
+        """`prepare()` on every rank of a tensor-parallel servable: the
+        leader runs it first and announces `message` only when it
+        succeeded; every rank goes on only when all succeeded (the
+        module doc). Elsewhere just `prepare()`."""
+        out = prepare()
+        if self.pi.role == "leader":
+            ok = self.pi.announce_call(message, agree=True)
+        elif self.pi.role == "follower":
+            ok = self.pi.agree(True)
+        else:
+            return out
+        if not ok:
+            raise ModelLoadError(
+                f"serving[{self.name}]: {message['op']} rejected: another "
+                "rank of the tensor-parallel servable failed it")
+        return out
+
+    def _load_checked(self, source):
+        """A swap's replacement, loaded, with the live input shape."""
+        model = load_servable(source, device=self.device)
+        shape = tuple(_input_type_of(model).shape)
+        if shape != self.input_shape:
+            raise ModelLoadError(
+                f"swap rejected: {str(source)!r} expects input {shape}, "
+                f"live servable {self.name!r} serves {self.input_shape} "
+                "(deploy under a new name)")
+        return model
+
+    def _previous(self) -> ServableVersion:
+        """The version a rollback re-activates."""
+        with self._state_lock:
+            if self.active == 0:
+                raise ModelLoadError(
+                    f"serving[{self.name}]: no previous version in "
+                    "memory to roll back to")
+            return self.versions[self.active - 1]
+
     # ----------------------------------------------------------- lifecycle
     def _activate(self, sv: ServableVersion):
         """Warm the candidate's full bucket ladder, then swap it live
         atomically."""
-        new_it = _input_type_of(sv.model)
-        if tuple(new_it.shape) != self.input_shape:
-            raise ModelLoadError(
-                f"swap rejected: {sv.source!r} expects input "
-                f"{tuple(new_it.shape)}, live servable {self.name!r} "
-                f"serves {self.input_shape} (deploy under a new name)")
         t0 = time.perf_counter()
         with monitor.span("serving/swap", model=self.name,
                           version=sv.version):
-            self.pi.update_model(sv.model,
-                                 warmup=lambda run: self.batcher.warm(run))
+            self.pi.update_model(
+                sv.model, warmup=None if self.batcher is None
+                else lambda run: self.batcher.warm(run))
         self.last_swap_seconds = time.perf_counter() - t0
         monitor.histogram("serving_swap_seconds",
                           "Load+warm+swap duration (off the request path)",
@@ -235,7 +308,13 @@ class ServedModel:
                 # live. Expected during the shutdown window.
                 raise ServerDrainingError(
                     f"serving[{self.name}] is draining; swap rejected")
-            model = load_servable(source, device=self.device)
+            if self.pi.role == "leader" and not isinstance(source, str):
+                raise ModelLoadError(
+                    "a tensor-parallel servable swaps from a source its "
+                    "followers can load too (a zoo name, zip or directory),"
+                    f" not a {type(source).__name__}")
+            model = self._agreed({"op": "swap", "source": source},
+                                 lambda: self._load_checked(source))
             with self._state_lock:
                 next_version = self.versions[-1].version + 1
             sv = ServableVersion(next_version, str(source), model)
@@ -264,12 +343,7 @@ class ServedModel:
             if self.status == "stopping":
                 raise ServerDrainingError(
                     f"serving[{self.name}] is draining; rollback rejected")
-            with self._state_lock:
-                if self.active == 0:
-                    raise ModelLoadError(
-                        f"serving[{self.name}]: no previous version in "
-                        "memory to roll back to")
-                sv = self.versions[self.active - 1]
+            sv = self._agreed({"op": "rollback"}, self._previous)
             self._activate(sv)
             with self._state_lock:
                 self.active -= 1
@@ -291,7 +365,8 @@ class ServedModel:
                 "name": self.name,
                 "status": self.status,
                 "input_shape": list(self.input_shape),
-                "buckets": list(self.batcher.buckets),
+                "buckets": [] if self.batcher is None
+                else list(self.batcher.buckets),
                 "active_version": self.versions[self.active].version,
                 "versions": [v.describe() for v in self.versions],
             }
@@ -301,7 +376,9 @@ class ServedModel:
         monitor.gauge("serving_model_ready",
                       "1 while the servable is warmed and live",
                       labels=("model",)).set(0, model=self.name)
-        if drain:
+        if self.batcher is None:
+            pass
+        elif drain:
             self.batcher.drain(timeout=timeout)
         else:
             self.batcher.shutdown()
@@ -327,11 +404,14 @@ class ModelRegistry:
     def deploy(self, name: str, source,
                buckets: Sequence[int] = DEFAULT_BUCKETS,
                max_delay_ms: float = 5.0,
-               queue_limit: int = 256) -> ServedModel:
+               queue_limit: int = 256,
+               mesh=None, plan=None) -> ServedModel:
         """Load, warm, and publish a servable under `name`. Deploying an
         existing name is a swap (version bump), not a replacement — the
         live batcher keeps ITS configuration (undeploy first to change
-        buckets/queue bounds)."""
+        buckets/queue bounds). `mesh` and `plan` go to the servable's
+        ParallelInference; under a plan every rank of the group deploys,
+        and the ranks but 0 then `follow()` (the module doc)."""
         with self._deploy_lock:
             with self._lock:
                 existing = self._models.get(name)
@@ -341,9 +421,10 @@ class ModelRegistry:
                         f"{name!r} is already deployed as a DECODE "
                         "servable; a predict servable cannot swap over it "
                         "— undeploy first or pick a new name")
-                if tuple(sorted(set(int(b) for b in buckets))) \
-                        != existing.batcher.buckets \
-                        or queue_limit != existing.batcher._queue.maxsize:
+                if existing.batcher is not None and (
+                        tuple(sorted(set(int(b) for b in buckets)))
+                        != existing.batcher.buckets
+                        or queue_limit != existing.batcher._queue.maxsize):
                     log.warning(
                         "serving[%s]: redeploy is a version swap — the "
                         "requested batcher config (buckets %s, queue %d) "
@@ -356,12 +437,13 @@ class ModelRegistry:
             model = load_servable(source, device=self.device)
             served = ServedModel(name, model, str(source), buckets=buckets,
                                  max_delay_ms=max_delay_ms,
-                                 queue_limit=queue_limit, device=self.device)
+                                 queue_limit=queue_limit, device=self.device,
+                                 mesh=mesh, plan=plan)
             with self._lock:
                 self._models[name] = served
         log.info("serving: deployed %r (%s) on %s, buckets %s, input %s",
-                 name, source, model.device, served.batcher.buckets,
-                 served.input_shape)
+                 name, source, model.device,
+                 tuple(served.describe()["buckets"]), served.input_shape)
         return served
 
     def deploy_lm(self, name: str, source, decode=None):

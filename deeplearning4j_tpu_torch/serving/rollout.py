@@ -23,7 +23,12 @@ router uses, so fakes in tests work unchanged):
 - **availability** — the canary replica's own ``/v1/slo`` verdict
   (monitor/slo.py's burn-rate engine) vs the incumbents';
 - **latency** — ``/v1/timeseries`` p99 of ``serving_request_seconds``
-  over the observation window, canary vs incumbent.
+  over the observation window, canary vs incumbent. The window opens
+  when the canary's swap returns (the port's one departure from the
+  reference, whose window opens before the swap call): the swap loads
+  and warms the candidate's whole bucket ladder first, so the requests
+  the replica answered as the incumbent while it loaded the candidate
+  are not counted as the candidate's.
 
 While a rollout is in flight the controller *holds the fleet admin
 surface*: manual ``swap``/``rollback`` fan-outs through the RouterServer
@@ -320,7 +325,13 @@ class RolloutController:
             log.info("rollout: candidate %s waiting — need >= 2 ready "
                      "replicas to canary", cand["identity"])
             return
+        t_swap = self._time()
         ok, doc = self._admin(replica, "swap", {"source": cand["path"]})
+        # the canary is observed from the moment its swap returns (the
+        # candidate live, its whole bucket ladder warmed by the swap):
+        # what the replica answered as the incumbent while it loaded the
+        # candidate is not counted as the candidate's latency
+        now = now + (self._time() - t_swap)
         if not ok:
             self._decided.add(cand["identity"])
             monitor.counter("serving_rollout_deploy_failures_total",

@@ -5,5 +5,10 @@
 
 `loadgen` is the closed-loop / ramp load generator both drive traffic
 with. Each drill prints a JSON report and exits 0 iff every assertion
-held.
+held. `stack_sample` runs a program with its main thread's stack
+sampled (where `chip_smoke.py` or a replica's start spends its time):
+
+    python -m deeplearning4j_tpu_torch.tools.stack_sample --out S.json \
+        chip_smoke.py
+    python -m deeplearning4j_tpu_torch.tools.stack_sample --report S.json
 """

@@ -32,6 +32,10 @@ The port's knobs, each read where it acts:
   the MFU accountant's device peaks (`monitor/xla.py`);
   ``DL4J_CUDA_PERF_LEDGER`` (value): the train CLI's default
   `--perf-ledger` path (`train/cli.py`);
+- ``DL4J_CUDA_ZIP_STORED`` (opt-in): `save_model` stores the entries of
+  the zips it writes instead of deflating them
+  (`util/serialization.py`): float weights deflate by a few percent at
+  tens of MB/s on the host;
 - ``DL4J_CUDA_FAULTS`` and ``DL4J_CUDA_SERVING_FAULTS`` (values): the
   fault schedules (`util/faults.py`);
 - ``DL4J_CUDA_LOCK_DIAG`` (opt-in): lock-order recording
@@ -39,7 +43,8 @@ The port's knobs, each read where it acts:
   ``DL4J_CUDA_SENTINEL_TIMEOUT`` (value, default 300 s): the pytest
   deadlock sentinel (`util/sentinel.py`).
 
-Each replaces the reference's ``DL4J_TPU_*`` name.
+Each replaces the reference's ``DL4J_TPU_*`` name, but
+``DL4J_CUDA_ZIP_STORED``, the port's own.
 """
 from __future__ import annotations
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.util import msgpack
+from deeplearning4j_tpu_torch.util.env import env_flag
 from deeplearning4j_tpu_torch.util.platform import DeviceLike
 
 _FORMAT_VERSION = 1
@@ -201,16 +202,17 @@ def params_from_numpy(tree, device: DeviceLike = None,
 
 def save_model(model, path, save_updater: bool = True, atomic: bool = True,
                extra_entries: Optional[dict] = None,
-               compression: int = zipfile.ZIP_DEFLATED):
+               compression: Optional[int] = None):
     """Write a model checkpoint zip (ModelSerializer.writeModel), with
     updaterState.bin when `save_updater` and the model has an optimizer
     state. `atomic`: written to a temp file and renamed, so a kill
     mid-save never leaves a truncated zip at `path`. `extra_entries`
     ({name: str|bytes}) adds caller entries to the archive (the
     checkpoint manager's resilience.json). `compression` is the zip
-    method of every entry: deflate by default, as the reference writes;
-    the checkpoint manager stores them (deflate runs at tens of MB/s on
-    the host, and a resilient fit waits for each save)."""
+    method of every entry; by default deflate, as the reference writes,
+    or stored when ``DL4J_CUDA_ZIP_STORED=1``. The checkpoint manager
+    stores them (deflate runs at tens of MB/s on the host, and a
+    resilient fit waits for each save)."""
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     if isinstance(model, MultiLayerNetwork):
@@ -223,6 +225,9 @@ def save_model(model, path, save_updater: bool = True, atomic: bool = True,
             "model_type": model_type,
             "iteration_count": model.iteration_count,
             "epoch_count": model.epoch_count}
+    if compression is None:
+        compression = zipfile.ZIP_STORED if env_flag(
+            "DL4J_CUDA_ZIP_STORED", default=False) else zipfile.ZIP_DEFLATED
     atomic = atomic and isinstance(path, (str, os.PathLike))
     target = f"{path}.tmp.{os.getpid()}" if atomic else path
     try:

@@ -425,3 +425,290 @@ def pipeline_fit(rank, world, zip_path, X, Y, batch, data=1, stage=2,
             "syncs": t.syncs, "launches": dict(fa.KERNEL_LAUNCHES),
             "routes": dict(R.TRANSFERS["routes"]),
             "blocks": t.my_blocks}
+
+
+# ------------------------------------------ tensor- and expert-parallel slice
+def _model_group():
+    from deeplearning4j_tpu_torch.parallel import MeshConfig, build_mesh
+    from deeplearning4j_tpu_torch.parallel import tensor as tp
+    mesh = build_mesh(MeshConfig(data=1, model=torch.distributed
+                                 .get_world_size()))
+    return tp.ModelGroup(mesh.group("model"), mesh.shape["model"],
+                         mesh.index("model"))
+
+
+def tp_collectives(rank, world, x, pieces, g_whole, g_pieces):
+    """Each function of `parallel/tensor.py` in f64, forward and backward:
+    copy_to_model and model_slice on the whole `x`, reduce_from_model and
+    gather_from_model on this rank's `pieces[rank]`; each backward from
+    this rank's cotangent (`g_whole[rank]` or `g_pieces[rank]`)."""
+    from deeplearning4j_tpu_torch.parallel import tensor as tp
+    mg = _model_group()
+    out = {}
+    for name, fn, inp, g in (
+            ("copy", lambda t: tp.copy_to_model(t, mg), x, g_whole),
+            ("slice", lambda t: tp.model_slice(t, mg, -1), x, g_pieces),
+            ("reduce", lambda t: tp.reduce_from_model(t, mg), pieces[rank],
+             g_pieces),
+            ("gather", lambda t: tp.gather_from_model(t, mg, -1),
+             pieces[rank], g_whole)):
+        t = torch.tensor(inp, requires_grad=True)
+        y = fn(t)
+        (grad,) = torch.autograd.grad(y, t, torch.tensor(g[rank]))
+        out[name] = (y.detach().numpy(), grad.numpy())
+    return out
+
+
+def tp_gradcheck(rank, world, x, w1, w2, w3, w):
+    """The port's gradientcheck (f64 central differences) through all four
+    functions: a column-parallel product, a row-parallel one and a
+    column-parallel one gathered whole, on whole leaves every rank holds
+    (sliced by `model_slice`)."""
+    from deeplearning4j_tpu_torch.gradientcheck import check_gradients
+    from deeplearning4j_tpu_torch.parallel import tensor as tp
+    mg = _model_group()
+    wt = torch.tensor(w)
+
+    class Probe:
+        device = torch.device("cpu")
+        params = {k: torch.tensor(v) for k, v in
+                  (("x", x), ("w1", w1), ("w2", w2), ("w3", w3))}
+        state = {}
+        _compute_dtype = _param_dtype = torch.float64
+
+        def _score_fn(self, p, state, xx, y, fm, lm, train):
+            h = torch.tanh(tp.copy_to_model(p["x"], mg)
+                           @ tp.model_slice(p["w1"], mg, -1))
+            z = tp.reduce_from_model(h @ tp.model_slice(p["w2"], mg, 0), mg)
+            z = tp.gather_from_model(tp.copy_to_model(torch.tanh(z), mg)
+                                     @ tp.model_slice(p["w3"], mg, -1), mg)
+            return (z * wt).sum(), None
+
+    res = check_gradients(Probe(), np.zeros(1), np.zeros(1),
+                          max_per_param=64, eps=1e-6, max_rel_error=1e-6)
+    return {"passed": res.passed, "max_rel_error": res.max_rel_error,
+            "checked": res.n_params_checked}
+
+
+def tp_fit(rank, world, zip_path, X, Y, batch, plan, fmask=None, lmask=None,
+           accumulate_steps=1, ledger=False, use_mesh=False, wrapper=False):
+    """net.fit(plan=) of a model zip (an LM when masks or 3-D labels
+    come): the flat params, the scores, what the forward was handed (the
+    shapes of the first `forward_params`), how often `full_params` ran
+    before the fit's end, the ledger's FLOPs of the step, the syncs and
+    the plan's warnings. With `wrapper`, a ParallelWrapper built under
+    use_mesh(plan) runs the fit."""
+    import logging
+
+    from deeplearning4j_tpu_torch.monitor import xla as ledger_mod
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.parallel import plan as plan_mod
+    from deeplearning4j_tpu_torch.parallel import use_mesh as um
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    net = load_model(zip_path, device="cpu")
+    sc = _Scores()
+    net.set_listeners(sc)
+    seen = {"forward": None, "full_calls": 0, "warnings": []}
+    real_fwd = plan_mod.PlanRuntime.forward_params
+    real_full = plan_mod.PlanRuntime.full_params
+
+    def forward_params(self, params):
+        out = real_fwd(self, params)
+        if seen["forward"] is None:
+            seen["forward"] = {p: tuple(t.shape)
+                               for p, t in plan_mod._paths(out)}
+        return out
+
+    def full_params(self, params):
+        seen["full_calls"] += 1
+        return real_full(self, params)
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            seen["warnings"].append(record.getMessage())
+    catch = Catch(logging.WARNING)
+    logger = logging.getLogger("deeplearning4j_tpu_torch")
+    logger.addHandler(catch)
+    plan_mod._warned_model_compute.clear()
+    plan_mod.PlanRuntime.forward_params = forward_params
+    plan_mod.PlanRuntime.full_params = full_params
+    full_at_end = []
+
+    class AtStep(_Scores):
+        def iteration_done(self, n, it, ep, score, etl_ms, bs):
+            full_at_end[:] = [seen["full_calls"]]
+            if "opt" not in seen:
+                seen["opt"] = [tuple(t.shape)
+                               for t in tree_leaves(n.opt_state)]
+    net.add_listeners(AtStep())
+    if ledger:
+        ledger_mod.clear_ledger()
+        ledger_mod.enable_ledger()
+    p = _plan(plan)
+    src = _lm_source(net, X, Y, batch, fmask, lmask) if X.ndim == 3 \
+        else _source(net, X, Y, batch)
+    adopted = None
+    try:
+        if wrapper:
+            from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+            with um(p):
+                w = ParallelWrapper(net)
+                adopted = {"model": w.plan.model_degree,
+                           "zero_stage": w.zero_stage}
+            w.fit(src, epochs=1, batch_size=batch)
+        elif use_mesh:
+            with um(p):
+                net.fit(src, epochs=1, accumulate_steps=accumulate_steps)
+        else:
+            net.fit(src, epochs=1, plan=p,
+                    accumulate_steps=accumulate_steps)
+    finally:
+        plan_mod.PlanRuntime.forward_params = real_fwd
+        plan_mod.PlanRuntime.full_params = real_full
+        logger.removeHandler(catch)
+        if ledger:
+            ledger_mod.disable_ledger()
+    flops = None
+    if ledger:
+        recs = [r for r in ledger_mod.records() if r.name.endswith(
+            "train_step")]
+        flops = recs[0].flops if recs else None
+    return {"flat": _flat(net), "scores": sc.vals,
+            "iterations": net.iteration_count,
+            "forward": seen["forward"], "opt": seen.get("opt"),
+            "full_calls_in_fit": full_at_end[0] if full_at_end else None,
+            "warnings": seen["warnings"], "flops": flops,
+            "syncs": net._plan_syncs, "wrapper": adopted}
+
+
+def tp_infer(rank, world, zip_path, X, plan, batches=(8, 5),
+             mode="sequential"):
+    """ParallelInference(net, plan=) on every rank, each calling output()
+    with the same batches; then update_model to a second copy of the zip
+    and the same batches again."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    net = load_model(zip_path, device="cpu")
+    pi = ParallelInference(net, plan=_plan(plan), mode=mode)
+    shapes = {p: tuple(t.shape) for p, t in
+              __import__("deeplearning4j_tpu_torch.parallel.plan",
+                         fromlist=["_paths"])._paths(net.params)}
+    outs = [pi.output(X[:n]) for n in batches]
+    warmed = []
+    pi.update_model(load_model(zip_path, device="cpu"),
+                    warmup=lambda run: warmed.append(run(X[:2]).shape))
+    outs2 = [pi.output(X[:n]) for n in batches]
+    pi.shutdown()
+    return {"outs": outs, "outs2": outs2, "warmed": warmed,
+            "stored": shapes}
+
+
+def tp_deploy(rank, world, source, X, plan, swap_to=None):
+    """ModelRegistry.deploy(name, source, plan=) on every rank: rank 0
+    predicts through the servable's batcher (then swaps to `swap_to` and
+    predicts again, when given) and shuts down; the other ranks follow
+    until then. Returns rank 0's answers, the followers' forward count."""
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    reg = ModelRegistry(device="cpu")
+    served = reg.deploy("lm", source, buckets=(1, 4), plan=_plan(plan))
+    if rank != 0:
+        status = served.status
+        runs = served.follow()
+        return {"runs": runs, "status": status,
+                "version": served.versions[served.active].version}
+    outs = [served.predict(X[:n]) for n in (1, 3)]
+    outs_swapped = None
+    if swap_to is not None:
+        served.swap(swap_to)
+        outs_swapped = [served.predict(X[:n]) for n in (1, 3)]
+    reg.shutdown()
+    return {"outs": outs, "outs_swapped": outs_swapped,
+            "role": served.pi.role}
+
+
+def tp_engage_errors(rank, world, models, plan):
+    """Engage `plan` on each zoo model ((name, kwargs) pairs): the
+    ValueError each raised, None where it engaged."""
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    out = []
+    for name, kw in models:
+        net = model_by_name(name, **kw).init(device="cpu")
+        try:
+            net._engage_plan(_plan(plan))
+        except ValueError as e:
+            out.append(str(e))
+            continue
+        net._engage_plan(None)
+        out.append(None)
+    return out
+
+
+def tp_deploy_rejects(rank, world, source, X, plan, missing, wrong_shape,
+                      follower_fails, good):
+    """deploy(plan=) on every rank, then swaps that fail, each followed by
+    rank 0's predicts: a `missing` source and a `wrong_shape` one (the
+    leader's load or check fails), `follower_fails` (rank 1's load of it
+    raises), a rollback with no previous version, and a swap to `good`
+    whose warm-up fails on the leader; then the swap to `good`. Returns
+    rank 0's errors and answers, every rank's versions and the followers'
+    forward count."""
+    from deeplearning4j_tpu_torch.serving import registry
+    real_load = registry.load_servable
+    if rank != 0:
+        def load(src, device=None):
+            if str(src) == follower_fails:
+                raise registry.ModelLoadError("not on this rank")
+            return real_load(src, device=device)
+        registry.load_servable = load
+    reg = registry.ModelRegistry(device="cpu")
+    served = reg.deploy("lm", source, buckets=(1, 4), plan=_plan(plan))
+
+    def versions():
+        return [v.version for v in served.versions], \
+            served.versions[served.active].version
+    if rank != 0:
+        runs = served.follow()
+        return {"runs": runs, "versions": versions()}
+    errors, outs = [], []
+
+    def attempt(fn):
+        try:
+            fn()
+            errors.append(None)
+        except Exception as e:
+            errors.append(f"{type(e).__name__}: {e}")
+        outs.append(served.predict(X[:3]))
+    attempt(lambda: served.swap(missing))
+    attempt(lambda: served.swap(wrong_shape))
+    attempt(lambda: served.swap(follower_fails))
+    attempt(served.rollback)
+    warm = served.batcher.warm
+
+    def broken_warm(run=None):
+        raise RuntimeError("warm-up failed")
+    served.batcher.warm = broken_warm
+    attempt(lambda: served.swap(good))
+    served.batcher.warm = warm
+    attempt(lambda: served.swap(good))
+    reg.shutdown()
+    return {"errors": errors, "outs": outs, "versions": versions()}
+
+
+def tp_resilient(rank, world, zip_path, X, Y, batch, ckpt_dir, epochs, plan,
+                 preempt_at=None):
+    """ResilientTrainer under use_mesh(plan), preempted at `preempt_at`
+    when given: the params and the report."""
+    from deeplearning4j_tpu_torch.parallel import use_mesh
+    from deeplearning4j_tpu_torch.train.resilience import ResilientTrainer
+    from deeplearning4j_tpu_torch.util.faults import FaultInjector
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    net = load_model(zip_path, device="cpu")
+    inj = FaultInjector(preempt_at=preempt_at) \
+        if preempt_at is not None else None
+    with use_mesh(_plan(plan)):
+        rep = ResilientTrainer(net, ckpt_dir, save_every_n_iterations=2,
+                               injector=inj).fit(
+            _source(net, X, Y, batch), epochs=epochs, batch_size=batch)
+    return {"flat": _flat(net), "preempted": rep.preempted,
+            "resumed_from": rep.resumed_from,
+            "iterations": net.iteration_count}

@@ -211,6 +211,71 @@ def test_rollout_decisions_equal_the_references(tmp_path):
 
 
 # ------------------------------ the reference's controller, port replicas
+def test_canary_window_opens_when_its_swap_returns(tmp_path):
+    """The port's one departure from the reference's controller: the
+    canary's observation window opens when its swap returns (the replica
+    has loaded and warmed the candidate), not when the controller called
+    it. A swap that holds the clock 3 s moves the window by 3 s: no
+    verdict 5 s after the call, the verdict once 5 s have passed since
+    the swap returned, over a window of that length."""
+    clock = FakeClock()
+    spec = fleet.ReplicaSpec([("m", "/old/src")])
+    reps = []
+    for i in range(3):
+        r = fleet.Replica(f"r{i}", spec)
+        r.url, r.state = f"http://fake/r{i}", "ready"
+        reps.append(r)
+
+    class Sup:
+        replicas = reps
+
+        def healthy(self):
+            return list(self.replicas)
+
+    windows = []
+
+    def wire(replica, path, body, headers, timeout):
+        def _json(doc):
+            return 200, {"Content-Type": "application/json"}, \
+                json.dumps(doc).encode()
+        if path.endswith("/swap"):
+            clock.advance(3.0)
+            return _json({"active": {"source": json.loads(body)["source"]}})
+        if path == "/v1/slo":
+            return _json({"enabled": True, "state": "ok", "objectives": [
+                {"kind": "availability", "ratio": 1.0}]})
+        if path.startswith("/v1/timeseries"):
+            if replica.role == "canary":
+                windows.append(float(path.split("window=")[1]
+                                     .split("&")[0]))
+            return _json({"enabled": True, "count": 50, "p99": 0.02})
+        return _json({})
+
+    rc = rollout.RolloutController(
+        Sup(), None, str(tmp_path), "m", transport=wire, time_fn=clock,
+        wall_fn=clock, sleep_fn=lambda s: None, poll_interval_s=1.0,
+        observe_s=5.0, min_canary_requests=10, promote_stagger_s=0.0)
+    path = tmp_path / "ckpt_v2.zip"
+    path.write_bytes(b"weights-v2")
+    (tmp_path / "blessed.json").write_text(json.dumps({
+        "file": path.name, "path": str(path),
+        "sha256": hashlib.sha256(b"weights-v2").hexdigest(),
+        "metrics": {"accuracy": 0.9}, "iteration": 1}))
+    called = clock()
+    rc.tick()
+    assert rc.state == "canary"
+    assert rc.canary["started"] == called + 3.0
+    assert rc.canary["observe_until"] == called + 8.0
+    clock.t = called + 5.5          # the reference's window would be over
+    rc.tick()
+    assert rc.state == "canary" and windows == []
+    clock.t = called + 8.0
+    rc.tick()
+    assert windows == [5.0]
+    assert rc.last_verdict["decision"] == "promoted"
+    assert rc.last_verdict["observe_s"] == 5.0
+
+
 def _mlp_zip(path, seed):
     from deeplearning4j_tpu_torch.nn.conf.base import InputType
     from deeplearning4j_tpu_torch.nn.conf.network import (

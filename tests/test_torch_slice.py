@@ -98,6 +98,32 @@ def test_port_zip_loads_in_jax(jax_lm, tmp_path):
                                   net.output(x).numpy())
 
 
+@pytest.mark.parametrize("knob, method", [
+    (None, "deflated"), ("1", "stored"), ("0", "deflated"),
+    ("true", "deflated")])
+def test_zip_stored_knob_loads_in_jax(jax_lm, tmp_path, monkeypatch, knob,
+                                      method):
+    """DL4J_CUDA_ZIP_STORED=1 (only "1") makes save_model store every
+    entry; such a zip loads in both packages as the deflated one does."""
+    import zipfile
+    _, path, x, ref = jax_lm
+    if knob is None:
+        monkeypatch.delenv("DL4J_CUDA_ZIP_STORED", raising=False)
+    else:
+        monkeypatch.setenv("DL4J_CUDA_ZIP_STORED", knob)
+    net = load_model(path, device="cpu")
+    out = save_model(net, str(tmp_path / "port.zip"))
+    want = {"stored": zipfile.ZIP_STORED,
+            "deflated": zipfile.ZIP_DEFLATED}[method]
+    with zipfile.ZipFile(out) as zf:
+        assert {i.compress_type for i in zf.infolist()} == {want}
+    np.testing.assert_allclose(np.asarray(jax_load_model(out).output(x)),
+                               ref, **TOL)
+    np.testing.assert_array_equal(
+        load_model(out, device="cpu").output(x).numpy(),
+        net.output(x).numpy())
+
+
 def _post(url, body, ctype="application/json", accept=None):
     req = urllib.request.Request(url, data=body, method="POST",
                                  headers={"Content-Type": ctype})

@@ -560,8 +560,15 @@ def test_parallel_inference_rejects_after_shutdown_and_meshes():
             for n in (8, 5):
                 np.testing.assert_array_equal(two.output(X[:n]),
                                               _out(net, X[:n]))
-    # tensor-parallel servables come with tensor-parallel compute
-    with pytest.raises(NotImplementedError, match="A.15c"):
+    # a plan is accepted (a one-rank plan answers what one device does);
+    # an object that is not a plan is refused
+    from deeplearning4j_tpu_torch.parallel import ShardingPlan
+    with ParallelInference(net.copy(), plan=ShardingPlan(),
+                           mode="sequential") as planned:
+        assert planned.model._plan_rt is not None
+        np.testing.assert_array_equal(planned.output(X[:5]),
+                                      _out(net, X[:5]))
+    with pytest.raises(TypeError, match="ShardingPlan"):
         ParallelInference(net, plan=object())
     assert ParallelInference(net, mesh=["cpu"],
                              mode="sequential").device.type == "cpu"
