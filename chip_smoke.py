@@ -450,6 +450,35 @@ result line:
              (c) TransformerLMMoE at the same width, depth 2 (8 experts,
              4 a rank), 2 steps: the same comparisons. At most 60 s.
              `launches_by_path` gains "tensor" ((a) to (c), both ranks).
+18. nlp   — the native host library and the embedding trainers. (a) The
+             port's C++ library (native/src/*.cpp) built with g++ from the
+             checkout (OpenMP, else serial: the build it got is printed);
+             every entry point against its numpy twin on seeded inputs
+             (gemm in all four transposes, transforms, reductions,
+             im2col/col2im, the CSV parser, the tokenizer's counts and
+             encode, the codec, the HogWild skip-gram at one thread
+             against its plain version), test_native.py's tolerances, and
+             native.CALLS. (b) Word2Vec skip-gram / negative sampling at
+             the GoogleNews vectors' width (300, window 5, 5 negatives,
+             batch 512) over a 71,290-type vocabulary (text8's at
+             min_count=5) counted by the native pass from a seeded Zipf
+             corpus: 5 warm-up and 200 timed batches on the card, ms a
+             batch split into host sampling, the step's host queueing and
+             the step's span between CUDA events (which holds the card's
+             waits on the host), pairs a second, the tables' bytes and
+             the allocator's peak; the tables after 50 batches within
+             1e-5 (relative to the largest entry) of the same 50 batches
+             on the CPU, 30 of those batches under torch.profiler for the
+             card's busy time a batch and its idle share. (c) CBOW with
+             hierarchical softmax, GloVe's AdaGrad step, ParagraphVectors'
+             DBOW label step and infer_vector at the same width, a few
+             batches each, each within 1e-5 of the CPU. (d) DeepWalk at
+             its paper's width (128, window 10, walk length 40) through
+             `fit_graph` on a seeded random graph of BlogCatalog's 10,312
+             nodes and 333,983 edges: a walk from every vertex, tables of
+             10,312 rows, the fit stopped after 20 batches, within 1e-5 of
+             the CPU. At most 45 s. `launches_by_path`
+             gains "nlp" (no flash kernel runs there).
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The run sets DL4J_CUDA_ZIP_STORED=1 for itself and every process
@@ -7872,6 +7901,555 @@ def tensor(fa, tmp, tr, one, lm_zip, moe_zip, features, labels,
     return row
 
 
+# ------------------------------------------------------------- phase 18: nlp
+NLP_BUDGET_S = 45.0
+NLP_VOCAB = 71290            # text8's word types at min_count=5
+NLP_MIN_COUNT = 5
+NLP_SENTENCE = 1000          # tokens a sentence
+# the GoogleNews vectors' published width and the reference's batch
+NLP_LAYER, NLP_WINDOW, NLP_NEGATIVE, NLP_BATCH = 300, 5, 5, 512
+NLP_WARMUP, NLP_TIMED = 5, 200
+NLP_SG_SENTENCES = 19        # gives >= NLP_WARMUP + NLP_TIMED batches
+NLP_PARITY_BATCHES = 50
+NLP_PROFILED = (NLP_WARMUP, NLP_WARMUP + 30)   # batches under the profiler
+NLP_PARITY_TOL = 1e-5        # max |card - CPU| / max |table|
+NLP_CBOW_SENTENCES = 3       # (c): a few batches each
+NLP_GLOVE_SENTENCES = 1
+NLP_PV_DOCS = 2
+NLP_INFER_STEPS = 5
+# DeepWalk's paper (Perozzi et al. 2014) on BlogCatalog's node and edge
+# counts; one walk a vertex, the fit cut to its first DW_BATCHES batches
+DW_NODES, DW_EDGES = 10312, 333983
+DW_DIM, DW_WINDOW, DW_WALK, DW_BATCHES = 128, 10, 40, 20
+# test_native.py's tolerances
+NATIVE_TOL = {"gemm": 1e-4, "transform": 1e-6, "sum": 1e-3, "mean": 1e-4,
+              "csv_rtol": 1e-5, "sg_ns": 1e-5}
+
+
+class _StopFit(Exception):
+    """Raised by a step clock to end a fit after a number of batches."""
+
+
+class _NlpStepClock:
+    """Stands in for one of `embeddings.sequencevectors`' device steps:
+    records the host seconds since the previous step returned (sampling
+    the batch and queueing its copies), CUDA events around the step on a
+    card, and the tables it was handed; runs the steps numbered
+    `profile_window` (lo, hi) under torch.profiler (the card idle before
+    and after the window); raises _StopFit after `stop_after` steps."""
+
+    def __init__(self, fn, cuda, stop_after=None, profile_window=None):
+        self.fn, self.cuda, self.stop_after = fn, cuda, stop_after
+        self.steps, self.entries, self.exits, self.events = 0, [], [], []
+        self.rows, self.tables = [], None
+        self.profile_window = profile_window
+        self.prof, self.window_s = None, None
+
+    def _toggle_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        if self.prof is None:
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+            self._window_t0 = time.perf_counter()
+        else:
+            self.window_s = time.perf_counter() - self._window_t0
+            self.prof.stop()
+
+    def __call__(self, *args):
+        if self.profile_window and self.steps in self.profile_window:
+            self._toggle_profiler()
+        self.entries.append(time.perf_counter())
+        if self.cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out = self.fn(*args)
+        if self.cuda:
+            ev[1].record()
+            self.events.append(ev)
+        self.exits.append(time.perf_counter())
+        self.tables = args[:2]
+        self.rows.append(int(args[2].shape[0]))
+        self.steps += 1
+        if self.stop_after is not None and self.steps >= self.stop_after:
+            raise _StopFit
+        return out
+
+
+def _clocked(monkeypatch_list, module, name, cuda, stop_after=None,
+             profile_window=None):
+    clock = _NlpStepClock(getattr(module, name), cuda, stop_after,
+                          profile_window)
+    monkeypatch_list.append((module, name, getattr(module, name)))
+    setattr(module, name, clock)
+    return clock
+
+
+def _restore(monkeypatch_list):
+    while monkeypatch_list:
+        module, name, fn = monkeypatch_list.pop()
+        setattr(module, name, fn)
+
+
+def _table_rel(card, cpu) -> float:
+    card = np.asarray(card, np.float64)
+    cpu = np.asarray(cpu, np.float64)
+    return float(np.abs(card - cpu).max() / max(np.abs(cpu).max(), 1e-30))
+
+
+def _tensor_np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def nlp_native_checks():
+    """(a) every native entry point against its numpy twin on seeded
+    inputs, with test_native.py's tolerances; returns the rows."""
+    import ctypes
+    from collections import Counter
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.native import ndarray as nd
+    from deeplearning4j_tpu_torch.text.native_tokenizer import (
+        NativeCorpusEncoder,
+    )
+    from deeplearning4j_tpu_torch.text.tokenization import (
+        CommonPreprocessor, DefaultTokenizerFactory,
+    )
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native library did not build: g++ is on "
+                             "this machine (nvcc needs it)")
+    # `seconds`: g++ (0 when the library was found built); `load_s`: the
+    # first use, build included
+    build = dict(native.BUILD_INFO, load_s=time.perf_counter() - t0)
+    native.reset_calls()
+    rs = np.random.RandomState(1818)
+    errs = {}
+    A = rs.randn(37, 23).astype(np.float32)
+    B = rs.randn(23, 41).astype(np.float32)
+    for ta in (False, True):
+        for tb in (False, True):
+            got = nd.HostNDArray(A.T.copy() if ta else A).mmul(
+                nd.HostNDArray(B.T.copy() if tb else B), transpose_a=ta,
+                transpose_b=tb).numpy()
+            errs[f"gemm_{int(ta)}{int(tb)}"] = float(np.abs(got - A @ B).max())
+    X = rs.randn(19, 31).astype(np.float32)
+    a = nd.HostNDArray(X)
+    for name, want in (("tanh", np.tanh(X)),
+                       ("sigmoid", 1 / (1 + np.exp(-X))),
+                       ("relu", np.maximum(X, 0)), ("exp", np.exp(X)),
+                       ("square", X * X)):
+        errs[name] = float(np.abs(getattr(a, name)().numpy() - want).max()
+                           / max(1.0, np.abs(want).max()))
+    errs["sum_axis1"] = float(np.abs(a.sum(axis=1).numpy()
+                                     - X.sum(1)).max())
+    errs["mean_axis0"] = float(np.abs(a.mean(axis=0).numpy()
+                                      - X.mean(0)).max())
+    errs["max_axis1"] = float(np.abs(a.max(axis=1).numpy() - X.max(1)).max())
+    errs["argmax"] = float((a.argmax(axis=1) != X.argmax(1)).sum())
+    img = rs.randn(3, 11, 9).astype(np.float32)
+    cols = nd.im2col(img, 3, 3, 2, 2, 1, 1)
+    y = rs.randn(*cols.shape).astype(np.float32)
+    back = nd.col2im(y, 3, 11, 9, 3, 3, 2, 2, 1, 1)
+    lib, native._lib = native._lib, None
+    native._build_failed = True
+    try:                                    # the numpy twins
+        cols_np = nd.im2col(img, 3, 3, 2, 2, 1, 1)
+        back_np = nd.col2im(y, 3, 11, 9, 3, 3, 2, 2, 1, 1)
+    finally:
+        native._lib, native._build_failed = lib, False
+    errs["im2col"] = float(np.abs(cols - cols_np).max())
+    errs["col2im"] = float(np.abs(back - back_np).max())
+    M = rs.randn(200, 6).astype(np.float32)
+    with tempfile.NamedTemporaryFile("w", suffix=".csv",
+                                     delete=False) as f:
+        f.write("\n".join(",".join(f"{v:.6g}" for v in r) for r in M)
+                + "\n")
+        csv_path = f.name
+    from deeplearning4j_tpu_torch.data.records import parse_numeric_csv
+    mat = parse_numeric_csv(csv_path)
+    with open(csv_path) as f:
+        want = np.asarray([[float(v) for v in line.split(",")]
+                           for line in f], np.float32)
+    import os
+    os.unlink(csv_path)
+    errs["csv_rel"] = float(np.abs(mat - want).max() / np.abs(want).max())
+    docs = ["The QUICK brown fox, jumped over 12 lazy dogs!",
+            "Hello... world; (parens) [brackets] 'single'",
+            "repeated repeated words words a/b c|d"] * 20
+    tf = DefaultTokenizerFactory(CommonPreprocessor())
+    counts = Counter(t for d in docs for t in tf.tokenize(d))
+    enc = NativeCorpusEncoder()
+    if enc.count_or_none(docs) != dict(counts):
+        raise AssertionError("native token counts differ from the "
+                             "python tokenizer's")
+    word2id = {w: i for i, w in enumerate(sorted(counts))}
+    ids = enc.encode_or_none(docs, word2id)
+    if [list(x) for x in ids] != [[word2id[t] for t in tf.tokenize(d)]
+                                  for d in docs]:
+        raise AssertionError("native encode differs from the python "
+                             "tokenizer's ids")
+    g = (rs.randn(5000) * 0.01).astype(np.float32)
+    g[rs.choice(5000, 60, replace=False)] *= 100
+    idx, vals, res = native.threshold_encode(g, 0.1, 40)
+    over = np.flatnonzero(np.abs(g) >= 0.1)
+    keep = np.sort(over[np.argsort(-np.abs(g[over]), kind="stable")[:40]])
+    if not np.array_equal(idx, keep) or not np.array_equal(vals, g[keep]):
+        raise AssertionError("native threshold_encode selects other "
+                             "elements than its numpy twin")
+    want_res = g.copy()
+    want_res[keep] = 0.0
+    errs["threshold_encode_residual"] = float(np.abs(res - want_res).max())
+    dense = rs.randn(5000).astype(np.float32)
+    want_dense = dense.copy()
+    np.add.at(want_dense, idx, vals)
+    errs["decode_accumulate"] = float(np.abs(
+        native.decode_accumulate(dense, idx, vals) - want_dense).max())
+    V, D = 30, 16
+    syn0 = ((rs.rand(V, D) - 0.5) / D).astype(np.float32)
+    syn1 = (rs.rand(V, D) * 0.05).astype(np.float32)
+    corpus = rs.randint(0, V, 400).astype(np.int32)
+    offsets = np.array([0, 150, 400], np.int64)
+    table = rs.randint(0, V, 2000).astype(np.int32)
+    s0, s1 = syn0.copy(), syn1.copy()
+    loss = native.sg_ns_train(s0, s1, corpus, offsets, 4, 5, table, 0.05,
+                              1e-4, 400, seed=7, n_threads=1)
+    p0, p1 = syn0.astype(np.float64), syn1.astype(np.float64)
+    plain = native.sg_ns_train_plain(p0, p1, corpus, offsets, 4, 5, table,
+                                     0.05, 1e-4, 400, seed=7)
+    errs["sg_ns_train_rel"] = max(_table_rel(s0, p0), _table_rel(s1, p1),
+                                  abs(loss - plain) / abs(plain))
+    limits = {"gemm": NATIVE_TOL["gemm"], "tanh": NATIVE_TOL["transform"],
+              "sigmoid": NATIVE_TOL["transform"], "relu": 0.0,
+              "exp": NATIVE_TOL["transform"],
+              "square": NATIVE_TOL["transform"],
+              "sum_axis1": NATIVE_TOL["sum"], "mean_axis0": NATIVE_TOL["mean"],
+              "max_axis1": 0.0, "argmax": 0.0, "im2col": 0.0, "col2im": 0.0,
+              "csv_rel": NATIVE_TOL["csv_rtol"],
+              "threshold_encode_residual": 0.0, "decode_accumulate": 1e-7,
+              "sg_ns_train_rel": NATIVE_TOL["sg_ns"]}
+    for name, err in errs.items():
+        limit = limits.get(name, limits.get(name.split("_")[0]))
+        if not err <= limit:
+            raise AssertionError(f"native {name}: {err} > {limit}")
+    calls = dict(native.CALLS)
+    for fn in ("gemm_f32", "transform_f32", "reduce_f32", "im2col_f32",
+               "col2im_f32", "csv_parse_f32", "dl4j_count_tokens",
+               "dl4j_tokenize_encode", "threshold_encode_f32",
+               "decode_accumulate_f32", "sg_ns_train"):
+        if not calls.get(fn):
+            raise AssertionError(f"native {fn} was never called")
+    return {"build": build, "max_err": errs, "limits": limits,
+            "calls": calls}
+
+
+def nlp_corpus(rs):
+    """A seeded synthetic Zipf(1.0) corpus whose vocabulary at
+    min_count=5 has NLP_VOCAB types: type r occurs max(5, C / r) times,
+    the tokens shuffled and cut into sentences of NLP_SENTENCE tokens
+    (the last one shorter)."""
+    ranks = np.arange(1, NLP_VOCAB + 1)
+    counts = np.maximum(NLP_MIN_COUNT, np.round(
+        NLP_MIN_COUNT * NLP_VOCAB / ranks)).astype(np.int64)
+    ids = np.repeat(np.arange(NLP_VOCAB), counts)
+    rs.shuffle(ids)
+    words = np.asarray([f"w{r}" for r in range(NLP_VOCAB)], dtype=object)
+    return [" ".join(words[ids[i:i + NLP_SENTENCE]])
+            for i in range(0, len(ids), NLP_SENTENCE)]
+
+
+def _w2v(**kw):
+    from deeplearning4j_tpu_torch.embeddings import Word2Vec
+    base = dict(layer_size=NLP_LAYER, window=NLP_WINDOW,
+                negative=NLP_NEGATIVE, batch_size=NLP_BATCH,
+                min_count=NLP_MIN_COUNT, seed=1818)
+    base.update(kw)
+    return Word2Vec(**base)
+
+
+def nlp_word2vec(vocab, sentences):
+    """(b) skip-gram / negative sampling at full width: the timed fit on
+    the card, then the first NLP_PARITY_BATCHES batches on the card and
+    on the CPU."""
+    from deeplearning4j_tpu_torch.embeddings import sequencevectors as sv
+    patched = []
+    src = sentences[:NLP_SG_SENTENCES]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w2v = _w2v()
+    w2v.vocab = vocab
+    clock = _clocked(patched, sv, "_sg_ns_step", cuda=True)
+    try:
+        t0 = time.perf_counter()
+        w2v.fit(src)                          # CUDA: the default device
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        _restore(patched)
+    if clock.steps < NLP_WARMUP + NLP_TIMED:
+        raise AssertionError(f"{clock.steps} batches < "
+                             f"{NLP_WARMUP + NLP_TIMED}")
+    lo, hi = NLP_WARMUP, NLP_WARMUP + NLP_TIMED
+    wall_s = clock.entries[hi] - clock.entries[lo] if hi < clock.steps \
+        else clock.exits[hi - 1] - clock.entries[lo]
+    host_ms = [1e3 * (clock.entries[i] - clock.exits[i - 1])
+               for i in range(lo, hi)]
+    enqueue_ms = [1e3 * (clock.exits[i] - clock.entries[i])
+                  for i in range(lo, hi)]
+    step_ms = [clock.events[i][0].elapsed_time(clock.events[i][1])
+               for i in range(lo, hi)]
+    pairs = sum(clock.rows[lo:hi])
+    table_bytes = 3 * len(vocab) * NLP_LAYER * 4
+    row = {"vocab": len(vocab), "layer_size": NLP_LAYER,
+           "batch": NLP_BATCH, "batches": clock.steps,
+           "timed_batches": NLP_TIMED, "fit_s": fit_s,
+           "ms_per_batch": 1e3 * wall_s / NLP_TIMED,
+           "host_sampling_ms_per_batch": statistics.mean(host_ms),
+           "host_enqueue_ms_per_batch": statistics.mean(enqueue_ms),
+           "step_span_ms": statistics.mean(step_ms),
+           "step_span_ms_p50": statistics.median(step_ms),
+           "pairs_per_s": pairs / wall_s,
+           "table_bytes": table_bytes,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if not np.all(np.isfinite(w2v.vectors)):
+        raise AssertionError("word2vec tables are not finite")
+    tables = {}
+    for device in ("cuda", "cpu"):
+        model = _w2v()
+        model.vocab = vocab
+        clock = _clocked(patched, sv, "_sg_ns_step", cuda=False,
+                         stop_after=NLP_PARITY_BATCHES,
+                         profile_window=NLP_PROFILED if device == "cuda"
+                         else None)
+        t0 = time.perf_counter()
+        try:
+            model.fit(src, device=device)
+        except _StopFit:
+            pass
+        finally:
+            _restore(patched)
+        row[f"parity_fit_s_{device}"] = time.perf_counter() - t0
+        tables[device] = [_tensor_np(t) for t in clock.tables]
+        if device == "cuda":
+            row.update(_profiled_busy(clock))
+    row["parity_batches"] = NLP_PARITY_BATCHES
+    row["parity_rel"] = {name: _table_rel(a, b) for name, a, b in zip(
+        ("w_in", "w_out"), tables["cuda"], tables["cpu"])}
+    row["parity_tol"] = NLP_PARITY_TOL
+    if not max(row["parity_rel"].values()) <= NLP_PARITY_TOL:
+        raise AssertionError(f"word2vec card vs CPU: {row['parity_rel']}")
+    return row
+
+
+def _profiled_busy(clock):
+    """The card's busy time (its kernels and copies, from torch.profiler)
+    per batch over the clock's profiled window, and its idle share of the
+    window's wall time (the profiler's own cost on the host included)."""
+    from torch.autograd import DeviceType
+    lo, hi = NLP_PROFILED
+    busy_us = sum(e.us for e in profiler_events(clock.prof)
+                  if e.device_type == DeviceType.CUDA)
+    if not busy_us:
+        return {"device_busy_ms_per_batch": "not measured",
+                "device_idle_share": "not measured"}
+    return {"profiled_batches": [lo, hi],
+            "profiled_ms_per_batch": 1e3 * clock.window_s / (hi - lo),
+            "device_busy_ms_per_batch": busy_us / 1e3 / (hi - lo),
+            "device_idle_share": 1.0 - busy_us / (1e6 * clock.window_s)}
+
+
+def _card_and_cpu(make, fit, read, steps):
+    """Runs `fit(make(), device)` on the card and on the CPU, counting
+    the device steps named in `steps`; returns ({name: rel}, counts,
+    card seconds)."""
+    from deeplearning4j_tpu_torch.embeddings import glove
+    from deeplearning4j_tpu_torch.embeddings import sequencevectors as sv
+    out, counts, seconds = {}, {}, None
+    for device in ("cuda", "cpu"):
+        patched = []
+        clocks = {s: _clocked(patched, glove if s == "_glove_step" else sv,
+                              s, cuda=False) for s in steps}
+        t0 = time.perf_counter()
+        try:
+            model = fit(make(), device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            _restore(patched)
+        out[device] = read(model)
+        counts[device] = {s: c.steps for s, c in clocks.items()}
+    if counts["cuda"] != counts["cpu"] or not all(counts["cuda"].values()):
+        raise AssertionError(f"device steps: {counts}")
+    rel = {k: _table_rel(out["cuda"][k], out["cpu"][k]) for k in out["cpu"]}
+    return rel, counts["cuda"], seconds
+
+
+def nlp_others(vocab, hs_vocab, sentences):
+    """(c) CBOW / hierarchical softmax, GloVe, ParagraphVectors' DBOW
+    label step and infer_vector at the same width, card against CPU."""
+    from deeplearning4j_tpu_torch.embeddings import Glove, ParagraphVectors
+    rows = {}
+
+    def cbow():
+        m = _w2v(negative=0, use_hierarchic_softmax=True,
+                 elements_learning_algorithm="cbow")
+        m.vocab = hs_vocab
+        return m
+    rel, steps, s = _card_and_cpu(
+        cbow, lambda m, d: m.fit(sentences[:NLP_CBOW_SENTENCES], device=d),
+        lambda m: {"w_in": m.vectors, "syn1": m.syn1}, ("_cbow_hs_step",))
+    rows["cbow_hs"] = {"rel": rel, "steps": steps, "card_s": s,
+                       "max_code_length": hs_vocab.max_code_length()}
+
+    def glove():
+        m = Glove(layer_size=NLP_LAYER, window=NLP_WINDOW, epochs=1,
+                  batch_size=NLP_BATCH, min_count=NLP_MIN_COUNT, seed=1818)
+        m.vocab = vocab
+        return m
+    rel, steps, s = _card_and_cpu(
+        glove, lambda m, d: m.fit(sentences[:NLP_GLOVE_SENTENCES], device=d),
+        lambda m: {"w_plus_wc": m.vectors, "loss": np.float64(m.last_loss)},
+        ("_glove_step",))
+    rows["glove"] = {"rel": rel, "steps": steps, "card_s": s}
+
+    docs = [(f"doc_{i}", sentences[i]) for i in range(NLP_PV_DOCS)]
+    infer_text = sentences[NLP_PV_DOCS][:2000]
+
+    def pv():
+        m = ParagraphVectors(layer_size=NLP_LAYER, window=NLP_WINDOW,
+                             negative=NLP_NEGATIVE, batch_size=NLP_BATCH,
+                             min_count=NLP_MIN_COUNT, seed=1818)
+        m.vocab = vocab
+        return m
+
+    def pv_read(m):
+        return {"w_in": m.vectors, "labels": m.label_vectors,
+                "infer": m.infer_vector(infer_text, steps=NLP_INFER_STEPS)}
+    rel, steps, s = _card_and_cpu(pv, lambda m, d: m.fit(docs, device=d),
+                                  pv_read, ("_sg_ns_step",))
+    rows["paragraph_vectors"] = {"rel": rel, "steps": steps, "card_s": s,
+                                 "infer_steps": NLP_INFER_STEPS}
+    for name, r in rows.items():
+        if not max(r["rel"].values()) <= NLP_PARITY_TOL:
+            raise AssertionError(f"{name} card vs CPU: {r['rel']}")
+    return rows
+
+
+def nlp_deepwalk():
+    """(d) DeepWalk at its paper's width on a seeded random graph of
+    BlogCatalog's node and edge counts, through `fit_graph`: one walk from
+    every vertex, the vocabulary and tables over all of them, the fit
+    stopped after DW_BATCHES batches; card against CPU."""
+    from deeplearning4j_tpu_torch.embeddings import sequencevectors as sv
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+    rs = np.random.RandomState(2014)
+    a = rs.randint(0, DW_NODES, 2 * DW_EDGES)
+    b = rs.randint(0, DW_NODES, 2 * DW_EDGES)
+    keep = a != b
+    edges = list(zip(a[keep][:DW_EDGES].tolist(), b[keep][:DW_EDGES].tolist()))
+    t0 = time.perf_counter()
+    graph = Graph.from_edges(edges, n_vertices=DW_NODES)
+    graph_s = time.perf_counter() - t0
+    tables, row = {}, {}
+    for device in ("cuda", "cpu"):
+        patched = []
+        clock = _clocked(patched, sv, "_sg_ns_step", cuda=False,
+                         stop_after=DW_BATCHES)
+        model = DeepWalk(layer_size=DW_DIM, window=DW_WINDOW,
+                         walk_length=DW_WALK, walks_per_vertex=1,
+                         batch_size=NLP_BATCH, seed=2014)
+        t0 = time.perf_counter()
+        try:
+            model.fit_graph(graph, device=device)
+        except _StopFit:
+            pass
+        finally:
+            _restore(patched)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            row = {"fit_s": time.perf_counter() - t0,
+                   "walks_and_vocab_s": clock.entries[0] - t0,
+                   "vocab": len(model.vocab)}
+        tables[device] = [_tensor_np(t) for t in clock.tables]
+        if clock.steps != DW_BATCHES:
+            raise AssertionError(f"deepwalk on {device}: {clock.steps} "
+                                 f"batches != {DW_BATCHES}")
+    shapes = [t.shape for t in tables["cuda"]]
+    if row["vocab"] != DW_NODES or shapes != [(DW_NODES, DW_DIM)] * 2:
+        raise AssertionError(f"deepwalk vocabulary {row['vocab']}, "
+                             f"tables {shapes}")
+    rel = {name: _table_rel(x, y) for name, x, y in zip(
+        ("w_in", "w_out"), tables["cuda"], tables["cpu"])}
+    if not max(rel.values()) <= NLP_PARITY_TOL:
+        raise AssertionError(f"deepwalk card vs CPU: {rel}")
+    return {"nodes": DW_NODES, "edges": graph.num_edges(), "dim": DW_DIM,
+            "window": DW_WINDOW, "walk_length": DW_WALK,
+            "walks": DW_NODES, "batches": DW_BATCHES,
+            "graph_s": graph_s, **row, "rel": rel}
+
+
+def nlp(fa, gpu):
+    """Phase 18: the native host library, then the embedding trainers at
+    full width on the card, each against the CPU."""
+    from deeplearning4j_tpu_torch import native
+    t_phase = time.perf_counter()
+    row = {"phase": "nlp", "gpu": gpu}
+    row["native"] = nlp_native_checks()
+    emit({"phase": "nlp_native", "gpu": gpu, **row["native"]})
+    t0 = time.perf_counter()
+    sentences = nlp_corpus(np.random.RandomState(1818))
+    corpus_s = time.perf_counter() - t0
+    for k in fa.KERNEL_LAUNCHES:
+        fa.KERNEL_LAUNCHES[k] = 0
+    native.reset_calls()
+    t0 = time.perf_counter()
+    w2v = _w2v()
+    w2v.build_vocab(sentences)               # the native counting pass
+    vocab_s = time.perf_counter() - t0
+    calls = dict(native.CALLS)
+    if len(w2v.vocab) != NLP_VOCAB or not calls.get("dl4j_count_tokens"):
+        raise AssertionError(f"vocabulary {len(w2v.vocab)} types, native "
+                             f"calls {calls}")
+    row["corpus"] = {"tokens": len(sentences) * NLP_SENTENCE,
+                     "sentences": len(sentences), "vocab": len(w2v.vocab),
+                     "build_s": corpus_s, "vocab_s": vocab_s,
+                     "native_calls": calls}
+    t0 = time.perf_counter()
+    row["word2vec_sg_ns"] = nlp_word2vec(w2v.vocab, sentences)
+    row["word2vec_s"] = time.perf_counter() - t0
+    emit({"phase": "nlp_word2vec", "gpu": gpu, **row["word2vec_sg_ns"]})
+    t0 = time.perf_counter()
+    hs_vocab = copy_vocab(w2v.vocab).build_huffman()
+    row["huffman_s"] = time.perf_counter() - t0
+    row["others"] = nlp_others(w2v.vocab, hs_vocab, sentences)
+    row["others_s"] = time.perf_counter() - t0 - row["huffman_s"]
+    t0 = time.perf_counter()
+    row["deepwalk"] = nlp_deepwalk()
+    row["deepwalk_s"] = time.perf_counter() - t0
+    row["flash_launches"] = dict(fa.KERNEL_LAUNCHES)
+    if any(row["flash_launches"].values()):
+        raise AssertionError(f"the nlp path launched flash kernels: "
+                             f"{row['flash_launches']}")
+    row["seconds"] = time.perf_counter() - t_phase
+    row["budget_s"] = NLP_BUDGET_S
+    emit({k: v for k, v in row.items() if k not in ("native",
+                                                     "word2vec_sg_ns")})
+    if row["seconds"] > NLP_BUDGET_S:
+        raise AssertionError(f"phase 18 took {row['seconds']:.1f} s "
+                             f"> {NLP_BUDGET_S}")
+    return row
+
+
+def copy_vocab(vocab):
+    """A copy of a built VocabCache (Huffman codes go on the copy)."""
+    from deeplearning4j_tpu_torch.embeddings.vocab import VocabCache
+    out = VocabCache()
+    for w in vocab.vocab_words():
+        out.add_token(w.word, w.count)
+    return out.build(1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -7938,6 +8516,7 @@ def main(argv=None) -> int:
         par_run = parallel(fa, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         seq_run = sequence(fa, tmp)
+    nlp_run = nlp(fa, gpu)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -7969,7 +8548,8 @@ def main(argv=None) -> int:
                              "pipeline": seq_run["flash_launches"][
                                  "pipeline"]["flash_fwd"],
                              "tensor": seq_run["tensor"][
-                                 "flash_launches"]["flash_fwd"]},
+                                 "flash_launches"]["flash_fwd"],
+                             "nlp": nlp_run["flash_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -8007,7 +8587,8 @@ def main(argv=None) -> int:
                                  "pipeline": seq_run["flash_launches"][
                                      "pipeline"][name],
                                  "tensor": seq_run["tensor"][
-                                     "flash_launches"][name]},
+                                     "flash_launches"][name],
+                                 "nlp": nlp_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

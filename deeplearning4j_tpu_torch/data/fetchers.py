@@ -14,8 +14,9 @@ Nothing is downloaded. A missing cache raises FileNotFoundError with
 `synthetic=False`; otherwise (the default, None, or True) the fetcher
 substitutes the reference's seeded synthetic data, array for array the
 same, with the right shapes. IRIS ships inline (`data/_iris.py`), as DL4J
-bundles iris.dat. Bytes become [0, 1] floats as ``u8 * f32(1/255)``,
-bit for bit the reference's native `scale_u8` product.
+bundles iris.dat. Bytes become [0, 1] floats through the port's native
+`scale_u8` (its numpy twin, ``u8 * f32(1/255)``, without the library),
+bit for bit the reference's.
 """
 from __future__ import annotations
 
@@ -32,9 +33,11 @@ from deeplearning4j_tpu_torch.util.env import env_str
 
 
 def _u8_to_unit(a: np.ndarray) -> np.ndarray:
-    """Image bytes -> f32 in [0, 1]."""
+    """u8 image bytes -> f32 in [0,1] via the native ETL kernel when
+    built (ndarray_ops.cpp scale_u8_f32), else its numpy twin."""
     if a.dtype == np.uint8:
-        return a.astype(np.float32) * np.float32(1.0 / 255.0)
+        from deeplearning4j_tpu_torch.native.ndarray import scale_u8
+        return scale_u8(a, 1.0 / 255.0)
     return a.astype("float32") / 255.0
 
 

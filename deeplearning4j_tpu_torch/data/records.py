@@ -10,10 +10,11 @@ incl. separate feature/label sources and ALIGN_END padding+masks), and
 
 Host-side IO in numpy; the device only ever sees finished batches.
 
-The reference parses numeric CSV with its native C++ library when that
-library is built; the port has no native library yet, so
-`parse_numeric_csv` returns None and the Python csv reader runs: the
-reference's own path when its native library is unavailable.
+Numeric CSV is parsed by the port's native C++ library
+(`native/src/csv.cpp`, strict: anything python's float() would read
+differently sends the file back to the Python csv reader), as the
+reference parses it with its own; without a toolchain the Python reader
+runs, the reference's path when its library is unavailable.
 """
 from __future__ import annotations
 
@@ -129,9 +130,29 @@ def parse_numeric_csv(path: str, delimiter: str = ",",
                       skip_lines: int = 0):
     """Strict native numeric-CSV parse -> float32 matrix, or None when
     the native library is unavailable or the file fails strict parsing
-    (the caller falls back to the python reader). The port carries no
-    native library yet (ROADMAP A.16), so this is always None."""
-    return None
+    (the caller falls back to the python reader)."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch import native
+    if len(delimiter.encode()) != 1 or not native.available():
+        return None
+    lib = native.get_lib()
+    with open(path, "rb") as f:
+        data = f.read()
+    delim = ctypes.c_char(delimiter.encode())
+    ncols = ctypes.c_int64(0)
+    rows = lib.csv_parse_f32(data, len(data), delim, skip_lines, None, 0,
+                             ctypes.byref(ncols))
+    if rows < 0:
+        return None
+    out = np.empty((rows, ncols.value), np.float32)
+    filled = lib.csv_parse_f32(
+        data, len(data), delim, skip_lines,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), rows,
+        ctypes.byref(ncols))
+    if filled != rows:
+        return None
+    return out
 
 
 class SequenceRecordReader:

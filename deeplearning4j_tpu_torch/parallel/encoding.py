@@ -170,8 +170,16 @@ class EncodingHandler:
     mode: str = "values"
     # hard cap on the sent density; defaults to 4x the target band
     max_density: Optional[float] = None
+    # "torch": encode with torch ops on the gradient's device; "native":
+    # the C++ host codec (deeplearning4j_tpu_torch.native, the twin of
+    # ND4J's native thresholdEncode), for a gradient that is on the host
+    # already (a model on the CPU). values mode only.
+    backend: str = "torch"
 
     def __post_init__(self):
+        if self.backend not in ("torch", "native"):
+            raise ValueError(f"backend must be 'torch' or 'native', got "
+                             f"{self.backend!r}")
         self._residual = None
         self.iterations = 0
         self.last_sparsity = 0.0
@@ -179,22 +187,37 @@ class EncodingHandler:
     def encode(self, grad):
         """(indices, payload, scale) of the gradient plus the carried
         residual. `scale` is the one this gradient was encoded with;
-        threshold adaptation only affects the next call."""
+        threshold adaptation only affects the next call. The native
+        backend copies a device gradient to the host once, keeps the
+        residual there, and returns host tensors of the sent elements
+        only (no -1 padding)."""
+        native = self.mode == "values" and self.backend == "native"
         g = torch.as_tensor(grad).to(torch.float32)
+        if native:
+            g = g.cpu()
         if self._residual is not None:
             g = g + self._residual
         used_threshold = self.threshold
         density_cap = (self.boundary * 4 if self.max_density is None
                        else self.max_density)
         cap = max(16, int(g.numel() * min(1.0, density_cap)))
-        if self.mode == "values":
+        if native:
+            from deeplearning4j_tpu_torch import native as host
+            idx, payload, residual = (torch.from_numpy(a) for a in
+                                      host.threshold_encode(g.numpy(),
+                                                            used_threshold,
+                                                            cap))
+            scale = used_threshold
+            sent = float(len(idx))
+        elif self.mode == "values":
             idx, payload, residual = threshold_encode_values(
                 g, used_threshold, cap)
             scale = used_threshold
+            sent = float((idx >= 0).sum())
         else:
             idx, payload, scale, residual = threshold_encode_scaled(
                 g, used_threshold, cap)
-        sent = float((idx >= 0).sum())
+            sent = float((idx >= 0).sum())
         self._residual = residual
         self.iterations += 1
         self.last_sparsity = sent / g.numel()

@@ -4,8 +4,9 @@ Counterpart of the JAX package's `parallel/shared.py`: DL4J's quantized
 gradient sharing (`SharedTrainingMaster.java:475`,
 `WiredEncodingHandler.java:20-89`, `SilentTrainingDriver.java:112-121`).
 Each worker computes gradients on its block of the batch, threshold-
-encodes them on its device (`encoding.EncodingHandler`, with its own
-residual carry), exchanges the sparse messages over a transport, and
+encodes them (`encoding.EncodingHandler`, with its own residual carry:
+on the model's device, with the native host codec on the rank path of a
+model on the CPU), exchanges the sparse messages over a transport, and
 applies the decoded sum through the same updater.
 
 Every replica sums the same messages in the same order (the own message
@@ -95,9 +96,18 @@ class SharedGradientsTrainer:
                 raise ValueError("rank-based training needs a transport "
                                  "(e.g. SocketTransport)")
             self.transport = LoopbackTransport(self.n_workers)
+        # a rank whose gradient is on the host already encodes it with the
+        # C++ codec (the reference's native thresholdEncode); a gradient on
+        # the card is encoded there, and only the capped message crosses
+        backend = "torch"
+        if self.rank is not None and torch.device(
+                self.model.device).type == "cpu":
+            from deeplearning4j_tpu_torch import native
+            if native.available():
+                backend = "native"
         self.handlers = [EncodingHandler(threshold=self.threshold,
                                          boundary=self.boundary,
-                                         max_density=0.2)
+                                         max_density=0.2, backend=backend)
                          for _ in range(self.n_workers)]
         self._gens = None
         self._dense_bytes = 0

@@ -28,6 +28,9 @@ The port's knobs, each read where it acts:
   multi-process ring (`data/pipeline.py`);
 - ``DL4J_CUDA_CSV_FAST_MAX_BYTES`` (value, default 1 GiB): the CSV
   reader's matrix path (`data/records.py`);
+- ``DL4J_CUDA_NATIVE_CACHE`` (value, default ``build/native`` under the
+  repository root): where the native host library is built and found
+  (`native/__init__.py`), the counterpart of ``DL4J_TPU_NATIVE_CACHE``;
 - ``DL4J_CUDA_PEAK_FLOPS`` and ``DL4J_CUDA_HBM_BYTES_PER_SEC`` (values):
   the MFU accountant's device peaks (`monitor/xla.py`);
   ``DL4J_CUDA_PERF_LEDGER`` (value): the train CLI's default

@@ -47,7 +47,10 @@ CPU and its gradients within 1e-4 of each tensor's largest entry, two
 flash launches of each kernel a call; a context-parallel and a pipelined
 LM fit with the ranks bitwise equal, the expected launches, and the
 parameters within 1e-4 relative (1e-6 absolute) of the same fit's on two
-CPU ranks.
+CPU ranks. The embedding trainers: each word2vec step and GloVe's step on
+card tables (rows repeating within the batch) within 1e-6 of the CPU's,
+and Word2Vec, GloVe and ParagraphVectors fitting on the card when no
+device is asked for, within 1e-5 (relative) of the CPU's fit.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -1777,3 +1780,108 @@ def test_sequence_and_pipeline_fits_on_two_card_ranks(card_ranks, tmp_path,
         assert set(c["routes"]) == {"gloo_host"}
     np.testing.assert_allclose(card[0]["flat"], cpu[0]["flat"], rtol=1e-4,
                                atol=1e-6)
+
+
+# ------------------------------------------------------ embedding trainers
+def _embedding_inputs(seed, V=40, D=16, N=64, K=5, L=6, W=8):
+    rs = np.random.RandomState(seed)
+    f = lambda *s: ((rs.rand(*s) - 0.5)).astype(np.float32)  # noqa: E731
+    ids = lambda hi, *s: rs.randint(0, hi, s).astype(np.int64)  # noqa: E731
+    labels = np.zeros((N, 1 + K), np.float32)
+    labels[:, 0] = 1.0
+    ctx_mask = (rs.rand(N, W) < 0.7).astype(np.float32)
+    ctx_mask[:, 0] = 1.0
+    # few ids for many rows: every id repeats within the batch, so the
+    # card's scatter-adds sum the repeats in no fixed order
+    return dict(w_in=f(V, D), w_out=f(V, D), syn1=f(V - 1, D),
+                centers=ids(6, N), targets=ids(8, N, 1 + K), labels=labels,
+                points=ids(V - 1, N, L),
+                codes=rs.randint(0, 2, (N, L)).astype(np.float32),
+                mask=(rs.rand(N, L) < 0.8).astype(np.float32),
+                ctx_ids=ids(8, N, W), ctx_mask=ctx_mask)
+
+
+EMBEDDING_STEPS = {
+    "sg_ns": (("w_in", "w_out"), ("centers", "targets", "labels")),
+    "sg_hs": (("w_in", "syn1"), ("centers", "points", "codes", "mask")),
+    "cbow_hs": (("w_in", "syn1"), ("ctx_ids", "ctx_mask", "points",
+                                   "codes", "mask")),
+    "cbow_ns": (("w_in", "w_out"), ("ctx_ids", "ctx_mask", "targets",
+                                    "labels")),
+}
+
+
+@pytest.mark.parametrize("step", sorted(EMBEDDING_STEPS))
+def test_embedding_steps_on_the_card_match_the_cpu(cuda, step):
+    """Each word2vec step in place on card tables against the same step
+    on the CPU: within 1e-6 (f32, tables of magnitude <= 0.5)."""
+    from deeplearning4j_tpu_torch.embeddings import sequencevectors as sv
+    x = _embedding_inputs(7)
+    tables, args = EMBEDDING_STEPS[step]
+    out = {}
+    for dev in ("cpu", cuda):
+        ts = [torch.tensor(x[t], device=dev) for t in tables]
+        loss = getattr(sv, f"_{step}_step")(
+            *ts, *(torch.tensor(x[a], device=dev) for a in args), 0.9)
+        out[str(dev)] = ([t.cpu().numpy() for t in ts], float(loss))
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-6)
+
+
+def test_glove_step_on_the_card_matches_the_cpu(cuda):
+    from deeplearning4j_tpu_torch.embeddings.glove import _glove_step
+    rs = np.random.RandomState(8)
+    V, D, N = 30, 16, 64
+    tabs = [((rs.rand(V, D) - 0.5)).astype(np.float32) for _ in range(2)]
+    tabs += [np.zeros(V, np.float32)] * 2
+    tabs += [np.full((V, D), 1e-8, np.float32)] * 2
+    tabs += [np.full(V, 1e-8, np.float32)] * 2
+    rows = rs.randint(0, 5, N)
+    cols = rs.randint(0, 5, N)
+    logx = np.log(rs.rand(N) * 5 + 1).astype(np.float32)
+    fx = rs.rand(N).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        ts = [torch.tensor(t, device=dev) for t in tabs]
+        loss = _glove_step(*ts, *(torch.tensor(a, device=dev) for a in (
+            rows, cols, logx, fx)), 0.05)
+        out[str(dev)] = ([t.cpu().numpy() for t in ts], float(loss))
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6)
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-6)
+
+
+def test_embedding_fits_default_to_the_card_and_match_the_cpu(cuda):
+    """Word2Vec (skip-gram NS and CBOW HS), GloVe and ParagraphVectors fit
+    on the card when no device is asked for, within 1e-5 (relative to
+    the largest entry) of the same fit on the CPU."""
+    from deeplearning4j_tpu_torch.embeddings import (
+        Glove, ParagraphVectors, Word2Vec,
+    )
+    rs = np.random.RandomState(9)
+    words = [f"w{i}" for i in range(40)]
+    p = 1.0 / np.arange(1, 41)
+    corpus = [" ".join(rs.choice(words, 20, p=p / p.sum()))
+              for _ in range(30)]
+    docs = [(f"d{i}", s) for i, s in enumerate(corpus[:8])]
+    makers = {
+        "sg_ns": (lambda: Word2Vec(layer_size=32, min_count=1,
+                                   batch_size=64, seed=1), corpus),
+        "cbow_hs": (lambda: Word2Vec(
+            layer_size=32, min_count=1, batch_size=64, negative=0,
+            use_hierarchic_softmax=True,
+            elements_learning_algorithm="cbow", seed=2), corpus),
+        "glove": (lambda: Glove(layer_size=32, min_count=1, epochs=2,
+                                batch_size=64, seed=3), corpus),
+        "pv": (lambda: ParagraphVectors(layer_size=32, min_count=1,
+                                        batch_size=64, seed=4), docs)}
+    for name, (make, src) in makers.items():
+        card = make().fit(src)
+        assert card.device.type == "cuda", name
+        cpu = make().fit(src, device="cpu")
+        for attr in ("vectors", "label_vectors"):
+            if hasattr(cpu, attr):
+                a, b = getattr(card, attr), getattr(cpu, attr)
+                assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), \
+                    (name, attr)

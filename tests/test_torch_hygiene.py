@@ -365,3 +365,62 @@ def test_monitor_locks_and_faults_import_no_torch():
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_port_file_names_the_references_native_sources():
+    """The port builds its own copy of the native library
+    (`native/src/`): no file of the package, the smoke run or the card
+    tests points at the JAX package's sources, by path or by parts."""
+    needles = ("deeplearning4j_tpu/native/src",
+               "deeplearning4j_tpu\\native\\src",
+               "\"deeplearning4j_tpu\", \"native\", \"src\"",
+               "'deeplearning4j_tpu', 'native', 'src'")
+    hits = []
+    for path in sorted(PKG.rglob("*")) + _port_sources()[-2:]:
+        if path.suffix in (".py", ".cpp", ".cu", ".cuh", ".h", ".md"):
+            text = path.read_text()
+            hits += [(str(path.relative_to(REPO)), n) for n in needles
+                     if n in text]
+    assert hits == []
+    assert sorted(p.name for p in (PKG / "native" / "src").glob("*.cpp")) \
+        == sorted(p.name for p in (REPO / "deeplearning4j_tpu" / "native"
+                                   / "src").glob("*.cpp"))
+
+
+@pytest.mark.parametrize("package", ["text", "embeddings", "graph"])
+def test_nlp_packages_export_the_references_names(package):
+    """`text`, `embeddings` and `graph` export the reference's `__all__`
+    lazily, each name defined in the port."""
+    import importlib
+    ref = importlib.import_module(f"deeplearning4j_tpu.{package}")
+    pkg = importlib.import_module(f"deeplearning4j_tpu_torch.{package}")
+    assert sorted(pkg.__all__) == sorted(ref.__all__)
+    for name in pkg.__all__:
+        value = getattr(pkg, name)
+        if hasattr(value, "__module__"):        # classes and functions
+            assert value.__module__.startswith(
+                f"deeplearning4j_tpu_torch.{package}."), name
+
+
+def test_nlp_slice_imports_no_jax_and_text_no_torch():
+    """The native library, the text pipeline and the embedding trainers
+    import neither jax nor the JAX package; the native loader and the
+    text pipeline (host string processing) import no torch either."""
+    code = ("import sys\n"
+            "import deeplearning4j_tpu_torch.native.ndarray\n"
+            "import deeplearning4j_tpu_torch.text.vectorizers\n"
+            "import deeplearning4j_tpu_torch.text.native_tokenizer\n"
+            "import deeplearning4j_tpu_torch.text.cjk\n"
+            "assert 'torch' not in sys.modules\n"
+            "import deeplearning4j_tpu_torch.embeddings.distributed\n"
+            "import deeplearning4j_tpu_torch.embeddings.glove\n"
+            "import deeplearning4j_tpu_torch.embeddings.paragraphvectors\n"
+            "import deeplearning4j_tpu_torch.graph.deepwalk\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(BANNED_ROOTS)!r})\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -7,10 +7,10 @@ multi-source iterator, the pre-processor contract, and
 grayscale), a CNN of the port training on it.
 
 Every scenario runs once per package and the batches must be bitwise
-equal. The reference parses numeric CSV with its native library when it
-is built; the port has none, so its CSV batches are compared with the
-reference's python path (native off), and the one literal where the two
-reference paths differ is pinned in its own test.
+equal. Both packages parse numeric CSV with their native libraries when
+built and with the python csv reader otherwise; the two paths differ by
+one ulp on one class of literals, so each path is held against the
+reference's same path in its own test.
 """
 import types
 
@@ -220,13 +220,7 @@ def test_scenario_matches_reference(scenario, tmp_path, no_native):
     _equal(got["port"], got["reference"])
 
 
-def test_csv_parse_matches_the_reference_python_path(tmp_path, monkeypatch):
-    """The port parses every value as python's float() then rounds to
-    f32 (the reference's python path). The reference's native parser,
-    where built, rounds the literal straight to f32: on a decimal just
-    above the midpoint between two f32 values and within a double's
-    precision of it, the double rounding of the python path lands one ulp
-    lower. Both sides of that difference are pinned here."""
+def _ulp_literals_csv(tmp_path):
     rs = np.random.RandomState(0)
     vals = rs.randn(500, 4) * 10.0 ** rs.randint(-8, 8, (500, 4))
     lines = [",".join(repr(float(v)) for v in r) for r in vals]
@@ -235,20 +229,57 @@ def test_csv_parse_matches_the_reference_python_path(tmp_path, monkeypatch):
                  "1.0000000596046447753906251,7.006492321624085e-46")
     p = tmp_path / "num.csv"
     p.write_text("\n".join(lines) + "\n")
-    port = list(precords.RecordReaderDataSetIterator(
-        precords.CSVRecordReader(str(p)), batch_size=1000))[0].features
-    assert precords.parse_numeric_csv(str(p)) is None
-    native = jrecords.parse_numeric_csv(str(p)) if jnative.available() \
-        else None
+    return p, len(lines)
+
+
+def _csv_features(records, p):
+    return list(records.RecordReaderDataSetIterator(
+        records.CSVRecordReader(str(p)), batch_size=1000))[0].features
+
+
+def test_csv_parse_matches_the_reference_python_path(tmp_path, monkeypatch):
+    """Without the native libraries both packages parse every value as
+    python's float() then round to f32, bitwise alike. The native parser
+    rounds the literal straight to f32: on a decimal just above the
+    midpoint between two f32 values and within a double's precision of
+    it, the double rounding of the python path lands one ulp lower. Both
+    sides of that difference are pinned here and in the native test
+    below."""
+    from deeplearning4j_tpu_torch import native as pnative
+    p, n_lines = _ulp_literals_csv(tmp_path)
+    monkeypatch.setattr(pnative, "available", lambda: False)
     monkeypatch.setattr(jnative, "available", lambda: False)
-    ref = list(jrecords.RecordReaderDataSetIterator(
-        jrecords.CSVRecordReader(str(p)), batch_size=1000))[0].features
+    assert precords.parse_numeric_csv(str(p)) is None
+    port = _csv_features(precords, p)
+    ref = _csv_features(jrecords, p)
     np.testing.assert_array_equal(port.view(np.uint32), ref.view(np.uint32))
     assert port[-1, 2] == np.float32(1.0)       # float64 first, then f32
-    if native is not None:
-        differ = np.argwhere(native.view(np.uint32) != port.view(np.uint32))
-        assert differ.tolist() == [[len(lines) - 1, 2]]
-        assert native[-1, 2] == np.nextafter(np.float32(1), np.float32(2))
+    monkeypatch.undo()
+    native = precords.parse_numeric_csv(str(p))
+    differ = np.argwhere(native.view(np.uint32) != port.view(np.uint32))
+    assert differ.tolist() == [[n_lines - 1, 2]]
+
+
+def test_csv_parse_is_bitwise_the_reference_native_parse(tmp_path):
+    """With both native libraries built (same sources, same g++ flags),
+    the port's matrix is bitwise the reference's native matrix, the
+    literal that is one ulp above the python path's value included, and
+    the port's CSV batches carry it."""
+    from deeplearning4j_tpu_torch import native as pnative
+    assert pnative.available() and jnative.available()
+    p, n_lines = _ulp_literals_csv(tmp_path)
+    calls = pnative.CALLS["csv_parse_f32"]
+    port = precords.parse_numeric_csv(str(p))
+    assert pnative.CALLS["csv_parse_f32"] == calls + 2     # two passes
+    ref = jrecords.parse_numeric_csv(str(p))
+    assert port.shape == ref.shape == (n_lines, 4)
+    np.testing.assert_array_equal(port.view(np.uint32), ref.view(np.uint32))
+    assert port[-1, 2] == np.nextafter(np.float32(1), np.float32(2))
+    batches = _csv_features(precords, p)
+    np.testing.assert_array_equal(batches.view(np.uint32),
+                                  _csv_features(jrecords, p).view(np.uint32))
+    np.testing.assert_array_equal(batches.view(np.uint32),
+                                  port.view(np.uint32))
 
 
 def _png_tree(root, rs, classes=(("dark", 40), ("light", 200)), n=12):

@@ -205,6 +205,9 @@ def test_drain_race_inflight_predict_and_swap_never_5xx_or_hang(registry):
     lock = threading.Lock()
     start = threading.Barrier(8 + 2, timeout=10)
     drain_started = [None]
+    # the drain starts once a predict has answered: the first one pays
+    # the warm-up, and a drain on a fixed clock could beat it
+    first_200 = threading.Event()
 
     def predictor(k):
         start.wait()
@@ -212,6 +215,8 @@ def test_drain_race_inflight_predict_and_swap_never_5xx_or_hang(registry):
             try:
                 code, _ = _post(url, bodies[(k + i) % 3], timeout=15)
                 kind = code
+                if code == 200:
+                    first_200.set()
             except urllib.error.HTTPError as e:
                 e.read()
                 kind = e.code
@@ -242,7 +247,7 @@ def test_drain_race_inflight_predict_and_swap_never_5xx_or_hang(registry):
 
     def drainer():
         start.wait()
-        time.sleep(0.05)
+        first_200.wait(timeout=30)
         drain_started[0] = time.monotonic()
         srv.drain(timeout=10)
 
