@@ -479,6 +479,47 @@ result line:
              10,312 rows, the fit stopped after 20 batches, within 1e-5 of
              the CPU. At most 45 s. `launches_by_path`
              gains "nlp" (no flash kernel runs there).
+19. interop — model import, estimators and the training dashboard at full
+             width, at most 60 s. (a) The DL4J bridge: the zoo's VGG16
+             (224², 1000 classes, Nesterovs; 138,357,544 parameters) takes
+             2 fit steps of batch 16 on the card, is written by
+             save_dl4j_model (coefficients.bin + updaterState.bin; zip
+             bytes, write and read seconds printed) and restored onto the
+             card by restore_multilayer_network: parameters and a predict
+             bitwise the source network's, and the next 2 fit steps of
+             both bitwise equal (the updater state carried; cuDNN's
+             deterministic algorithms); the same zip's coefficients
+             restored onto the CPU predict within 1e-4 relative. (b)
+             Keras: VGG16's Sequential config JSON, written here (13
+             Conv2D 3x3 same, 5 MaxPooling2D, Flatten, Dense 4096, 4096,
+             1000 softmax), through import_keras_model_configuration onto
+             the card, given (a)'s saved weights in order: its predict
+             within 1e-5 relative of (a)'s. With h5py on the machine the
+             same weights go into a Keras .h5 archive that ModelRegistry
+             deploys and a ModelServer answers over HTTP against the same
+             numbers; without it the .h5 source must raise ModelLoadError
+             naming h5py ("h5py": true|false is printed). (c)
+             DL4JClassifier(hidden=(512, 256)) on the fetchers' seeded
+             synthetic MNIST (2,048 images as 784 features, 10 classes), 2
+             epochs on the card: predict_proba within 1e-5 of the same
+             network moved to the CPU, and a pickle round trip bitwise.
+             (d) The dashboard on a full-width fit: train.cli.main with
+             --ui-port 0 --score-every 1 --mode single, 4 steps of batch 4
+             over the full-width LM zip (T = 2048, the flash kernels), in
+             process; while it runs the overview page, the model page's
+             JSON (train/data) and the system page are fetched over HTTP;
+             4 update records, each with params, gradients and updates
+             summaries for every leaf, the last record's params equal to
+             the reference's _summarize (a numpy copy here) on the output
+             zip's parameters (histogram counts exactly, norm and mean
+             magnitude within 1e-6 relative), and its gradients and
+             updates the last step's: the updater on those gradients from
+             the state before the step gives those updates bitwise, they
+             added to the parameters before the step give the output
+             zip's bitwise, and their plain summaries equal the record's
+             (the same limits); the listener's ms a capture beside the
+             step's ms. `launches_by_path` gains "ui" (the
+             flash launches of (d)) and "interop" ((a)-(c): none).
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The run sets DL4J_CUDA_ZIP_STORED=1 for itself and every process
@@ -8450,6 +8491,526 @@ def copy_vocab(vocab):
     return out.build(1)
 
 
+# ------------------------------------------------------------------ phase 19
+INTEROP_BUDGET_S = 60.0
+VGG_HW, VGG_CLASSES, VGG_FC = 224, 1000, 4096     # the zoo's VGG16
+VGG_FIT_BATCH = 16           # (a): 2 steps, written, restored, 2 more
+VGG_PREDICT_BATCH = 2
+VGG_CPU_REL = 1e-4           # (a): the CPU restore's predict
+KERAS_REL = 1e-5             # (b): against (a)'s predict
+EST_HIDDEN = (512, 256)      # (c)
+EST_EPOCHS, EST_BATCH, EST_TOL = 2, 32, 1e-5
+UI_STEPS, UI_BATCH = 4, 4    # (d)
+UI_NORM_REL = 1e-6
+UI_BINS = 20
+
+
+def plain_summarize(arrays, n_bins=UI_BINS):
+    """The reference's StatsListener summary (its `_summarize`, histograms
+    on), in float64 numpy on the host: the plain version (d) holds the
+    port's on-device summaries against."""
+    summary = {}
+    for path, a in arrays.items():
+        a = np.asarray(a).astype("float64", copy=False).ravel()
+        finite = a[np.isfinite(a)]
+        entry = {"norm": float(np.linalg.norm(finite)),
+                 "mean_mag": float(np.abs(finite).mean()) if finite.size
+                 else 0.0,
+                 "n_non_finite": int(a.size - finite.size)}
+        if finite.size:
+            lo, hi = float(finite.min()), float(finite.max())
+            if lo == hi:
+                hi = lo + 1e-12
+            counts, _ = np.histogram(finite, bins=n_bins, range=(lo, hi))
+        else:
+            lo, hi, counts = 0.0, 0.0, np.zeros(n_bins, dtype=int)
+        entry["hist"] = counts.tolist()
+        entry["lo"], entry["hi"] = lo, hi
+        summary[path] = entry
+    return summary
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def vgg16_keras_config():
+    """VGG16's Keras Sequential config (keras.applications' layer names),
+    written by hand."""
+    layers = [{"class_name": "InputLayer", "config": {
+        "name": "input_1", "batch_shape": [None, VGG_HW, VGG_HW, 3]}}]
+    for block, (n_convs, filters) in enumerate(
+            [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)], 1):
+        for i in range(1, n_convs + 1):
+            layers.append({"class_name": "Conv2D", "config": {
+                "name": f"block{block}_conv{i}", "filters": filters,
+                "kernel_size": [3, 3], "strides": [1, 1],
+                "padding": "same", "activation": "relu",
+                "use_bias": True}})
+        layers.append({"class_name": "MaxPooling2D", "config": {
+            "name": f"block{block}_pool", "pool_size": [2, 2],
+            "strides": [2, 2], "padding": "valid"}})
+    layers.append({"class_name": "Flatten", "config": {"name": "flatten"}})
+    for name, units, act in (("fc1", VGG_FC, "relu"),
+                             ("fc2", VGG_FC, "relu"),
+                             ("predictions", VGG_CLASSES, "softmax")):
+        layers.append({"class_name": "Dense", "config": {
+            "name": name, "units": units, "activation": act,
+            "use_bias": True}})
+    return {"class_name": "Sequential",
+            "config": {"name": "vgg16", "layers": layers}}
+
+
+def write_keras_h5(path, config, named_weights):
+    """A Keras 2 HDF5 archive: `model_config`, and under `model_weights`
+    one group a layer with its `weight_names` and datasets."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        f.attrs["model_config"] = json.dumps(config)
+        root = f.create_group("model_weights")
+        for layer, weights in named_weights:
+            g = root.create_group(layer)
+            names = [f"{layer}/{w}:0" for w, _ in weights]
+            g.attrs["weight_names"] = [n.encode() for n in names]
+            sub = g.create_group(layer)
+            for (w, arr), _ in zip(weights, names):
+                sub.create_dataset(f"{w}:0", data=arr)
+
+
+def interop_dl4j(tmp):
+    """(a) VGG16 through the DL4J zip: written and restored on the card,
+    bitwise, its training carried on bitwise; restored on the CPU."""
+    import os
+    from deeplearning4j_tpu_torch.modelimport import (
+        restore_multilayer_network, save_dl4j_model,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import VGG16
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    in_type = InputType.convolutional(VGG_HW, VGG_HW, 3)
+    rs = np.random.RandomState(1919)
+    batches = [(rs.rand(VGG_FIT_BATCH, VGG_HW, VGG_HW, 3).astype(np.float32),
+                np.eye(VGG_CLASSES, dtype=np.float32)[
+                    rs.randint(0, VGG_CLASSES, VGG_FIT_BATCH)])
+               for _ in range(4)]
+    x = batches[3][0][:VGG_PREDICT_BATCH]
+    row = {}
+    src = VGG16(num_classes=VGG_CLASSES,
+                input_shape=(VGG_HW, VGG_HW, 3)).init()
+    row["parameters"] = src.num_params()
+    t0 = time.perf_counter()
+    for xb, yb in batches[:2]:
+        src.fit((xb, yb), batch_size=VGG_FIT_BATCH)
+    torch.cuda.synchronize()
+    row["fit_2_steps_s"] = time.perf_counter() - t0
+    path = os.path.join(tmp, "vgg16_dl4j.zip")
+    t0 = time.perf_counter()
+    save_dl4j_model(src, path)
+    row["write_s"] = time.perf_counter() - t0
+    row["zip_bytes"] = os.path.getsize(path)
+    t0 = time.perf_counter()
+    net = restore_multilayer_network(path, input_type=in_type)
+    torch.cuda.synchronize()
+    row["read_s"] = time.perf_counter() - t0
+    row["params_bitwise"] = _bitwise(net.params, src.params)
+    y0 = src.output(x)
+    row["predict_bitwise"] = bool(torch.equal(net.output(x), y0))
+    saved = {k: {n: t.detach().cpu().clone() for n, t in v.items()}
+             for k, v in src.params.items() if v}
+    # the DL4J zip carries no counters: the restored network continues
+    # the source's epoch (its dropout generator is seeded by the epoch)
+    net.epoch_count, net.iteration_count = src.epoch_count, \
+        src.iteration_count
+    for xb, yb in batches[2:]:
+        src.fit((xb, yb), batch_size=VGG_FIT_BATCH)
+        net.fit((xb, yb), batch_size=VGG_FIT_BATCH)
+    row["next_2_steps_bitwise"] = _bitwise(net.params, src.params)
+    del src, net
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = restore_multilayer_network(path, load_updater=False,
+                                     input_type=in_type, device="cpu")
+    row["cpu_read_s"] = time.perf_counter() - t0
+    row["cpu_predict_rel"] = _rel(cpu.output(x).numpy(), y0.cpu().numpy())
+    del cpu
+    if not (row["params_bitwise"] and row["predict_bitwise"]
+            and row["next_2_steps_bitwise"]):
+        raise AssertionError(f"phase 19 (a): the DL4J round trip is not "
+                             f"bitwise: {row}")
+    if not row["cpu_predict_rel"] <= VGG_CPU_REL:
+        raise AssertionError(f"phase 19 (a): the CPU restore predicts "
+                             f"{row['cpu_predict_rel']:.3g} off")
+    return row, saved, x, y0
+
+
+def interop_keras(tmp, saved, x, y0):
+    """(b) VGG16 from its Keras config, given (a)'s weights in order; the
+    .h5 through the registry when h5py is on the machine."""
+    import os
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    from deeplearning4j_tpu_torch.serving import ModelRegistry, ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import (
+        ModelLoadError, load_servable,
+    )
+    cfg = vgg16_keras_config()
+    cfg_path = os.path.join(tmp, "vgg16_keras.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    row = {}
+    t0 = time.perf_counter()
+    knet = KerasModelImport.import_keras_model_configuration(cfg_path)
+    knet.init()
+    row["import_s"] = time.perf_counter() - t0
+    src_keys = [k for k in sorted(saved, key=int)]
+    k_keys = [str(i) for i, _ in enumerate(knet.layers)
+              if knet.params[str(i)]]
+    if len(src_keys) != 16 or len(k_keys) != 16:
+        raise AssertionError(f"phase 19 (b): {len(k_keys)} weighted Keras "
+                             f"layers against {len(src_keys)}")
+    with torch.no_grad():
+        for ks, kk in zip(src_keys, k_keys):
+            for name, t in knet.params[kk].items():
+                t.copy_(saved[ks][name])
+    yk = knet.output(x)
+    row["predict_rel"] = _rel(yk.cpu().numpy(), y0.cpu().numpy())
+    if not row["predict_rel"] <= KERAS_REL:
+        raise AssertionError(f"phase 19 (b): the Keras VGG16 predicts "
+                             f"{row['predict_rel']:.3g} off")
+    del knet
+    h5_path = os.path.join(tmp, "vgg16.h5")
+    try:
+        import h5py  # noqa: F401
+        row["h5py"] = True
+    except ImportError:
+        row["h5py"] = False
+    if row["h5py"]:
+        names = [c["config"]["name"] for c in cfg["config"]["layers"]
+                 if c["class_name"] in ("Conv2D", "Dense")]
+        t0 = time.perf_counter()
+        write_keras_h5(h5_path, cfg, [
+            (name, [("kernel", saved[k]["W"].numpy()),
+                    ("bias", saved[k]["b"].numpy())])
+            for name, k in zip(names, src_keys)])
+        row["h5_write_s"] = time.perf_counter() - t0
+        row["h5_bytes"] = os.path.getsize(h5_path)
+        registry = ModelRegistry()
+        t0 = time.perf_counter()
+        registry.deploy("vgg16", h5_path, buckets=(VGG_PREDICT_BATCH,))
+        row["deploy_s"] = time.perf_counter() - t0
+        server = ModelServer(registry, port=0)
+        try:
+            status, y, ms = post_npy(
+                f"{server.url}/v1/models/vgg16/predict", x)
+        finally:
+            server.drain(timeout=30)
+            registry.shutdown()
+        row["http_status"], row["http_ms"] = status, ms
+        row["http_predict_rel"] = _rel(y, y0.cpu().numpy())
+        if status != 200 or not row["http_predict_rel"] <= KERAS_REL:
+            raise AssertionError(f"phase 19 (b): the served .h5 answered "
+                                 f"{status}, {row['http_predict_rel']}")
+    else:
+        with open(h5_path, "wb") as f:
+            f.write(b"\x89HDF\r\n\x1a\n")
+        try:
+            load_servable(h5_path)
+        except ModelLoadError as e:
+            row["h5_refusal"] = str(e)
+        if "h5py" not in row.get("h5_refusal", ""):
+            raise AssertionError("phase 19 (b): without h5py an .h5 source "
+                                 "must raise ModelLoadError naming h5py")
+    torch.cuda.empty_cache()
+    return row
+
+
+def interop_estimators():
+    """(c) DL4JClassifier on the seeded synthetic MNIST, on the card."""
+    import pickle
+    from deeplearning4j_tpu_torch.data.fetchers import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.ml import DL4JClassifier
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    ds = next(iter(MnistDataSetIterator(batch_size=2048, synthetic=True,
+                                        flatten=True)))
+    X, y = np.asarray(ds.features), np.asarray(ds.labels).argmax(1)
+    row = {"examples": int(len(X)), "features": int(X.shape[1])}
+    t0 = time.perf_counter()
+    clf = DL4JClassifier(hidden=EST_HIDDEN, epochs=EST_EPOCHS,
+                         batch_size=EST_BATCH).fit(X, y)
+    row["fit_s"] = time.perf_counter() - t0
+    row["device"] = str(clf.network_.device)
+    proba = clf.predict_proba(X)
+    buf = io.BytesIO()
+    save_model(clf.network_, buf)
+    buf.seek(0)
+    cpu = load_model(buf, device="cpu")
+    row["cpu_max_abs"] = float(np.abs(
+        cpu.output(X).numpy() - proba).max())
+    row["accuracy"] = float((clf.predict(X) == y).mean())
+    back = pickle.loads(pickle.dumps(clf))
+    row["pickle_bitwise"] = _bitwise(back.network_.params,
+                                           clf.network_.params) \
+        and bool(np.array_equal(back.predict_proba(X), proba))
+    if row["device"] != "cuda" or not row["cpu_max_abs"] <= EST_TOL \
+            or not row["pickle_bitwise"]:
+        raise AssertionError(f"phase 19 (c): {row}")
+    return row
+
+
+def _ui_watch(times, pages, last):
+    """Wraps for (d): the dashboard's server (its URL), the listener's
+    time a capture (on_gradients + iteration_done), the step's time, the
+    pages fetched while the run is live (at the third record), and into
+    `last` the last capture step's parameters and optimizer state before
+    it, its gradients, its updates and its updater."""
+    import urllib.request
+    from deeplearning4j_tpu_torch.nn import multilayer
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.ui import server as ui_server
+    from deeplearning4j_tpu_torch.ui import stats
+    saved = [(ui_server.UIServer, "__init__"),
+             (stats.StatsListener, "on_gradients"),
+             (stats.StatsListener, "iteration_done"),
+             (multilayer.TrainableNet, "_capturing")]
+    orig = {key: getattr(*key) for key in saved}
+    servers = []
+
+    def init(self, *a, **kw):
+        orig[saved[0]](self, *a, **kw)
+        servers.append(self)
+
+    def timed(key, bucket):
+        def run(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[key](self, *a, **kw)
+            torch.cuda.synchronize()
+            times[bucket].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def done(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig[saved[2]](self, *a, **kw)
+        times["iteration_done_ms"].append((time.perf_counter() - t0) * 1e3)
+        if len(times["iteration_done_ms"]) == 3 and servers:
+            url = servers[-1].url
+            for name, path in (("overview", "train"),
+                               ("system", "train/system")):
+                with urllib.request.urlopen(url + path, timeout=30) as r:
+                    pages[name] = (r.status, len(r.read()))
+            with urllib.request.urlopen(url + "train/sessions",
+                                        timeout=30) as r:
+                sid = json.loads(r.read())["sessions"][0]
+            with urllib.request.urlopen(
+                    f"{url}train/data?sid={sid}&after=0", timeout=60) as r:
+                pages["model_json"] = json.loads(r.read())
+    step = timed(saved[3], "step_ms")
+
+    def capturing(self, fn):
+        # the state before the step, copied outside the step's time
+        before = {"params": upd.tree_map(torch.clone, self.params),
+                  "opt": upd.tree_map(torch.clone, self.opt_state)}
+        out, grads, updates = step(self, fn)
+        last.update(before, grads=grads, updates=updates, tx=self._tx)
+        return out, grads, updates
+    ui_server.UIServer.__init__ = init
+    stats.StatsListener.on_gradients = timed(saved[1], "on_gradients_ms")
+    stats.StatsListener.iteration_done = done
+    multilayer.TrainableNet._capturing = capturing
+
+    def restore():
+        for key, fn in orig.items():
+            setattr(key[0], key[1], fn)
+    return restore
+
+
+def interop_ui(fa, tmp):
+    """(d) The train CLI with --ui-port 0 on the full-width LM: (the row,
+    every record the listener stored)."""
+    import contextlib
+    import os
+    import zipfile as zf_mod
+    from deeplearning4j_tpu_torch.models.zoo import model_by_name
+    from deeplearning4j_tpu_torch.serving.registry import parse_zoo_source
+    from deeplearning4j_tpu_torch.train import cli as train_cli
+    from deeplearning4j_tpu_torch.ui import storage as ui_storage
+    from deeplearning4j_tpu_torch.util.serialization import save_model
+    name, kw = parse_zoo_source(LM_SOURCE[len("zoo:"):])
+    lm_zip, out_zip = os.path.join(tmp, "lm.zip"), os.path.join(tmp, "o.zip")
+    tokens = os.path.join(tmp, "tokens.npz")
+    save_model(model_by_name(name, **kw).init(), lm_zip, compression=STORED)
+    rs = np.random.RandomState(1919)
+    n = UI_STEPS * UI_BATCH
+    seq = (rs.randint(0, VOCAB, (n, 1)) + rs.randint(1, 8, (n, 1))
+           * np.arange(SEQ + 1)) % VOCAB
+    labels = np.zeros((n, SEQ, VOCAB), np.uint8)
+    np.put_along_axis(labels, seq[:, 1:, None], 1, axis=-1)
+    np.savez(tokens, features=seq[:, :SEQ, None].astype("float32"),
+             labels=labels)
+    times = {"on_gradients_ms": [], "iteration_done_ms": [], "step_ms": []}
+    pages, records, last_step = {}, [], {}
+    restore = _ui_watch(times, pages, last_step)
+    put = ui_storage.InMemoryStatsStorage.put_update
+
+    def keep(self, rec):
+        records.append(rec.data)
+        return put(self, rec)
+    ui_storage.InMemoryStatsStorage.put_update = keep
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    stdout, stderr = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            code = train_cli.main([
+                "--model", lm_zip, "--output", out_zip, "--dataset", tokens,
+                "--mode", "single", "--batch-size", str(UI_BATCH),
+                "--score-every", "1", "--ui-port", "0"])
+    finally:
+        restore()
+        ui_storage.InMemoryStatsStorage.put_update = put
+    row = {"cli_s": time.perf_counter() - t0, "exit": code,
+           "flash_launches": dict(fa.KERNEL_LAUNCHES)}
+    dash = [ln for ln in stderr.getvalue().splitlines()
+            if ln.startswith("dashboard: ")]
+    row["dashboard"] = dash[0].split(" ", 1)[1] if dash else None
+    live = pages.pop("model_json", None)
+    row["pages"] = pages
+    if code != 0 or row["dashboard"] is None or live is None \
+            or pages.get("overview", (0,))[0] != 200 \
+            or pages.get("system", (0,))[0] != 200:
+        raise AssertionError(f"phase 19 (d): the dashboard run: {row}")
+    row["records_seen_live"] = len(live["updates"])
+    row["records"] = len(records)
+    with zf_mod.ZipFile(out_zip) as zf:
+        with np.load(io.BytesIO(zf.read("coefficients.npz"))) as npz:
+            final = {k: npz[k] for k in npz.files}
+    want = plain_summarize(final)
+    bad = [(i, g) for i, r in enumerate(records)
+           for g in ("params", "gradients", "updates")
+           if set(r.get(g, {})) != set(want)]
+    row["leaves"] = len(want)
+    row["step_ms"] = times["step_ms"]
+    row["on_gradients_ms"] = times["on_gradients_ms"]
+    row["iteration_done_ms"] = times["iteration_done_ms"]
+    row["capture_ms"] = [a + b for a, b in zip(times["on_gradients_ms"],
+                                               times["iteration_done_ms"])]
+    if row["records"] != UI_STEPS or row["records_seen_live"] < 2 or bad:
+        raise AssertionError(f"phase 19 (d): records {row['records']}, "
+                             f"live {row['records_seen_live']}, missing "
+                             f"leaves {bad}")
+    last = records[-1]["params"]
+    hist_bad = [k for k in want if last[k]["hist"] != want[k]["hist"]]
+    worst = max(abs(last[k][f] - want[k][f]) / max(abs(want[k][f]), 1e-300)
+                for k in want for f in ("norm", "mean_mag"))
+    row["last_params_hist_equal"] = not hist_bad
+    row["last_params_worst_rel"] = worst
+    if hist_bad or not worst <= UI_NORM_REL:
+        raise AssertionError(f"phase 19 (d): the last record's params "
+                             f"differ from the plain summary: {hist_bad[:5]}"
+                             f", worst {worst:.3g}")
+    row.update(ui_last_step(last_step, final, records[-1]))
+    return row
+
+
+def ui_last_step(last, final, record):
+    """(d): the last record's gradients and updates are the last step's.
+    The updater on the step's gradients, from the optimizer state before
+    it, gives its updates bitwise; those added to the parameters before it
+    give the output zip's bitwise; and the record's gradients and updates
+    summaries equal the plain summary of those tensors (counts exactly,
+    norms and mean magnitudes within UI_NORM_REL)."""
+    from deeplearning4j_tpu_torch.nn import updaters as upd
+    from deeplearning4j_tpu_torch.ui.stats import _leaf_paths
+
+    def host(tree):
+        return {k: v.cpu().numpy() for k, v in _leaf_paths(tree).items()}
+    with torch.no_grad():
+        again, _ = last["tx"].update(last["grads"], last["opt"],
+                                     last["params"])
+        applied = upd.tree_map(lambda p, u: p + u.to(p.dtype),
+                               last["params"], last["updates"])
+    updates, again, applied = (host(last["updates"]), host(again),
+                               host(applied))
+    row = {"last_updates_bitwise_updater": all(
+               np.array_equal(updates[k], again[k]) for k in updates),
+           "last_applied_bitwise_output": set(applied) == set(final)
+           and all(np.array_equal(applied[k], final[k]) for k in final)}
+    worst, hist_bad = 0.0, []
+    for group, tensors in (("gradients", host(last["grads"])),
+                           ("updates", updates)):
+        want, got = plain_summarize(tensors), record[group]
+        hist_bad += [(group, k) for k in want
+                     if got[k]["hist"] != want[k]["hist"]]
+        worst = max([worst] + [
+            abs(got[k][f] - want[k][f]) / max(abs(want[k][f]), 1e-300)
+            for k in want for f in ("norm", "mean_mag")])
+    row["last_grads_updates_hist_equal"] = not hist_bad
+    row["last_grads_updates_worst_rel"] = worst
+    if not (row["last_updates_bitwise_updater"]
+            and row["last_applied_bitwise_output"]) or hist_bad \
+            or not worst <= UI_NORM_REL:
+        raise AssertionError(f"phase 19 (d): the last record's gradients "
+                             f"and updates are not the last step's: {row}, "
+                             f"{hist_bad[:5]}")
+    return row
+
+
+def interop(fa, gpu):
+    """Phase 19: model import, estimators and the dashboard at full
+    width."""
+    import tempfile
+    t_phase = time.perf_counter()
+    row = {"phase": "interop", "gpu": gpu}
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            row["dl4j"], saved, x, y0 = interop_dl4j(tmp)
+            row["dl4j"]["seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            row["keras"] = interop_keras(tmp, saved, x, y0)
+            row["keras"]["seconds"] = time.perf_counter() - t0
+        del saved
+        t0 = time.perf_counter()
+        row["estimators"] = interop_estimators()
+        row["estimators"]["seconds"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    row["interop_flash_launches"] = dict(fa.KERNEL_LAUNCHES)
+    if any(row["interop_flash_launches"].values()):
+        raise AssertionError(f"phase 19 (a)-(c) launched flash kernels: "
+                             f"{row['interop_flash_launches']}")
+    emit({"phase": "interop_abc", "gpu": gpu, "h5py": row["keras"]["h5py"],
+          **{k: row[k] for k in ("dl4j", "keras", "estimators")}})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        row["ui"] = interop_ui(fa, tmp)
+        row["ui"]["seconds"] = time.perf_counter() - t0
+    row["flash_launches"] = row["ui"]["flash_launches"]
+    expect = N_LAYERS * UI_STEPS
+    if any(row["flash_launches"][k] != expect for k in KERNELS):
+        raise AssertionError(f"phase 19 (d): flash launches "
+                             f"{row['flash_launches']}, expected {expect} "
+                             "of each")
+    row["h5py"] = row["keras"]["h5py"]
+    row["seconds"] = time.perf_counter() - t_phase
+    row["budget_s"] = INTEROP_BUDGET_S
+    emit({k: v for k, v in row.items()
+          if k not in ("dl4j", "keras", "estimators")})
+    if row["seconds"] > INTEROP_BUDGET_S:
+        raise AssertionError(f"phase 19 took {row['seconds']:.1f} s "
+                             f"> {INTEROP_BUDGET_S}")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -8517,6 +9078,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         seq_run = sequence(fa, tmp)
     nlp_run = nlp(fa, gpu)
+    interop_run = interop(fa, gpu)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -8549,7 +9111,11 @@ def main(argv=None) -> int:
                                  "pipeline"]["flash_fwd"],
                              "tensor": seq_run["tensor"][
                                  "flash_launches"]["flash_fwd"],
-                             "nlp": nlp_run["flash_launches"]["flash_fwd"]},
+                             "nlp": nlp_run["flash_launches"]["flash_fwd"],
+                             "interop": interop_run[
+                                 "interop_flash_launches"]["flash_fwd"],
+                             "ui": interop_run["flash_launches"][
+                                 "flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -8588,7 +9154,10 @@ def main(argv=None) -> int:
                                      "pipeline"][name],
                                  "tensor": seq_run["tensor"][
                                      "flash_launches"][name],
-                                 "nlp": nlp_run["flash_launches"][name]},
+                                 "nlp": nlp_run["flash_launches"][name],
+                                 "interop": interop_run[
+                                     "interop_flash_launches"][name],
+                                 "ui": interop_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

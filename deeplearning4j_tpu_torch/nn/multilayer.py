@@ -264,6 +264,10 @@ class TrainableNet:
 
     #: program-name prefix in the ledger ("mln/train_step", "graph/...")
     _LEDGER_PREFIX = "mln"
+    #: whether fit hands `on_gradients` listeners their capture
+    #: iterations' gradients and updates (the reference's
+    #: MultiLayerNetwork does; its ComputationGraph does not)
+    _CAPTURES_GRADIENTS = False
 
     def _reset_fit_state(self):
         self._ledger_cache = {}         # monitor.xla programs by step key
@@ -276,6 +280,7 @@ class TrainableNet:
         self._dropout_gen = None
         self._plan_rt = None            # parallel/plan.PlanRuntime
         self._plan_syncs = 0            # collectives of released plans
+        self._updates_sink = None       # (grads, updates) of a capture step
 
     def _own_held_batches(self, source, staging_device, staged: bool,
                           scan_steps: int, accumulate_steps: int) -> list:
@@ -447,6 +452,29 @@ class TrainableNet:
             if self._constraints:
                 apply_constraints(self._constraints, self.params)
             step_graph.commit(self.opt_state, new_opt)
+        if self._updates_sink is not None:
+            self._updates_sink.append((grads, updates))
+
+    def _capturing(self, step):
+        """Run `step()` (one optimizer step) and return (its output, the
+        step's gradients, the updater's output before it was applied):
+        the capture iterations of `on_gradients` listeners. Other steps
+        keep nothing."""
+        self._updates_sink = []
+        try:
+            out = step()
+            (grads, updates), = self._updates_sink
+        finally:
+            self._updates_sink = None
+        return out, grads, updates
+
+    def _gradient_capture(self):
+        """The `on_gradients` listeners that capture this iteration."""
+        if not self._CAPTURES_GRADIENTS:
+            return []
+        return [lst for lst in self.listeners
+                if getattr(lst, "wants_gradients", False)
+                and lst.should_capture(self.iteration_count)]
 
     def _commit_state(self, new_state):
         with torch.no_grad():
@@ -548,7 +576,14 @@ class TrainableNet:
                              iteration=self.iteration_count)
             struct = self._batch_struct(b)
             bs = int(np.shape(step_graph.flatten(struct)[0])[0])
-            loss, rec, fresh = self._dispatch_step(struct, generator, bs)
+            capture = self._gradient_capture()
+            if capture:
+                # a capture step runs outside the program ledger's count
+                loss, grads, updates = self._capturing(
+                    lambda: self._step_struct(struct, generator))
+                rec, fresh = None, False
+            else:
+                loss, rec, fresh = self._dispatch_step(struct, generator, bs)
             sync_start = time.perf_counter()
             # wait for the device FIRST (goodput: step_compute), so the
             # host_sync span below covers only the narrow D2H fetch
@@ -568,6 +603,9 @@ class TrainableNet:
             step_graph.record_iteration(self._score, bs,
                                         step_seconds=step_end - step_start,
                                         sync_seconds=step_end - fetch_start)
+            for lst in capture:
+                lst.on_gradients(self, self.iteration_count,
+                                 self.epoch_count, grads, updates)
             for lst in self.listeners:
                 lst.iteration_done(self, self.iteration_count,
                                    self.epoch_count, self._score, etl_ms, bs)
@@ -721,6 +759,8 @@ class TrainableNet:
 
 
 class MultiLayerNetwork(TrainableNet):
+    _CAPTURES_GRADIENTS = True
+
     def __init__(self, conf: MultiLayerConfiguration,
                  device: DeviceLike = None):
         self.conf = conf

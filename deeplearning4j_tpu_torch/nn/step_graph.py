@@ -26,7 +26,9 @@ overlap between host and device changes.
   it once per chunk, one chunk late (`run_scan_pipeline`).
 - Gradient accumulation captures a micro-step graph (forward, backward,
   add into a static gradient sum, batch-norm state per micro-batch) and
-  one update graph (the 1/len mean, the updater, the update).
+  one update graph (the 1/len mean, the updater, the update). An
+  iteration that a gradient listener captures runs its update eagerly
+  and hands the listener the averaged gradients and the updates.
 
 Telemetry (`monitor/`) stays on the host side of every replay: the
 reference's `train/etl`, `train/dispatch` and `train/chunk_sync` spans
@@ -383,11 +385,17 @@ class ChunkedFit:
         return time.perf_counter()
 
     def _process(self, pending):
-        losses, bs, etl_ms, key, fresh, mark = pending
+        losses, bs, etl_ms, key, fresh, mark, captured = pending
         net = self.net
         for loss in losses.tolist():        # the chunk's one host sync
             net._score = float(loss)
             record_iteration(net._score, bs)
+            if captured is not None:
+                capture, grads, updates = captured
+                captured = None
+                for lst in capture:
+                    lst.on_gradients(net, net.iteration_count,
+                                     net.epoch_count, grads, updates)
             for lst in net.listeners:
                 lst.iteration_done(net, net.iteration_count, net.epoch_count,
                                    net._score, etl_ms, bs)
@@ -432,7 +440,7 @@ class ChunkedFit:
                 # reference runs its compiled per-call step there
                 losses = [net._step_struct(s, self.gen) for s in structs]
                 return torch.stack(losses), bs, etl_ms, None, False, \
-                    self._mark()
+                    self._mark(), None
             key = ("scan", signature(structs[0]), net._affine_key())
             fresh = self._fresh(key)
             program = ("scan_step", bs * K, K)
@@ -446,7 +454,7 @@ class ChunkedFit:
                     buf = torch.empty(len(group), dtype=loss.dtype,
                                       device=loss.device)
                 buf[i].copy_(loss)
-            return buf, bs, etl_ms, key, fresh, self._mark()
+            return buf, bs, etl_ms, key, fresh, self._mark(), None
 
         run_scan_pipeline(batches, self._sig, dispatch, self._process, K)
 
@@ -499,9 +507,19 @@ class ChunkedFit:
                 self._run_step(("micro", signature(s), net._affine_key()),
                                s, micro, extra, program=program)
             acc["n"].fill_(float(len(group)))
-            loss = self._run_step(("update",), (), lambda _: update(), extra)
+            # gradient listeners force lockstep (`defer=False`), so the
+            # iteration count here is the step being reported; a capture
+            # step runs its update eagerly, outside the captured graph
+            capture = net._gradient_capture()
+            captured = None
+            if capture:
+                loss, grads, updates = net._capturing(update)
+                captured = (capture, grads, updates)
+            else:
+                loss = self._run_step(("update",), (), lambda _: update(),
+                                      extra)
             return loss.reshape(1).clone(), bs, etl_ms, key, fresh, \
-                self._mark()
+                self._mark(), captured
 
         run_scan_pipeline(batches, self._sig, dispatch, self._process, K,
                           defer=defer)

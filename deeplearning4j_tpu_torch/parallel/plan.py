@@ -656,6 +656,14 @@ class PlanRuntime:
                         stored.copy_(local_piece_view(
                             w, self.param_specs[p], P(), self.mesh))
             step_graph.commit(net.opt_state, new_opt)
+            if net._updates_sink is not None:
+                # a gradient listener's capture step: the whole gradients
+                # and updates, gathered from this rank's pieces
+                net._updates_sink.append((
+                    _walk(grads, lambda p, t: self._gather(
+                        t, self.forward_specs[p])),
+                    _walk(updates, lambda p, t: self._gather(
+                        t, self.state_specs[p]))))
         return loss
 
 

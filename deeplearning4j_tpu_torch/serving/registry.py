@@ -111,8 +111,9 @@ def load_servable(source, device: DeviceLike = None):
     Accepted sources: a live MultiLayerNetwork or ComputationGraph;
     ``zoo:<ClassName>`` with optional ``?key=value&...`` constructor
     kwargs; a checkpoint directory with a ``manifest.json`` (newest
-    SHA-256-verified entry; corrupt entries fall back); a ``.zip``
-    checkpoint.
+    SHA-256-verified entry; corrupt entries fall back); a Keras
+    ``.h5``/``.keras`` archive (`modelimport.keras`; without h5py it
+    raises ModelLoadError naming h5py); a ``.zip`` checkpoint.
     """
     if hasattr(source, "conf") and hasattr(source, "params"):
         if source.params is None:
@@ -148,6 +149,15 @@ def load_servable(source, device: DeviceLike = None):
         return load_model(entry["path"], device=device)
     if not os.path.exists(src):
         raise ModelLoadError(f"servable source not found: {src}")
+    if src.lower().endswith((".h5", ".keras")):
+        from deeplearning4j_tpu_torch.modelimport.keras import (
+            KerasModelImport,
+        )
+        try:
+            return KerasModelImport.import_keras_model_and_weights(
+                src, device=device)
+        except ImportError as e:
+            raise ModelLoadError(f"{src}: {e}") from None
     return load_model(src, device=device)
 
 

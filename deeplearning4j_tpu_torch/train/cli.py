@@ -36,8 +36,12 @@ DL4J_CUDA_PREFETCH_DEPTH) and DL4J_CUDA_SCAN_STEPS steps a chunk (default
 `ModelServer` on that port (0 picks a free one) with `--serve-buckets`,
 prints ``{"serving": url, "predict": path}`` on stderr after the result
 line, and serves until SIGTERM or SIGINT, which drain it; the run then
-exits 0. The dashboard's flag (`--ui-port`) stops the run with "not yet
-ported"; no flag is ignored.
+exits 0. `--ui-port PORT` (0: a free port) attaches an
+`InMemoryStatsStorage`, a `StatsListener` capturing every
+`--score-every` iterations (gradients and updates included on the
+per-call and accumulate paths of `--mode single`) and a `UIServer` on
+that port (on rank 0 of a group), prints ``dashboard: <url>`` on stderr,
+and stops the server when the run ends.
 
 `--checkpoint-dir DIR` trains through `ResilientTrainer`
 (`train/resilience.py`), over the sync-mode wrapper (averaging refuses
@@ -76,11 +80,6 @@ import sys
 
 import numpy as np
 
-# flags of parts that wait, each with the slice it comes with
-_UNPORTED_FLAGS = (
-    ("ui_port", "--ui-port", "UI"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -105,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-average-updaters", action="store_true",
                    help="skip averaging optimizer state (saveUpdater=false)")
     p.add_argument("--ui-port", type=int, default=None,
-                   help="training dashboard (not yet ported)")
+                   help="serve the training dashboard on this port (0: a "
+                        "free port)")
     p.add_argument("--score-every", type=int, default=10,
                    help="ScoreIterationListener frequency")
     p.add_argument("--synthetic-data", action="store_true",
@@ -152,13 +152,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to train on (default cuda; cpu for "
                         "the CPU)")
     return p
-
-
-def _refuse_unported(args):
-    for attr, flag, part in _UNPORTED_FLAGS:
-        if getattr(args, attr):
-            raise SystemExit(f"{flag}: not yet ported to the PyTorch port "
-                             f"(comes with the {part} slice)")
 
 
 def _serve_trained(net, args) -> None:
@@ -342,7 +335,6 @@ def _is_coordinator() -> bool:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
     try:
@@ -395,6 +387,17 @@ def main(argv=None) -> int:
             shutdown_distributed()
 
 
+class _DroppedStats:
+    """A StatsStorageRouter that keeps nothing: a non-coordinating rank's
+    dashboard records."""
+
+    def put_static_info(self, record):
+        pass
+
+    def put_update(self, record):
+        pass
+
+
 def _train(args, device, mesh_plan, parallel: bool) -> int:
     from deeplearning4j_tpu_torch.parallel import (
         ParallelWrapper, TrainingMode, use_mesh,
@@ -408,14 +411,33 @@ def _train(args, device, mesh_plan, parallel: bool) -> int:
     import contextlib
     emit_telemetry = _enable_telemetry(args)
     lead = _is_coordinator()
+    ui_server = None
     # telemetry emits in a finally: a fit that dies mid-run still leaves
     # the trace/metrics record — the crash case is when it is most needed
     try:
         net = load_model(args.model, device=device)
         iterator = _load_data(args.dataset, args.batch_size,
                               allow_synthetic=args.synthetic_data)
-        net.set_listeners(ScoreIterationListener(args.score_every),
-                          PerformanceListener(args.score_every))
+        listeners = [ScoreIterationListener(args.score_every),
+                     PerformanceListener(args.score_every)]
+        if args.ui_port is not None:
+            # every rank captures on the same iterations (a sharded plan
+            # gathers the gradients and updates there, a collective); one
+            # dashboard for the group, on the rank that saves and prints
+            # (the others would take the same port), the others' records
+            # dropped
+            from deeplearning4j_tpu_torch.ui import (
+                InMemoryStatsStorage, StatsListener, UIServer,
+            )
+            storage = InMemoryStatsStorage() if lead else _DroppedStats()
+            listeners.append(StatsListener(storage,
+                                           frequency=args.score_every))
+            if lead:
+                ui_server = UIServer(port=args.ui_port)  # serves once built
+                ui_server.attach(storage)
+                print(f"dashboard: {ui_server.url}", file=sys.stderr,
+                      flush=True)
+        net.set_listeners(*listeners)
         wrapper = None
         # --mesh: the whole training section runs under use_mesh, so the
         # plain fit, the wrapper and ResilientTrainer all resolve it
@@ -456,6 +478,8 @@ def _train(args, device, mesh_plan, parallel: bool) -> int:
             _serve_trained(net, args)
         return 0
     finally:
+        if ui_server is not None:
+            ui_server.stop()
         emit_telemetry()
 
 

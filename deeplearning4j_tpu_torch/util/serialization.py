@@ -200,6 +200,13 @@ def params_from_numpy(tree, device: DeviceLike = None,
     return walk(tree, template, ())
 
 
+def zip_compression() -> int:
+    """The zip method of the port's model zips: deflate, as the reference
+    writes, or stored when ``DL4J_CUDA_ZIP_STORED=1``."""
+    return zipfile.ZIP_STORED if env_flag(
+        "DL4J_CUDA_ZIP_STORED", default=False) else zipfile.ZIP_DEFLATED
+
+
 def save_model(model, path, save_updater: bool = True, atomic: bool = True,
                extra_entries: Optional[dict] = None,
                compression: Optional[int] = None):
@@ -226,8 +233,7 @@ def save_model(model, path, save_updater: bool = True, atomic: bool = True,
             "iteration_count": model.iteration_count,
             "epoch_count": model.epoch_count}
     if compression is None:
-        compression = zipfile.ZIP_STORED if env_flag(
-            "DL4J_CUDA_ZIP_STORED", default=False) else zipfile.ZIP_DEFLATED
+        compression = zip_compression()
     atomic = atomic and isinstance(path, (str, os.PathLike))
     target = f"{path}.tmp.{os.getpid()}" if atomic else path
     try:

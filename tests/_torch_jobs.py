@@ -712,3 +712,17 @@ def tp_resilient(rank, world, zip_path, X, Y, batch, ckpt_dir, epochs, plan,
     return {"flat": _flat(net), "preempted": rep.preempted,
             "resumed_from": rep.resumed_from,
             "iterations": net.iteration_count}
+
+
+def stats_plan(rank, world, zip_path, X, Y, batch, plan):
+    """fit(plan=) with a StatsListener: each record's gradient and update
+    summaries (whole trees, gathered from the rank's pieces)."""
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener
+    from deeplearning4j_tpu_torch.util.serialization import load_model
+    net = load_model(zip_path, device="cpu")
+    st = InMemoryStatsStorage()
+    net.set_listeners(StatsListener(st, session_id="p"))
+    net.fit(_source(net, X, Y, batch), plan=_plan(plan))
+    return [{g: r.data[g] for g in ("gradients", "updates")}
+            for r in st.get_all_updates_after("p", "StatsListener",
+                                              "worker-0", 0)]

@@ -26,7 +26,8 @@ SUBS = (("deeplearning4j_tpu.", "deeplearning4j_tpu_torch."),
 #: (a tools/ module put on sys.path, another test file) is dropped
 _ROOTS = {"deeplearning4j_tpu_torch", "numpy", "pytest", "json", "os",
           "random", "threading", "time", "urllib", "hashlib", "subprocess",
-          "sys", "io", "queue", "collections", "typing"}
+          "sys", "io", "queue", "collections", "typing", "zipfile",
+          "struct", "logging", "dataclasses", "pickle"}
 
 
 def _root(node) -> str:

@@ -50,7 +50,14 @@ parameters within 1e-4 relative (1e-6 absolute) of the same fit's on two
 CPU ranks. The embedding trainers: each word2vec step and GloVe's step on
 card tables (rows repeating within the batch) within 1e-6 of the CPU's,
 and Word2Vec, GloVe and ParagraphVectors fitting on the card when no
-device is asked for, within 1e-5 (relative) of the CPU's fit.
+device is asked for, within 1e-5 (relative) of the CPU's fit. Model
+import and the dashboard: a DL4J zip restored onto the card by default,
+parameters and Adam slots bitwise the CPU restore's, a predict and 3 fit
+steps within 1e-6; StatsListener's on-card summaries equal to numpy's
+(histogram counts and bounds exactly); a fit's records on the card with
+gradients, updates and device memory; a Keras JSON config imported onto
+the card and a DL4JClassifier fitted there within 1e-5 of its network on
+the CPU.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -1885,3 +1892,206 @@ def test_embedding_fits_default_to_the_card_and_match_the_cpu(cuda):
                 a, b = getattr(card, attr), getattr(cpu, attr)
                 assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), \
                     (name, attr)
+
+
+# ----------------------------------------- model import, estimators, the UI
+def _mlp_dl4j_zip():
+    """A Java DL4J MLP zip (4 -> 5 relu -> 3 softmax, Adam state)."""
+    import io
+    import json
+    import zipfile
+    from deeplearning4j_tpu_torch.modelimport.dl4j import write_nd4j_array
+    rs = np.random.RandomState(4)
+    n = 4 * 5 + 5 + 5 * 3 + 3
+    adam = {"@class": "org.nd4j.linalg.learning.config.Adam",
+            "learningRate": 1e-2}
+    act = "org.nd4j.linalg.activations.impl.Activation"
+    conf = {"confs": [
+        {"layer": {"dense": {"activationFn": {"@class": act + "ReLU"},
+                             "nin": 4, "nout": 5, "iUpdater": adam}}},
+        {"layer": {"output": {
+            "activationFn": {"@class": act + "Softmax"}, "nin": 5,
+            "nout": 3, "iUpdater": adam, "lossFn": {
+                "@class": "org.nd4j.linalg.lossfunctions.impl.LossMCXENT"}}}}]}
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        zf.writestr("configuration.json", json.dumps(conf))
+        for name, arr in (("coefficients.bin", rs.randn(n)),
+                          ("updaterState.bin",
+                           np.abs(rs.randn(2 * n)) * 1e-3)):
+            b = io.BytesIO()
+            write_nd4j_array(b, arr.astype(np.float32))
+            zf.writestr(name, b.getvalue())
+    return buf.getvalue()
+
+
+def test_dl4j_restore_on_the_card_matches_the_cpu(cuda):
+    """The DL4J bridge restores onto the card by default: parameters and
+    Adam slots bitwise the CPU restore's, a predict and 3 fit steps
+    within 1e-6 of the CPU's."""
+    import io
+    from deeplearning4j_tpu_torch.modelimport import (
+        restore_multilayer_network,
+    )
+    from deeplearning4j_tpu_torch.modelimport.dl4j import _slot_holder
+    blob = _mlp_dl4j_zip()
+    card = restore_multilayer_network(io.BytesIO(blob))
+    cpu = restore_multilayer_network(io.BytesIO(blob), device="cpu")
+    assert card.device.type == "cuda"
+    for a, b in ((card.params, cpu.params),
+                 (_slot_holder(card, ("mu", "nu"))["mu"],
+                  _slot_holder(cpu, ("mu", "nu"))["mu"])):
+        for k in a:
+            for name in a[k]:
+                assert torch.equal(a[k][name].cpu(), b[k][name]), (k, name)
+    rs = np.random.RandomState(5)
+    x = rs.randn(8, 4).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 8)]
+    torch.testing.assert_close(card.output(x).cpu(), cpu.output(x),
+                               rtol=0, atol=1e-6)
+    for _ in range(3):
+        card.fit((x, y), batch_size=8)
+        cpu.fit((x, y), batch_size=8)
+    for k in cpu.params:
+        for name, t in cpu.params[k].items():
+            torch.testing.assert_close(card.params[k][name].cpu(), t,
+                                       rtol=0, atol=1e-6)
+
+
+def _plain_summary(a, n_bins=20):
+    """numpy's summary of one array, as the reference's StatsListener
+    computes it on the host."""
+    a = np.asarray(a, np.float64).ravel()
+    finite = a[np.isfinite(a)]
+    lo, hi = float(finite.min()), float(finite.max())
+    if lo == hi:
+        hi = lo + 1e-12
+    counts, _ = np.histogram(finite, bins=n_bins, range=(lo, hi))
+    return (float(np.linalg.norm(finite)), float(np.abs(finite).mean()),
+            int(a.size - finite.size), counts.tolist(), lo, hi)
+
+
+def test_stats_summaries_on_the_card_equal_numpys(cuda):
+    """StatsListener's on-card summaries: histogram counts and bounds
+    exactly numpy's, norms and mean magnitudes within 1e-12. A constant
+    leaf of large magnitude, whose 20 edges repeat (numpy >= 2.3 refuses
+    to bin it), is binned without raising."""
+    from deeplearning4j_tpu_torch.ui.stats import _summarize
+    rs = np.random.RandomState(6)
+    arrays = {"w": rs.randn(4096, 33).astype(np.float32),
+              "edges": np.linspace(-1, 1, 41).astype(np.float32)}
+    arrays["w"][0, :3] = [np.nan, np.inf, -np.inf]
+    got = _summarize({k: torch.from_numpy(v).cuda()
+                      for k, v in {**arrays, "big": np.full(
+                          5, 12345.5, np.float32)}.items()}, 20, True)
+    assert sum(got["big"]["hist"]) == 5
+    for k, a in arrays.items():
+        norm, mean_mag, bad, hist, lo, hi = _plain_summary(a)
+        g = got[k]
+        assert (g["n_non_finite"], g["hist"], g["lo"], g["hi"]) \
+            == (bad, hist, lo, hi), k
+        assert abs(g["norm"] - norm) <= 1e-12 * norm
+        assert abs(g["mean_mag"] - mean_mag) <= 1e-12 * mean_mag
+
+
+def test_stats_listener_captures_on_the_card(cuda):
+    """A fit on the card with a StatsListener: every record carries the
+    params, gradients and updates of every leaf, and the device memory
+    from torch. The last record's gradients and updates are the last
+    step's: the updater on those gradients from the state before the step
+    gives those updates bitwise, they added to the parameters before it
+    give the parameters after it bitwise, and the record's summaries are
+    numpy's of those tensors."""
+    from deeplearning4j_tpu_torch.nn.conf.base import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import (
+        NeuralNetConfiguration,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.ui import (
+        InMemoryStatsStorage, StatsListener,
+    )
+    from deeplearning4j_tpu_torch.ui.stats import _leaf_paths
+    conf = (NeuralNetConfiguration.Builder().seed(2).list()
+            .layer(DenseLayer(n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_out=3))
+            .set_input_type(InputType.feed_forward(5)).build())
+    net = MultiLayerNetwork(conf).init()
+    st = InMemoryStatsStorage()
+    net.set_listeners(StatsListener(st, session_id="c"))
+    last, capturing = {}, net._capturing
+
+    def watch(step):
+        before = (tree_map(torch.clone, net.params),
+                  tree_map(torch.clone, net.opt_state))
+        out, grads, updates = capturing(step)
+        last.update(before=before, grads=grads, updates=updates)
+        return out, grads, updates
+    net._capturing = watch
+    rs = np.random.RandomState(0)
+    net.fit((rs.randn(32, 5).astype(np.float32),
+             np.eye(3, dtype=np.float32)[rs.randint(0, 3, 32)]),
+            batch_size=8, accumulate_steps=2)
+    ups = st.get_all_updates_after("c", "StatsListener", "worker-0", 0)
+    assert len(ups) == 2
+    for u in ups:
+        assert set(u.data["gradients"]) == set(u.data["params"]) \
+            == set(u.data["updates"]) == {"0/W", "0/b", "1/W", "1/b"}
+        assert u.data["memory"]["device_bytes_in_use"] > 0
+    static = st.get_static_info("c", "StatsListener", "worker-0").data
+    assert static["devices"][0] == "cuda:0"
+    params, opt = last["before"]
+    with torch.no_grad():
+        again, _ = net._tx.update(last["grads"], opt, params)
+    for a, b in zip(tree_leaves(again), tree_leaves(last["updates"])):
+        assert torch.equal(a, b)
+    for p0, u, p in zip(tree_leaves(params), tree_leaves(last["updates"]),
+                        tree_leaves(net.params)):
+        assert torch.equal(p0 + u, p)
+    for group in ("gradients", "updates"):
+        tree = last["grads" if group == "gradients" else "updates"]
+        for k, t in _leaf_paths(tree).items():
+            norm, mean_mag, bad, hist, lo, hi = _plain_summary(
+                t.cpu().numpy())
+            g = ups[-1].data[group][k]
+            assert (g["n_non_finite"], g["hist"], g["lo"], g["hi"]) \
+                == (bad, hist, lo, hi), (group, k)
+            assert abs(g["norm"] - norm) <= 1e-12 * norm, (group, k)
+            assert abs(g["mean_mag"] - mean_mag) <= 1e-12 * mean_mag
+
+
+def test_keras_config_and_estimator_on_the_card(cuda, tmp_path):
+    """A Keras JSON config imports onto the card without h5py; a
+    DL4JClassifier fits on the card and predicts within 1e-5 of its
+    network moved to the CPU."""
+    import io
+    import json
+    from deeplearning4j_tpu_torch.ml import DL4JClassifier
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    from deeplearning4j_tpu_torch.util.serialization import (
+        load_model, save_model,
+    )
+    cfg = {"class_name": "Sequential", "config": {"layers": [
+        {"class_name": "InputLayer", "config": {"batch_shape": [None, 6]}},
+        {"class_name": "Dense", "config": {"name": "d", "units": 4,
+                                           "activation": "relu"}},
+        {"class_name": "Dense", "config": {"name": "o", "units": 2,
+                                           "activation": "softmax"}}]}}
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(cfg))
+    net = KerasModelImport.import_keras_model_configuration(str(path))
+    assert net.device.type == "cuda"
+    net.init()
+    assert tuple(net.output(np.zeros((3, 6), np.float32)).shape) == (3, 2)
+    rs = np.random.RandomState(1)
+    X = rs.randn(64, 6).astype(np.float32)
+    y = (X[:, 0] > 0).astype(int)
+    clf = DL4JClassifier(hidden=(16,), epochs=2, batch_size=16).fit(X, y)
+    assert clf.network_.device.type == "cuda"
+    buf = io.BytesIO()
+    save_model(clf.network_, buf)
+    buf.seek(0)
+    cpu = load_model(buf, device="cpu")
+    assert np.abs(cpu.output(X).numpy() - clf.predict_proba(X)).max() \
+        <= 1e-5

@@ -7,8 +7,9 @@ WORLD_SIZE, RANK): `--mode sync` (the default), `--mode averaging
 --averaging-frequency 2` and `--mesh data=2,zero=1`. Only rank 0 saves
 the model and prints the result line; its parameters are within 1e-5
 relative of the reference's ParallelWrapper over two devices on the same
-data (the SYNC runs also of each other's). `--mesh` with averaging is
-refused as the reference refuses it.
+data (the SYNC runs also of each other's). `--mesh data=2,zero=1
+--ui-port 0` finishes with one dashboard, on rank 0. `--mesh` with
+averaging is refused as the reference refuses it.
 """
 import json
 import os
@@ -87,21 +88,29 @@ def _ref(model, X, Y, **kw):
     ("averaging", ["--mode", "averaging", "--averaging-frequency", "2"],
      dict(mode="averaging", averaging_frequency=2), True),
     ("mesh_zero1", ["--mesh", "data=2,zero=1"], dict(zero_stage=1), False),
-], ids=["sync", "averaging", "mesh_zero1"])
+    # the dashboard's capture gathers the ZeRO pieces on every rank: a
+    # listener on the coordinator alone would leave it in the gathers
+    ("mesh_zero1_ui", ["--mesh", "data=2,zero=1", "--ui-port", "0"],
+     dict(zero_stage=1), False),
+], ids=["sync", "averaging", "mesh_zero1", "mesh_zero1_ui"])
 def test_two_process_cli_matches_the_reference(setup, name, extra, kw,
                                                torchrun):
     d, model, data, X, Y = setup
     out = str(d / f"{name}.zip")
-    (o0, e0), (o1, _) = _run_two(extra, out, model, data, torchrun)
+    (o0, e0), (o1, e1) = _run_two(extra, out, model, data, torchrun)
     line = json.loads(o0.strip().splitlines()[-1])
     assert (line["iterations"], line["epochs"]) == (6, 2)
     assert not any(ln.startswith('{"output"') for ln in o1.splitlines())
     record = json.loads([ln for ln in e0.splitlines()
                          if ln.startswith('{"parallel"')][-1])["parallel"]
     assert record["world"] == 2 and record["backend"] == "gloo"
-    if name == "mesh_zero1":
+    if name.startswith("mesh"):
         assert record["plan"]["zero_stage"] == 1
         assert any(ln.startswith("mesh plan:") for ln in e0.splitlines())
+    # one dashboard, on the coordinator
+    assert [ln.startswith("dashboard: ") for ln in e0.splitlines()].count(
+        True) == ("--ui-port" in extra)
+    assert not any(ln.startswith("dashboard: ") for ln in e1.splitlines())
     ref = _ref(model, X, Y, **kw)
     assert_params_close(load_model(out, device="cpu").params_flat().numpy(),
                         ref_flat(ref))

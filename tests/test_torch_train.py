@@ -549,7 +549,7 @@ def test_cli_dataset_loader_iris_and_npz(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--checkpoint-dir", "ckpt"], ["--resume"], ["--ui-port", "9001"],
+    ["--checkpoint-dir", "ckpt"], ["--resume"],
     ["--serve-port", "0"], ["--mesh", "data=1"],
     ["--mode", "averaging"], ["--dataset", "mnist"]])
 def test_cli_flags_of_parts_that_wait_raise(extra, tmp_path, monkeypatch,
