@@ -520,6 +520,47 @@ result line:
              (the same limits); the listener's ms a capture beside the
              step's ms. `launches_by_path` gains "ui" (the
              flash launches of (d)) and "interop" ((a)-(c): none).
+20. apps   — clustering and manifold learning at full size, at most 75 s,
+             on the fetchers' seeded synthetic MNIST (70,000 images as 784
+             features). (a) KMeansClustering(k=10), 10 Lloyd iterations
+             (of the default 100) on the card and on the CPU: each of the
+             card's assignments against the CPU's on the same centers,
+             a differing row a tie within the f32 expansion's rounding
+             scale (printed, with the 1e-5-relative flag), the centers
+             bitwise when no tie flipped, inertia within 1e-5; seeding s,
+             the device ms of an assignment, the host ms of an update.
+             (b) BarnesHutTsne(theta=0, perplexity=30, tile_rows=1024,
+             seeded Gaussian start) at 70,000 points, k = 90: the
+             affinity s; one tile of 1,024 rows against the CPU
+             (neighbour sets equal but for ties within 1e-5 relative, p
+             within 1e-5); one gradient evaluation: 1,024 sampled rows of
+             the repulsion and of the gradient (attraction over the edges
+             that touch them) against an f64 evaluation on the CPU and Z
+             against an f64 evaluation on the card, all within 1e-5, its
+             peak memory under 10 % of one N^2 f32 matrix; then 50
+             iterations (of 500) by ms an iteration, every KL sample
+             finite. (c) theta=0.5 on the same points: the
+             affinity on the card, then 20 host iterations through the
+             native sp-tree (native.CALLS["bh_repulsion_f32"] == 20; no
+             native library fails the phase); BH's Z at (b)'s Y within 2
+             % of (b)'s exact Z; BH's host repulsion against the card's
+             exact pass at 70,000 and 10,000 points (which is faster is
+             printed, not checked). (d) Tsne() at 10,000 points, all 500
+             iterations: 256 sampled rows of the conditional P (before
+             symmetrisation) within 1e-5 of the CPU's, the symmetric P
+             summing to 1, the first 3 gradients within 1e-5 of the CPU's,
+             the nearest embedded neighbour's label shared by > 95 % of
+             points, ms an iteration, peak memory. (e)
+             NearestNeighborsServer over a seeded 71,290 x 300 table over
+             HTTP: 5 /knnnew and 3 /knn at k = 10 equal to a brute force
+             on the card (distances within 1e-5 relative), 256 /insert
+             (one rebuild), then queries still exact; build s, rebuild s,
+             query p50 ms; RandomProjectionLSH(16 bits, 4 tables)'s
+             recall@10; a KDTree over (b)'s embedding, 200 queries equal to
+             the brute force; RandomProjection 784 -> 64's distortion over
+             1,000 pairs. (f) (b)'s embedding through UIServer.post_tsne
+             and GET /tsne/coords/<sid>, equal. `launches_by_path` gains
+             "apps" (no flash kernel runs there).
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The run sets DL4J_CUDA_ZIP_STORED=1 for itself and every process
@@ -7971,19 +8012,62 @@ class _StopFit(Exception):
     """Raised by a step clock to end a fit after a number of batches."""
 
 
-class _NlpStepClock:
-    """Stands in for one of `embeddings.sequencevectors`' device steps:
-    records the host seconds since the previous step returned (sampling
-    the batch and queueing its copies), CUDA events around the step on a
-    card, and the tables it was handed; runs the steps numbered
-    `profile_window` (lo, hi) under torch.profiler (the card idle before
-    and after the window); raises _StopFit after `stop_after` steps."""
+class _Spy:
+    """Stands in for a module-level function: calls it, records host
+    entry and exit times, the device time by CUDA events when `cuda`, and
+    hands (args, out) to `keep`."""
+
+    def __init__(self, fn, cuda=False, keep=None, sync=False):
+        self.fn, self.cuda, self.keep, self.sync = fn, cuda, keep, sync
+        self.entries, self.exits, self.events = [], [], []
+
+    def __call__(self, *args):
+        self.entries.append(time.perf_counter())
+        if self.cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        out = self.fn(*args)
+        if self.cuda:
+            ev[1].record()
+            self.events.append(ev)
+        if self.sync:
+            torch.cuda.synchronize()
+        if self.keep is not None:
+            self.keep(args, out)
+        self.exits.append(time.perf_counter())
+        return out
+
+    def device_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def host_s(self) -> float:
+        return sum(b - a for a, b in zip(self.entries, self.exits))
+
+
+def _spy(patches, module, name, cls=_Spy, **kw):
+    """Puts a `cls` spy in place of `module.name`; `_restore(patches)`
+    puts the function back."""
+    spy = cls(getattr(module, name), **kw)
+    patches.append((module, name, getattr(module, name)))
+    setattr(module, name, spy)
+    return spy
+
+
+class _NlpStepClock(_Spy):
+    """A spy on one of `embeddings.sequencevectors`' device steps: the
+    host seconds since the previous step returned (sampling the batch and
+    queueing its copies) are `entries[i] - exits[i - 1]`; also keeps the
+    tables it was handed and the rows of each batch; runs the steps
+    numbered `profile_window` (lo, hi) under torch.profiler (the card
+    idle before and after the window); raises _StopFit after
+    `stop_after` steps."""
 
     def __init__(self, fn, cuda, stop_after=None, profile_window=None):
-        self.fn, self.cuda, self.stop_after = fn, cuda, stop_after
-        self.steps, self.entries, self.exits, self.events = 0, [], [], []
-        self.rows, self.tables = [], None
-        self.profile_window = profile_window
+        super().__init__(fn, cuda=cuda)
+        self.stop_after, self.profile_window = stop_after, profile_window
+        self.steps, self.rows, self.tables = 0, [], None
         self.prof, self.window_s = None, None
 
     def _toggle_profiler(self):
@@ -8000,31 +8084,13 @@ class _NlpStepClock:
     def __call__(self, *args):
         if self.profile_window and self.steps in self.profile_window:
             self._toggle_profiler()
-        self.entries.append(time.perf_counter())
-        if self.cuda:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        out = self.fn(*args)
-        if self.cuda:
-            ev[1].record()
-            self.events.append(ev)
-        self.exits.append(time.perf_counter())
+        out = super().__call__(*args)
         self.tables = args[:2]
         self.rows.append(int(args[2].shape[0]))
         self.steps += 1
         if self.stop_after is not None and self.steps >= self.stop_after:
             raise _StopFit
         return out
-
-
-def _clocked(monkeypatch_list, module, name, cuda, stop_after=None,
-             profile_window=None):
-    clock = _NlpStepClock(getattr(module, name), cuda, stop_after,
-                          profile_window)
-    monkeypatch_list.append((module, name, getattr(module, name)))
-    setattr(module, name, clock)
-    return clock
 
 
 def _restore(monkeypatch_list):
@@ -8219,7 +8285,8 @@ def nlp_word2vec(vocab, sentences):
     torch.cuda.reset_peak_memory_stats()
     w2v = _w2v()
     w2v.vocab = vocab
-    clock = _clocked(patched, sv, "_sg_ns_step", cuda=True)
+    clock = _spy(patched, sv, "_sg_ns_step", cls=_NlpStepClock,
+                 cuda=True)
     try:
         t0 = time.perf_counter()
         w2v.fit(src)                          # CUDA: the default device
@@ -8258,10 +8325,10 @@ def nlp_word2vec(vocab, sentences):
     for device in ("cuda", "cpu"):
         model = _w2v()
         model.vocab = vocab
-        clock = _clocked(patched, sv, "_sg_ns_step", cuda=False,
-                         stop_after=NLP_PARITY_BATCHES,
-                         profile_window=NLP_PROFILED if device == "cuda"
-                         else None)
+        clock = _spy(patched, sv, "_sg_ns_step", cls=_NlpStepClock,
+                     cuda=False, stop_after=NLP_PARITY_BATCHES,
+                     profile_window=NLP_PROFILED if device == "cuda"
+                     else None)
         t0 = time.perf_counter()
         try:
             model.fit(src, device=device)
@@ -8308,8 +8375,8 @@ def _card_and_cpu(make, fit, read, steps):
     out, counts, seconds = {}, {}, None
     for device in ("cuda", "cpu"):
         patched = []
-        clocks = {s: _clocked(patched, glove if s == "_glove_step" else sv,
-                              s, cuda=False) for s in steps}
+        clocks = {s: _spy(patched, glove if s == "_glove_step" else sv, s,
+                          cls=_NlpStepClock, cuda=False) for s in steps}
         t0 = time.perf_counter()
         try:
             model = fit(make(), device)
@@ -8395,8 +8462,8 @@ def nlp_deepwalk():
     tables, row = {}, {}
     for device in ("cuda", "cpu"):
         patched = []
-        clock = _clocked(patched, sv, "_sg_ns_step", cuda=False,
-                         stop_after=DW_BATCHES)
+        clock = _spy(patched, sv, "_sg_ns_step", cls=_NlpStepClock,
+                     cuda=False, stop_after=DW_BATCHES)
         model = DeepWalk(layer_size=DW_DIM, window=DW_WINDOW,
                          walk_length=DW_WALK, walks_per_vertex=1,
                          batch_size=NLP_BATCH, seed=2014)
@@ -9011,6 +9078,682 @@ def interop(fa, gpu):
     return row
 
 
+# ------------------------------------------------------------------ phase 20
+APPS_BUDGET_S = 75.0
+APPS_POINTS = 70000          # MNIST's train plus test images, 784 features
+APPS_SEED = 123              # the fetchers' synthetic MNIST seed
+APPS_K = 10
+APPS_LLOYD = 10              # (a): Lloyd iterations (the default 100, cut)
+APPS_TILE = 1024
+APPS_PERPLEXITY = 30.0       # k = 90 neighbours
+APPS_EXACT_ITERS = 50        # (b): of the default 500, cut
+APPS_BH_ITERS = 20           # (c): host Barnes-Hut iterations
+APPS_SMALL = 10000           # (c)'s second timing and (d)'s exact Tsne
+APPS_PCA_INIT = False        # (b), (c): the seeded Gaussian start; the PCA
+                             # start's numpy SVD of 70,000 x 784 took
+                             # 6.7-7.0 s a fit on the H100 machine's host
+                             # CPU, and (d) drives it
+APPS_SAMPLED_ROWS = 1024     # (b): repulsion rows held on the CPU
+APPS_TOL = 1e-5
+APPS_MEMORY_SHARE = 0.10     # (b): of one N x N f32 matrix
+APPS_BH_Z_REL = 0.02         # (c): the bound of test_bhtsne.py:126
+APPS_PURITY = 0.95           # (d): the bound of test_bhtsne.py:87
+APPS_P_ROWS = 256            # (d): conditional P rows held against the CPU
+NN_ROWS, NN_DIM, NN_K = 71290, 300, 10    # (e): phase 18's vocabulary size
+NN_NEW, NN_INDEXED = 5, 3   # (e): queries, each ~0.3 s in 300 dimensions
+NN_INSERTS, NN_AFTER = 256, 1
+LSH_BITS, LSH_TABLES = 16, 4
+KD_QUERIES = 200
+RP_DIM, RP_PAIRS = 64, 1000
+
+
+def _timed_method(obj, name):
+    """Wraps a bound method of `obj`; returns the list its seconds go to."""
+    fn, took = getattr(obj, name), []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, timed)
+    return took
+
+
+def _mean(xs):
+    return float(statistics.fmean(xs)) if xs else None
+
+
+def apps_data():
+    from deeplearning4j_tpu_torch.data.fetchers import _synthetic_images
+    X, Y = _synthetic_images(APPS_POINTS, 28, 28, 1, 10, APPS_SEED)
+    return np.ascontiguousarray(X.reshape(APPS_POINTS, -1)), Y.argmax(1)
+
+
+def _rounding_tie(x, a, b) -> bool:
+    """Whether the f64 gap between |x - a|^2 and |x - b|^2 lies within the
+    rounding scale of the f32 expansion |x|^2 - 2 x.c + |c|^2 over D
+    terms, 2^-24 sqrt(D) (2|x|^2 + |a|^2 + |b|^2): two BLASes summing in
+    other orders may then order the pair either way."""
+    x, a, b = (np.asarray(v, np.float64) for v in (x, a, b))
+    gap = abs(((x - a) ** 2).sum() - ((x - b) ** 2).sum())
+    scale = 2.0 ** -24 * math.sqrt(len(x)) * (2 * (x @ x) + a @ a + b @ b)
+    return bool(gap <= scale)
+
+
+def _tie_rows(X, centers, rows):
+    """Of `rows`, the two nearest centers (f64 distances on the host), and
+    whether they tie: within APPS_TOL relative (`rel_tie`) and within the
+    f32 expansion's rounding scale (`tie`)."""
+    out = []
+    for r in rows:
+        d = np.linalg.norm(X[r].astype(np.float64)
+                           - centers.astype(np.float64), axis=1)
+        a, b = np.argsort(d)[:2]
+        out.append({"row": int(r), "d0": float(d[a]), "d1": float(d[b]),
+                    "rel_tie": bool(d[b] - d[a] <= APPS_TOL * d[b]),
+                    "tie": _rounding_tie(X[r], centers[a], centers[b])})
+    return out
+
+
+def apps_kmeans(X):
+    """(a): 10 Lloyd iterations of k = 10 on the card and on the CPU.
+    Each of the card's assignments is held against the CPU's on the same
+    centers (a differing row must be a tie); the two fits' centers are
+    bitwise when no tie flipped on the way."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, kmeans
+    kept = {"cuda": [], "cpu": []}
+
+    def keep(args, out):
+        kept["cuda" if spy.cuda else "cpu"].append(
+            (args[1].cpu().numpy(), out[0].cpu().numpy()))
+    patches = []
+    card = KMeansClustering(k=APPS_K, max_iterations=APPS_LLOYD, seed=0)
+    cpu = KMeansClustering(k=APPS_K, max_iterations=APPS_LLOYD, seed=0,
+                           device="cpu")
+    seed_s = _timed_method(card, "_init_centers")
+    spy = _spy(patches, kmeans, "_assign", cuda=True, keep=keep)
+    try:
+        t0 = time.perf_counter()
+        card.fit(X)
+        t_end = time.perf_counter()
+        assign_ms = spy.device_ms()
+        spy.cuda = False
+        t1 = time.perf_counter()
+        cpu.fit(X)
+        cpu_s = time.perf_counter() - t1
+    finally:
+        _restore(patches)
+    n_card = len(kept["cuda"])
+    updates_ms = [(spy.entries[i + 1] - spy.exits[i]) * 1e3
+                  for i in range(n_card - 1)] + [(t_end - spy.exits[n_card - 1])
+                                                 * 1e3]
+    t_check = time.perf_counter()
+    Xc = torch.as_tensor(X)
+    flips = []
+    for i, (centers, idx) in enumerate(kept["cuda"]):
+        mine = kmeans._assign(Xc, torch.as_tensor(centers))[0].numpy()
+        rows = np.flatnonzero(mine != idx)
+        flips += [dict(r, iteration=i) for r in _tie_rows(X, centers, rows)]
+    same = n_card == len(kept["cpu"]) and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        for a, b in zip(kept["cuda"], kept["cpu"]))
+    pred = card.predict(X)
+    ref = kmeans._assign(Xc, torch.as_tensor(card.centers))
+    pred_rows = np.flatnonzero(pred != ref[0].numpy())
+    pred_flips = _tie_rows(X, card.centers, pred_rows)
+    inertia = card.inertia(X)
+    cpu_inertia = float(torch.sum(ref[1] ** 2))
+    row = {"points": len(X), "features": X.shape[1], "k": APPS_K,
+           "iterations": card.iterations_done,
+           "iterations_cpu": cpu.iterations_done,
+           "seeding_s": seed_s[0], "fit_s": t_end - t0, "cpu_fit_s": cpu_s,
+           "assign_device_ms": _mean(assign_ms),
+           "assign_device_ms_each": [round(v, 4) for v in assign_ms],
+           "update_host_ms": _mean(updates_ms),
+           "cluster_sizes": np.bincount(pred, minlength=APPS_K).tolist(),
+           "tie_flips": flips[:20], "n_tie_flips": len(flips),
+           "predict_flips": pred_flips[:20],
+           "same_path_as_cpu": same,
+           "centers_bitwise": bool(np.array_equal(card.centers, cpu.centers)),
+           "centers_max_abs_diff": float(np.abs(card.centers
+                                                - cpu.centers).max()),
+           "inertia": inertia, "inertia_cpu_same_centers": cpu_inertia,
+           "inertia_rel": abs(inertia - cpu_inertia) / cpu_inertia,
+           "checks_s": time.perf_counter() - t_check}
+    bad = [f for f in flips + pred_flips if not f["tie"]]
+    if bad or n_card != card.iterations_done:
+        raise AssertionError(f"phase 20 (a): assignments differ beyond ties "
+                             f"{bad[:5]} ({n_card} assignments)")
+    if same and not (row["centers_bitwise"]
+                     and card.iterations_done == cpu.iterations_done):
+        raise AssertionError("phase 20 (a): the same assignments gave "
+                             "other centers")
+    if not same and not flips:
+        raise AssertionError("phase 20 (a): the card's and the CPU's fits "
+                             "parted with no tie row")
+    if row["inertia_rel"] > APPS_TOL:
+        raise AssertionError(f"phase 20 (a): inertia {inertia} against "
+                             f"{cpu_inertia}")
+    return row
+
+
+def _repulsion_rows_f64(Y, rows, chunk=256):
+    """frep[rows] of the t-SNE kernel against every point, in f64 on the
+    CPU (a plain evaluation, no tiling)."""
+    Y = torch.as_tensor(Y, dtype=torch.float64)
+    rows = torch.as_tensor(rows)
+    out = []
+    for c0 in range(0, len(rows), chunk):
+        r = rows[c0:c0 + chunk]
+        d2 = ((Y[r, None, :] - Y[None, :, :]) ** 2).sum(-1)
+        num = 1.0 / (1.0 + d2)
+        num[torch.arange(len(r)), r] = 0.0
+        n2 = num * num
+        out.append(Y[r] * n2.sum(1)[:, None] - n2 @ Y)
+    return torch.cat(out).numpy()
+
+
+def _attraction_rows_f64(Y, src, dst, p, rows):
+    """The attraction of the edge list (src, dst, p) at `rows`, in f64
+    numpy, from the edges that touch those rows."""
+    on = np.zeros(len(Y), bool)
+    on[rows] = True
+    touch = on[src] | on[dst]
+    src, dst, p = src[touch], dst[touch], p[touch].astype(np.float64)
+    Y = Y.astype(np.float64)
+    dy = Y[src] - Y[dst]
+    f_e = (p / (1.0 + (dy * dy).sum(1)))[:, None] * dy
+    fatt = np.stack([np.bincount(src, f_e[:, c], len(Y))
+                     - np.bincount(dst, f_e[:, c], len(Y))
+                     for c in range(Y.shape[1])], 1)
+    return fatt[rows]
+
+
+def apps_exact(X):
+    """(b): BarnesHutTsne(theta=0) at 70,000 points: the affinity graph on
+    the card, one tile of it held against the CPU, one gradient
+    evaluation's sampled rows against the CPU (repulsion and gradient)
+    and its Z against f64, with its peak memory, then 50 iterations."""
+    from deeplearning4j_tpu_torch.manifold import BarnesHutTsne, bhtsne
+    n, dev = len(X), torch.device("cuda")
+    est = BarnesHutTsne(theta=0.0, perplexity=APPS_PERPLEXITY,
+                        tile_rows=APPS_TILE, max_iter=APPS_EXACT_ITERS,
+                        use_pca_init=APPS_PCA_INIT)
+    edges = []
+    build = est._build_sparse_p
+
+    def keep_edges(*args):
+        edges.append(build(*args))
+        return edges[-1]
+    est._build_sparse_p = keep_edges
+    aff_s = _timed_method(est, "_build_sparse_p")
+    init_s = _timed_method(est, "_init_embedding")
+    patches = []
+    spy = _spy(patches, bhtsne, "_tiled_forces", cuda=True)
+    try:
+        t0 = time.perf_counter()
+        Y = est.fit_transform(X)
+        fit_s = time.perf_counter() - t0
+    finally:
+        _restore(patches)
+    forces_ms = spy.device_ms()
+    src, dst, vals = edges[0]
+    k = len(dst) // n
+    loop_s = fit_s - aff_s[0] - init_s[0]
+    row = {"points": n, "k": k, "edges": len(dst),
+           "affinity_s": aff_s[0], "init_s": init_s[0],
+           "iterations": APPS_EXACT_ITERS,
+           "iteration_ms": loop_s / APPS_EXACT_ITERS * 1e3,
+           "forces_device_ms": _mean(forces_ms),
+           "kl_history": est.kl_history_}
+    if Y.shape != (n, 2) or not np.all(np.isfinite(Y)) or not all(
+            np.isfinite(est.kl_history_)):
+        raise AssertionError(f"phase 20 (b): embedding {Y.shape}, KL "
+                             f"{est.kl_history_}")
+
+    # one tile of the affinity graph against the CPU
+    t_check = time.perf_counter()
+    t = n // APPS_TILE // 2
+    r0, r1 = t * APPS_TILE, (t + 1) * APPS_TILE
+    cpu_idx, cpu_p = bhtsne._knn_affinity_tile(
+        torch.as_tensor(X), torch.arange(r0, r1), k,
+        np.float32(np.log(APPS_PERPLEXITY)))
+    cpu_idx, cpu_p = cpu_idx.numpy(), cpu_p.numpy()
+    card_idx = dst.reshape(n, k)[r0:r1]
+    card_p = vals.reshape(n, k)[r0:r1] * (2.0 * n)
+    differ, p_err = [], 0.0
+    for i in range(r1 - r0):
+        if set(card_idx[i]) != set(cpu_idx[i]):
+            x = X[r0 + i]
+            d = ((x.astype(np.float64) - X) ** 2).sum(1)
+            d[r0 + i] = np.inf
+            order = np.argsort(d)
+            a, b = order[k - 1], order[k]       # the k-th and (k+1)-th
+            differ.append({"row": r0 + i, "kth": float(d[a]),
+                           "next": float(d[b]),
+                           "rel_tie": bool(d[b] - d[a] <= APPS_TOL * d[b]),
+                           "tie": _rounding_tie(x, X[a], X[b])})
+            continue
+        mine = dict(zip(card_idx[i], card_p[i]))
+        p_err = max(p_err, float(np.abs(np.asarray(
+            [mine[j] for j in cpu_idx[i]]) - cpu_p[i]).max()))
+    row["tile"] = {"rows": [r0, r1], "p_max_abs_err": p_err,
+                   "differing_rows": differ}
+    if p_err > APPS_TOL or any(not d["rel_tie"] for d in differ):
+        raise AssertionError(f"phase 20 (b): the card's affinity tile "
+                             f"against the CPU: {row['tile']}")
+
+    row["tile"]["seconds"] = time.perf_counter() - t_check
+    # one gradient evaluation at the fitted Y: memory, Z in f64, rows
+    t_check = time.perf_counter()
+    pad = (-n) % APPS_TILE
+    Yp = np.concatenate([Y, np.full((pad, 2), 1e6, np.float32)])
+    Yd = torch.as_tensor(Yp, device=dev)
+    e_src, e_dst, e_p = (torch.as_tensor(a, device=dev)
+                         for a in (src, dst, vals))
+    n_tiles = len(Yp) // APPS_TILE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grad, _ = bhtsne._tiled_forces(Yd, e_src, e_dst, n_tiles, e_p, n)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    frep, z = bhtsne._tiled_repulsion(Yd, n_tiles, n)
+    _, z64 = bhtsne._tiled_repulsion(Yd.double(), n_tiles, n)
+    z, z64 = float(z), float(z64)
+    rows = np.sort(np.random.RandomState(2020).choice(
+        n, APPS_SAMPLED_ROWS, replace=False))
+    cpu_frep = _repulsion_rows_f64(Y, rows)
+    frep_err = float(np.abs(frep[torch.as_tensor(rows, device=dev)]
+                            .cpu().numpy() - cpu_frep).max()
+                     / np.abs(cpu_frep).max())
+    cpu_grad = 4.0 * (_attraction_rows_f64(Y, src, dst, vals, rows)
+                      - cpu_frep / z64)
+    grad_err = float(np.abs(grad[torch.as_tensor(rows, device=dev)]
+                            .cpu().numpy() - cpu_grad).max()
+                     / np.abs(cpu_grad).max())
+    n2_bytes = 4 * n * n
+    row["gradient"] = {"peak_bytes": int(peak), "n2_f32_bytes": n2_bytes,
+                       "peak_share_of_n2": peak / n2_bytes,
+                       "z": z, "z_f64": z64, "z_rel": abs(z - z64) / z64,
+                       "sampled_rows": APPS_SAMPLED_ROWS,
+                       "repulsion_rel_err": frep_err,
+                       "grad_rel_err": grad_err,
+                       "seconds": time.perf_counter() - t_check}
+    del grad, frep, Yd, e_src, e_dst, e_p
+    torch.cuda.empty_cache()
+    g = row["gradient"]
+    if (peak >= APPS_MEMORY_SHARE * n2_bytes or g["z_rel"] > APPS_TOL
+            or frep_err > APPS_TOL or grad_err > APPS_TOL):
+        raise AssertionError(f"phase 20 (b): one gradient evaluation: {g}")
+    return row, Y, z64
+
+
+def apps_barnes_hut(X, Y_exact, z_exact, exact):
+    """(c): BarnesHutTsne(theta=0.5) at 70,000 points: the affinity on the
+    card, 20 host iterations through the native sp-tree; its Z at (b)'s Y
+    against (b)'s exact Z; BH against the exact pass at 70,000 and
+    10,000 points."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.manifold import BarnesHutTsne, bhtsne
+    from deeplearning4j_tpu_torch.manifold.sptree import bh_repulsion
+    if not native.available():
+        raise AssertionError("phase 20 (c): the native library is not "
+                             f"available on the card machine: "
+                             f"{native.BUILD_INFO}")
+    n = len(X)
+    est = BarnesHutTsne(theta=0.5, perplexity=APPS_PERPLEXITY,
+                        tile_rows=APPS_TILE, max_iter=APPS_BH_ITERS,
+                        use_pca_init=APPS_PCA_INIT)
+    aff_s = _timed_method(est, "_build_sparse_p")
+    init_s = _timed_method(est, "_init_embedding")
+    native.reset_calls()
+    t0 = time.perf_counter()
+    Y = est.fit_transform(X)
+    fit_s = time.perf_counter() - t0
+    calls = native.CALLS["bh_repulsion_f32"]
+    loop_s = fit_s - aff_s[0] - init_s[0]
+
+    def host_ms(fn, reps):
+        took = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            took.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(took)
+    _, z_bh, visits = bh_repulsion(Y_exact, 0.5)
+    bh70 = host_ms(lambda: bh_repulsion(Y_exact, 0.5), 3)
+    Y10 = np.ascontiguousarray(Y_exact[:APPS_SMALL])
+    bh10 = host_ms(lambda: bh_repulsion(Y10, 0.5), 5)
+    dev = torch.device("cuda")
+    e0 = torch.zeros(1, dtype=torch.int64, device=dev)
+    p0 = torch.zeros(1, device=dev)
+    Y10d = torch.as_tensor(Y10, device=dev)
+    exact10 = cuda_ms(lambda: bhtsne._tiled_forces(
+        Y10d, e0, e0, APPS_SMALL // 1000, p0, APPS_SMALL), iters=10)
+    row = {"points": n, "theta": 0.5, "affinity_s": aff_s[0],
+           "init_s": init_s[0], "iterations": APPS_BH_ITERS,
+           "native_bh_calls": calls, "iteration_ms": loop_s
+           / APPS_BH_ITERS * 1e3, "kl_history": est.kl_history_,
+           "cells_visited": est.cells_visited_,
+           "z_bh_at_exact_y": z_bh, "z_exact": z_exact,
+           "z_rel": abs(z_bh - z_exact) / z_exact,
+           "visits_at_exact_y": visits,
+           "repulsion_ms": {"bh_host_70k": bh70,
+                            "exact_card_70k": exact["forces_device_ms"],
+                            "bh_host_10k": bh10,
+                            "exact_card_10k": exact10},
+           "iteration_ms_exact_70k": exact["iteration_ms"]}
+    row["faster_at_10k"] = "bh" if bh10 < exact10 else "exact"
+    row["faster_at_70k"] = "bh" if bh70 < exact["forces_device_ms"] \
+        else "exact"
+    if calls != APPS_BH_ITERS or not hasattr(est, "cells_visited_"):
+        raise AssertionError(f"phase 20 (c): {calls} native bh_repulsion "
+                             f"calls, expected {APPS_BH_ITERS}")
+    if Y.shape != (n, 2) or not np.all(np.isfinite(Y)) or not all(
+            np.isfinite(est.kl_history_)):
+        raise AssertionError(f"phase 20 (c): embedding {Y.shape}, KL "
+                             f"{est.kl_history_}")
+    if row["z_rel"] >= APPS_BH_Z_REL:
+        raise AssertionError(f"phase 20 (c): BH Z {z_bh} against exact "
+                             f"{z_exact}")
+    return row
+
+
+def apps_tsne(X, labels):
+    """(d): the exact Tsne at 10,000 points, all 500 default iterations on
+    the card: sampled rows of the conditional P and the first 3 gradients
+    against the CPU, the label purity of the nearest embedded neighbour,
+    ms an iteration and peak memory."""
+    from deeplearning4j_tpu_torch.manifold import Tsne, tsne
+    Xs, ls = X[:APPS_SMALL], labels[:APPS_SMALL]
+    seen, P, cond = [], [], []
+    rows = np.sort(np.random.RandomState(2021).choice(
+        APPS_SMALL, APPS_P_ROWS, replace=False))
+    rows_d = torch.as_tensor(rows, device="cuda")
+
+    def keep(args, out):
+        if len(seen) < 3:
+            if not P:
+                P.append(args[1].cpu())
+            seen.append((args[0].cpu(), out[0].cpu()))
+    patches = []
+    grad_spy = _spy(patches, tsne, "_tsne_grad", keep=keep)
+    joint = _spy(patches, tsne, "_joint_p", sync=True)
+    _spy(patches, tsne, "_binary_search_perplexity",
+         keep=lambda args, out: cond.append(out[rows_d].cpu()))
+    init = _spy(patches, tsne, "_init_embedding")
+    est = Tsne()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    try:
+        t0 = time.perf_counter()
+        Y = est.fit_transform(Xs)
+        fit_s = time.perf_counter() - t0
+    finally:
+        _restore(patches)
+    peak = torch.cuda.max_memory_allocated() - base
+    t_check = time.perf_counter()
+    # the conditional P of the sampled rows as _joint_p computes it
+    X64 = torch.as_tensor(Xs, dtype=torch.float64)
+    d2 = tsne._sqdist(X64[rows], X64).float()
+    d2[torch.arange(len(rows)), torch.as_tensor(rows)] = 1e12
+    cond_cpu = tsne._binary_search_perplexity(
+        d2, np.log(est.perplexity))
+    del X64, d2
+    cond_err = float((cond[0] - cond_cpu).abs().max()
+                     / cond_cpu.abs().max())
+    Pj = P[0].double() / est.early_exaggeration
+    p_sum, p_asym = float(Pj.sum()), float((Pj - Pj.T).abs().max()
+                                           / Pj.abs().max())
+    errs = []
+    for Yi, g_card in seen:
+        g_cpu = tsne._tsne_grad(Yi, P[0])[0]
+        errs.append(float((g_card - g_cpu).abs().max() / g_cpu.abs().max()))
+    del P, Pj, seen, cond
+    Yt = torch.as_tensor(Y, device="cuda")
+    d2 = tsne._embed_sqdist(Yt, Yt)
+    d2.fill_diagonal_(float("inf"))
+    nearest = d2.argmin(1).cpu().numpy()
+    del d2, Yt
+    torch.cuda.empty_cache()
+    purity = float((ls[nearest] == ls).mean())
+    loop_s = fit_s - joint.host_s() - init.host_s()
+    row = {"points": APPS_SMALL, "iterations": est.max_iter,
+           "joint_p_s": joint.host_s(), "init_s": init.host_s(),
+           "iteration_ms": loop_s / est.max_iter * 1e3,
+           "grad_calls": len(grad_spy.entries),
+           "conditional_p_rows": APPS_P_ROWS,
+           "conditional_p_rel_err": cond_err, "p_sum": p_sum,
+           "p_asymmetry": p_asym,
+           "first_grads_rel_err": errs, "purity": purity,
+           "checks_s": time.perf_counter() - t_check,
+           "kl": est.kl_divergence_, "peak_bytes": int(peak),
+           "fit_s": fit_s}
+    if (max(errs) > APPS_TOL or cond_err > APPS_TOL
+            or abs(p_sum - 1.0) > APPS_TOL or p_asym > APPS_TOL
+            or purity <= APPS_PURITY or not np.all(np.isfinite(Y))):
+        raise AssertionError(f"phase 20 (d): {row}")
+    return row
+
+
+def apps_neighbours(X, Y_exact):
+    """(e): the nearest-neighbours server over a 71,290 x 300 table, exact
+    against a brute force on the card before and after a rebuild; LSH's
+    recall@10; a KD-tree over (b)'s embedding; random projection's
+    distortion."""
+    from deeplearning4j_tpu_torch.clustering import (
+        KDTree, NearestNeighborsClient, NearestNeighborsServer,
+        RandomProjection, RandomProjectionLSH,
+    )
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(2020)
+    T = rs.randn(NN_ROWS, NN_DIM).astype(np.float32)
+
+    def brute(table_d, q, k=NN_K):
+        d = torch.sqrt(((table_d - torch.as_tensor(
+            q, dtype=torch.float64, device=dev)) ** 2).sum(1))
+        v, i = torch.topk(d, k, largest=False)
+        return i.cpu().numpy().tolist(), v.cpu().numpy()
+
+    wrong = []
+
+    def check(res, table_d, q, what):
+        bi, bd = brute(table_d, q)
+        idx = [r["index"] for r in res]
+        dist = np.asarray([r["distance"] for r in res])
+        if idx != bi or np.any(np.abs(dist - bd)
+                               > APPS_TOL * np.maximum(bd, 1.0)):
+            wrong.append({"what": what, "got": idx, "brute": bi})
+        return bi
+
+    Td = torch.as_tensor(T, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    server = NearestNeighborsServer(T, port=0)
+    build_s = time.perf_counter() - t0
+    lat, brute_of = [], []
+    with server:
+        client = NearestNeighborsClient(port=server.port)
+        queries = rs.randn(NN_NEW, NN_DIM).astype(np.float32)
+        for i, q in enumerate(queries):
+            t = time.perf_counter()
+            res = client.knn_new(q, k=NN_K)
+            lat.append((time.perf_counter() - t) * 1e3)
+            brute_of.append(check(res, Td, q, f"knnnew {i}"))
+        indexed = rs.choice(NN_ROWS, NN_INDEXED, replace=False)
+        for i in indexed:
+            t = time.perf_counter()
+            res = client.knn(int(i), k=NN_K)
+            lat.append((time.perf_counter() - t) * 1e3)
+            brute_of.append(check(res, Td, T[i], f"knn {i}"))
+        V = rs.randn(NN_INSERTS, NN_DIM).astype(np.float32)
+        ins_ms, ids = [], []
+        for v in V:
+            t = time.perf_counter()
+            ids.append(client.insert(v))
+            ins_ms.append((time.perf_counter() - t) * 1e3)
+        rebuilt = not server._extra and len(server.points) == \
+            NN_ROWS + NN_INSERTS
+        T2d = torch.cat([Td, torch.as_tensor(V, dtype=torch.float64,
+                                              device=dev)])
+        after = []
+        for j in range(NN_AFTER):
+            q = (V[j] + 0.1 * rs.randn(NN_DIM)).astype(np.float32)
+            t = time.perf_counter()
+            res = client.knn_new(q, k=NN_K)
+            after.append((time.perf_counter() - t) * 1e3)
+            check(res, T2d, q, f"knnnew after rebuild {j}")
+        res = client.knn(NN_ROWS + 7, k=NN_K)
+        check(res, T2d, V[7], "knn of an inserted point")
+        health = client.health()
+    del Td, T2d
+    torch.cuda.empty_cache()
+    row = {"table": [NN_ROWS, NN_DIM], "k": NN_K, "build_s": build_s,
+           "queries": len(lat), "query_p50_ms": statistics.median(lat),
+           "queries_s": sum(lat) / 1e3, "inserts_s": sum(ins_ms) / 1e3,
+           "query_max_ms": max(lat), "inserts": NN_INSERTS,
+           "insert_p50_ms": statistics.median(ins_ms),
+           "rebuild_s": max(ins_ms) / 1e3, "rebuilt": rebuilt,
+           "after_rebuild_p50_ms": statistics.median(after),
+           "health": health, "wrong": wrong}
+    if wrong or not rebuilt or ids != list(range(NN_ROWS, NN_ROWS
+                                                 + NN_INSERTS)) \
+            or health["points"] != NN_ROWS + NN_INSERTS:
+        raise AssertionError(f"phase 20 (e): {row}")
+
+    t0 = time.perf_counter()
+    lsh = RandomProjectionLSH(LSH_BITS, LSH_TABLES, seed=0).fit(T)
+    lsh_s = time.perf_counter() - t0
+    qs = list(queries) + [T[i] for i in indexed]
+    recall = [len(set(lsh.query(q, NN_K)[0]) & set(b)) / NN_K
+              for q, b in zip(qs, brute_of)]
+    row["lsh"] = {"bits": LSH_BITS, "tables": LSH_TABLES, "fit_s": lsh_s,
+                  "recall_at_10_new": _mean(recall[:NN_NEW]),
+                  "recall_at_10_indexed": _mean(recall[NN_NEW:])}
+
+    t0 = time.perf_counter()
+    kd = KDTree(Y_exact)
+    kd_build = time.perf_counter() - t0
+    # a neighbourhood query is an embedded point, moved by 1 % of the
+    # embedding's spread
+    kq = (Y_exact[rs.choice(len(Y_exact), KD_QUERIES, replace=False)]
+          + 0.01 * Y_exact.std(0) * rs.randn(KD_QUERIES, 2)
+          ).astype(np.float32)
+    Yd = torch.as_tensor(Y_exact, dtype=torch.float64, device=dev)
+    kd_wrong, kd_ties, took = [], [], []
+    for q in kq:
+        t = time.perf_counter()
+        idx, dist = kd.knn(q, NN_K)
+        took.append((time.perf_counter() - t) * 1e3)
+        bi, bd = brute(Yd, q, NN_K + 1)
+        extra = set(idx) - set(bi[:NN_K])
+        # a neighbour past the k-th must tie the k-th (f32 distances)
+        tie = all(i == bi[NN_K] for i in extra) and \
+            bd[NN_K] - bd[NN_K - 1] <= APPS_TOL * bd[NN_K]
+        if (extra and not tie) or np.any(
+                np.abs(np.sort(dist) - bd[:NN_K])
+                > APPS_TOL * np.maximum(bd[:NN_K], 1e-3)):
+            kd_wrong.append({"query": q.tolist(), "got": idx, "brute": bi})
+        elif extra:
+            kd_ties.append({"query": q.tolist(), "kth": float(bd[NN_K - 1]),
+                            "next": float(bd[NN_K])})
+    del Yd
+    row["kdtree"] = {"points": len(Y_exact), "build_s": kd_build,
+                     "queries": KD_QUERIES,
+                     "query_ms": statistics.median(took), "wrong": kd_wrong,
+                     "ties": kd_ties}
+
+    t0 = time.perf_counter()
+    Z = RandomProjection(RP_DIM, seed=0).fit(X).transform(X)
+    rp_s = time.perf_counter() - t0
+    pairs = rs.randint(0, len(X), (RP_PAIRS, 2))
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    dx = np.linalg.norm(X[pairs[:, 0]] - X[pairs[:, 1]], axis=1)
+    dz = np.linalg.norm(Z[pairs[:, 0]] - Z[pairs[:, 1]], axis=1)
+    ratio = dz / dx
+    row["random_projection"] = {
+        "dims": [X.shape[1], RP_DIM], "seconds": rp_s,
+        "pairs": len(pairs), "ratio_mean": float(ratio.mean()),
+        "ratio_std": float(ratio.std()), "ratio_min": float(ratio.min()),
+        "ratio_max": float(ratio.max())}
+    if kd_wrong or not np.all(np.isfinite(ratio)):
+        raise AssertionError(f"phase 20 (e): KD-tree {kd_wrong[:3]}")
+    return row
+
+
+def apps_dashboard(Y, labels):
+    """(f): (b)'s embedding posted to the dashboard's t-SNE view and read
+    back over HTTP."""
+    from deeplearning4j_tpu_torch.ui.server import UIServer
+    ui = UIServer(port=0)
+    try:
+        t0 = time.perf_counter()
+        ui.post_tsne("apps", Y, labels)
+        status, body = _get_json(
+            f"http://127.0.0.1:{ui.port}/tsne/coords/apps")
+        seconds = time.perf_counter() - t0
+    finally:
+        ui.stop()
+    pts = body.get("points", [])
+    same = status == 200 and len(pts) == len(Y) and np.array_equal(
+        np.asarray([p[:2] for p in pts], np.float64),
+        Y.astype(np.float64)) and [p[2] for p in pts] == [
+        str(v) for v in labels]
+    row = {"points": len(pts), "status": status, "equal": bool(same),
+           "seconds": seconds}
+    if not same:
+        raise AssertionError(f"phase 20 (f): {row}")
+    return row
+
+
+def apps(fa, gpu):
+    """Phase 20: clustering and manifold learning at full size."""
+    import os
+    from deeplearning4j_tpu_torch import native
+    t_phase = time.perf_counter()
+    row = {"phase": "apps", "gpu": gpu}
+    omp = getattr(native.get_lib().cdll, "omp_get_max_threads", None) \
+        if native.available() else None
+    row["host"] = {"loadavg": os.getloadavg(),
+                   "torch_threads": torch.get_num_threads(),
+                   "native_omp_threads": omp() if omp else None}
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    X, labels = apps_data()
+    row["data_s"] = time.perf_counter() - t0
+    parts = (("kmeans", lambda: apps_kmeans(X)),
+             ("exact", lambda: apps_exact(X)),
+             ("barnes_hut", lambda: apps_barnes_hut(
+                 X, Y_exact, z_exact, row["exact"])),
+             ("tsne", lambda: apps_tsne(X, labels)),
+             ("neighbours", lambda: apps_neighbours(X, Y_exact)),
+             ("dashboard", lambda: apps_dashboard(Y_exact, labels)))
+    Y_exact = z_exact = None
+    for name, run in parts:
+        t0 = time.perf_counter()
+        out = run()
+        if name == "exact":
+            out, Y_exact, z_exact = out
+        row[name] = dict(out, seconds=time.perf_counter() - t0)
+        emit({"phase": f"apps_{name}", "gpu": gpu, **row[name]})
+    row["flash_launches"] = dict(fa.KERNEL_LAUNCHES)
+    if any(row["flash_launches"].values()):
+        raise AssertionError(f"phase 20 launched flash kernels: "
+                             f"{row['flash_launches']}")
+    row["seconds"] = time.perf_counter() - t_phase
+    row["budget_s"] = APPS_BUDGET_S
+    emit({k: v for k, v in row.items() if k not in dict(parts)})
+    if row["seconds"] > APPS_BUDGET_S:
+        raise AssertionError(f"phase 20 took {row['seconds']:.1f} s "
+                             f"> {APPS_BUDGET_S}")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -9079,6 +9822,7 @@ def main(argv=None) -> int:
         seq_run = sequence(fa, tmp)
     nlp_run = nlp(fa, gpu)
     interop_run = interop(fa, gpu)
+    apps_run = apps(fa, gpu)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -9115,6 +9859,8 @@ def main(argv=None) -> int:
                              "interop": interop_run[
                                  "interop_flash_launches"]["flash_fwd"],
                              "ui": interop_run["flash_launches"][
+                                 "flash_fwd"],
+                             "apps": apps_run["flash_launches"][
                                  "flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
@@ -9157,7 +9903,8 @@ def main(argv=None) -> int:
                                  "nlp": nlp_run["flash_launches"][name],
                                  "interop": interop_run[
                                      "interop_flash_launches"][name],
-                                 "ui": interop_run["flash_launches"][name]},
+                                 "ui": interop_run["flash_launches"][name],
+                                 "apps": apps_run["flash_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

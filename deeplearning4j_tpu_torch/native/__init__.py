@@ -350,13 +350,23 @@ def sg_ns_train(syn0: np.ndarray, syn1neg: np.ndarray, corpus: np.ndarray,
     corpus = np.ascontiguousarray(corpus, np.int32)
     offsets = np.ascontiguousarray(offsets, np.int64)
     table = np.ascontiguousarray(table, np.int32)
-    loss = lib.sg_ns_train(
-        _fptr(syn0), _fptr(syn1neg), syn0.shape[0], syn0.shape[1],
-        _i32ptr(corpus),
-        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        len(offsets) - 1, window, negative, _i32ptr(table), table.size,
-        ctypes.c_float(lr_start), ctypes.c_float(lr_min),
-        int(total_words), ctypes.c_uint64(seed), int(n_threads))
+    # the C side's omp_set_num_threads(n_threads) sets the calling
+    # thread's OpenMP thread count for every later parallel region of
+    # this runtime (the native library's, and torch's where they share
+    # libgomp): put it back after the epoch
+    get_max = getattr(lib.cdll, "omp_get_max_threads", None)
+    before = get_max() if get_max is not None else None
+    try:
+        loss = lib.sg_ns_train(
+            _fptr(syn0), _fptr(syn1neg), syn0.shape[0], syn0.shape[1],
+            _i32ptr(corpus),
+            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            len(offsets) - 1, window, negative, _i32ptr(table), table.size,
+            ctypes.c_float(lr_start), ctypes.c_float(lr_min),
+            int(total_words), ctypes.c_uint64(seed), int(n_threads))
+    finally:
+        if before is not None:
+            lib.cdll.omp_set_num_threads(before)
     return float(loss)
 
 

@@ -57,7 +57,13 @@ steps within 1e-6; StatsListener's on-card summaries equal to numpy's
 (histogram counts and bounds exactly); a fit's records on the card with
 gradients, updates and device memory; a Keras JSON config imported onto
 the card and a DL4JClassifier fitted there within 1e-5 of its network on
-the CPU.
+the CPU. Clustering and t-SNE: k-means fitted on the card with the CPU
+fit's centers bitwise (data without near-tie rows; inertia within 1e-5
+relative), the affinity tile
+(neighbour sets equal, p within 1e-5) and the tiled gradient with pad
+rows (within 1e-5 of its largest value) on the card against the CPU, and
+KMeansClustering, Tsne and BarnesHutTsne on the card when no device is
+asked for.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and
 skips without one. The file imports nothing of JAX, so it runs on a
@@ -2095,3 +2101,87 @@ def test_keras_config_and_estimator_on_the_card(cuda, tmp_path):
     cpu = load_model(buf, device="cpu")
     assert np.abs(cpu.output(X).numpy() - clf.predict_proba(X)).max() \
         <= 1e-5
+
+
+def _blobs(n_per, d, n_blobs, seed):
+    rs = np.random.RandomState(seed)
+    centers = rs.randn(n_blobs, d) * 8
+    return np.concatenate([centers[i] + rs.randn(n_per, d)
+                           for i in range(n_blobs)]).astype(np.float32)
+
+
+def test_kmeans_on_the_card_matches_the_cpu(cuda):
+    """Assignment on the card, seeding and the center update on the host:
+    the same centers bitwise as the CPU fit (the data has no near-tie
+    row), predict equal, inertia within 1e-5 relative (phase 20's bound:
+    the f32 expansion's per-row rounding, summed in another order, moved
+    it by 2.5e-6 here)."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    X = _blobs(300, 32, 6, 3)
+    card = KMeansClustering(k=6, seed=2).fit(X)
+    assert card.device.type == "cuda"
+    cpu = KMeansClustering(k=6, seed=2, device="cpu").fit(X)
+    d = np.sort(np.linalg.norm(X[:, None] - cpu.centers[None], axis=-1), 1)
+    assert np.all(d[:, 1] - d[:, 0] > 1e-5 * d[:, 1])
+    assert np.array_equal(card.centers, cpu.centers)
+    assert card.iterations_done == cpu.iterations_done
+    assert np.array_equal(card.predict(X), cpu.predict(X))
+    assert card.inertia(X) == pytest.approx(cpu.inertia(X), rel=1e-5)
+
+
+def test_tsne_pieces_on_the_card_match_the_cpu(cuda):
+    """The affinity tile (neighbour sets equal, p within 1e-5) and the
+    tiled gradient with pad rows (within 1e-5 of its largest |value|, KL
+    within 1e-5 relative; the card's index_add_ adds atomically)."""
+    from deeplearning4j_tpu_torch.manifold import bhtsne
+    from deeplearning4j_tpu_torch.util.platform import set_f32_matmul_exact
+    set_f32_matmul_exact()
+    rs = np.random.RandomState(4)
+    X = rs.randn(2000, 50).astype(np.float32)
+    rows = np.arange(512, 1024)
+    out = {}
+    for dev in ("cpu", cuda):
+        idx, p = bhtsne._knn_affinity_tile(
+            torch.as_tensor(X, device=dev), torch.as_tensor(rows, device=dev),
+            30, np.float32(np.log(10.0)))
+        out[str(dev)] = (idx.cpu().numpy(), p.cpu().numpy())
+    (ci, cp), (gi, gp) = out["cpu"], out["cuda"]
+    for i in range(len(rows)):
+        assert set(ci[i]) == set(gi[i])
+        o = dict(zip(gi[i], gp[i]))
+        np.testing.assert_allclose([o[j] for j in ci[i]], cp[i], rtol=1e-5,
+                                   atol=1e-7)
+    n, n_valid, tile = 4096, 4000, 512
+    Y = (rs.randn(n, 2) * 10).astype(np.float32)
+    Y[n_valid:] = 1e6
+    src = np.repeat(np.arange(n_valid), 12)
+    dst = rs.randint(0, n_valid, len(src))
+    pv = (rs.rand(len(src)) / len(src)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        t = [torch.as_tensor(a, device=dev) for a in (Y, src, dst, pv)]
+        g, kl = bhtsne._tiled_forces(t[0], t[1], t[2], n // tile, t[3],
+                                     n_valid)
+        res[str(dev)] = (g.cpu().numpy(), float(kl))
+    (cg, ck), (gg, gk) = res["cpu"], res["cuda"]
+    assert np.abs(gg - cg).max() <= 1e-5 * np.abs(cg).max()
+    assert np.all(gg[n_valid:] == 0.0)
+    assert gk == pytest.approx(ck, rel=1e-5)
+
+
+def test_clustering_and_tsne_default_to_the_card(cuda):
+    """With no device asked for, the three device classes run on the card
+    and hand back numpy."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.manifold import BarnesHutTsne, Tsne
+    X = _blobs(40, 8, 3, 0)
+    km = KMeansClustering(k=3, seed=1).fit(X)
+    assert km.device.type == "cuda" and isinstance(km.predict(X),
+                                                   np.ndarray)
+    for est in (Tsne(perplexity=10, max_iter=60),
+                BarnesHutTsne(perplexity=10, theta=0.0, max_iter=60,
+                              tile_rows=32)):
+        assert est.device.type == "cuda"
+        Y = est.fit_transform(X)
+        assert isinstance(Y, np.ndarray) and Y.shape == (120, 2)
+        assert np.all(np.isfinite(Y)) and np.isfinite(est.kl_divergence_)

@@ -19,6 +19,7 @@ import ctypes
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_reference_cases import port_cases, run_case
 from deeplearning4j_tpu import native as jnative
@@ -458,3 +459,32 @@ def test_hogwild_skipgram_is_its_plain_version_one_thread():
         assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     assert loss == pytest.approx(plain, rel=1e-5)
     assert np.abs(pa - syn0).max() > 1e-3
+
+
+def test_hogwild_thread_count_does_not_outlive_the_epoch():
+    """The trainer's `omp_set_num_threads(n_threads)` set the calling
+    thread's OpenMP count for every later parallel region of the runtime:
+    the native library's (k-means seeding, the Barnes-Hut tree) and
+    torch's where it shares libgomp. The wrapper puts it back."""
+    lib = pnative.get_lib()
+    get_max = getattr(lib.cdll, "omp_get_max_threads", None)
+    if get_max is None:
+        pytest.skip("the native library was built without OpenMP")
+    rs = _rs(17)
+    V, D = 20, 8
+    syn0 = ((rs.rand(V, D) - 0.5) / D).astype(np.float32)
+    syn1 = np.zeros((V, D), np.float32)
+    corpus = rs.randint(0, V, 150).astype(np.int32)
+    table = rs.randint(0, V, 1000).astype(np.int32)
+    before = (get_max(), torch.get_num_threads())
+    # start from 2 threads, so a count the epoch left at 1 shows
+    lib.cdll.omp_set_num_threads(2)
+    torch.set_num_threads(2)
+    try:
+        assert (get_max(), torch.get_num_threads()) == (2, 2)
+        pnative.sg_ns_train(syn0, syn1, corpus, np.array([0, 150], np.int64),
+                            3, 4, table, 0.05, 1e-4, 150, seed=3, n_threads=1)
+        assert (get_max(), torch.get_num_threads()) == (2, 2)
+    finally:
+        lib.cdll.omp_set_num_threads(before[0])
+        torch.set_num_threads(before[1])
