@@ -567,7 +567,13 @@ after. The run sets DL4J_CUDA_ZIP_STORED=1 for itself and every process
 it starts: the zips the port writes (the CLIs' outputs, the listeners'
 checkpoints) are stored, not deflated, which at tens of MB/s on the host
 cost the run minutes. Every phase's row carries `t_s`, the seconds since
-the run started. The second-to-last line is the kernel table
+the run started. At each phase's start and end a ``{"host_reading":
+...}`` line says what the process can read without changing the machine:
+wall seconds since the start, its own and its children's CPU seconds
+(`resource.getrusage`), the load average, the CPUs it may use
+(`os.sched_getaffinity`), and the card's SM and memory clocks,
+temperature and power draw (one `nvidia-smi --query-gpu` call): where a
+slow run's time went, phase by phase. The second-to-last line is the kernel table
 (``{"kernels": [...]}``); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -578,6 +584,8 @@ import io
 import json
 import logging
 import math
+import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -651,6 +659,46 @@ def emit(obj):
     if "phase" in obj:
         obj = dict(obj, t_s=round(time.perf_counter() - _T0, 1))
     print(json.dumps(obj), flush=True)
+
+
+GPU_READING = "clocks.sm,clocks.mem,temperature.gpu,power.draw"
+
+
+def host_reading(phase: str, at: str):
+    """One ``{"host_reading": ...}`` line at a phase's start or end (the
+    module docstring): reads only, nothing on the machine is set."""
+    me = resource.getrusage(resource.RUSAGE_SELF)
+    kids = resource.getrusage(resource.RUSAGE_CHILDREN)
+    try:
+        card = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={GPU_READING}",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=20).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        card = f"unreadable: {type(e).__name__}"
+    print(json.dumps({"host_reading": {
+        "phase": phase, "at": at,
+        "wall_s": round(time.perf_counter() - _T0, 3),
+        "cpu_s": round(me.ru_utime + me.ru_stime, 3),
+        "children_cpu_s": round(kids.ru_utime + kids.ru_stime, 3),
+        "loadavg": [round(x, 2) for x in os.getloadavg()],
+        "cpus": len(os.sched_getaffinity(0)),
+        "card": dict(zip(GPU_READING.split(","),
+                         (v.strip() for v in card.split(","))))
+        if not card.startswith("unreadable") else card}}), flush=True)
+
+
+def run_phase(name: str, fn, *args, tmp: bool = False):
+    """Run one phase between two host readings; with `tmp`, in a fresh
+    temporary directory passed as its last argument."""
+    host_reading(name, "start")
+    try:
+        if tmp:
+            with tempfile.TemporaryDirectory() as d:
+                return fn(*args, d)
+        return fn(*args)
+    finally:
+        host_reading(name, "end")
 
 
 def gpu_line() -> str:
@@ -9779,50 +9827,43 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = run_phase("build", _build.build_all)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [{"name": b.name, "nvcc_s": b.seconds,
                          "ptxas": ptxas_report(b.log)} for b in built]})
 
+    host_reading("kernels", "start")
     errs = check_kernel_cases(fa)
     check_fwd_determinism(fa)
     bwd_errs = check_bwd_cases(fa)
     check_bwd_determinism(fa)
+    host_reading("kernels", "end")
     if args.quick:
         return 0
+    host_reading("kernel_time", "start")
     bench = time_attention(fa, 4, 2048, 8, 64, torch.bfloat16, gpu)
     main_row = time_attention(fa, 4, SEQ, HEADS, HEAD_DIM, torch.float32, gpu)
     bwd_bench = time_backward(fa, 4, 2048, 8, 64, torch.bfloat16, gpu)
     bwd_main = time_backward(fa, 4, SEQ, HEADS, HEAD_DIM, torch.float32, gpu)
-    serve_launches = serve(fa)
-    gen_launches = generate(fa)["request_path_flash_launches"]
-    with tempfile.TemporaryDirectory() as tmp:
-        trained = train(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        resnet_run = resnet(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        graph_run = fit_graph(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        rnn_run = rnn(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        zoo_run = zoo(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        lm_ops_run = lm_ops(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        data_run = data_plane(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        tele_run = telemetry(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        res_run = resilience(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        fleet_run = fleet(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        par_run = parallel(fa, tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        seq_run = sequence(fa, tmp)
-    nlp_run = nlp(fa, gpu)
-    interop_run = interop(fa, gpu)
-    apps_run = apps(fa, gpu)
+    host_reading("kernel_time", "end")
+    serve_launches = run_phase("serve", serve, fa)
+    gen_launches = run_phase("generate", generate,
+                         fa)["request_path_flash_launches"]
+    trained = run_phase("train", train, fa, tmp=True)
+    resnet_run = run_phase("resnet", resnet, fa, tmp=True)
+    graph_run = run_phase("fit_graph", fit_graph, fa, tmp=True)
+    rnn_run = run_phase("rnn", rnn, fa, tmp=True)
+    zoo_run = run_phase("zoo", zoo, fa, tmp=True)
+    lm_ops_run = run_phase("lm_ops", lm_ops, fa, tmp=True)
+    data_run = run_phase("data_plane", data_plane, fa, tmp=True)
+    tele_run = run_phase("telemetry", telemetry, fa, tmp=True)
+    res_run = run_phase("resilience", resilience, fa, tmp=True)
+    fleet_run = run_phase("fleet", fleet, fa, tmp=True)
+    par_run = run_phase("parallel", parallel, fa, tmp=True)
+    seq_run = run_phase("sequence", sequence, fa, tmp=True)
+    nlp_run = run_phase("nlp", nlp, fa, gpu)
+    interop_run = run_phase("interop", interop, fa, gpu)
+    apps_run = run_phase("apps", apps, fa, gpu)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{

@@ -77,6 +77,7 @@ class KMeansClustering:
                 members = X[idx == c]
                 if len(members):
                     new_centers[c] = members.mean(0)
+            # graftlint: disable=host-sync-in-hot-path -- host numpy math on host-resident centers (the assignment was copied to the host by idx.cpu() above), not a device fetch
             shift = float(np.linalg.norm(new_centers - centers))
             centers = new_centers
             self.iterations_done = it + 1

@@ -153,6 +153,7 @@ def _create_segment(size: int, ring_bytes: int) -> shared_memory.SharedMemory:
     try:
         shm = shared_memory.SharedMemory(create=True, size=max(size, 1))
     except OSError as e:
+        # graftlint: disable=resource-pairing -- this raise is on the path where SharedMemory() itself failed: no segment exists to release
         raise MemoryError(
             f"ETL ring: cannot create a {size}-byte shared-memory segment "
             f"({e}); the ring needs {ring_bytes} bytes in /dev/shm. Lower "
@@ -422,7 +423,8 @@ class MultiProcessDataSetIterator(EpochPositionMixin, DataSetIterator):
                 # everything still queued is stale now: workers skip-ack
                 self._gen_val.value = self._gen + 1
                 self._drain_inflight()
-            except Exception:   # a dead pool: the finalizer still runs
+            # graftlint: disable=bare-except-swallow -- best-effort drain while closing a possibly-dead pool; the finalizer (sentinels+join+unlink) still runs and close() must never raise over the original failure
+            except Exception:
                 pass
             self._finalizer()       # sentinels + join + unlink, once
             for q in (self._free_q, self._ready_q):

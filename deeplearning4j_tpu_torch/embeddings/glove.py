@@ -133,7 +133,7 @@ class Glove(SequenceVectors):
                     w, wc, b, bc, gw, gwc, gb, gbc,
                     _ids(pairs[selp, 0], dev), _ids(pairs[selp, 1], dev),
                     _f32(logx[selp], dev), _f32(fxb, dev), lr)
-                # the step's one loss fetch, as the reference's
+                # graftlint: disable=host-sync-in-hot-path -- the step's ONE budgeted loss fetch, as the reference's
                 self.last_loss = float(loss)
         self.vectors = w.cpu().numpy() + wc.cpu().numpy()
         return self

@@ -280,6 +280,7 @@ class BarnesHutTsne:
             Y -= Y.mean(0)
             if it % 50 == 0 or it == self.max_iter - 1:
                 q_e = np.maximum(num_e / z, 1e-12)
+                # graftlint: disable=host-sync-in-hot-path -- host numpy KL on every 50th iteration for the history curve; the gradients here are host numpy
                 kl = float(np.sum(p * np.log(np.maximum(p, 1e-12) / q_e)))
                 self.kl_history_.append(kl)
                 self.cells_visited_.append(visits)

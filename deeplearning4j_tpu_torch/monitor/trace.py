@@ -226,7 +226,8 @@ class _ProfilerRange:
                 torch.cuda.nvtx.range_pop()
             if self._rf is not None:
                 self._rf.__exit__(*exc)
-        except Exception:                 # noqa: BLE001 — best effort
+        # graftlint: disable=bare-except-swallow -- best-effort profiler range exit: a profiler failure must never break the traced code path (zero-cost contract)
+        except Exception:                 # noqa: BLE001
             pass
         return False
 

@@ -276,6 +276,7 @@ def get_lib():
     if _lib is None and not _build_failed:
         with _load_lock:
             if _lib is None and not _build_failed:
+                # graftlint: disable=transitive-blocking-under-lock -- one g++ build per process is the intent: a second first caller waits for it instead of compiling the same library twice; each g++ run is bounded by its 120 s timeout
                 _lib = _build()
                 if _lib is None:
                     _build_failed = True

@@ -590,7 +590,8 @@ class TrainableNet:
             goodput.device_wait(loss)
             fetch_start = time.perf_counter()
             monitor.add_span("train/device_wait", sync_start, fetch_start)
-            self._score = float(loss)          # the step's one loss fetch
+            # graftlint: disable=host-sync-in-hot-path -- the step's ONE budgeted loss fetch (the deliberate per-iteration sync), bracketed by the train/device_wait span
+            self._score = float(loss)
             step_end = time.perf_counter()
             monitor.add_span("train/host_sync", fetch_start, step_end)
             monitor.add_span("train/step", step_start, step_end,
@@ -663,7 +664,8 @@ class TrainableNet:
             carries = {}
             for chunk in self._tbptt_chunks(struct):
                 loss, carries = self._carry_step(chunk, generator, carries)
-                self._score = float(loss)      # the chunk's one loss fetch
+                # graftlint: disable=host-sync-in-hot-path -- the tbptt chunk's one budgeted loss fetch
+                self._score = float(loss)
                 step_graph.record_iteration(self._score, bs)
                 for lst in self.listeners:
                     lst.iteration_done(self, self.iteration_count,

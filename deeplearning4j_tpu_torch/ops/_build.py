@@ -119,6 +119,7 @@ def _finish(name, target, tmp, proc, t0) -> BuiltLibrary:
 def build_all(names: Sequence[str] = KERNEL_SOURCES) -> List[BuiltLibrary]:
     """Build every named source, one nvcc each, all started together."""
     with _LOCK:
+        # graftlint: disable=transitive-blocking-under-lock -- one nvcc per source is the intent: a second caller waits for the running build instead of racing a duplicate compile into the same target; each nvcc is bounded by NVCC_TIMEOUT_S
         pending = [(n, *_start(n)) for n in names if n not in _BUILT]
         errors = []
         for name, target, tmp, proc, t0 in pending:

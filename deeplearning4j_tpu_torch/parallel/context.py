@@ -232,7 +232,8 @@ class ContextParallelTrainer:
             for x, y, fm, lm in self._iter_batches(data, batch_size):
                 self._check_divisible(x)
                 loss = self._step(x, y, fm, lm, generator)
-                net._score = float(loss)       # the step's one loss fetch
+                # graftlint: disable=host-sync-in-hot-path -- the step's ONE budgeted loss fetch (the deliberate per-iteration sync)
+                net._score = float(loss)
                 for lst in net.listeners:
                     lst.iteration_done(net, net.iteration_count,
                                        net.epoch_count, net._score, 0.0,

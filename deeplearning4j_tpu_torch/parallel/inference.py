@@ -373,7 +373,8 @@ class ParallelInference:
                 outs[i] = self._run_with(*blocks[i])
             except Exception as e:      # noqa: BLE001 — raised below
                 errors.append(e)
-        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+        threads = [threading.Thread(target=run, args=(i,), daemon=True,
+                                    name=f"ParallelInference-split-{i}")
                    for i in range(1, len(blocks))]
         for t in threads:
             t.start()

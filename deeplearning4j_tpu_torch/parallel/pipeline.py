@@ -279,7 +279,8 @@ class PipelineParallelTrainer:
                 self._check_batch(b)
                 score = self._step(ds.features, ds.labels, ds.features_mask,
                                    ds.labels_mask)
-                net._score = float(score)      # the step's one loss fetch
+                # graftlint: disable=host-sync-in-hot-path -- the step's ONE budgeted loss fetch (the deliberate per-iteration sync)
+                net._score = float(score)
                 for lst in net.listeners:
                     lst.iteration_done(net, net.iteration_count,
                                        net.epoch_count, net._score, 0.0, b)

@@ -1225,17 +1225,19 @@ class DecodeEngine:
         synchronisation."""
         act = np.zeros((self.cfg.slots,), bool)
         excl = frozenset(int(s) for s in exclude)
+        n_runnable = 0
         for s in self.cache.active_slots():
             if s in excl:
                 continue                # prefill still in flight
             if self.cache.ensure_page(s):
                 act[s] = True
+                n_runnable += 1
         self._counter += 1
         sampling = bool((self._temps[act] > 0).any())
         self._meter_program("decode_sampling" if sampling else "decode",
                             warmup=False)
         with monitor.span("serving/decode_step", model=self.name,
-                          active=int(act.sum())):
+                          active=n_runnable):
             toks, logits = self._decode_fn(
                 self.cache.page_table, self.cache.seq_lens,
                 self._last_tokens, act, self._temps, self._topks,
@@ -1678,12 +1680,24 @@ class DecodeScheduler:
 
     # --------------------------------------------------------------- loop
     def _loop(self):
-        with self._rlock:
-            device = self._runs[-1].engine.device
-        with _device_scope(device):
-            self._loop_on_device()
+        crash: Optional[Exception] = None
+        try:
+            with self._rlock:
+                device = self._runs[-1].engine.device
+            with _device_scope(device):
+                crash = self._loop_on_device()
+        except Exception as e:      # noqa: BLE001 — the device read or
+            # its scope failed: tear down as a crash inside the loop does
+            # (every stream failed, _stop set)
+            crash = e
+            log.exception("decode[%s]: scheduler crashed; failing "
+                          "all streams", self.name)
+            self._stop.set()
+        self._teardown(crash)
 
-    def _loop_on_device(self):
+    def _loop_on_device(self) -> Optional[Exception]:
+        """The scheduler passes; returns the exception that crashed
+        them, or None when `_stop` ended them."""
         from deeplearning4j_tpu_torch.monitor import goodput
         crash: Optional[Exception] = None
         while not self._stop.is_set():
@@ -1727,7 +1741,11 @@ class DecodeScheduler:
                 if gp:
                     goodput.decode_note(self.name, "idle",
                                         time.perf_counter() - idle0)
-        # teardown: everything still live gets a terminal error
+        return crash
+
+    def _teardown(self, crash: Optional[Exception]):
+        """Everything still live gets a terminal error: `crash`, or a
+        draining error when the loop was stopped."""
         exc = crash if crash is not None else ServerDrainingError(
             f"decode[{self.name}] shut down mid-stream")
         with self._rlock:

@@ -818,9 +818,7 @@ class ReplicaSupervisor:
                 for t in probers:
                     t.start()
                 for t in probers:
-                    # each probe thread is deadline-bounded by
-                    # probe_timeout: tick() holds its lock for ONE
-                    # bounded probe window by design
+                    # graftlint: disable=blocking-under-lock -- each probe thread is deadline-bounded by probe_timeout (never unbounded); tick() deliberately holds its lock for ONE bounded probe window
                     t.join()
             for r in live:
                 if probe_ok[r.name]:
@@ -1007,8 +1005,7 @@ class ReplicaSupervisor:
             replica.state = "dead"
             try:
                 replica.kill()
-            # best-effort kill of an already-dead-to-us process: state=dead
-            # and serving_fleet_gave_up_total above are the record
+            # graftlint: disable=bare-except-swallow -- best-effort kill of an already-dead-to-us process; state=dead + serving_fleet_gave_up_total above are the observable record
             except Exception:                 # noqa: BLE001
                 pass
             return
@@ -1046,8 +1043,7 @@ class ReplicaSupervisor:
                 # stop() raced the relaunch: don't leak a fresh process
                 try:
                     replica.stop()
-                # best-effort teardown of a stop-raced fresh process:
-                # state=stopped below is the record, stop() must not raise
+                # graftlint: disable=bare-except-swallow -- best-effort teardown of a stop-raced fresh process; state=stopped below is the record and stop() must not raise
                 except Exception:             # noqa: BLE001
                     pass
                 replica.state = "stopped"

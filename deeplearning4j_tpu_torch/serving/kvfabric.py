@@ -325,8 +325,9 @@ def _release_slab(shm: shared_memory.SharedMemory):
     try:
         shm.close()
         shm.unlink()
-    except Exception:   # noqa: BLE001 — best-effort teardown; the OS
-        # reclaims the segment regardless and nobody is left to tell
+    except Exception:   # graftlint: disable=bare-except-swallow -- best-
+        # effort teardown; the OS reclaims the segment regardless and
+        # nobody is left to tell
         pass
 
 

@@ -11,4 +11,9 @@ sampled (where `chip_smoke.py` or a replica's start spends its time):
     python -m deeplearning4j_tpu_torch.tools.stack_sample --out S.json \
         chip_smoke.py
     python -m deeplearning4j_tpu_torch.tools.stack_sample --report S.json
+
+`graftlint` runs the port's static analyzer (`analysis/`) over the
+port's tree, or with ``--profile jax`` over the reference's:
+
+    python -m deeplearning4j_tpu_torch.tools.graftlint [--json]
 """

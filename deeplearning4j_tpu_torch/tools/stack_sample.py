@@ -56,22 +56,33 @@ class _Sampler:
         return round(time.perf_counter() - self.t0, 3)
 
     def _run(self):
-        while True:
-            time.sleep(self.interval)
-            frame = sys._current_frames().get(self._main)
-            chain = []
-            while frame is not None:
-                name = frame.f_code.co_filename
-                if any(m in name for m in self.match):
-                    chain.append(f"{_short(name)}:{frame.f_code.co_name}:"
-                                 f"{frame.f_lineno}")
-                frame = frame.f_back
-            self.samples.append((self.now(), chain[::-1]))
+        try:
+            while True:
+                time.sleep(self.interval)
+                frame = sys._current_frames().get(self._main)
+                chain = []
+                while frame is not None:
+                    name = frame.f_code.co_filename
+                    if any(m in name for m in self.match):
+                        chain.append(f"{_short(name)}:"
+                                     f"{frame.f_code.co_name}:"
+                                     f"{frame.f_lineno}")
+                    frame = frame.f_back
+                self.samples.append((self.now(), chain[::-1]))
+        except Exception as e:      # noqa: BLE001 — say why sampling ended
+            print(f"stack_sample: sampling stopped at {self.now()} s: "
+                  f"{e!r}", file=sys.stderr)
 
     def _stop(self, seconds):
-        time.sleep(seconds)
-        self.write()
-        os._exit(0)
+        code = 0
+        try:
+            time.sleep(seconds)
+            self.write()
+        except Exception as e:      # noqa: BLE001 — exit loudly, never hang
+            print(f"stack_sample: writing {self.out} failed: {e!r}",
+                  file=sys.stderr)
+            code = 1
+        os._exit(code)
 
     def write(self):
         with self._lock:

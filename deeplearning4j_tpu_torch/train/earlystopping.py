@@ -299,7 +299,7 @@ class EarlyStoppingTrainer:
                         break
                     epoch += 1
                     continue
-                # one score a epoch, a host float reused below
+                # graftlint: disable=host-sync-in-hot-path -- ONE per-epoch score materialization (not per-step); everything below reuses the host float
                 score = float(calc.calculate(model) if calc
                               else model.score())
                 minimize = calc.minimize if calc else True

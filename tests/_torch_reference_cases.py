@@ -27,7 +27,7 @@ SUBS = (("deeplearning4j_tpu.", "deeplearning4j_tpu_torch."),
 _ROOTS = {"deeplearning4j_tpu_torch", "numpy", "pytest", "json", "os",
           "random", "threading", "time", "urllib", "hashlib", "subprocess",
           "sys", "io", "queue", "collections", "typing", "zipfile",
-          "struct", "logging", "dataclasses", "pickle"}
+          "struct", "logging", "dataclasses", "pickle", "textwrap"}
 
 
 def _root(node) -> str:

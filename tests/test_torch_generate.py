@@ -304,6 +304,48 @@ def test_prefill_budget_caps_tokens_per_tick():
     eng.close()
 
 
+@pytest.mark.parametrize("where", ["device_scope", "device_read"])
+def test_scheduler_start_failure_fails_streams_and_refuses_submits(
+        where, monkeypatch):
+    """A failure before the loop's first pass (entering the engine's
+    device scope, or reading its device) tears down as a crash inside
+    the loop does: the admitted stream and the queued one end with a
+    terminal error, and later submits are refused."""
+    from deeplearning4j_tpu_torch.serving import decode as decode_mod
+    eng, sched = _sched(f"start-{where}", slots=1)
+    admitted = GenerateRequest([1, 2, 3], max_new_tokens=4)
+    queued = GenerateRequest([4, 5, 6], max_new_tokens=4)
+    sched.submit(admitted)
+    sched.submit(queued)
+    assert sched._admit() is True          # `admitted` holds the one slot
+    boom = RuntimeError(f"injected {where} failure")
+    if where == "device_scope":
+        def scope(device):
+            raise boom
+        monkeypatch.setattr(decode_mod, "_device_scope", scope)
+    else:
+        class _NoDevice:
+            """The engine, but for a device that cannot be read."""
+
+            def __getattr__(self, name):
+                if name == "device":
+                    raise boom
+                return getattr(eng, name)
+        sched._runs[-1].engine = _NoDevice()
+    sched._thread.start()
+    sched._thread.join(timeout=10)
+    assert not sched._thread.is_alive()
+    for req in (admitted, queued):
+        assert req.done.wait(5), "the stream was stranded"
+        kinds = [ev[0] for ev in drain_events(req, timeout=5)]
+        assert kinds[-1] == "error"
+    assert sched._stop.is_set()
+    with pytest.raises(ServerDrainingError):
+        sched.submit(GenerateRequest([7], max_new_tokens=1))
+    monkeypatch.undo()
+    eng.close()
+
+
 # ------------------------------------------------------------- registry
 def test_deploy_lm_variants_and_kind_collisions():
     registry = ModelRegistry(device="cpu")
