@@ -277,7 +277,7 @@ result line:
              graph the gauge of a replayed fit of the reloaded LM, the
              ledger on, against that same fit timed by CUDA events, the
              median of three such fits), goodput categories summing to the session's wall
-             time, span counts, and tools/trace_report.py and
+             time, span counts, and the port's trace_report and
              tools/perf_report.py (stdlib only) reading the files with
              exit 0. (b) ResNet-50 bf16 at the bench shape through
              fit(scan_steps=10), epochs of 20 steps: 1-epoch fits with
@@ -537,11 +537,11 @@ result line:
              the repulsion and of the gradient (attraction over the edges
              that touch them) against an f64 evaluation on the CPU and Z
              against an f64 evaluation on the card, all within 1e-5, its
-             peak memory under 10 % of one N^2 f32 matrix; then 50
+             peak memory under 10 % of one N^2 f32 matrix; then 25
              iterations (of 500) by ms an iteration, every KL sample
              finite. (c) theta=0.5 on the same points: the
-             affinity on the card, then 20 host iterations through the
-             native sp-tree (native.CALLS["bh_repulsion_f32"] == 20; no
+             affinity on the card, then 10 host iterations through the
+             native sp-tree (native.CALLS["bh_repulsion_f32"] == 10; no
              native library fails the phase); BH's Z at (b)'s Y within 2
              % of (b)'s exact Z; BH's host repulsion against the card's
              exact pass at 70,000 and 10,000 points (which is faster is
@@ -552,7 +552,7 @@ result line:
              the nearest embedded neighbour's label shared by > 95 % of
              points, ms an iteration, peak memory. (e)
              NearestNeighborsServer over a seeded 71,290 x 300 table over
-             HTTP: 5 /knnnew and 3 /knn at k = 10 equal to a brute force
+             HTTP: 3 /knnnew and 2 /knn at k = 10 equal to a brute force
              on the card (distances within 1e-5 relative), 256 /insert
              (one rebuild), then queries still exact; build s, rebuild s,
              query p50 ms; RandomProjectionLSH(16 bits, 4 tables)'s
@@ -561,6 +561,29 @@ result line:
              1,000 pairs. (f) (b)'s embedding through UIServer.post_tsne
              and GET /tsne/coords/<sid>, equal. `launches_by_path` gains
              "apps" (no flash kernel runs there).
+21. scripts — the user scripts (deeplearning4j_tpu_torch/{examples,
+             tools}) on the card, at most 45 s. (a) tools.flash_smoke at
+             its shapes and dtypes (the JAX smoke's: 8 forward cases up
+             to 8192 tokens, masked f32, padded, block sizes 64 and 256;
+             4 backward cases; the return_lse merge): each kernel's
+             output or gradients against the plain version's on the
+             same inputs, forward f32 atol 1e-4 / bf16 atol and rtol
+             2e-2, backward f32 atol 1e-4 / bf16 3e-2, kernel and plain
+             ms by CUDA events. (b) tools.make_shards over 256 seeded
+             224² PNGs in 4 class directories (--shuffle-seed 0
+             --verify), then tools.etl_smoke reading those shards: the
+             two-worker ring bitwise the in-process reader, a 2-epoch fit
+             on the card, the etl_* families. (c) tools.serve_smoke: 240
+             HTTP predicts on a zoo LeNet through a swap and a rollback,
+             zero failures, the first-run ledger, 504 and 429 — traced.
+             (d) tools.trace_report merging phase 12's serve trace and
+             (c)'s (one pid: two tracks after the remap) and filtering
+             one of phase 12's trace ids. (e) examples 01, 03, 04, 13 and
+             14 at tests/test_examples.py's reduced settings, each held
+             to the JAX example's check there, its result and wall
+             seconds printed; 14 trains through the ring of a one-rank
+             group, so the three kernels run. `launches_by_path` gains
+             "scripts" ((b)-(e)) and "flash_smoke" ((a), comparisons).
 
 Each path's counts are set to 0 just before it is driven and read just
 after. The run sets DL4J_CUDA_ZIP_STORED=1 for itself and every process
@@ -5050,7 +5073,8 @@ def telemetry_train(fa, tmp):
         cat_sum = sum(gp["categories"].values())
         if abs(cat_sum - gp["wall_s"]) > 1e-4 * max(1.0, gp["wall_s"]):
             raise AssertionError(f"goodput {mode}: {gp}")
-        tr = _tool("tools/trace_report.py", trace, "--out",
+        tr = _tool("-m", "deeplearning4j_tpu_torch.tools.trace_report",
+                   trace, "--out",
                    os.path.join(tmp, f"tele_{mode}_merged.json"))
         pr = json.loads(_tool("tools/perf_report.py", "--dir", rounds_dir,
                               "--ledger", ledger, "--json"))
@@ -5351,6 +5375,7 @@ def telemetry_serve(fa, tmp):
     finally:
         server.drain(timeout=30)
     n = monitor.save_trace(trace)
+    keep_file(trace, "telemetry_serve.json")    # phase 21 merges it
     _telemetry_reset()
     return {"predicts": TELE_PREDICTS, "streams": TELE_STREAMS,
             "tokens_per_stream": TELE_TOKENS,
@@ -9134,8 +9159,8 @@ APPS_K = 10
 APPS_LLOYD = 10              # (a): Lloyd iterations (the default 100, cut)
 APPS_TILE = 1024
 APPS_PERPLEXITY = 30.0       # k = 90 neighbours
-APPS_EXACT_ITERS = 50        # (b): of the default 500, cut
-APPS_BH_ITERS = 20           # (c): host Barnes-Hut iterations
+APPS_EXACT_ITERS = 25        # (b): of the default 500, cut (50 to PR 21)
+APPS_BH_ITERS = 10           # (c): host Barnes-Hut iterations (20 to PR 21)
 APPS_SMALL = 10000           # (c)'s second timing and (d)'s exact Tsne
 APPS_PCA_INIT = False        # (b), (c): the seeded Gaussian start; the PCA
                              # start's numpy SVD of 70,000 x 784 took
@@ -9148,7 +9173,8 @@ APPS_BH_Z_REL = 0.02         # (c): the bound of test_bhtsne.py:126
 APPS_PURITY = 0.95           # (d): the bound of test_bhtsne.py:87
 APPS_P_ROWS = 256            # (d): conditional P rows held against the CPU
 NN_ROWS, NN_DIM, NN_K = 71290, 300, 10    # (e): phase 18's vocabulary size
-NN_NEW, NN_INDEXED = 5, 3   # (e): queries, each ~0.3 s in 300 dimensions
+NN_NEW, NN_INDEXED = 3, 2   # (e): queries, each ~0.3 s in 300 dimensions
+                             # (5 and 3 to PR 21)
 NN_INSERTS, NN_AFTER = 256, 1
 LSH_BITS, LSH_TABLES = 16, 4
 KD_QUERIES = 200
@@ -9324,7 +9350,8 @@ def apps_exact(X):
     """(b): BarnesHutTsne(theta=0) at 70,000 points: the affinity graph on
     the card, one tile of it held against the CPU, one gradient
     evaluation's sampled rows against the CPU (repulsion and gradient)
-    and its Z against f64, with its peak memory, then 50 iterations."""
+    and its Z against f64, with its peak memory, then APPS_EXACT_ITERS
+    iterations."""
     from deeplearning4j_tpu_torch.manifold import BarnesHutTsne, bhtsne
     n, dev = len(X), torch.device("cuda")
     est = BarnesHutTsne(theta=0.0, perplexity=APPS_PERPLEXITY,
@@ -9442,9 +9469,9 @@ def apps_exact(X):
 
 def apps_barnes_hut(X, Y_exact, z_exact, exact):
     """(c): BarnesHutTsne(theta=0.5) at 70,000 points: the affinity on the
-    card, 20 host iterations through the native sp-tree; its Z at (b)'s Y
-    against (b)'s exact Z; BH against the exact pass at 70,000 and
-    10,000 points."""
+    card, APPS_BH_ITERS host iterations through the native sp-tree; its
+    Z at (b)'s Y against (b)'s exact Z; BH against the exact pass at
+    70,000 and 10,000 points."""
     from deeplearning4j_tpu_torch import native
     from deeplearning4j_tpu_torch.manifold import BarnesHutTsne, bhtsne
     from deeplearning4j_tpu_torch.manifold.sptree import bh_repulsion
@@ -9802,6 +9829,200 @@ def apps(fa, gpu):
     return row
 
 
+
+# ------------------------------------------------------- phase 21: scripts
+SCRIPTS_BUDGET_S = 45.0
+# make_shards' input: seeded PNGs in class directories, at ImageNet's
+# 224² (the tool's default height and width)
+SCRIPTS_IMAGES, SCRIPTS_HW, SCRIPTS_CLASSES = 256, 224, 4
+#: the examples the phase runs, at tests/test_examples.py's reduced
+#: settings, each with the JAX example's result check there
+SCRIPTS_EXAMPLES = (
+    ("01_quickstart_mlp", dict(epochs=15), "accuracy > 0.9",
+     lambda r: r > 0.9),
+    ("03_cnn_digits", dict(epochs=2), "holdout accuracy > 0.7",
+     lambda r: r > 0.7),
+    ("04_char_lstm", dict(epochs=30, units=32), "41 characters sampled",
+     lambda r: len(r) == 41),
+    ("13_custom_layer", dict(epochs=30), "accuracy > 0.9",
+     lambda r: r > 0.9),
+    ("14_long_context_ring", dict(epochs=4),
+     "the score falls (asserted in the example)",
+     lambda r: math.isfinite(r)),
+)
+_KEEP_DIR: list = []
+
+
+def keep_file(path, name):
+    """A copy of `path` in the run's keep directory (a phase's temporary
+    directory goes with the phase): the files a later phase reads."""
+    import shutil
+    if not _KEEP_DIR:
+        _KEEP_DIR.append(tempfile.mkdtemp(prefix="chip_smoke_keep_"))
+    dst = os.path.join(_KEEP_DIR[0], name)
+    shutil.copyfile(path, dst)
+    return dst
+
+
+def _captured(fn, *args):
+    """(fn(*args), its stdout): a tool's report line kept for the row."""
+    import contextlib
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def _seeded_image_tree(root):
+    """SCRIPTS_IMAGES seeded RGB PNGs of SCRIPTS_HW², SCRIPTS_CLASSES class
+    directories (the ImageRecordReader layout make_shards reads)."""
+    from PIL import Image
+    rs = np.random.RandomState(21)
+    for i in range(SCRIPTS_IMAGES):
+        d = os.path.join(root, f"class{i % SCRIPTS_CLASSES}")
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray(rs.randint(0, 256, (SCRIPTS_HW, SCRIPTS_HW, 3),
+                                   dtype=np.uint8)).save(
+            os.path.join(d, f"{i:04d}.png"), compress_level=1)
+
+
+def scripts(fa, gpu, tmp):
+    """Phase 21: the user scripts on the card (the examples and tools
+    under deeplearning4j_tpu_torch/{examples,tools})."""
+    import importlib
+    import shutil
+
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.tools import (
+        etl_smoke, flash_smoke, make_shards, serve_smoke, trace_report,
+    )
+    t_phase = time.perf_counter()
+    row = {"phase": "scripts", "gpu": gpu}
+
+    # (a) flash_smoke: the three kernels against their plain versions
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    rep, _ = _captured(flash_smoke.run, "cuda")
+    row["flash_smoke"] = {
+        "seconds": time.perf_counter() - t0, "ok": rep["ok"],
+        "failures": rep["failures"], "launches": rep["launches"],
+        "cases": [{k: c.get(k) for k in ("kind", "case", "dtype",
+                                         "max_abs_err", "tol", "ok", "ms",
+                                         "plain_ms")}
+                  for c in rep["cases"]]}
+    emit({"phase": "scripts_flash_smoke", "gpu": gpu, **row["flash_smoke"]})
+    if not rep["ok"] or not all(rep["launches"][k] > 0 for k in KERNELS):
+        raise AssertionError(f"flash_smoke: {rep['failures']} "
+                             f"{rep['launches']}")
+
+    # the scripts' own path from here: the counts from 0
+    for k in KERNELS:
+        fa.KERNEL_LAUNCHES[k] = 0
+    # (b) make_shards over seeded images, then etl_smoke reading them
+    t0 = time.perf_counter()
+    imgs, shards = os.path.join(tmp, "images"), os.path.join(tmp, "shards")
+    _seeded_image_tree(imgs)
+    made_s = time.perf_counter() - t0
+    rc, out = _captured(make_shards.main, [
+        "--out", shards, "--image-dir", imgs, "--height", str(SCRIPTS_HW),
+        "--width", str(SCRIPTS_HW), "--channels", "3", "--shuffle-seed",
+        "0", "--verify"])
+    shard_rep = json.loads(out.strip().splitlines()[-1])
+    if rc != 0 or shard_rep["n_records"] != SCRIPTS_IMAGES \
+            or shard_rep["verified"] is not True:
+        raise AssertionError(f"make_shards: {rc} {shard_rep}")
+    row["make_shards"] = dict(shard_rep, images_written_s=made_s,
+                              seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    etl, _ = _captured(etl_smoke.run, "cuda", shards)
+    row["etl_smoke"] = dict(etl, seconds=time.perf_counter() - t0)
+    if not etl["ok"]:
+        raise AssertionError(f"etl_smoke: {etl}")
+    emit({"phase": "scripts_data", "gpu": gpu,
+          "make_shards": row["make_shards"], "etl_smoke": row["etl_smoke"]})
+
+    # (c) serve_smoke, traced: its spans are the second trace segment
+    _telemetry_reset()
+    monitor.enable_tracing()
+    t0 = time.perf_counter()
+    rc, out = _captured(serve_smoke.main, ["--device", "cuda"])
+    seg = os.path.join(tmp, "serve_smoke.json")
+    monitor.save_trace(seg)
+    _telemetry_reset()
+    serve_rep = json.loads(out[out.index("{"):])
+    row["serve_smoke"] = dict(serve_rep, seconds=time.perf_counter() - t0)
+    emit({"phase": "scripts_serve_smoke", "gpu": gpu, **row["serve_smoke"]})
+    if rc != 0:
+        raise AssertionError(f"serve_smoke: {serve_rep['failures']}")
+
+    # (d) trace_report: phase 12's server segment and (c)'s, one process
+    # of the same pid, merged onto two tracks; one request's spans
+    t0 = time.perf_counter()
+    tele = os.path.join(_KEEP_DIR[0], "telemetry_serve.json") \
+        if _KEEP_DIR else None
+    if tele is None or not os.path.exists(tele):
+        raise AssertionError("phase 12 left no serve trace segment")
+    with open(tele) as f:
+        tids = [e["args"]["trace_id"] for e in json.load(f)["traceEvents"]
+                if e.get("ph") == "X" and (e.get("args") or {}).get(
+                    "trace_id")]
+    merged = os.path.join(tmp, "merged.json")
+    rc, out = _captured(trace_report.main, [
+        "--out", merged, f"telemetry={tele}", f"serve_smoke={seg}",
+        "--trace-id", tids[0]])
+    full = trace_report.merge_trace_files([("telemetry", tele),
+                                           ("serve_smoke", seg)])
+    tracks = [e for e in full["traceEvents"]
+              if e.get("ph") == "M" and e.get("name") == "process_name"]
+    with open(merged) as f:
+        picked = trace_report.events_for_trace(json.load(f), tids[0])
+    row["trace_report"] = {
+        "segments": 2, "events": len(full["traceEvents"]),
+        "process_tracks": len(tracks), "trace_id": tids[0],
+        "trace_spans": len(picked), "summary": out.strip().splitlines(),
+        "seconds": time.perf_counter() - t0}
+    if rc != 0 or len(tracks) < 2 or not picked:
+        raise AssertionError(f"trace_report: {rc} {row['trace_report']}")
+    shutil.rmtree(_KEEP_DIR.pop(), ignore_errors=True)
+
+    # (e) the examples, each held to the JAX example's result
+    row["examples"] = {}
+    for name, kw, want, check in SCRIPTS_EXAMPLES:
+        mod = importlib.import_module(
+            f"deeplearning4j_tpu_torch.examples.{name}")
+        if "tmpdir" in mod.main.__code__.co_varnames:
+            kw = dict(kw, tmpdir=tmp)
+        before = dict(fa.KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        result, _ = _captured(lambda: mod.main(device="cuda", **kw))
+        secs = time.perf_counter() - t0
+        ex = {"result": result if isinstance(result, (int, float, str))
+              else float(result), "check": want, "ok": bool(check(result)),
+              "seconds": secs, "kwargs": kw,
+              "flash_launches": {k: fa.KERNEL_LAUNCHES[k] - before[k]
+                                 for k in KERNELS}}
+        row["examples"][name] = ex
+        emit({"phase": "scripts_example", "gpu": gpu, "example": name,
+              **ex})
+        if not ex["ok"]:
+            raise AssertionError(f"example {name}: {result!r} ({want})")
+    row["launches"] = dict(fa.KERNEL_LAUNCHES)
+    if not all(row["launches"][k] > 0 for k in KERNELS):
+        raise AssertionError(f"a kernel of the scripts path never "
+                             f"launched: {row['launches']}")
+    row["seconds"] = time.perf_counter() - t_phase
+    row["budget_s"] = SCRIPTS_BUDGET_S
+    emit({k: v for k, v in row.items()
+          if k not in ("flash_smoke", "etl_smoke", "make_shards",
+                       "serve_smoke", "examples")})
+    if row["seconds"] > SCRIPTS_BUDGET_S:
+        raise AssertionError(f"phase 21 took {row['seconds']:.1f} s "
+                             f"> {SCRIPTS_BUDGET_S}")
+    return {"launches": row["launches"],
+            "flash_smoke_launches": row["flash_smoke"]["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -9864,6 +10085,7 @@ def main(argv=None) -> int:
     nlp_run = run_phase("nlp", nlp, fa, gpu)
     interop_run = run_phase("interop", interop, fa, gpu)
     apps_run = run_phase("apps", apps, fa, gpu)
+    scripts_run = run_phase("scripts", scripts, fa, gpu, tmp=True)
     timed = ("kernel_ms", "kernel_device_ms", "plain_ms", "library_ms",
              "library_device_ms", "bound_ms")
     table = [{
@@ -9902,7 +10124,11 @@ def main(argv=None) -> int:
                              "ui": interop_run["flash_launches"][
                                  "flash_fwd"],
                              "apps": apps_run["flash_launches"][
-                                 "flash_fwd"]},
+                                 "flash_fwd"],
+                             "scripts": scripts_run["launches"][
+                                 "flash_fwd"],
+                             "flash_smoke": scripts_run[
+                                 "flash_smoke_launches"]["flash_fwd"]},
         "max_abs_err": errs["main_path_f32_causal"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -9945,7 +10171,10 @@ def main(argv=None) -> int:
                                  "interop": interop_run[
                                      "interop_flash_launches"][name],
                                  "ui": interop_run["flash_launches"][name],
-                                 "apps": apps_run["flash_launches"][name]},
+                                 "apps": apps_run["flash_launches"][name],
+                                 "scripts": scripts_run["launches"][name],
+                                 "flash_smoke": scripts_run[
+                                     "flash_smoke_launches"][name]},
             "max_abs_err": max(bwd_errs["main_path_f32_causal"][g]
                                for g in ((grad,) if grad == "dq"
                                          else ("dk", "dv"))),

@@ -1,5 +1,6 @@
 """Load generator for the serving HTTP surface: the parts of the JAX
-package's `tools/serve_loadgen.py` that the fleet drills drive.
+package's `tools/serve_loadgen.py` that the fleet drills and the decode
+smoke drive.
 
 Closed loop (`LoadGen.run_closed`): N worker threads each keep one
 predict in flight. A closed-loop client is a *polite* client: on 429/503
@@ -10,6 +11,15 @@ open-loop schedule, each step at its own fixed arrival rate, with an
 optional sampler of the router's ``/v1/fleet`` (ready replicas over
 time — the autoscaling drill's evidence). Open-loop requests never
 retry: an offered request is an offered request.
+
+Decode (``args.mode == "decode"``): each logical request is one SSE
+stream of the generate surface, consumed token by token; the report adds
+TTFT, inter-token gaps and tokens/sec, overall and per class, and with a
+``prefix_mix`` (``{"shared": 3, "unique": 1}``: shared prompts open with
+one common ``shared_prefix_len`` prefix) the prefix cache's hit rate and
+hot/cold TTFT, per replica when a router names it (``X-Served-By``). A
+stream truncated before its ``done`` event counts as a transport
+failure, never as success.
 
 Priority classes: a ``priority_mix`` like ``{"interactive": 3, "batch":
 1}`` tags requests with ``X-Priority`` headers in a deterministic
@@ -100,6 +110,20 @@ def _latency_stats(lat_s):
     }
 
 
+def _spec_cols(st):
+    """Speculative-decoding columns from summed done-event counters:
+    acceptance rate (accepted / proposed draft tokens) and tokens per
+    verify round (each round emits accepted + 1)."""
+    return {
+        "spec_streams": st["streams"],
+        "spec_acceptance_rate": round(st["accepted"] / st["proposed"], 4)
+        if st["proposed"] else None,
+        "spec_accepted_per_step": round(
+            (st["accepted"] + st["rounds"]) / st["rounds"], 4)
+        if st["rounds"] else None,
+    }
+
+
 def parse_priority_mix(spec):
     """``interactive=3,batch=1`` -> {"interactive": 3, "batch": 1}."""
     if not spec:
@@ -123,8 +147,10 @@ def parse_priority_mix(spec):
 class LoadGen:
     def __init__(self, args, input_shape):
         self.args = args
+        self.mode = getattr(args, "mode", "predict") or "predict"
         self.input_shape = tuple(input_shape or ())
-        self.url = (f"{args.url}/v1/models/{args.model}/predict"
+        verb = "generate" if self.mode == "decode" else "predict"
+        self.url = (f"{args.url}/v1/models/{args.model}/{verb}"
                     + (f"?deadline_ms={args.deadline_ms}"
                        if args.deadline_ms else ""))
         self.lock = threading.Lock()
@@ -140,18 +166,79 @@ class LoadGen:
         vocab = getattr(args, "vocab", None)
         self.npy = bool(getattr(args, "npy", False))
         self.bodies = []
-        for b in (args.batch_sizes or [1]):
-            if vocab:
-                x = self.rs.randint(0, int(vocab), (b, *self.input_shape))
+        if self.mode == "decode":
+            self.vocab = int(getattr(args, "vocab", None) or 0)
+            if self.vocab < 2:
+                raise SystemExit("--mode decode needs --vocab (or a "
+                                 "servable describing vocab_size)")
+            # shared/unique-prefix workload: a deterministic weighted
+            # cycle of prefix classes; "shared" prompts open with ONE
+            # common prefix (the system-prompt shape the server's KV
+            # prefix cache exists for) + a per-request unique suffix,
+            # every other class gets a fully unique prompt
+            self.prefix_mix = dict(getattr(args, "prefix_mix", None)
+                                   or {})
+            self.prefix_cycle = [c for c, w in sorted(
+                self.prefix_mix.items()) for _ in range(w)] or [None]
+            shared_len = int(getattr(args, "shared_prefix_len", None)
+                             or (2 * args.prompt_len) // 3)
+            if self.prefix_mix:
+                if not 0 < shared_len < args.prompt_len:
+                    raise SystemExit(
+                        f"--shared-prefix-len must be in (0, "
+                        f"{args.prompt_len}); got {shared_len}")
+                shared_prefix = self.rs.randint(
+                    0, self.vocab, shared_len).tolist()
+
+                def prompt_for(i):
+                    if self.prefix_cycle[i % len(self.prefix_cycle)] \
+                            == "shared":
+                        return shared_prefix + self.rs.randint(
+                            0, self.vocab,
+                            args.prompt_len - shared_len).tolist()
+                    return self.rs.randint(
+                        0, self.vocab, args.prompt_len).tolist()
+
+                n_bodies = args.requests
             else:
-                x = self.rs.rand(b, *self.input_shape)
-            x = x.astype("float32")
-            if self.npy:
-                buf = io.BytesIO()
-                np.save(buf, x)
-                self.bodies.append(buf.getvalue())
-            else:
-                self.bodies.append(json.dumps({"inputs": x.tolist()}).encode())
+                def prompt_for(i):
+                    return self.rs.randint(
+                        0, self.vocab, args.prompt_len).tolist()
+
+                n_bodies = 16           # a cycle of distinct prompts
+            self.bodies = [
+                json.dumps({
+                    "prompt": prompt_for(i),
+                    "max_tokens": args.max_new_tokens,
+                    "temperature": args.temperature,
+                    "top_k": args.top_k,
+                    "stream": True,
+                }).encode()
+                for i in range(n_bodies)
+            ]
+            self.ttfts = {}             # class -> [seconds]
+            self.itls = {}              # class -> [seconds] between tokens
+            self.tokens = 0
+            self.prefix_stats = {}      # prefix class -> counters/ttfts
+            self.replica_stats = {}     # X-Served-By -> requests/hits
+            # speculative-decoding counters per class, read off the done
+            # event (0/0/0 streams on a plain servable stay comparable)
+            self.spec_stats = {}        # class -> proposed/accepted/rounds
+        else:
+            for b in (args.batch_sizes or [1]):
+                if vocab:
+                    x = self.rs.randint(0, int(vocab),
+                                        (b, *self.input_shape))
+                else:
+                    x = self.rs.rand(b, *self.input_shape)
+                x = x.astype("float32")
+                if self.npy:
+                    buf = io.BytesIO()
+                    np.save(buf, x)
+                    self.bodies.append(buf.getvalue())
+                else:
+                    self.bodies.append(
+                        json.dumps({"inputs": x.tolist()}).encode())
         # deterministic weighted cycle of priority classes (None = no
         # header) so runs are reproducible request-for-request
         mix = args.priority_mix or {}
@@ -190,7 +277,63 @@ class LoadGen:
             code = 0
         return code, time.perf_counter() - t0, retry_after
 
-    def _record(self, i: int, code, dt: float, trace_id=None):
+    def _send_decode(self, i: int, traceparent=None):
+        """One token-stream attempt: consume the SSE response as tokens
+        arrive, measuring TTFT and every inter-token gap. A stream that
+        never reaches its ``done`` event counts as a transport failure —
+        truncated generations must not read as success."""
+        body = self.bodies[i % len(self.bodies)]
+        headers = {"Content-Type": "application/json"}
+        cls = self._class_of(i)
+        if cls is not None:
+            headers["X-Priority"] = cls
+        if traceparent is not None:
+            headers["traceparent"] = traceparent
+        t0 = time.perf_counter()
+        retry_after = None
+        ttft, itls, ntok, last, done = None, [], 0, None, False
+        cached = spec = served = None
+        try:
+            r = urllib.request.urlopen(urllib.request.Request(
+                self.url, data=body, headers=headers),
+                timeout=self.args.timeout_s)
+            # fleet mode: the router names the replica that took the
+            # stream — the per-replica cache-hit split keys off it
+            served = r.headers.get("X-Served-By")
+            for line in r:
+                if not line.startswith(b"data: "):
+                    continue
+                ev = json.loads(line[6:])
+                now = time.perf_counter()
+                if "token" in ev:
+                    ntok += 1
+                    if ttft is None:
+                        ttft = now - t0
+                    else:
+                        itls.append(now - last)
+                    last = now
+                elif ev.get("done"):
+                    done = True
+                    cached = ev.get("cached_tokens")
+                    if ev.get("spec_rounds") is not None:
+                        spec = (int(ev.get("spec_proposed") or 0),
+                                int(ev.get("spec_accepted") or 0),
+                                int(ev.get("spec_rounds") or 0))
+                elif "error" in ev:
+                    break
+            code = r.status if done else 0
+        except urllib.error.HTTPError as e:
+            code = e.code
+            retry_after = e.headers.get("Retry-After")
+            e.read()
+        except Exception:               # connection refused/reset, timeout
+            code = 0
+        return (code, time.perf_counter() - t0, retry_after, ttft, itls,
+                ntok, cached, spec, served)
+
+    def _record(self, i: int, code, dt: float, ttft=None, itls=(),
+                ntok: int = 0, trace_id=None, cached=None, spec=None,
+                served=None):
         cls = self._class_of(i) or "default"
         kind = classify(code if code != 0 else "transport")
         with self.lock:
@@ -203,10 +346,56 @@ class LoadGen:
                 self.latencies.setdefault(cls, []).append(dt)
                 if trace_id is not None:
                     self.traced.setdefault(cls, []).append((dt, trace_id))
+                if self.mode == "decode":
+                    self.tokens += ntok
+                    if ttft is not None:
+                        self.ttfts.setdefault(cls, []).append(ttft)
+                    if itls:
+                        self.itls.setdefault(cls, []).extend(itls)
+                    if spec is not None:
+                        st = self.spec_stats.setdefault(
+                            cls, {"streams": 0, "proposed": 0,
+                                  "accepted": 0, "rounds": 0})
+                        st["streams"] += 1
+                        st["proposed"] += spec[0]
+                        st["accepted"] += spec[1]
+                        st["rounds"] += spec[2]
+                    if self.prefix_mix and cached is not None:
+                        # hot = the server's prefix cache served >= one
+                        # full page of this prompt's KV; split TTFT by
+                        # it so the report shows what a cache hit buys
+                        pcls = self.prefix_cycle[
+                            i % len(self.prefix_cycle)] or "unique"
+                        st = self.prefix_stats.setdefault(
+                            pcls, {"requests": 0, "hits": 0,
+                                   "ttft_hot": [], "ttft_cold": []})
+                        st["requests"] += 1
+                        hot = cached > 0
+                        st["hits"] += int(hot)
+                        if ttft is not None:
+                            st["ttft_hot" if hot
+                               else "ttft_cold"].append(ttft)
+                        if served is not None:
+                            # fleet view: WHERE did the hits land —
+                            # prefix-affinity routing concentrates the
+                            # shared class's hits on the owner replica
+                            rst = self.replica_stats.setdefault(
+                                served, {"requests": 0, "hits": 0})
+                            rst["requests"] += 1
+                            rst["hits"] += int(hot)
 
     def _attempt(self, i: int, traceparent=None, trace_id=None):
-        code, dt, retry_after = self._send(i, traceparent)
-        self._record(i, code, dt, trace_id=trace_id)
+        """One wire attempt in the configured workload; returns
+        (code, retry_after)."""
+        if self.mode == "decode":
+            (code, dt, retry_after, ttft, itls, ntok, cached,
+             spec, served) = self._send_decode(i, traceparent)
+            self._record(i, code, dt, ttft=ttft, itls=itls, ntok=ntok,
+                         trace_id=trace_id, cached=cached, spec=spec,
+                         served=served)
+        else:
+            code, dt, retry_after = self._send(i, traceparent)
+            self._record(i, code, dt, trace_id=trace_id)
         return code, retry_after
 
     def one_closed(self, i: int) -> bool:
@@ -357,7 +546,7 @@ class LoadGen:
         rep = {
             "mode": "ramp" if ramp
             else ("open" if getattr(self.args, "rate", None) else "closed"),
-            "workload": "predict",
+            "workload": self.mode,
             # issued, not args.requests: callers accumulate several
             # run_closed() passes into one LoadGen/report
             "requests": self.issued,
@@ -383,10 +572,73 @@ class LoadGen:
                       for lat, t in sorted(pairs, reverse=True)
                       [:self.slow_k]]
                 for cls, pairs in sorted(self.traced.items())}
+        if self.mode == "decode":
+            all_ttft = [v for xs in self.ttfts.values() for v in xs]
+            all_itl = [v for xs in self.itls.values() for v in xs]
+            rep["decode"] = {
+                "streams_ok": ok,
+                "tokens": self.tokens,
+                # goodput in the unit decode is bought for: generated
+                # tokens per wall second across all concurrent streams
+                "decode_tokens_sec": round(self.tokens / wall, 2)
+                if wall > 0 else None,
+                "ttft_ms": _latency_stats(all_ttft),
+                "inter_token_ms": _latency_stats(all_itl),
+            }
+            if self.spec_stats:
+                tot = {"streams": 0, "proposed": 0, "accepted": 0,
+                       "rounds": 0}
+                for st in self.spec_stats.values():
+                    for key in tot:
+                        tot[key] += st[key]
+                rep["decode"].update(_spec_cols(tot))
+            if self.prefix_mix:
+                total = sum(s["requests"]
+                            for s in self.prefix_stats.values())
+                hits = sum(s["hits"] for s in self.prefix_stats.values())
+                hot = [t for s in self.prefix_stats.values()
+                       for t in s["ttft_hot"]]
+                cold = [t for s in self.prefix_stats.values()
+                        for t in s["ttft_cold"]]
+                rep["prefix"] = {
+                    "cache_hit_rate": round(hits / total, 4)
+                    if total else None,
+                    "ttft_hot_ms": _latency_stats(hot),
+                    "ttft_cold_ms": _latency_stats(cold),
+                    "per_class": {
+                        pcls: {
+                            "requests": s["requests"],
+                            "cache_hit_rate": round(
+                                s["hits"] / s["requests"], 4)
+                            if s["requests"] else None,
+                            "ttft_hot_ms": _latency_stats(s["ttft_hot"]),
+                            "ttft_cold_ms": _latency_stats(
+                                s["ttft_cold"]),
+                        } for pcls, s in sorted(
+                            self.prefix_stats.items())},
+                }
+                if self.replica_stats:
+                    # which replica the hits landed on (fleet runs via
+                    # the router's X-Served-By header): affinity routing
+                    # shows up as hit rates concentrated on owners
+                    rep["prefix"]["per_replica"] = {
+                        name: {"requests": s["requests"],
+                               "cache_hit_rate": round(
+                                   s["hits"] / s["requests"], 4)
+                               if s["requests"] else None}
+                        for name, s in sorted(self.replica_stats.items())}
         if len(self.class_cycle) > 1 or self.class_cycle[0] is not None:
             rep["per_class"] = {
                 cls: {"latency_ms": _latency_stats(
                           self.latencies.get(cls, [])),
                       "outcomes": dict(sorted(counts.items()))}
                 for cls, counts in sorted(self.class_codes.items())}
+            if self.mode == "decode":
+                for cls, sub in rep["per_class"].items():
+                    sub["ttft_ms"] = _latency_stats(
+                        self.ttfts.get(cls, []))
+                    sub["inter_token_ms"] = _latency_stats(
+                        self.itls.get(cls, []))
+                    if cls in self.spec_stats:
+                        sub.update(_spec_cols(self.spec_stats[cls]))
         return rep

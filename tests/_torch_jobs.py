@@ -726,3 +726,11 @@ def stats_plan(rank, world, zip_path, X, Y, batch, plan):
     return [{g: r.data[g] for g in ("gradients", "updates")}
             for r in st.get_all_updates_after("p", "StatsListener",
                                               "worker-0", 0)]
+
+
+def run_example(rank, world, name, kwargs=None):
+    """One of the port's examples (`deeplearning4j_tpu_torch/examples/`)
+    run by every rank of the group, on the CPU: its result."""
+    import importlib
+    mod = importlib.import_module(f"deeplearning4j_tpu_torch.examples.{name}")
+    return float(mod.main(device="cpu", **(kwargs or {})))

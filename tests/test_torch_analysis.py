@@ -55,6 +55,13 @@ def test_port_tree_is_clean():
     assert not res.all_unsuppressed, f"graftlint findings:\n{rendered}"
     assert res.files > 100
     assert len(res.suppressed) >= 1
+    # the user scripts are in the gated tree: every example and tool
+    scanned = {os.path.relpath(p, PORT)
+               for p in analysis.iter_py_files([PORT])}
+    for sub in ("examples", "tools"):
+        want = {os.path.join(sub, f) for f in os.listdir(
+            os.path.join(PORT, sub)) if f.endswith(".py")}
+        assert len(want) >= 12 and want <= scanned, sub
 
 
 # ------------------------------------------- the jax profile = the reference

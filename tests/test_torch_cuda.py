@@ -82,7 +82,15 @@ two devices, summed in other orders). ResNet's layers: f32 with TF32
 off, outputs and gradients within 1e-4 of each tensor's largest value
 (cuDNN against the CPU's convolutions). The small graph runs in f64:
 training-mode values within 1e-10 (scores) and 1e-8 (gradients).
+The user scripts: each example that needs no scikit-learn, keras or
+h5py asked for no device runs on the card and reaches its JAX example's
+result (tests/test_examples.py's settings), 09 and 10 raise naming a
+missing library, and chaos_fit, goodput_report, telemetry_smoke,
+etl_smoke and mfu_probe run on the card by default and exit 0.
 """
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -2185,3 +2193,85 @@ def test_clustering_and_tsne_default_to_the_card(cuda):
         Y = est.fit_transform(X)
         assert isinstance(Y, np.ndarray) and Y.shape == (120, 2)
         assert np.all(np.isfinite(Y)) and np.isfinite(est.kl_divergence_)
+
+
+# ------------------------------------------------------------ user scripts
+# the examples that run where scikit-learn, keras and h5py are missing,
+# at tests/test_examples.py's reduced settings, with that file's checks
+_CARD_EXAMPLES = (
+    ("01_quickstart_mlp", dict(epochs=15), lambda r: r > 0.9),
+    ("02_computation_graph", dict(epochs=15), lambda r: r > 0.85),
+    ("03_cnn_digits", dict(epochs=2), lambda r: r > 0.7),
+    ("04_char_lstm", dict(epochs=30, units=32), lambda r: len(r) == 41),
+    ("05_autoencoder_anomaly", dict(epochs=40), lambda r: r > 0.8),
+    ("06_early_stopping", dict(max_epochs=40),
+     lambda r: r.best_model is not None),
+    ("07_word2vec", dict(epochs=4),
+     lambda r: "queen" in r.words_nearest("king", top_n=3)),
+    ("08_parallel_training", dict(epochs=8), lambda r: r > 0.9),
+    ("11_transfer_learning", dict(), lambda r: r > 0.8),
+    ("12_tsne_visualization", dict(n=300, max_iter=250),
+     lambda r: r > 0.75),
+    ("13_custom_layer", dict(epochs=30), lambda r: r > 0.9),
+    ("14_long_context_ring", dict(epochs=4), lambda r: np.isfinite(r)),
+    ("15_dl4j_artifact_migration", dict(), lambda r: r > 0.9),
+    ("16_zero_fsdp_training", dict(epochs=8), lambda r: r > 0.9),
+    ("17_device_norm_image_pipeline", dict(epochs=10), lambda r: r > 0.9),
+    ("18_gspmd_sharding_plan", dict(epochs=8), lambda r: r > 0.9),
+)
+
+
+@pytest.mark.parametrize("name,kwargs,check", _CARD_EXAMPLES,
+                         ids=[c[0] for c in _CARD_EXAMPLES])
+def test_example_on_the_card_by_default(cuda, name, kwargs, check,
+                                        tmp_path):
+    """Each example asked for no device runs on the card and reaches the
+    JAX example's result."""
+    import importlib
+    mod = importlib.import_module(f"deeplearning4j_tpu_torch.examples.{name}")
+    if "tmpdir" in mod.main.__code__.co_varnames:
+        kwargs = dict(kwargs, tmpdir=str(tmp_path))
+    result = mod.main(**kwargs)
+    assert check(result), result
+
+
+def test_missing_libraries_make_examples_09_and_10_say_so(cuda, tmp_path):
+    """Where keras, h5py or scikit-learn is missing (the card machine),
+    examples 09 and 10 raise naming what they need."""
+    import importlib
+    import importlib.util
+    need = {"09_keras_import": ("keras", "h5py"),
+            "10_hyperparameter_search": ("sklearn",)}
+    for name, libs in need.items():
+        if all(importlib.util.find_spec(m) for m in libs):
+            continue
+        mod = importlib.import_module(
+            f"deeplearning4j_tpu_torch.examples.{name}")
+        kw = {"tmpdir": str(tmp_path)} if name.startswith("09") else {}
+        with pytest.raises(RuntimeError, match="|".join(
+                "scikit-learn" if m == "sklearn" else m for m in libs)):
+            mod.main(**kw)
+
+
+@pytest.mark.parametrize("name,args", [
+    ("chaos_fit", ("--seed", "1")),
+    ("goodput_report", ()),
+    ("telemetry_smoke", ()),
+    ("etl_smoke", ()),
+    ("mfu_probe", ()),
+])
+def test_tool_on_the_card_by_default(cuda, name, args):
+    """The tools with no --device run on the card and exit 0."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", f"deeplearning4j_tpu_torch.tools.{name}",
+         *args], cwd=repo, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=repo))
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    if name == "mfu_probe":
+        rows = [json.loads(x) for x in proc.stdout.splitlines()
+                if x.startswith("{")]
+        assert all(r["on_gpu"] for r in rows[:-1])
+        print(json.dumps(rows[:-1]))

@@ -59,6 +59,15 @@ def test_port_imports_nothing_of_jax():
     assert {k: v for k, v in bad.items() if v} == {}
 
 
+def test_the_scan_covers_the_examples_and_the_tools():
+    """The user scripts (`examples/`, `tools/`) are port files like any
+    other: each of them is in the banned-import scan."""
+    for sub in ("examples", "tools"):
+        files = sorted((PKG / sub).glob("*.py"))
+        assert len(files) >= 13, sub
+        assert set(files) <= set(_port_sources())
+
+
 def test_no_library_attention_or_compile_in_the_package():
     hits = []
     for path in sorted(PKG.rglob("*")):
