@@ -60,7 +60,10 @@ result line:
              slots, a profiled window of steps (launches per step, idle
              share, host time by operator), and the host-device
              synchronisations of a greedy and a sampling step (at most
-             one each: the sampled tokens' copy back).
+             one each: the sampled tokens' copy back). Every decode
+             program replays a CUDA graph captured in warm(): one replay
+             a step; each servable's programs, graph pool bytes and
+             capture seconds are reported.
 5. train   — the port's training path: the same full-width LM saved as a
              zip, and train.cli.main (`--mode single`, batch 4, 2 epochs
              of a seeded 32-sequence token set = 16 steps) in-process.
@@ -218,7 +221,14 @@ result line:
              exported from one and imported into the other, whose
              generate reports 1024 cached tokens and the first server's
              tokens; a corrupted blob answers 400 and the server still
-             serves; bytes and ms of each. `launches_by_path` gains
+             serves; bytes and ms of each. (f) Fault C.8: the decode
+             smoke's speculative A/B (`tools/decode_smoke.spec_ab`, its
+             1-layer 16-wide LM, 2 slots, @spec:draft=int8,k=12, 52
+             greedy streams of 120 tokens): both per-stream mean ITL
+             p99s, the acceptance, 0 mismatched streams, and the round
+             split into draft replay, verify replay and host ms beside a
+             plain step's ms (not gated on spec < plain: PERF.md §6, PR
+             23). `launches_by_path` gains
              "lm_ops": flash forward > 0 (the predict servable), dQ and
              dK/dV 0.
 11. data_plane — the shard data plane (no hand-written kernel: shards,
@@ -1481,6 +1491,7 @@ def time_decode_steps(engine, rs):
             engine.step()
         torch.cuda.synchronize()
         dev_ms, host_ms = [], []
+        replays0 = engine.graph_stats["replays"]
         for _ in range(32):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1491,6 +1502,7 @@ def time_decode_steps(engine, rs):
             end.synchronize()
             host_ms.append((time.perf_counter() - t0) * 1e3)
             dev_ms.append(start.elapsed_time(end))
+        replays = (engine.graph_stats["replays"] - replays0) / 32
         prof = profile_decode_steps(engine)
         syncs = {"greedy": count_syncs(engine.step)}
         engine._temps[slots[0]], engine._topks[slots[0]] = 1.0, 5
@@ -1500,10 +1512,30 @@ def time_decode_steps(engine, rs):
             engine.release_slot(slot)
     if any(n > 1 for n in syncs.values()):
         raise AssertionError(f"syncs per decode step: {syncs} (at most 1)")
+    if replays != 1:
+        raise AssertionError(f"{replays} graph replays a decode step")
     return {"active_slots": len(slots), "step_ms_p50":
             statistics.median(dev_ms), "step_ms_max": max(dev_ms),
             "step_host_ms_p50": statistics.median(host_ms),
+            "graph_replays_per_step": replays,
             "step_syncs": syncs, "step_profile": prof}
+
+
+def graph_report(engines) -> dict:
+    """Each engine's captured decode programs: how many, their memory
+    pool's bytes, and the capture seconds inside its warm-up."""
+    out = {}
+    for name, e in engines.items():
+        g = e.describe_graphs()
+        out[name] = {"programs": len(g["programs"]),
+                     "pool_bytes": g["pool_bytes"],
+                     "capture_s": g["capture_s"]}
+        if e.draft is not None:
+            dg = e.draft.describe_graphs()
+            out[name].update(draft_programs=len(dg["programs"]),
+                             draft_pool_bytes=dg["pool_bytes"],
+                             draft_capture_s=dg["capture_s"])
+    return out
 
 
 def generate(fa):
@@ -1632,6 +1664,7 @@ def generate(fa):
         row = {"phase": "generate", "source": LM_SOURCE, "slots": 4,
                "page_size": 16, "build_and_warm_s": build_s,
                "warmup_s": {n: lm.warmup_seconds for n, lm in lms.items()},
+               "graphs": graph_report(engines),
                "requests": len(results),
                "all_200": all(o["status"] == 200 for o in results),
                "tokens": sum(len(o["tokens"]) for o in results),
@@ -3908,6 +3941,7 @@ def lmops_swap(fa, url, registry, tmp, rs):
     if status != 200 or doc["active"]["version"] != 2:
         raise AssertionError(f"gen swap answered {status}: {doc}")
     gen_swap_s = doc["seconds"]
+    swapped = gen.scheduler.admitting_engine().describe_graphs()
     peak_two_versions = torch.cuda.max_memory_allocated()
     results, _ = box["streams"]
     v2_net = gen.model
@@ -3981,6 +4015,8 @@ def lmops_swap(fa, url, registry, tmp, rs):
         raise AssertionError(f"predict answers do not follow the swaps "
                              f"(v2 err {err2})")
     return {"gen_swap_s": gen_swap_s,
+            "gen_swap_capture_s": swapped["capture_s"],
+            "gen_swap_graph_pool_bytes": swapped["pool_bytes"],
             "gen_swap_post_s": t_swap_end - t_swap,
             "gen_rollback_s": rollback_s,
             "stream_versions": versions, "all_200": True,
@@ -4096,12 +4132,129 @@ def profile_spec_rounds(engine, rounds=3):
               or "memset" in e.name.lower()]
     busy = sum(e.us for e in events) / 1e3
     syncs = count_syncs(engine.spec_step)
-    return {"rounds": rounds, "round_ms": wall_ms / rounds,
+    split = spec_round_split(engine)
+    return {"rounds": rounds, "round_ms": wall_ms / rounds, **split,
             "kernel_launches_per_round": (len(events) - len(copies))
             / rounds if events else "not measured",
             "device_busy_ms_per_round": busy / rounds if events
             else "not measured",
+            "idle_share": max(0.0, 1.0 - busy / wall_ms) if events
+            else "not measured",
             "host_syncs_one_round": syncs}
+
+
+def spec_round_split(engine, rounds=16):
+    """`rounds` speculative rounds on `engine`'s live slots, each split
+    into the draft's propose and the target's verify (CUDA events around
+    each: the operands' copy and the graph's replay, device ms), the
+    round's wall ms by the host's clock (its one sync included), and the
+    host ms left (wall minus both); plus graph replays a round."""
+    d = engine.draft
+    marks = []
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((key, start, end))
+            return out
+        return run
+
+    d._propose = timed(d._propose, "draft")
+    engine._verify = timed(engine._verify, "verify")
+    replays0 = engine.graph_stats["replays"] + d.graph_stats["replays"]
+    try:
+        walls, events, parts = [], [], {"draft": [], "verify": []}
+        for _ in range(rounds):
+            marks.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            engine.spec_step()
+            end.record()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            end.synchronize()
+            events.append(start.elapsed_time(end))
+            for key, a, b in marks:
+                parts[key].append(a.elapsed_time(b))
+    finally:
+        del d._propose, engine._verify
+    replays = (engine.graph_stats["replays"] + d.graph_stats["replays"]
+               - replays0) / rounds
+    draft, verify = (statistics.median(parts[k]) for k in ("draft",
+                                                           "verify"))
+    wall = statistics.median(walls)
+    return {"round_wall_ms_p50": wall,
+            "round_event_ms_p50": statistics.median(events),
+            "draft_replay_ms_p50": draft,
+            "verify_replay_ms_p50": verify,
+            "round_host_ms_p50": wall - draft - verify,
+            "graph_replays_per_round": replays}
+
+
+def lmops_c8(rs):
+    """(f) Fault C.8 on the card: the decode smoke's speculative A/B
+    (`tools/decode_smoke.spec_ab`: its arch, 2 slots,
+    @spec:draft=int8,k=12, 52 greedy streams of 120 tokens after two
+    throwaway streams an arm), then the spec engine's round split and the
+    plain engine's step ms over two live slots, engine level."""
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.tools import decode_smoke
+    registry = ModelRegistry(device="cuda")
+    t0 = time.perf_counter()
+    try:
+        ab, failures = decode_smoke.spec_ab(registry)
+        ab_s = time.perf_counter() - t0
+        if ab["mismatched_streams"] or ab["acceptance_rate"] <= 0.5:
+            raise AssertionError(f"C.8 A/B: {failures}")
+        spec = registry.get("lm_spec").scheduler.admitting_engine()
+        base = registry.get("lm_spec_base").scheduler.admitting_engine()
+        slots = []
+        try:
+            for e in (spec, base):
+                for _ in range(2):
+                    p = rs.randint(0, 32, 8)
+                    info = e.admit_prompt(p)
+                    slots.append((e, info.slot))
+                    e.prefill(info.slot, p, 0.0, 0)
+                    if e is spec:
+                        e.draft.prefill(e._draft_slots[info.slot], p, 0.0, 0)
+            split = spec_round_split(spec, rounds=12)
+            step_ms = []
+            for _ in range(16):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t1 = time.perf_counter()
+                start.record()
+                base.step()
+                end.record()
+                end.synchronize()
+                step_ms.append(((time.perf_counter() - t1) * 1e3,
+                                start.elapsed_time(end)))
+        finally:
+            for e, slot in slots:
+                e.release_slot(slot)
+        first_runs = {n: registry.get(n).scheduler.admitting_engine()
+                      .request_path_first_runs
+                      for n in ("lm_spec", "lm_spec_base")}
+        if any(first_runs.values()):
+            raise AssertionError(f"C.8 A/B first runs: {first_runs}")
+    finally:
+        registry.shutdown(drain=False)
+    return {"arch": decode_smoke.SPEC_ARCH, "k": 12, "slots": 2, **ab,
+            "spec_over_plain": ab["itl_p99_ms"] / ab["base_itl_p99_ms"],
+            "gate_spec_below_plain": "not gated",
+            "smoke_failures": failures, "seconds": ab_s,
+            "round_split": split,
+            "plain_step_wall_ms_p50": statistics.median(
+                w for w, _ in step_ms),
+            "plain_step_event_ms_p50": statistics.median(
+                d for _, d in step_ms),
+            "request_path_first_runs": first_runs}
 
 
 def lmops_spec(url, registry, rs):
@@ -4184,6 +4337,8 @@ def lmops_spec(url, registry, rs):
             "accepted": st["accepted"], "fallbacks": st["fallbacks"],
             "host_syncs_per_round": syncs_per_round,
             "round_profile": prof, "rates": rates,
+            "graphs": graph_report({
+                "gen": gen.scheduler.admitting_engine(), "spec": eng}),
             "request_path_first_runs": first_runs}
 
 
@@ -4322,11 +4477,12 @@ def lm_ops(fa, tmp):
     finally:
         server.drain(timeout=30)
     disagg = lmops_disagg(rs)
+    c8 = lmops_c8(rs)
     launches = dict(fa.KERNEL_LAUNCHES)
     row = {"phase": "lm_ops", "gpu": gpu_line(), "source": LM_SOURCE,
            "seconds": time.perf_counter() - t0, "build_and_warm_s": build_s,
            "flash_launches": launches, "swap": swap, "manifest": manifest,
-           "spec": spec, "spill": spill, "disagg": disagg}
+           "spec": spec, "spill": spill, "disagg": disagg, "c8": c8}
     emit(row)
     if launches["flash_fwd"] == 0 or launches["flash_bwd_dq"] \
             or launches["flash_bwd_dkv"]:
@@ -6539,8 +6695,10 @@ def fleet_chaos(fa, v1_zip, tmp, gpu):
         raise AssertionError("a transferred stream's lengths: " + str(
             [(len(s["prompt"]), len(s["tokens"])) for s in streams]))
     registry = ModelRegistry(device=FLEET_DEVICE)
-    registry.deploy_lm("lm", v1_zip,
-                       decode=DecodeConfig(slots=4, page_size=4))
+    single = registry.deploy_lm("lm", v1_zip,
+                                decode=DecodeConfig(slots=4, page_size=4))
+    # a replica's LM warms (and captures) the same programs at its start
+    single_graphs = single.scheduler.admitting_engine().describe_graphs()
     server = ModelServer(registry, port=0)
     try:
         mismatched = []
@@ -6560,6 +6718,8 @@ def fleet_chaos(fa, v1_zip, tmp, gpu):
     row = {"phase": "fleet_chaos", "gpu": gpu, "drill_s": drill_s,
            "fleet_start_s": rep["fleet_start_s"],
            "launch_to_ready_s": rep["launch_s"],
+           "lm_warm_s_in_a_start": single.warmup_seconds,
+           "lm_capture_s_in_a_start": single_graphs["capture_s"],
            "kill_to_ready_s": ready_s[rep["faults"]["killed"]],
            "wedge_to_ready_s": ready_s[rep["faults"]["wedged"]],
            "relaunch_s": rep["recovery"]["relaunch_s"],

@@ -7,11 +7,15 @@ scheduling (Orca/vLLM) over a paged KV cache (`serving/kvcache.py`).
   batch positions with an active mask; prefill runs per bucket of a
   page-aligned ladder (`kvcache.default_prefill_buckets`), and so does the
   chunk program a cache hit or a long prompt goes through. `warm()` runs
-  every program once at load time (kernel module loads, allocator growth)
-  and `request_path_first_runs` counts any program first run by a live
-  request instead (0 is the contract). The programs run eager; capturing
-  them in CUDA graphs is the counterpart of the reference's AOT-compiled
-  programs and comes with a later slice.
+  every program once at load time and, on CUDA, captures each per-token
+  program and each prefill/chunk bucket as a `torch.cuda.CUDAGraph` (the
+  counterpart of the reference's AOT-compiled programs); the request path
+  replays them over static operand buffers. `request_path_first_runs`
+  counts any program first run by a live request instead (0 is the
+  contract). On the CPU the same functions run eagerly on the same
+  operand tensors. The COW page copy and the KV-fabric page transfers
+  stay eager: a two-op copy, and host<->device transfers off the
+  per-token path.
 - **Continuous batching.** `DecodeScheduler` admits queued requests into
   free slots *between token steps*: a late join's prefill lands while
   other sequences keep decoding, in budgeted chunks so one long prompt
@@ -25,7 +29,8 @@ scheduling (Orca/vLLM) over a paged KV cache (`serving/kvcache.py`).
   tokens per stream; the target scores all k+1 positions as k+1 unrolled
   calls of the one-token step body (so its logits are bitwise those of
   k+1 plain steps); the host accepts by exact argmax prefix match or
-  rejection sampling. One device-to-host copy per round.
+  rejection sampling. Two graph replays and one device-to-host copy per
+  round.
 - **Tiered KV fabric.** Pages extract to and land from sealed frames
   (`kvfabric.py`): the host spill tier demotes evicted prefix pages and
   promotes them back, and `export_prefix`/`import_prefix` move a prefix's
@@ -260,6 +265,120 @@ class GenerateRequest:
 
 
 # ==========================================================================
+# Static program operands and the sampling noise
+# ==========================================================================
+_M32 = 0xFFFFFFFF
+_FLOAT_OPERANDS = ("temps", "ptemp")        # carried as float64 bits
+
+
+def _mix32(h):
+    """A 32-bit avalanche of values in [0, 2^32) (murmur3's finalizer
+    shape, with multipliers below 2^31 so no int64 product overflows), on
+    Python ints and int64 tensors alike."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0x2C1B3C6D) & _M32
+    return h ^ (h >> 16)
+
+
+def gumbel_noise(seed: int, counter, shape, device) -> torch.Tensor:
+    """Gumbel(0, 1) noise of `shape`, a pure function of (seed, counter,
+    element index): two rounds of a 32-bit integer hash in tensor ops (no
+    generator state, so a captured graph replays it for whatever counter
+    its operands hold, bitwise the eager call), 23 bits of it as a
+    uniform u in (0, 1), then -log(-log(u)). `counter` is an int or a 0-d
+    int64 tensor."""
+    key = _mix32(torch.as_tensor(counter, dtype=torch.int64, device=device)
+                 & _M32)
+    n = 1
+    for d in shape:
+        n *= int(d)
+    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    h = _mix32(_mix32(idx ^ key) ^ _mix32(int(seed) & _M32))
+    u = ((h >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
+    return -torch.log(-torch.log(u))
+
+
+class _Operands:
+    """The static operands of one engine's programs: one int64 buffer on
+    the engine's device, read by every program (and by every captured
+    graph) through fixed views, and written before each program run from a
+    host mirror in ONE copy of the program's section ("step": the decode,
+    propose and verify operands; "prompt": the prefill and chunk ones).
+    Float operands travel as float64 bits.
+
+    On CUDA the mirror is pinned and the copy non_blocking. The mirror is
+    rewritten only by the next program's staging, and every program run
+    ends in a host synchronisation before that (the sampled tokens' copy
+    back in `step`, `prefill` and `prefill_chunk`; the round's one copy in
+    `spec_step`, after the draft's and the target's programs, which stage
+    into two engines' mirrors; the read-back after each program in
+    `warm`), so a copy has completed before its source is overwritten. On
+    the CPU the mirror is the buffer itself."""
+
+    def __init__(self, slots: int, pages: int, max_tokens: int,
+                 device: torch.device):
+        sections = {
+            "step": (("table", slots * pages), ("lens", slots),
+                     ("tokens", slots), ("active", slots), ("topks", slots),
+                     ("rows", slots), ("counter", 0), ("temps", slots)),
+            "prompt": (("ptoks", max_tokens), ("prow", pages), ("start", 0),
+                       ("end", 0), ("ptopk", 1), ("pcounter", 0),
+                       ("ptemp", 1))}
+        self._at: Dict[str, Tuple[int, int, bool]] = {}
+        self._sections: Dict[str, Tuple[int, int]] = {}
+        at = 0
+        for section, fields in sections.items():
+            first = at
+            for name, size in fields:
+                # size 0: a 0-d scalar operand (one element)
+                self._at[name] = (at, max(size, 1), size == 0)
+                at += max(size, 1)
+            self._sections[section] = (first, at)
+        self.device = device
+        self.dev = torch.zeros((at,), dtype=torch.int64, device=device)
+        self._pinned = None
+        if device.type == "cuda":
+            self._pinned = torch.zeros((at,), dtype=torch.int64,
+                                       pin_memory=True)
+            self.host = self._pinned.numpy()
+        else:
+            self.host = self.dev.numpy()
+        for name, (i, size, scalar) in self._at.items():
+            view = self.dev[i] if scalar else self.dev[i:i + size]
+            if name in _FLOAT_OPERANDS:
+                view = view.view(torch.float64)
+            setattr(self, name, view)
+        self.table = self.table.view(slots, pages)
+        self._proposals: Dict[int, torch.Tensor] = {}
+
+    def put(self, name: str, value):
+        """Write one operand's host value (an array's leading elements, or
+        a scalar) into the mirror."""
+        i, _, _ = self._at[name]
+        dtype = np.float64 if name in _FLOAT_OPERANDS else np.int64
+        a = np.asarray(value, dtype).reshape(-1)
+        self.host[i:i + a.size] = a.view(np.int64)
+
+    def load(self, section: str):
+        """The section's mirror -> the device buffer (a no-op on the
+        CPU, where they are one)."""
+        if self._pinned is not None:
+            a, b = self._sections[section]
+            self.dev[a:b].copy_(self._pinned[a:b], non_blocking=True)
+
+    def proposal(self, k: int) -> torch.Tensor:
+        """The static (slots, k) buffer a propose program writes its
+        tokens into and a verify program reads (allocated on first use,
+        outside any capture)."""
+        buf = self._proposals.get(k)
+        if buf is None:
+            buf = torch.zeros((self.table.shape[0], k), dtype=torch.int64,
+                              device=self.device)
+            self._proposals[k] = buf
+        return buf
+# ==========================================================================
 # The engine: prefill / decode / scoring programs + cache state
 # ==========================================================================
 class DecodeEngine:
@@ -377,6 +496,14 @@ class DecodeEngine:
                                   device=self.device)
         self._vpool = torch.zeros(pool_shape, dtype=self._dtype,
                                   device=self.device)
+        # the programs' static operands and (on CUDA) their captured graphs:
+        # program name -> (graph, outputs), in one memory pool per engine
+        self._ops = _Operands(cfg.slots, self.cache.pages_per_slot,
+                              max(self.prefill_buckets), self.device)
+        self._graphs: Dict[str, Tuple[object, object]] = {}
+        self._pool = self._side = None
+        self._pool_bytes: Optional[int] = 0
+        self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
         # per-slot host state
         self._temps = np.zeros((cfg.slots,), np.float32)
         self._topks = np.zeros((cfg.slots,), np.int32)
@@ -471,28 +598,6 @@ class DecodeEngine:
     @property
     def spec_enabled(self) -> bool:
         return self.draft is not None
-
-    # ------------------------------------------------------------ transfers
-    def _to_device(self, ints: Sequence[np.ndarray],
-                   floats: Sequence[np.ndarray] = ()):
-        """Host operands -> the device in ONE copy: the int arrays and the
-        float32 arrays (their values carried exactly as float64 bits) are
-        packed into one int64 buffer. Returns the int tensors (int64) and
-        the float tensors (float32), in order."""
-        ints = [np.asarray(a, np.int64).reshape(-1) for a in ints]
-        floats = [np.asarray(a, np.float64).reshape(-1) for a in floats]
-        buf = np.concatenate(ints + [f.view(np.int64) for f in floats])
-        # pageable memory: the copy is staged before .to() returns, and
-        # non_blocking keeps it from synchronizing the stream
-        dev = torch.from_numpy(buf).to(self.device, non_blocking=True)
-        out, i = [], 0
-        for a in ints:
-            out.append(dev[i:i + a.size])
-            i += a.size
-        for f in floats:
-            out.append(dev[i:i + f.size].view(torch.float64).float())
-            i += f.size
-        return out
 
     def _check_ids(self, tokens: np.ndarray):
         """On CUDA an out-of-range id trips a device-side assert that
@@ -605,21 +710,11 @@ class DecodeEngine:
         return y * mask[..., None].to(y.dtype)
 
     # ----------------------------------------------------------- sampling
-    def _gumbel(self, shape, counter: int) -> torch.Tensor:
-        """Gumbel(0, 1) noise, a pure function of (cfg.seed, counter): a
-        generator on the pools' device seeded from both, and
-        -log(Exponential(1)) with the draw kept above 0."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(((int(self.cfg.seed) & 0xFFFFFFFF) << 32)
-                        | (int(counter) & 0xFFFFFFFF))
-        e = torch.empty(shape, dtype=torch.float32, device=self.device)
-        e.exponential_(generator=gen)
-        return -torch.log(e.clamp_min_(torch.finfo(torch.float32).tiny))
-
-    def _sample(self, logits, temps, topks, counter: int):
+    def _sample(self, logits, temps, topks, counter):
         """Greedy / temperature / top-k per row (Gumbel-max: one argmax
         whatever the temperature). temps/topks None means every row is
-        greedy, and the noise is not drawn."""
+        greedy, and the noise is not drawn. `counter` is an int or a 0-d
+        int64 tensor on the logits' device."""
         lg = logits.to(torch.float32)
         greedy = torch.argmax(lg, dim=-1)
         if temps is None:
@@ -630,49 +725,41 @@ class DecodeEngine:
         kth = top_vals.gather(-1, (topks.clamp(1, kmax) - 1)[:, None])
         keep = (topks <= 0)[:, None] | (lg >= kth)
         filt = lg.masked_fill(~keep, float("-inf"))
-        g = self._gumbel(lg.shape, counter)
+        g = gumbel_noise(self.cfg.seed, counter, lg.shape, lg.device)
         hot = temps > 0
         safe_t = torch.where(hot, temps, torch.ones_like(temps))[:, None]
         sampled = torch.argmax(filt / safe_t + g, dim=-1)
         return torch.where(hot, sampled, greedy)
 
-    # ------------------------------------------------------------ programs
-    def _prefill_fn(self, tokens: np.ndarray, length: int,
-                    page_row: np.ndarray, temp: float, topk: int,
-                    counter: int):
-        """tokens (Tb,) bucket-padded; page_row (pages_per_slot,).
-        Returns (first sampled token (), last-position logits (V,)), on
-        the device."""
+    # The program bodies below take every operand as a tensor on the
+    # pools' device (0-d int64 tensors for scalars) and read no value on
+    # the host: on CUDA each is captured once and replayed over the static
+    # operand buffers; on the CPU the same function runs eagerly on them.
+    def _prefill_fn(self, tokens, length, page_row, temps, topks, counter):
+        """tokens (Tb,) bucket-padded, the first `length` (0-d) real;
+        page_row (pages_per_slot,); temps/topks (1,) (temps None: greedy).
+        Returns (first sampled token (), last-position logits (V,))."""
         tb = tokens.shape[0]
-        sampling = temp > 0
-        ops = self._to_device([tokens, page_row, [topk]],
-                              [[temp]] if sampling else [])
-        toks, row = ops[0][None], ops[1]
-        mask = (torch.arange(tb, device=self.device)[None]
+        mask = (torch.arange(tb, device=tokens.device)[None]
                 < length).to(torch.float32)
-        logits, kvs = self._forward_tokens(self._params, toks, mask)
+        logits, kvs = self._forward_tokens(self._params, tokens[None], mask)
         for li, (k, v) in enumerate(kvs):
             kvcache.write_prompt_kv(self._kpool, self._vpool, li, k[0], v[0],
-                                    row, self.cfg.page_size)
-        last = logits[0, length - 1]
-        tok = self._sample(last[None], ops[3] if sampling else None, ops[2],
-                           counter)[0]
-        return tok, last
+                                    page_row, self.cfg.page_size)
+        at = (length - 1).clamp(0, tb - 1).reshape(1)
+        last = logits[0].index_select(0, at)
+        return self._sample(last, temps, topks, counter)[0], last[0]
 
-    def _chunk_fn(self, tokens: np.ndarray, start: int, end: int,
-                  page_row: np.ndarray, temp: float, topk: int,
-                  counter: int):
+    def _chunk_fn(self, tokens, start, end, page_row, temps, topks,
+                  counter):
         """Suffix-chunk prefill: tokens (Tb,) are prompt positions
-        [start, end) of one slot (bucket-padded past end - start), with
-        everything before `start` already cached in the slot's pages.
-        Returns (sampled token (), last-valid-position logits (V,)) — the
-        sample is only meaningful on the final chunk."""
+        [start, end) of one slot (0-d tensors; bucket-padded past
+        end - start), with everything before `start` already cached in the
+        slot's pages. Returns (sampled token (), last-valid-position logits
+        (V,)) — the sample is only meaningful on the final chunk."""
         tb = tokens.shape[0]
-        sampling = temp > 0
-        ops = self._to_device([tokens, page_row, [topk]],
-                              [[temp]] if sampling else [])
-        toks, row = ops[0][None], ops[1]
-        pos = start + torch.arange(tb, device=self.device)
+        toks, row = tokens[None], page_row
+        pos = start + torch.arange(tb, device=tokens.device)
         valid = pos < end
         mask = valid.to(torch.float32)[None]            # (1, Tb)
         page_idx = (pos // self.cfg.page_size).clamp(0, row.shape[0] - 1)
@@ -697,17 +784,17 @@ class DecodeEngine:
                 if "b" in p:
                     z = z + p["b"]
                 x = z
-        last = x[0, min(max(end - 1 - start, 0), tb - 1)]
-        tok = self._sample(last[None], ops[3] if sampling else None, ops[2],
-                           counter)[0]
-        return tok, last
+        at = (end - 1 - start).clamp(0, tb - 1).reshape(1)
+        last = x[0].index_select(0, at)
+        return self._sample(last, temps, topks, counter)[0], last[0]
 
     def _step_body(self, page_table, seq_lens, tokens, active):
         """The one-token decode forward over every slot (inactive slots
         compute masked garbage into the dump page). Returns logits
         (S, V)."""
         ps = self.cfg.page_size
-        slots = torch.arange(seq_lens.shape[0], device=self.device)
+        dev = seq_lens.device
+        slots = torch.arange(seq_lens.shape[0], device=dev)
         # a slot at the context cap is inactive; clamp keeps its (unused)
         # page lookup in range
         page_idx = (seq_lens // ps).clamp_max(page_table.shape[1] - 1)
@@ -716,7 +803,7 @@ class DecodeEngine:
         off = seq_lens % ps
         # validity: cached positions 0..seq_len INCLUSIVE (the row this
         # step appends is position seq_len)
-        valid = (torch.arange(self.max_context, device=self.device)[None, :]
+        valid = (torch.arange(self.max_context, device=dev)[None, :]
                  <= seq_lens[:, None]).to(torch.float32)
         pos = seq_lens[:, None]
         x = None
@@ -740,16 +827,11 @@ class DecodeEngine:
         return x[:, 0, :]
 
     def _decode_fn(self, page_table, seq_lens, tokens, active, temps,
-                   topks, counter: int, sampling: bool):
-        """One token for every slot. Returns (sampled (S,), logits (S, V))
-        on the device."""
-        ops = self._to_device([page_table, seq_lens, tokens, active, topks],
-                              [temps] if sampling else [])
-        table = ops[0].reshape(page_table.shape)
-        logits = self._step_body(table, ops[1], ops[2], ops[3].bool())
-        toks = self._sample(logits, ops[5] if sampling else None, ops[4],
-                            counter)
-        return toks, logits
+                   topks, counter):
+        """One token for every slot (temps None: every slot greedy).
+        Returns (sampled (S,), logits (S, V))."""
+        logits = self._step_body(page_table, seq_lens, tokens, active)
+        return self._sample(logits, temps, topks, counter), logits
 
     def _verify_fn(self, page_table, seq_lens, tokens, drafted, active):
         """The speculative verify: score k+1 positions per slot —
@@ -772,52 +854,120 @@ class DecodeEngine:
                 tok = drafted[:, i]
         return torch.stack(outs, dim=1)
 
-    def _spec_propose_fn(self, k: int, page_table, seq_lens, tokens, active,
-                         temps, topks, counter: int):
-        """The draft's propose program: k autoregressive tokens per slot
-        (sampled on the device, each fed to the next position; position i
-        draws its noise from counter + i), plus one extra body that
-        consumes the k-th sample so the draft cache covers every token
-        the target may accept — the next round then always resumes from
-        exactly one new token wherever acceptance stopped. temps None
-        means every slot is greedy. Returns (drafted (S, k), draft logits
-        (S, k, V)); the logits give the host's rejection sampler its q
-        distribution."""
-        drafted, qlogits = [], []
+    def _spec_propose_fn(self, page_table, seq_lens, tokens, active, temps,
+                         topks, counter, drafted):
+        """The draft's propose program: k = drafted.shape[1] autoregressive
+        tokens per slot (sampled on the device, each fed to the next
+        position; position i draws its noise from counter + i), written
+        into `drafted` (S, k), plus one extra body that consumes the k-th
+        sample so the draft cache covers every token the target may accept
+        — the next round then always resumes from exactly one new token
+        wherever acceptance stopped. temps None means every slot is greedy.
+        Returns (drafted, draft logits (S, k, V)); the logits give the
+        host's rejection sampler its q distribution."""
+        k = drafted.shape[1]
+        toks, qlogits = [], []
         tok = tokens
         for i in range(k):
             logits = self._step_body(page_table, seq_lens + i, tok, active)
             tok = self._sample(logits, temps, topks, counter + i)
-            drafted.append(tok)
+            toks.append(tok)
             qlogits.append(logits)
         self._step_body(page_table, seq_lens + k, tok, active)
-        return torch.stack(drafted, dim=1), torch.stack(qlogits, dim=1)
+        torch.stack(toks, dim=1, out=drafted)
+        return drafted, torch.stack(qlogits, dim=1)
+
+    # ---------------------------------------------- staging and dispatch
+    def _stage_step(self, tokens, active, temps=None, topks=None,
+                    counter: int = 0, rows=None):
+        """This engine's page table and lengths plus the given per-slot
+        operands -> the step section of the static buffers."""
+        o = self._ops
+        o.put("table", self.cache.page_table)
+        o.put("lens", self.cache.seq_lens)
+        o.put("tokens", tokens)
+        o.put("active", active)
+        o.put("counter", counter)
+        if temps is not None:
+            o.put("temps", temps)
+            o.put("topks", topks)
+        if rows is not None:
+            o.put("rows", rows)
+        o.load("step")
+
+    def _decode(self, tokens, active, temps, topks, counter: int,
+                sampling: bool):
+        """Host operands -> the `decode[_sampling]` program. Returns
+        (sampled (S,), logits (S, V)) on the device."""
+        o = self._ops
+        self._stage_step(tokens, active, temps, topks, counter)
+        return self._run(
+            "decode_sampling" if sampling else "decode",
+            lambda: self._decode_fn(o.table, o.lens, o.tokens,
+                                    o.active.bool(),
+                                    o.temps.float() if sampling else None,
+                                    o.topks, o.counter))
+
+    def _prompt(self, program: str, tokens: np.ndarray, start: int,
+                end: int, page_row: np.ndarray, temp: float, topk: int,
+                counter: int):
+        """Host operands -> a `prefill_{tb}` or `chunk_{tb}` program (tb =
+        len(tokens)). Both always take the sampling operands: one graph a
+        bucket, whose greedy rows return the argmax."""
+        o = self._ops
+        tb = int(tokens.shape[0])
+        o.put("ptoks", tokens)
+        o.put("prow", page_row)
+        o.put("start", start)
+        o.put("end", end)
+        o.put("ptemp", temp)
+        o.put("ptopk", topk)
+        o.put("pcounter", counter)
+        o.load("prompt")
+        toks = o.ptoks[:tb]
+        if program.startswith("prefill_"):
+            return self._run(program, lambda: self._prefill_fn(
+                toks, o.end, o.prow, o.ptemp.float(), o.ptopk, o.pcounter))
+        return self._run(program, lambda: self._chunk_fn(
+            toks, o.start, o.end, o.prow, o.ptemp.float(), o.ptopk,
+            o.pcounter))
 
     def _propose(self, k: int, tokens: np.ndarray, active: np.ndarray,
                  temps: np.ndarray, topks: np.ndarray, counter: int,
                  sampling: bool):
-        """Host operands -> `_spec_propose_fn` over this (draft) engine's
-        page table and lengths; returns its device outputs."""
-        table = self.cache.page_table
-        ops = self._to_device([table, self.cache.seq_lens, tokens, active,
-                               topks], [temps] if sampling else [])
-        return self._spec_propose_fn(
-            k, ops[0].reshape(table.shape), ops[1], ops[2], ops[3].bool(),
-            ops[5] if sampling else None, ops[4], counter)
+        """Host operands -> the `draft_{k}[_sampling]` program over this
+        (draft) engine's page table and lengths. Returns (drafted (S, k):
+        this engine's static proposal buffer, which the target's verify
+        program reads; draft logits (S, k, V))."""
+        o = self._ops
+        drafted = o.proposal(k)
+        self._stage_step(tokens, active, temps, topks, counter)
+        return self._run(
+            f"draft_{k}_sampling" if sampling else f"draft_{k}",
+            lambda: self._spec_propose_fn(
+                o.table, o.lens, o.tokens, o.active.bool(),
+                o.temps.float() if sampling else None, o.topks, o.counter,
+                drafted))
 
     def _verify(self, tokens: np.ndarray, active: np.ndarray,
                 drafted: torch.Tensor, rows: Optional[np.ndarray] = None):
-        """Host operands -> `_verify_fn`. `drafted` is the draft's
-        (S_draft, k) device output; target slot s verifies its row
+        """Host operands -> the `verify_{k+1}` program. `drafted` is the
+        draft's (S_draft, k) device output; target slot s verifies its row
         `rows[s]` (gathered on the device: the proposals never visit the
-        host before the verify)."""
-        table = self.cache.page_table
+        host before the verify). The program reads the draft's static
+        proposal buffer (this engine's own without a draft); any other
+        tensor is copied into it first, on the device."""
+        k = int(drafted.shape[1])
+        src = (self.draft if self.draft is not None else self)._ops \
+            .proposal(k)
+        if drafted is not src:
+            src.copy_(drafted)
         s = self.cfg.slots
         rows = np.zeros((s,), np.int64) if rows is None else rows
-        ops = self._to_device([table, self.cache.seq_lens, tokens, active,
-                               rows])
-        return self._verify_fn(ops[0].reshape(table.shape), ops[1], ops[2],
-                               drafted[ops[4]], ops[3].bool())
+        self._stage_step(tokens, active, rows=rows)
+        o = self._ops
+        return self._run(f"verify_{k + 1}", lambda: self._verify_fn(
+            o.table, o.lens, o.tokens, src[o.rows], o.active.bool()))
 
     def _logits_fn(self, tokens):
         """(B, T) -> (B, T, V) full-sequence pre-softmax logits (parity /
@@ -943,6 +1093,70 @@ class DecodeEngine:
         self.fabric["imported"] += adopted
         return adopted
 
+    # ------------------------------------------------------------ programs
+    def _run(self, program: str, fn):
+        """Run one program over the staged operands (`_Operands`): on the
+        CPU call `fn` eagerly; on CUDA replay the program's captured graph,
+        capturing it first if warm() did not. Returns `fn`'s outputs — on
+        CUDA the graph's own output tensors, valid until the next replay of
+        any program of this engine (they share one memory pool)."""
+        if self.device.type != "cuda":
+            return fn()
+        entry = self._graphs.get(program)
+        if entry is None:
+            entry = self.capture(fn, program)
+        entry[0].replay()
+        self.graph_stats["replays"] += 1
+        return entry[1]
+
+    def capture(self, fn, program: str):
+        """Run `fn` once eagerly on this engine's side stream (cuBLAS
+        workspaces, kernel module loads: the run the graph then records),
+        then capture it into a CUDA graph in this engine's own memory pool.
+        Thread-local capture mode: a rolling swap captures the new version
+        while the old version's scheduler thread keeps launching on the
+        same card. A failure raises; there is no eager fallback."""
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(device=self.device)
+        cur = torch.cuda.current_stream(self.device)
+        side = self._side
+        side.wait_stream(cur)           # the staged operands' copy
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            fn()
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = fn()
+            except BaseException:
+                # the capture is already broken: end it quietly and
+                # surface the error that broke it
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        cur.wait_stream(side)           # replays follow the eager run
+        self._graphs[program] = (graph, out)
+        self.graph_stats["captures"] += 1
+        self.graph_stats["capture_s"] += time.perf_counter() - t0
+        self._pool_bytes = None
+        return graph, out
+
+    def graph_pool_bytes(self) -> int:
+        """Bytes of the device segments in this engine's graph memory pool
+        (0 on the CPU and once closed); measured once after each capture,
+        from the allocator's snapshot."""
+        if self._pool is None:
+            return 0
+        if self._pool_bytes is None:
+            pool = tuple(self._pool)
+            self._pool_bytes = sum(
+                int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", ())) == pool)
+        return self._pool_bytes
+
     # ------------------------------------------------------ program ledger
     def _meter_program(self, program: str, warmup: bool):
         if program in self._programs:
@@ -975,26 +1189,33 @@ class DecodeEngine:
         KV-fabric page extract and land, the decode step (greedy and
         sampling) and, with speculation on, the draft's own programs and
         the propose (greedy and sampling) and verify programs once, so no
-        live stream pays a first use. Returns the seconds it took."""
+        live stream pays a first use. On CUDA each program but the COW copy
+        and the page transfers is captured here (`capture`: an eager run on
+        a side stream, then the capture) and replayed once. Returns the
+        seconds it took."""
         with _device_scope(self.device):
-            return self._warm()
+            seconds = self._warm()
+        # measured here, so describe() on the request path reads a number
+        self.graph_pool_bytes()
+        if self.draft is not None:
+            self.draft.graph_pool_bytes()
+        return seconds
 
-    def _warm(self) -> float:
+    def _warm(self, decode: bool = True) -> float:
+        """Warm (and on CUDA capture) this engine's programs; `decode`
+        False leaves out the decode step, which a draft never runs."""
         t0 = time.perf_counter()
         dump_row = np.full((self.cache.pages_per_slot,), kvcache.DUMP_PAGE,
                            np.int64)
-        for tb in self.prefill_buckets:
-            self._meter_program(f"prefill_{tb}", warmup=True)
-            tok, _ = self._prefill_fn(np.zeros((tb,), np.int64), 1,
+        # the prefill ladder, then the chunk ladder: suffix prefill after a
+        # cache hit and budgeted chunks of a long prompt run through these
+        for kind in ("prefill", "chunk"):
+            for tb in self.prefill_buckets:
+                self._meter_program(f"{kind}_{tb}", warmup=True)
+                tok, _ = self._prompt(f"{kind}_{tb}",
+                                      np.zeros((tb,), np.int64), 0, 1,
                                       dump_row, 0.0, 0, 0)
-            int(tok)
-        # the chunk ladder: suffix prefill after a cache hit and budgeted
-        # chunks of a long prompt run through these
-        for tb in self.prefill_buckets:
-            self._meter_program(f"chunk_{tb}", warmup=True)
-            tok, _ = self._chunk_fn(np.zeros((tb,), np.int64), 0, 1,
-                                    dump_row, 0.0, 0, 0)
-            int(tok)
+                int(tok)
         # the COW page copy (dump -> dump: page 0 is garbage by contract)
         self._meter_program("cow_copy", warmup=True)
         kvcache.copy_page(self._kpool, self._vpool, kvcache.DUMP_PAGE,
@@ -1008,20 +1229,19 @@ class DecodeEngine:
         self._land_fn(kvcache.DUMP_PAGE, kx, vx)
         s = self.cfg.slots
         zeros_i, no_slot = np.zeros((s,), np.int32), np.zeros((s,), bool)
-        for sampling in (False, True):
+        for sampling in (False, True) if decode else ():
             self._meter_program("decode_sampling" if sampling else "decode",
                                 warmup=True)
-            toks, _ = self._decode_fn(
-                self.cache.page_table, zeros_i, zeros_i, no_slot,
-                np.ones((s,), np.float32), np.full((s,), 5, np.int32), 0,
-                sampling)
+            toks, _ = self._decode(zeros_i, no_slot,
+                                   np.ones((s,), np.float32),
+                                   np.full((s,), 5, np.int32), 0, sampling)
             toks.cpu()
         if self.draft is not None:
             # the draft warms its own programs, then the two speculative
             # ones: the k-token propose (draft's) and the k+1-position
             # verify (target's)
             d = self.draft
-            d._warm()
+            d._warm(decode=False)
             k = int(self.cfg.spec_k)
             ds = d.cfg.slots
             for sampling in (False, True):
@@ -1033,9 +1253,7 @@ class DecodeEngine:
                     0, sampling)
                 drafted.cpu()
             self._meter_program(f"verify_{k + 1}", warmup=True)
-            vlog = self._verify(np.zeros((s,), np.int32), no_slot,
-                                torch.zeros((s, k), dtype=torch.int64,
-                                            device=self.device))
+            vlog = self._verify(np.zeros((s,), np.int32), no_slot, drafted)
             vlog.cpu()
         seconds = time.perf_counter() - t0
         monitor.histogram(
@@ -1174,9 +1392,9 @@ class DecodeEngine:
         self._meter_program(f"chunk_{tb}", warmup=False)
         with monitor.span("serving/prefill_chunk", model=self.name,
                           bucket=tb, tokens=n):
-            tok, _ = self._chunk_fn(toks, start, start + n,
-                                    self.cache.page_table[slot], temperature,
-                                    top_k, self._counter)
+            tok, _ = self._prompt(f"chunk_{tb}", toks, start, start + n,
+                                  self.cache.page_table[slot], temperature,
+                                  top_k, self._counter)
         monitor.counter("serving_decode_prefills_total",
                         "Prefill program executions by bucket size "
                         "(chunk_* buckets are suffix/chunked prefills)",
@@ -1191,7 +1409,8 @@ class DecodeEngine:
                 top_k: int) -> Tuple[int, torch.Tensor]:
         """Run the prompt through a bucket-padded prefill into `slot`'s
         pages; returns (first sampled token, last-position logits (V,) on
-        the device)."""
+        the device). On CUDA the logits are the captured graph's output:
+        valid until this engine's next program run (clone to keep them)."""
         n = int(len(prompt))
         tb = self.bucket_for(n)
         toks = np.zeros((tb,), np.int64)
@@ -1202,9 +1421,9 @@ class DecodeEngine:
         self._counter += 1
         self._meter_program(f"prefill_{tb}", warmup=False)
         with monitor.span("serving/prefill", model=self.name, bucket=tb):
-            tok, logits = self._prefill_fn(toks, n,
-                                           self.cache.page_table[slot],
-                                           temperature, top_k, self._counter)
+            tok, logits = self._prompt(f"prefill_{tb}", toks, 0, n,
+                                       self.cache.page_table[slot],
+                                       temperature, top_k, self._counter)
         monitor.counter("serving_decode_prefills_total",
                         "Prefill program executions by bucket size "
                         "(chunk_* buckets are suffix/chunked prefills)",
@@ -1222,7 +1441,9 @@ class DecodeEngine:
         device); slots not in the mask were inactive, excluded
         (mid-prefill), page-stalled, or at the context cap and produced
         garbage. The sampled tokens' copy back is the step's one
-        synchronisation."""
+        synchronisation. On CUDA the logits are the captured graph's
+        output: valid until this engine's next program run (clone to keep
+        them); the scheduler never reads them."""
         act = np.zeros((self.cfg.slots,), bool)
         excl = frozenset(int(s) for s in exclude)
         n_runnable = 0
@@ -1238,10 +1459,9 @@ class DecodeEngine:
                             warmup=False)
         with monitor.span("serving/decode_step", model=self.name,
                           active=n_runnable):
-            toks, logits = self._decode_fn(
-                self.cache.page_table, self.cache.seq_lens,
-                self._last_tokens, act, self._temps, self._topks,
-                self._counter, sampling)
+            toks, logits = self._decode(self._last_tokens, act, self._temps,
+                                        self._topks, self._counter,
+                                        sampling)
             toks_np = toks.cpu().numpy().astype(np.int32)
         for s in np.nonzero(act)[0]:
             self.cache.advance(int(s))
@@ -1437,9 +1657,12 @@ class DecodeEngine:
         return out.to(torch.float32).cpu().numpy()
 
     def close(self):
-        """Release the page pools, the spill slab and the draft (the
-        engine is retired)."""
+        """Release the page pools, the captured graphs and their memory
+        pool, the spill slab and the draft (the engine is retired)."""
         self._closed = True
+        self._graphs = {}
+        self._pool = self._side = None
+        self._pool_bytes = 0
         self._kpool = self._vpool = None
         self._params = None
         self._stage = []
@@ -1447,6 +1670,12 @@ class DecodeEngine:
             self.spill.close()
         if self.draft is not None:
             self.draft.close()
+
+    def describe_graphs(self) -> dict:
+        """The captured programs (none on the CPU), their memory pool's
+        bytes, and captures / capture seconds / replays so far."""
+        return dict(self.graph_stats, programs=sorted(self._graphs),
+                    pool_bytes=self.graph_pool_bytes())
 
     def describe(self) -> dict:
         d = self.cache.describe()
@@ -1458,7 +1687,8 @@ class DecodeEngine:
                   "device": str(self.device),
                   "steps": self.steps,
                   "request_path_first_runs": self.request_path_first_runs,
-                  "fabric": dict(self.fabric)})
+                  "fabric": dict(self.fabric),
+                  "graphs": self.describe_graphs()})
         if self.draft is not None:
             d["spec"] = {"draft": self.cfg.spec_draft,
                          "k": int(self.cfg.spec_k),
@@ -1467,7 +1697,8 @@ class DecodeEngine:
                          "stats": {k: (dict(v) if isinstance(v, dict)
                                        else v)
                                    for k, v in self.spec_stats.items()},
-                         "draft_pool": self.draft.cache.describe()}
+                         "draft_pool": self.draft.cache.describe(),
+                         "draft_graphs": self.draft.describe_graphs()}
         return d
 
 

@@ -212,6 +212,100 @@ def _interferer_itl_p99(lm, vocab: int, rs, n_streams: int = 2,
     return _p99_ms(itls)
 
 
+SPEC_ARCH = ("zoo:TransformerLM?vocab_size=32&n_layers=1"
+             "&n_embd=16&n_heads=1&seq_length=224")
+
+
+def _stream(lm, prompt, n=120):
+    """One greedy stream; returns (tokens, inter-token gaps s, done-event
+    info)."""
+    req = lm.generate(prompt, max_new_tokens=n)
+    toks, gaps, last = [], [], None
+    deadline = time.monotonic() + 120.0
+    while True:
+        ev = req.events.get(timeout=max(0.1, deadline - time.monotonic()))
+        if ev[0] == "token":
+            now = time.perf_counter()
+            if last is not None:
+                gaps.append(now - last)
+            last = now
+            toks.append(ev[1])
+        elif ev[0] == "done":
+            return toks, gaps, ev[1]
+        else:
+            raise ev[1]
+
+
+def spec_ab(registry):
+    """The speculative-decoding A/B: parity + acceptance + ITL. Deploys
+    ``lm_spec_base`` and its ``@spec:draft=int8,k=12`` twin on
+    `registry` and drives 52 greedy streams of 120 tokens through each
+    (after two throwaway streams an arm). Returns (the ``spec_ab``
+    summary, its failures)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving.decode import DecodeConfig
+
+    # A dedicated tiny arch: the int8 self-draft runs the same compute
+    # per position as its target, so the ITL win comes purely from
+    # amortizing the fixed per-token costs (dispatch + scheduler tick: 2
+    # dispatches and 1 tick per accepted burst vs 1 of each per token).
+    # The per-position body compute is paid TWICE under speculation, so
+    # the margin needs a large k over a very cheap body — n_embd 16 / 1
+    # head / vocab 32 with k=12.
+    spec_cfg = DecodeConfig(slots=2, page_size=16)
+    registry.deploy_lm("lm_spec_base", SPEC_ARCH, decode=spec_cfg)
+    registry.deploy_lm("lm_spec", SPEC_ARCH + "@spec:draft=int8,k=12",
+                       decode=spec_cfg)
+    lsb, lsp = registry.get("lm_spec_base"), registry.get("lm_spec")
+    # 52 streams: the p99 across per-stream means then sheds the single
+    # worst stream — one OS scheduling blip cannot decide the gate
+    rs3 = np.random.RandomState(17)
+    spec_prompts = [rs3.randint(0, 32, 8).tolist() for _ in range(52)]
+    for _ in range(2):          # throwaway streams warm each arm
+        for lm in (lsb, lsp):
+            _stream(lm, spec_prompts[0], n=16)
+    base_itl, spec_itl = [], []
+    spec_prop = spec_acc = spec_mismatches = 0
+    for prompt in spec_prompts:
+        bt, bg, _ = _stream(lsb, prompt)
+        st, sg, info = _stream(lsp, prompt)
+        if bt != st:
+            spec_mismatches += 1
+        if bg:
+            base_itl.append(sum(bg) / len(bg))
+        if sg:
+            spec_itl.append(sum(sg) / len(sg))
+        spec_prop += int(info.get("spec_proposed") or 0)
+        spec_acc += int(info.get("spec_accepted") or 0)
+    spec_rate = round(spec_acc / spec_prop, 4) if spec_prop else 0.0
+    spec_p99 = _p99_ms(spec_itl)
+    spec_base_p99 = _p99_ms(base_itl)
+    summary = {
+        "streams": len(spec_prompts), "mismatched_streams": spec_mismatches,
+        "proposed": spec_prop, "accepted": spec_acc,
+        "acceptance_rate": spec_rate,
+        "itl_p99_ms": spec_p99, "base_itl_p99_ms": spec_base_p99}
+    failures = []
+    if spec_mismatches:
+        failures.append(
+            f"speculative greedy output diverged from the plain twin on "
+            f"{spec_mismatches}/{len(spec_prompts)} streams — speculation "
+            f"changed the distribution")
+    if spec_prop <= 0:
+        failures.append("speculation never proposed a token — "
+                        "the draft path did not engage")
+    elif spec_rate <= 0.5:
+        failures.append(
+            f"self-draft acceptance rate {spec_rate} not > 0.5 — the "
+            f"int8 draft disagrees with its own target too often")
+    if spec_p99 >= spec_base_p99:
+        failures.append(
+            f"speculation did not improve per-stream mean ITL p99 "
+            f"({spec_p99}ms spec vs {spec_base_p99}ms plain)")
+    return summary, failures
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--streams", type=int, default=4,
@@ -422,86 +516,8 @@ def main(argv=None) -> int:
             f"({itl_chunked}ms chunked vs {itl_nochunk}ms monolithic)")
 
     # ------------------- speculative decoding A/B: parity + acceptance
-    # A dedicated tiny arch: the int8 self-draft runs the same compute
-    # per position as its target, so the ITL win on CPU comes purely
-    # from amortizing the fixed per-token costs (dispatch + scheduler
-    # tick: 2 dispatches and 1 tick per accepted burst vs 1 of each
-    # per token). The per-position body compute is paid TWICE under
-    # speculation, so the margin needs a large k over a very cheap
-    # body — n_embd 16 / 1 head / vocab 32 with k=12 measures ~20%
-    # lower mean ITL on CPU, well past timer noise.
-    arch_spec = ("zoo:TransformerLM?vocab_size=32&n_layers=1"
-                 "&n_embd=16&n_heads=1&seq_length=224")
-    spec_cfg = DecodeConfig(slots=2, page_size=16)
-    registry.deploy_lm("lm_spec_base", arch_spec, decode=spec_cfg)
-    registry.deploy_lm("lm_spec", arch_spec + "@spec:draft=int8,k=12",
-                       decode=spec_cfg)
-    lsb, lsp = registry.get("lm_spec_base"), registry.get("lm_spec")
-
-    def _spec_stream(lm, prompt, n=120):
-        """One greedy stream; returns (tokens, inter-token gaps s,
-        done-event info)."""
-        req = lm.generate(prompt, max_new_tokens=n)
-        toks, gaps, last = [], [], None
-        deadline = time.monotonic() + 120.0
-        while True:
-            ev = req.events.get(
-                timeout=max(0.1, deadline - time.monotonic()))
-            if ev[0] == "token":
-                now = time.perf_counter()
-                if last is not None:
-                    gaps.append(now - last)
-                last = now
-                toks.append(ev[1])
-            elif ev[0] == "done":
-                return toks, gaps, ev[1]
-            else:
-                raise ev[1]
-
-    # 52 streams: the p99 across per-stream means then sheds the single
-    # worst stream — one OS scheduling blip cannot decide the gate
-    rs3 = np.random.RandomState(17)
-    spec_prompts = [rs3.randint(0, 32, 8).tolist() for _ in range(52)]
-    for _ in range(2):          # throwaway streams warm each arm
-        for lm in (lsb, lsp):
-            _spec_stream(lm, spec_prompts[0], n=16)
-    base_itl, spec_itl = [], []
-    spec_prop = spec_acc = spec_mismatches = 0
-    for prompt in spec_prompts:
-        bt, bg, _ = _spec_stream(lsb, prompt)
-        st, sg, info = _spec_stream(lsp, prompt)
-        if bt != st:
-            spec_mismatches += 1
-        if bg:
-            base_itl.append(sum(bg) / len(bg))
-        if sg:
-            spec_itl.append(sum(sg) / len(sg))
-        spec_prop += int(info.get("spec_proposed") or 0)
-        spec_acc += int(info.get("spec_accepted") or 0)
-    spec_rate = round(spec_acc / spec_prop, 4) if spec_prop else 0.0
-    spec_p99 = _p99_ms(spec_itl)
-    spec_base_p99 = _p99_ms(base_itl)
-    summary["spec_ab"] = {
-        "streams": len(spec_prompts), "mismatched_streams": spec_mismatches,
-        "proposed": spec_prop, "accepted": spec_acc,
-        "acceptance_rate": spec_rate,
-        "itl_p99_ms": spec_p99, "base_itl_p99_ms": spec_base_p99}
-    if spec_mismatches:
-        failures.append(
-            f"speculative greedy output diverged from the plain twin on "
-            f"{spec_mismatches}/{len(spec_prompts)} streams — speculation "
-            f"changed the distribution")
-    if spec_prop <= 0:
-        failures.append("speculation never proposed a token — "
-                        "the draft path did not engage")
-    elif spec_rate <= 0.5:
-        failures.append(
-            f"self-draft acceptance rate {spec_rate} not > 0.5 — the "
-            f"int8 draft disagrees with its own target too often")
-    if spec_p99 >= spec_base_p99:
-        failures.append(
-            f"speculation did not improve per-stream mean ITL p99 "
-            f"({spec_p99}ms spec vs {spec_base_p99}ms plain)")
+    summary["spec_ab"], spec_failures = spec_ab(registry)
+    failures.extend(spec_failures)
 
     # --------------------- tiered KV fabric: host-RAM spill tier parity
     # pool_pages barely over the floor (1 dump + one max-context
@@ -518,10 +534,10 @@ def main(argv=None) -> int:
     rs4 = np.random.RandomState(19)
     spill_prompts = [rs4.randint(0, args.vocab, 80).tolist()
                      for _ in range(3)]
-    cold_tokens, _, _ = _spec_stream(lm_spill, spill_prompts[0], n=8)
+    cold_tokens, _, _ = _stream(lm_spill, spill_prompts[0], n=8)
     for pr in spill_prompts[1:]:            # force demotion of prompt 0
-        _spec_stream(lm_spill, pr, n=8)
-    hot_tokens, _, _ = _spec_stream(lm_spill, spill_prompts[0], n=8)
+        _stream(lm_spill, pr, n=8)
+    hot_tokens, _, _ = _stream(lm_spill, spill_prompts[0], n=8)
     mtext = _monitor.prometheus_text()
     where = 'model="lm_spill"'
     spill = {k: _metric_sum_where(mtext, f"serving_kv_spill_{k}_total",
@@ -713,10 +729,10 @@ def main(argv=None) -> int:
         # key in its own series; the plain-twin p99 is the ungated
         # reference the improvement was asserted against
         "mode": "decode_spec", "on_gpu": device.type == "cuda", "batch": 1,
-        "decode_spec_acceptance_rate": spec_rate,
-        "decode_itl_p99_ms": spec_p99,
-        "decode_spec_itl_base_p99_ms": spec_base_p99,
-        "streams": len(spec_prompts),
+        "decode_spec_acceptance_rate": summary["spec_ab"]["acceptance_rate"],
+        "decode_itl_p99_ms": summary["spec_ab"]["itl_p99_ms"],
+        "decode_spec_itl_base_p99_ms": summary["spec_ab"]["base_itl_p99_ms"],
+        "streams": summary["spec_ab"]["streams"],
     }, {
         # tiered KV fabric: the host spill tier's admission hit
         # fraction under pool pressure (ratio-gated); demotion/promotion

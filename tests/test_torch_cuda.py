@@ -17,9 +17,14 @@ VAE's ELBO with fixed noise and its gradients in f64 within 1e-10,
 f64 gradient checks on the card of a YOLO head and a VAE, and TinyYOLO's
 captured steps bitwise equal to its per-call steps (f32 and bf16). The
 LM serving runtime: a speculative verify bitwise equal to k+1 sequential
-decode steps, a page demoted to the host spill tier and promoted back
-bitwise equal, and an LM swap under a live stream with only 200s and the
-same tokens as runs without a swap. The data plane: ResNet50 at 64² fed
+decode steps (both replayed CUDA graphs), every captured decode program's
+replay bitwise its eager run on the card (tokens and logits; sampled
+tokens for one seed and counter), the sampling noise replaying its eager
+draw, a page demoted to the host spill tier and promoted back bitwise
+equal, an LM swap under a live stream with only 200s and the same tokens
+as runs without a swap, a swap capturing while streams decode and the
+dropped version's graph pool freed, and the decode smoke holding every
+gate but its timing A/Bs (whose numbers it prints). The data plane: ResNet50 at 64² fed
 from the multi-process shard ring (copy=False and copy=True) and from
 memory, bitwise equal parameters for scan_steps=3, accumulate_steps=2 and
 per-call fits without prefetch; and the ring's view batches feeding a
@@ -88,8 +93,11 @@ result (tests/test_examples.py's settings), 09 and 10 raise naming a
 missing library, and chaos_fit, goodput_report, telemetry_smoke,
 etl_smoke and mfu_probe run on the card by default and exit 0.
 """
+import dataclasses
 import json
 import os
+import time
+import warnings
 
 import numpy as np
 import pytest
@@ -1052,15 +1060,23 @@ _SERVE_LM = ("zoo:TransformerLM?vocab_size=64&seq_length=64&n_layers=2"
 def test_spec_verify_on_the_card_is_bitwise_sequential_steps(cuda):
     """On the card, one k-drafted verify gives, position for position,
     the bitwise logits of k+1 sequential decode steps of the same engine
-    state (k+1 unrolled step bodies: the same cuBLAS shapes)."""
+    state (k+1 unrolled step bodies: the same cuBLAS shapes), both as
+    replays of the programs' captured graphs."""
     from deeplearning4j_tpu_torch.serving.decode import (
         DecodeConfig, DecodeEngine,
     )
     from deeplearning4j_tpu_torch.serving.registry import load_servable
     net = load_servable(_SERVE_LM, device=cuda)
-    cfg = DecodeConfig(slots=4, page_size=16, prefill_buckets=(16, 64))
-    a, b = (DecodeEngine(net, cfg, name=n) for n in ("seq", "verify"))
+    cfg = DecodeConfig(slots=4, page_size=16, prefill_buckets=(16, 64),
+                       spec_k=4)
+    a = DecodeEngine(net, cfg, name="seq")
+    b = DecodeEngine(net, dataclasses.replace(cfg, spec_draft="int8"),
+                     name="verify")
     try:
+        for e in (a, b):
+            e.warm()
+        assert "decode" in a._graphs and "verify_5" in b._graphs
+        replays = (a.graph_stats["replays"], b.graph_stats["replays"])
         k = 4
         prompts = [np.arange(1, 14), np.arange(5, 40) % 64]
         slots = []
@@ -1087,9 +1103,203 @@ def test_spec_verify_on_the_card_is_bitwise_sequential_steps(cuda):
         for s in slots:
             for i in range(k + 1):
                 assert torch.equal(vlog[s, i], seq[i][s]), (s, i)
+        # the prefills and steps replayed a, the prefills and the verify b
+        assert a.graph_stats["replays"] - replays[0] == len(prompts) + k + 1
+        assert b.graph_stats["replays"] - replays[1] == len(prompts) + 1
+        assert a.graph_stats["captures"] == len(a._graphs)
+        assert a.request_path_first_runs == b.request_path_first_runs == 0
     finally:
         a.close()
         b.close()
+
+
+def _replay_log(engine, log):
+    """Make every program run of `engine` first run its function eagerly
+    on the card (outputs cloned), then replay its graph: `log` gets
+    (program, eager outputs, replayed outputs)."""
+    real = engine._run
+
+    def run(program, fn):
+        eager = [t.clone() for t in _tensors(fn())]
+        out = real(program, fn)
+        log.append((program, eager, [t.clone() for t in _tensors(out)]))
+        return out
+
+    engine._run = run
+
+
+def _tensors(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def test_decode_programs_replay_bitwise_their_eager_runs(cuda):
+    """warm() captures every prefill and chunk bucket, decode[_sampling],
+    draft_k[_sampling] and verify_{k+1}; on live traffic (prefills, a
+    chunk after a cached prefix, greedy and sampled steps, greedy and
+    sampled speculative rounds) each replay's tokens and logits are
+    bitwise the same function run eagerly on the card for the same
+    operands, one (seed, counter) giving one sample; the round stays one
+    host sync and no program first runs on the request path."""
+    from deeplearning4j_tpu_torch.serving.decode import (
+        DecodeConfig, DecodeEngine,
+    )
+    from deeplearning4j_tpu_torch.serving.registry import load_servable
+    net = load_servable(_SERVE_LM, device=cuda)
+    k = 4
+    eng = DecodeEngine(net, DecodeConfig(
+        slots=2, page_size=16, prefill_buckets=(16, 64), spec_draft="int8",
+        spec_k=k, prefill_chunk_tokens=16), name="graphs")
+    try:
+        eng.warm()
+        d = eng.draft
+        ladder = [f"{kind}_{tb}" for kind in ("chunk", "prefill")
+                  for tb in (16, 64)]
+        assert sorted(eng._graphs) == sorted(
+            ladder + ["decode", "decode_sampling", f"verify_{k + 1}"])
+        assert sorted(d._graphs) == sorted(
+            ladder + [f"draft_{k}", f"draft_{k}_sampling"])
+        g = eng.describe()["graphs"]
+        assert g["pool_bytes"] > 0 and g["captures"] == len(eng._graphs)
+        assert eng.describe()["spec"]["draft_graphs"]["pool_bytes"] > 0
+        assert eng._pool != d._pool
+        log = []
+        for e in (eng, d):
+            _replay_log(e, log)
+        rs = np.random.RandomState(6)
+        prefix = rs.randint(0, 64, 16)
+        prompts = [np.concatenate([prefix, rs.randint(0, 64, 9)]),
+                   np.concatenate([prefix, rs.randint(0, 64, 20)])]
+        for i, prompt in enumerate(prompts):
+            info = eng.admit_prompt(prompt)
+            origin = eng.draft_prefill_origin(info.slot)
+            if i == 0:
+                eng.prefill(info.slot, prompt, 0.0, 0)
+                eng.draft_prefill(info.slot, prompt, origin,
+                                  len(prompt) - origin, 0.0, 0)
+                eng.cache.register_prefix(info.slot, prompt)
+                eng.draft_prefill_done(info.slot, prompt)
+            else:
+                assert info.cached_len == 16
+                for start in (16, 32):          # two 16-token chunks
+                    eng.prefill_chunk(info.slot, prompt, start,
+                                      min(16, len(prompt) - start), 1.0, 5)
+                eng.draft_prefill(info.slot, prompt, origin,
+                                  len(prompt) - origin, 1.0, 5)
+        for _ in range(2):
+            eng.step()                          # one slot samples
+        syncs = eng.spec_stats["host_syncs"]
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for _ in range(3):
+                    assert eng.spec_step()      # greedy and sampled rows
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert sum("synchroniz" in str(w.message) for w in caught) <= 3
+        assert eng.spec_stats["host_syncs"] - syncs == 3
+        programs = {p for p, _, _ in log}
+        assert {"prefill_64", "chunk_16", "chunk_64", "decode_sampling",
+                f"draft_{k}_sampling", f"verify_{k + 1}"} <= programs
+        for program, eager, replay in log:
+            for a, b in zip(eager, replay):
+                assert torch.equal(a, b), program
+        assert eng.request_path_first_runs == d.request_path_first_runs == 0
+        assert eng.graph_stats["captures"] == len(eng._graphs)
+    finally:
+        eng.close()
+    assert eng._graphs == {} and eng.graph_pool_bytes() == 0
+
+
+def test_decode_noise_replays_the_eager_draw(cuda):
+    """The sampler's Gumbel noise on the card is a pure function of (seed,
+    counter, element): eager draws repeat, a captured draw replays the
+    eager one bitwise for each counter written into its operand, and the
+    card's noise is the CPU's to within the two devices' log()."""
+    from deeplearning4j_tpu_torch.serving.decode import gumbel_noise
+    counter = torch.zeros((), dtype=torch.int64, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        gumbel_noise(3, counter, (4, 1000), cuda)
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = gumbel_noise(3, counter, (4, 1000), cuda)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for c in (0, 7, 2 ** 33 + 5):
+        counter.fill_(c)
+        graph.replay()
+        eager = gumbel_noise(3, c, (4, 1000), cuda)
+        assert torch.equal(out, eager) and torch.isfinite(eager).all()
+        torch.testing.assert_close(eager.cpu(),
+                                   gumbel_noise(3, c, (4, 1000), "cpu"),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_lm_swap_captures_while_streams_run_and_frees_old_graphs(cuda):
+    """A swap while two streams decode: the new version warms and captures
+    on the swapping thread with no error while the old version's
+    scheduler keeps replaying; the streams finish on v1 with v1's tokens;
+    once the old version is dropped and drained its graphs and their
+    memory pool are released (no segment of it after empty_cache)."""
+    import threading
+
+    from deeplearning4j_tpu_torch.serving.decode import DecodeConfig
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    registry = ModelRegistry(device=cuda)
+    served = registry.deploy_lm("g", _SERVE_LM, decode=DecodeConfig(
+        slots=2, page_size=16, prefill_buckets=(16, 64)))
+    try:
+        old = served.scheduler.admitting_engine()
+        pool = tuple(old._pool)
+        assert old.graph_pool_bytes() > 0
+
+        def tokens(prompt):
+            req = served.generate(prompt, max_new_tokens=40)
+            out = []
+            while True:
+                kind, payload = req.events.get(timeout=120)
+                if kind == "token":
+                    out.append(payload)
+                elif kind == "done":
+                    return out, payload["version"]
+                else:
+                    raise payload
+
+        prompts = [[1, 2, 3], [7, 8, 9, 10]]
+        want = [tokens(p)[0] for p in prompts]
+        got = [None, None]
+
+        def stream(i):
+            got[i] = tokens(prompts[i])
+
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(2)]
+        steps, deadline = old.steps, time.monotonic() + 60
+        for th in threads:
+            th.start()
+        while old.steps < steps + 3 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        served.swap(_SERVE_LM + "&seed=99", keep_versions=1)
+        for th in threads:
+            th.join(timeout=300)
+            assert not th.is_alive()
+        assert got == [(w, 1) for w in want]
+        new = served.scheduler.admitting_engine()
+        assert new is not old and new.request_path_first_runs == 0
+        assert new.graph_stats["captures"] == len(new._graphs) > 0
+        deadline = time.monotonic() + 60
+        while not old._closed and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert old._closed and old._graphs == {}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert not [seg for seg in torch.cuda.memory_snapshot()
+                    if tuple(seg.get("segment_pool_id", ())) == pool]
+        assert tokens([1, 2, 3])[1] == 2
+    finally:
+        registry.shutdown(drain=False)
 
 
 def test_spilled_page_comes_back_bitwise_on_the_card(cuda):
@@ -2251,6 +2461,41 @@ def test_missing_libraries_make_examples_09_and_10_say_so(cuda, tmp_path):
         with pytest.raises(RuntimeError, match="|".join(
                 "scikit-learn" if m == "sklearn" else m for m in libs)):
             mod.main(**kw)
+
+
+# the decode smoke's gates that compare two timings (fault C.8 is the
+# first; the others compare prefill costs that the captured programs cut
+# to a few replays at the smoke's widths)
+_TIMING_GATES = ("speculation did not improve", "chunked prefill did not "
+                 "improve", "hot TTFT p99", "affinity routing did not beat")
+
+
+def test_decode_smoke_on_the_card_holds_its_correctness_gates(cuda,
+                                                               tmp_path):
+    """The decode smoke on the card, its programs replayed as CUDA graphs:
+    no failure but of a timing A/B — zero 5xx through the swap, the
+    first-run ledger balanced, greedy speculative streams equal to the
+    plain twin's with acceptance above 0.5, spill-tier parity, prefix
+    hits; the A/Bs' numbers are printed."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "decode.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.tools.decode_smoke",
+         "--out", str(out)], cwd=repo, capture_output=True, text=True,
+        timeout=900, env=dict(os.environ, PYTHONPATH=repo))
+    assert out.exists(), (proc.stdout[-3000:], proc.stderr[-3000:])
+    rep = json.loads(out.read_text())
+    assert [f for f in rep["failures"]
+            if not f.startswith(_TIMING_GATES)] == [], rep["failures"]
+    assert proc.returncode == (1 if rep["failures"] else 0)
+    ab = rep["spec_ab"]
+    assert ab["mismatched_streams"] == 0 and ab["acceptance_rate"] > 0.5
+    assert rep["ledger"]["compiles"] == rep["ledger"]["warmups"] > 0
+    assert rep["spill"]["parity"] is True
+    print(json.dumps({k: rep[k] for k in ("failures", "spec_ab",
+                                          "interferer_itl", "prefix_ttft")}))
 
 
 @pytest.mark.parametrize("name,args", [
